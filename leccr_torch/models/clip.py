@@ -1,0 +1,158 @@
+"""OpenAI-CLIP-architecture vision tower (inference).
+
+The port of the vision half of `leccr_tpu/models/clip.py`: pre-LN residual
+transformer with QuickGELU MLPs, a ViT patch embedding with a class token,
+and ln_post + proj applied to EVERY token (LECCR consumes per-token
+features).  Images are NHWC.  LayerNorms use CLIP's epsilon, 1e-5.
+
+The patch embedding (a stride-P convolution with no bias) is written as a
+reshape of each P×P×3 patch into one row and a matmul, so no cuDNN (and no
+TF32 convolution) is involved; its weight is the flax conv kernel
+[kh, kw, in, out] flattened to [out, kh·kw·in].
+
+Eval attention stays plain PyTorch ops: the JAX package runs no kernel
+there either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from leccr_torch.ops.attention import LayerNorm
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVariant:
+    vision_width: int
+    vision_layers: int
+    vision_heads: int
+    patch_size: int
+    embed_dim: int  # projection dim == the "vision_width" LECCR sees
+    text_width: int
+    text_layers: int
+    text_heads: int
+    vocab_size: int = 49408
+    context_length: int = 77
+
+
+CLIP_VARIANTS = {
+    "ViT-B/32": CLIPVariant(768, 12, 12, 32, 512, 512, 12, 8),
+    "ViT-B/16": CLIPVariant(768, 12, 12, 16, 512, 512, 12, 8),
+    "ViT-L/14": CLIPVariant(1024, 24, 16, 14, 768, 768, 12, 12),
+}
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's activation."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+class _CLIPAttention(nn.Module):
+    """Non-causal self-attention of a CLIP block (packed in_proj)."""
+
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.in_proj = nn.Linear(width, 3 * width)
+        self.out_proj = nn.Linear(width, width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, width = x.shape
+        head_dim = width // self.heads
+        q, k, v = (t.view(b, l, self.heads, head_dim).transpose(1, 2)
+                   for t in self.in_proj(x).chunk(3, dim=-1))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
+        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, width)
+        return self.out_proj(out)
+
+
+class _ResidualBlock(nn.Module):
+    """Pre-LN residual attention block."""
+
+    def __init__(self, width: int, heads: int):
+        super().__init__()
+        self.ln_1 = LayerNorm(width, eps=1e-5)
+        self.attn = _CLIPAttention(width, heads)
+        self.ln_2 = LayerNorm(width, eps=1e-5)
+        self.c_fc = nn.Linear(width, 4 * width)
+        self.c_proj = nn.Linear(4 * width, width)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x))
+        return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
+
+
+class _Transformer(nn.Module):
+    def __init__(self, width: int, layers: int, heads: int):
+        super().__init__()
+        self.resblocks = nn.ModuleList(
+            _ResidualBlock(width, heads) for _ in range(layers))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.resblocks:
+            x = block(x)
+        return x
+
+
+class CLIPVisionTower(nn.Module):
+    """CLIP ViT returning the full projected hidden state.
+
+    Input [B, H, W, 3] (NHWC, normalized); output [B, 1+G², embed_dim] with
+    G = image_res / patch_size.  For ViT-B/32 @ 384²: [B, 145, 512].
+    """
+
+    def __init__(self, width: int, layers: int, heads: int, patch_size: int,
+                 embed_dim: int, image_res: int):
+        super().__init__()
+        if image_res % patch_size:
+            raise ValueError(f"image_res {image_res} is not a multiple of "
+                             f"the patch size {patch_size}")
+        grid = image_res // patch_size
+        self.patch_size = patch_size
+        self.conv1 = nn.Linear(patch_size * patch_size * 3, width, bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(width))
+        self.positional_embedding = nn.Parameter(
+            torch.empty(grid * grid + 1, width))
+        self.ln_pre = LayerNorm(width, eps=1e-5)
+        self.transformer = _Transformer(width, layers, heads)
+        self.ln_post = LayerNorm(width, eps=1e-5)
+        self.proj = nn.Parameter(torch.empty(width, embed_dim))
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = image.shape
+        p = self.patch_size
+        n_tokens = self.positional_embedding.shape[0]
+        if h % p or w % p or (h // p) * (w // p) + 1 != n_tokens:
+            raise ValueError(f"image {h}x{w} does not match the tower's "
+                             f"{n_tokens - 1} patches of {p}x{p}")
+        dtype = self.conv1.weight.dtype
+        patches = image.to(dtype).reshape(b, h // p, p, w // p, p, c)
+        patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(
+            b, (h // p) * (w // p), p * p * c)
+        x = self.conv1(patches)
+        cls = self.class_embedding.to(dtype).expand(b, 1, -1)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
+        x = self.transformer(self.ln_pre(x))
+        return self.ln_post(x) @ self.proj.to(dtype)
+
+
+def build_vision_tower(cfg) -> Tuple[CLIPVisionTower, int]:
+    """Build a CLIPVisionTower from a VisionConfig; returns (tower, width
+    seen by the retrieval head).  Test-size overrides (cfg.width/depth)
+    follow the JAX package's rules: heads = width // 64 and embed_dim =
+    width when the width is overridden."""
+    var = CLIP_VARIANTS[cfg.variant]
+    width = cfg.width or var.vision_width
+    depth = cfg.depth or var.vision_layers
+    heads = (var.vision_heads if width == var.vision_width
+             else max(1, width // 64))
+    embed_dim = var.embed_dim if not cfg.width else width
+    tower = CLIPVisionTower(width=width, layers=depth, heads=heads,
+                            patch_size=var.patch_size, embed_dim=embed_dim,
+                            image_res=cfg.image_res)
+    return tower, embed_dim

@@ -1,0 +1,217 @@
+"""The LECCR retrieval model for inference: towers, caption interaction,
+heads.
+
+The port of `leccr_tpu/models/leccr.py` for the `clip_vit` vision tower
+with the `mbert` caption encoder.  The caption encoder IS the text tower
+(the same submodule, called twice).  `num_queries` learned query slots
+cross-attend to the projected caption tokens, then the visual tokens attend
+to the slots and the slots attend back to the visual tokens.  Features are
+256-d L2-normalized projections of the CLS token (images) and the first
+token (texts).
+
+Parameters are made on the chosen device from a seeded torch.Generator;
+Linear and Embedding weights are then held in the compute dtype
+(`cfg.dtype`), LayerNorm params and `temp` in f32, and the raw tensors
+(class/position embeddings, proj, queries) are cast at use — which is
+what flax does with `dtype=` and f32 params.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from leccr_torch.config import ModelConfig
+from leccr_torch.device import resolve_device
+from leccr_torch.models.bert import BertEncoder
+from leccr_torch.models.clip import CLIPVisionTower, build_vision_tower
+from leccr_torch.ops.attention import CrossAttentionStack, LayerNorm
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class LECCRModel(nn.Module):
+    """LECCR image retrieval model, eval mode.
+
+    device: None = the GPU (raises when there is none); pass "cpu" to run
+    on the CPU.  seed: the generator seed of the random initial weights
+    (load trained weights with `models.weights.load_jax_params`).
+    """
+
+    def __init__(self, cfg: ModelConfig,
+                 device: Optional[Union[str, torch.device]] = None,
+                 seed: int = 0):
+        super().__init__()
+        if cfg.vision.kind == "temporal":
+            raise NotImplementedError(
+                "the temporal (video) vision tower comes with the video "
+                "slice of the port")
+        if cfg.vision.kind != "clip_vit":
+            raise ValueError(f"unknown vision tower: {cfg.vision.kind}")
+        if cfg.caption_encoder_name == "clip":
+            raise NotImplementedError(
+                "the CLIP text tower as caption encoder comes with a later "
+                "slice of the port")
+        if cfg.caption_encoder_name != "mbert":
+            raise ValueError(
+                f"unknown caption encoder: {cfg.caption_encoder_name}")
+        if cfg.dtype not in _DTYPES:
+            raise ValueError(f"unsupported compute dtype {cfg.dtype!r}")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.compute_dtype = _DTYPES[cfg.dtype]
+
+        with torch.device("meta"):
+            self.vision_tower, d = build_vision_tower(cfg.vision)
+            self.text_encoder = BertEncoder(cfg.text)
+            heads = 8 if d % 8 == 0 else max(
+                h for h in (1, 2, 4) if d % h == 0)
+            self.caption_proj = nn.Linear(cfg.text.hidden_size, d)
+            self.queries = nn.Parameter(torch.empty(cfg.num_queries, d))
+            self.crossattn_query = CrossAttentionStack(
+                d, heads, cfg.caption_ca_layer)
+            self.crossattn = CrossAttentionStack(
+                d, heads, cfg.caption_interaction_layer)
+            self.crossattn2 = CrossAttentionStack(
+                d, heads, cfg.caption_interaction_layer)
+            self.caption_proj1 = nn.Linear(d, cfg.embed_dim)
+            self.cproj = nn.Linear(d, d)
+            self.vproj = nn.Linear(d, d)
+            self.text_proj = nn.Linear(cfg.text.hidden_size, cfg.embed_dim)
+            if cfg.use_one_cl_proj_only:
+                if d != cfg.text.hidden_size:
+                    raise ValueError("use_one_cl_proj_only needs equal "
+                                     "vision and text widths")
+                self.vision_proj = None
+            else:
+                self.vision_proj = nn.Linear(d, cfg.embed_dim)
+            self.temp = nn.Parameter(torch.empty(()))
+        self.to_empty(device=device)
+        self._init_weights(torch.Generator(device=device).manual_seed(seed))
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.to(self.compute_dtype)
+        self.requires_grad_(False)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.temp.device
+
+    @torch.no_grad()
+    def _init_weights(self, gen: torch.Generator) -> None:
+        """flax's default initializers: lecun-normal kernels, zero biases,
+        unit LayerNorms, embeddings of std 1/√dim, CLIP's width^-½ raw
+        params, zero query slots, temp = cfg.temp."""
+        for m in self.modules():
+            if isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                m.weight.normal_(0.0, m.in_features ** -0.5, generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, m.embedding_dim ** -0.5, generator=gen)
+            elif isinstance(m, CLIPVisionTower):
+                std = m.class_embedding.shape[0] ** -0.5
+                for p in (m.class_embedding, m.positional_embedding, m.proj):
+                    p.normal_(0.0, std, generator=gen)
+        self.queries.zero_()
+        self.temp.fill_(self.cfg.temp)
+
+    # ------------------------------------------------------------- towers
+
+    def encode_vision(self, images: torch.Tensor) -> torch.Tensor:
+        """Image [B,H,W,3] -> [B, 1+G², Dv]."""
+        return self.vision_tower(images)
+
+    def encode_text(self, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor) -> torch.Tensor:
+        return self.text_encoder(input_ids, attention_mask)
+
+    def encode_caption(
+        self,
+        caption_ids: Optional[torch.Tensor],
+        caption_mask: torch.Tensor,
+        caption_feats: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Encode the MLLM-generated caption -> (embeds [B,L,Dc],
+        key_padding_mask [B,L] True=pad).  caption_feats short-circuits the
+        encoder with precomputed per-token features."""
+        padding_mask = ~caption_mask.bool()
+        if caption_feats is not None:
+            return caption_feats.to(self.compute_dtype), padding_mask
+        return self.text_encoder(caption_ids, caption_mask), padding_mask
+
+    # ------------------------------------------------- caption interaction
+
+    def interact(
+        self,
+        vision_embeds: torch.Tensor,
+        caption_embeds: torch.Tensor,
+        caption_padding_mask: Optional[torch.Tensor],
+        vision_padding_mask: Optional[torch.Tensor] = None,
+        fused: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Returns (fused_vision [B,L,Dv], fused_slots [B,n,Dv],
+        ori_slots [B,n,Dv]).  fused=True runs the attention cores as the
+        fused cross-attention kernel."""
+        b = vision_embeds.shape[0]
+        queries = self.queries.to(vision_embeds.dtype).expand(b, -1, -1)
+        cap = self.caption_proj(caption_embeds)
+        ori_slots = self.crossattn_query(queries, cap, caption_padding_mask,
+                                         fused)
+        fused_vision = self.crossattn(vision_embeds, ori_slots, None, fused)
+        fused_slots = self.crossattn2(ori_slots, vision_embeds,
+                                      vision_padding_mask, fused)
+        return fused_vision, fused_slots, ori_slots
+
+    # ------------------------------------------------------------ features
+
+    def vision_features(self, vision_embeds: torch.Tensor) -> torch.Tensor:
+        """L2-normalized projection of the CLS token."""
+        proj = self.vision_proj if self.vision_proj is not None \
+            else self.text_proj
+        return _l2_normalize(proj(vision_embeds[:, 0]))
+
+    def text_features(self, text_embeds: torch.Tensor) -> torch.Tensor:
+        return _l2_normalize(self.text_proj(text_embeds[:, 0]))
+
+    # --------------------------------------------------------- eval passes
+
+    @torch.inference_mode()
+    def embed_images(self, batch: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Eval-side visual embedding: towers + caption interaction.
+
+        batch: "vision" [B,H,W,3] normalized images, "caption_mask" [B,L],
+        and "caption_ids" [B,L] or "caption_feats" [B,L,Dc].  Returns
+        {"feat": [B,E], "slots": [B,n,E]}, both f32."""
+        ori_vision = self.encode_vision(batch["vision"])
+        caption_embeds, caption_padding = self.encode_caption(
+            batch.get("caption_ids"), batch["caption_mask"],
+            batch.get("caption_feats"))
+        fused_vision, fused_slots, _ = self.interact(
+            ori_vision, caption_embeds, caption_padding, None,
+            fused=self.cfg.fused_eval_attention)
+        return {"feat": self.vision_features(fused_vision).float(),
+                "slots": self.caption_proj1(fused_slots).float()}
+
+    @torch.inference_mode()
+    def embed_texts(self, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor) -> torch.Tensor:
+        """Eval-side text embedding -> [B, E] L2-normalized, f32."""
+        hidden = self.encode_text(input_ids, attention_mask)
+        return self.text_features(hidden).float()
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12,
+                  dim: int = -1) -> torch.Tensor:
+    """F.normalize semantics (clamped norm), computed in f32 and cast back
+    to x's dtype."""
+    xf = x.float()
+    norm = torch.linalg.vector_norm(xf, dim=dim, keepdim=True).clamp_min(eps)
+    return (xf / norm).to(x.dtype)

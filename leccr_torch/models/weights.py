@@ -1,0 +1,95 @@
+"""Weights from the JAX package: a flax param tree → the port's state_dict.
+
+The tree is nested dicts of numpy arrays (e.g. `jax.tree.map(np.asarray,
+params)`).  Names carry over, with these rewrites:
+
+- Dense `kernel [in, out]` → `weight = kernel.T`;
+- the patch conv `kernel [kh, kw, in, out]` → `weight [out, kh·kw·in]`
+  (the port's patch embedding is a matmul over flattened patches);
+- LayerNorm `scale` → `weight`, Embed `embedding` → `weight`;
+- unscanned blocks `layer_{i}` / `resblock_{i}` → `layers.{i}` /
+  `resblocks.{i}`, and scan-stacked blocks (`layers/layer/...`,
+  `resblocks/block/...`, every leaf with a leading layer axis) are unstacked
+  into the same names;
+- raw params (`queries`, `temp`, `class_embedding`, `positional_embedding`,
+  `proj`) as they are.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from leccr_torch.config import ModelConfig
+
+# scan-stacked containers: (outer name, inner name) -> per-layer list name
+_STACKED = {("layers", "layer"): "layers", ("resblocks", "block"): "resblocks"}
+_UNSCANNED = re.compile(r"^(layer|resblock)_(\d+)$")
+
+
+def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, path + (key,))
+        else:
+            yield path + (key,), np.array(val, np.float32)  # a writable copy
+
+
+def _unstack(path: Tuple[str, ...], leaf: np.ndarray
+             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for i in range(len(path) - 1):
+        name = _STACKED.get((path[i], path[i + 1]))
+        if name is not None:
+            for layer in range(leaf.shape[0]):
+                yield from _unstack(
+                    path[:i] + (name, str(layer)) + path[i + 2:], leaf[layer])
+            return
+    yield path, leaf
+
+
+def _torch_name(path: Tuple[str, ...], leaf: np.ndarray
+                ) -> Tuple[str, np.ndarray]:
+    parts = []
+    for part in path[:-1]:
+        m = _UNSCANNED.match(part)
+        parts += [m.group(1) + "s", m.group(2)] if m else [part]
+    last = path[-1]
+    if last == "kernel":
+        last = "weight"
+        leaf = (leaf.reshape(-1, leaf.shape[-1]).T if leaf.ndim == 4
+                else leaf.T)
+    elif last in ("scale", "embedding"):
+        last = "weight"
+    return ".".join(parts + [last]), np.ascontiguousarray(leaf)
+
+
+def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert any flax param (sub)tree of the JAX package's modules into
+    the state_dict of the matching port module (f32 tensors on the CPU)."""
+    sd = {}
+    for path, leaf in _leaves(tree):
+        for upath, uleaf in _unstack(path, leaf):
+            name, value = _torch_name(upath, uleaf)
+            sd[name] = torch.from_numpy(value)
+    return sd
+
+
+def params_from_jax(params: Mapping[str, Any],
+                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The state_dict of `LECCRModel(cfg)` holding the JAX model's params."""
+    if cfg.vision.kind != "clip_vit" or cfg.caption_encoder_name != "mbert":
+        raise NotImplementedError(
+            "this slice of the port holds the clip_vit + mbert model only")
+    return flax_to_state_dict(params)
+
+
+def load_jax_params(model: torch.nn.Module,
+                    params: Mapping[str, Any]) -> None:
+    """Load the JAX model's params into a port `LECCRModel`, strictly
+    (every key on both sides, matching shapes); values are cast to each
+    parameter's dtype and device."""
+    model.load_state_dict(params_from_jax(params, model.cfg), strict=True)

@@ -1,0 +1,79 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each `leccr_torch/csrc/<name>.cu` exposes a plain C interface.  At first use
+it is compiled for Hopper (`sm_90a`) into a shared library under
+`leccr_torch/_build/`, named by a hash of its source so that an edited source
+is never served from a stale library, and loaded with `ctypes`.  Nothing is
+compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+BUILD_DIR = PACKAGE / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+# per-library build record: seconds spent in nvcc (0.0 when the library was
+# already on disk) and nvcc's output, including ptxas' register/smem report
+build_info: Dict[str, Tuple[float, str]] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (neither on PATH nor /usr/local/cuda/bin): the CUDA "
+        "kernels of leccr_torch are built from source at first use")
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu into the build directory unless the library
+    for this exact source is already there; returns its path."""
+    out = library_path(name)
+    if out.exists():
+        build_info.setdefault(name, (0.0, ""))
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial
+    build_info[name] = (seconds, proc.stdout + proc.stderr)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, building it on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,38 @@
+"""The port stands alone: importing every leccr_torch module pulls in no
+JAX, flax or leccr_tpu module, and builds no kernel."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_SCRIPT = """
+import importlib, json, pkgutil, sys
+import leccr_torch
+from leccr_torch.ops import _build
+names = [m.name for m in pkgutil.walk_packages(leccr_torch.__path__,
+                                                "leccr_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({
+    "modules": names,
+    "foreign": sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                             "leccr_tpu")),
+    "built": sorted(_build.build_info),
+}))
+"""
+
+
+def test_port_imports_no_jax_and_builds_nothing():
+    proc = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"leccr_torch.serve", "leccr_torch.eval.retrieval",
+            "leccr_torch.ops.fused_cross_attention",
+            "leccr_torch.models.weights"} <= set(out["modules"])
+    assert out["foreign"] == []
+    assert out["built"] == []
