@@ -6,31 +6,56 @@
 Phases, each printing one JSON line (any failure raises: exit code 1):
 
 1. device + build: the card's name and power limit (nvidia-smi), then the
-   CUDA kernels built from `leccr_torch/csrc/` with nvcc (seconds, ptxas
-   report).
-2. kernel vs plain: the fused cross-attention kernel against its plain
+   CUDA kernels built from `leccr_torch/csrc/` with nvcc, one process per
+   source, side by side (seconds, ptxas report).
+2. kernel 1 vs plain: the fused cross-attention kernel against its plain
    PyTorch version at the three embed_images shapes (B=64, H=8, Dh=64;
    (Lq, Lk) = (4,200), (145,4), (4,145)) in bf16 and f32, with random key
    padding and one fully padded row.  Tolerance: f32 max abs err <= 1e-5;
-   bf16 every element within 1e-5 plus 1 bf16 ulp of the plain result (both
-   round an f32 result to bf16 once, so f32 noise can move it one ulp).  Times the kernel, the
-   plain version and F.scaled_dot_product_attention (a yardstick only; the
-   port never calls it) with the L2 cache flushed before each launch, and
-   computes the least time the card could take (bytes at 3.35 TB/s vs
-   flops at the dtype's peak).
-3. model check: the full-width model in f32 with the kernel vs with the
+   bf16 every element within 1e-5 plus 1 bf16 ulp of the plain result
+   (both round an f32 result to bf16 once, so f32 noise can move it one
+   ulp).  Times the kernel, the plain version and
+   F.scaled_dot_product_attention (a yardstick only; the port never calls
+   it) with the L2 cache flushed before each launch, and computes the least
+   time the card could take (bytes at 3.35 TB/s vs flops at the dtype's
+   peak).
+3. kernels 2/3 vs plain: the flash tower-attention forward and backward
+   against their plain versions at the train step's shapes (vision
+   [128,12,145,64] at rate 0; text [256,12,64,64] and caption
+   [128,12,64,64], forward only, with key padding, one fully padded row
+   and dropout 0.1), bf16 and f32: out, lse, dq, dk, dv.  Tolerance: f32
+   out and lse atol 1e-5, grads 1e-4; bf16 lse 1e-5 and every other
+   element within 1e-5 + BF16_K bf16 ulps of the sum of the absolute
+   values of its terms (see flash_term_scales).  Timed like phase 2, with
+   SDPA at rate 0 (forward, and forward + backward) as the yardstick.
+4. model check: the full-width model in f32 with kernel 1 vs with the
    plain attention path, on 4 images (atol 1e-4).
-4. serving: `Embedder` at the flagship widths of configs/multi30k_all.yaml
+5. train gradient check: one full-width f32 train step (dropouts 0, 4
+   examples at 64 tokens) through kernels 2/3, through the plain
+   attention, and through the plain attention in f64; every parameter's
+   gradient within 1e-3 of the plain path's, relative to max(its largest
+   |g|, 1e-4 · the model's largest |g|); 36 forward and 24 backward flash
+   launches.
+6. train step: the flagship step (bench.py:279-370's shapes: bs128, uint8
+   images at 384², random flips, texts and captions at 64 tokens, bf16
+   compute on f32 master weights, dropout as configured, AdamW with
+   linear_warmup_decay(1e-5, 10000, 0)): 3 warm-up and 5 timed steps;
+   finite losses, every parameter moved, exactly 36 forward and 24
+   backward flash launches a step; ms/step, pairs/s, peak memory; then one
+   step under torch.profiler (device time by kernel, busy share).
+7. serving: `Embedder` at the flagship widths of configs/multi30k_all.yaml
    (ViT-B/32 @384², mBERT-base, 3/2/2 caption-interaction layers, bf16)
    with seeded random weights indexes 256 synthetic images with captions at
    200 tokens and answers search_texts (none, minmax) and search_images
-   requests; the kernel's launch count must be 7 per image batch.
-5. eval: Multi30K scale (1 000 images × 5 000 texts at 200 tokens, image
+   requests; kernel 1's launch count must be 7 per image batch.
+8. eval: Multi30K scale (1 000 images × 5 000 texts at 200 tokens, image
    batch 50, text batch 256): embed + streaming ranks + Recall@K; the ranks
    must equal a dense count over the same block products; wall time and
    pairs/s.
 
-Then one {"kernels": [...]} line and, last, {"ok": true, "device": ...}.
+Each path is driven with every launch count set to 0 just before it and
+read just after.  Then one {"kernels": [...]} line and, last,
+{"ok": true, "device": ...}.
 TF32 is off for matmuls and cuDNN alike: every f32 product is full f32.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -47,8 +72,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(4, 200), (145, 4), (4, 145)]  # (Lq, Lk) of the interaction stacks
 PATH_LAUNCHES = {(4, 200): 3, (145, 4): 2, (4, 145): 2}  # per embed_images
+# (name, B, H, L, dropout rate, key padding, backward) of the towers'
+# flash calls in one bs128 train step: the ViT at 145 tokens, the text
+# tower on source + target texts at the 64-token bucket, and again on the
+# captions (forward only: they get no gradient)
+FLASH_SHAPES = [("vision", 128, 12, 145, 0.0, False, True),
+                ("text", 256, 12, 64, 0.1, True, True),
+                ("caption", 128, 12, 64, 0.1, True, False)]
+FLASH_ITERS = 20
+BF16_K = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+KERNEL_LIBS = ("fused_cross_attention", "flash_tower_attention")
 WORDS = ("a man woman dog child rides walks runs red blue green bike street "
          "field beach ball water in on the with his her two people").split()
 
@@ -164,6 +199,374 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
     return results
 
 
+def flash_term_scales(q, k, v, pad, lse, grad, seed, rate):
+    """Per output element of kernels 2 and 3, the sum of the absolute
+    values of the terms it adds up (|p|·|v| for out, |pd|ᵀ|g| for dv,
+    |ds|·|k| for dq, |ds|ᵀ|q| for dk), from the plain formulas.  The
+    kernels round p, pd and ds to bf16 where the TPU kernel does; a
+    rounding that lands the other way for f32 noise moves a term by up to
+    one ulp of it, so the error scales with these sums, not with the
+    (possibly cancelling) result."""
+    import torch
+
+    from leccr_torch.ops.flash_attention import keep_mask
+
+    dt, scale = q.dtype, 1.0 / q.shape[-1] ** 0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, grad))
+    s = qf @ kf.transpose(-1, -2) * scale
+    if pad is not None:
+        s = torch.where(pad[:, None, None, :], torch.finfo(torch.float32).min,
+                        s)
+    p = torch.exp(s - lse[..., None])
+    keep = keep_mask(seed, *p.shape, rate, device=p.device) if rate else 1.0
+    pd = (p * keep).to(dt).float().abs()
+    dp = gf @ vf.transpose(-1, -2) * keep
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt).float()
+    ds = ds.abs()
+    return {"out": pd @ vf.abs(), "dv": pd.transpose(-1, -2) @ gf.abs(),
+            "dq": ds @ kf.abs(), "dk": ds.transpose(-1, -2) @ qf.abs()}
+
+
+def bf16_k_needed(got, want, scale) -> float:
+    """The least k with |got - want| <= 1e-5 + k bf16 ulps of `scale`, for
+    every element."""
+    excess = ((got.float() - want.float()).abs() - 1e-5).clamp_min(0)
+    return float((excess / bf16_ulp(scale)).max().item())
+
+
+def flash_phase(dh: int = 64, seed: int = 1234):
+    """Kernels 2 and 3 against their plain versions at the path's shapes,
+    timed beside their bound, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from leccr_torch.ops.flash_attention import (
+        flash_tower_attention_bwd,
+        flash_tower_attention_bwd_reference,
+        flash_tower_attention_fwd,
+        flash_tower_attention_fwd_reference,
+    )
+
+    flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    results = []
+    for name, batch, heads, length, rate, masked, backward in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(length)
+            # the path's layout: [B, L, H, Dh] storage seen as [B, H, L, Dh]
+            q, k, v, grad = (torch.randn(batch, length, heads, dh,
+                                         device="cuda", generator=g)
+                             .to(dtype).transpose(1, 2) for _ in range(4))
+            pad = None
+            if masked:
+                pad = torch.rand(batch, length, device="cuda",
+                                 generator=g) < 0.3
+                pad[0] = True  # a fully padded row
+                pad[1] = False
+            out, lse = flash_tower_attention_fwd(q, k, v, pad, seed, rate)
+            grads = flash_tower_attention_bwd(q, k, v, pad, lse, grad, seed,
+                                              rate)
+            want_out, want_lse = flash_tower_attention_fwd_reference(
+                q, k, v, pad, seed, rate)
+            want_grads = flash_tower_attention_bwd_reference(
+                q, k, v, pad, want_lse, grad, seed, rate)
+            torch.cuda.synchronize()
+            pairs = {"out": (out, want_out), "lse": (lse, want_lse),
+                     **{n: (a, w) for n, a, w in zip(("dq", "dk", "dv"),
+                                                      grads, want_grads)}}
+            errs = {n: (a.float() - w.float()).abs().max().item()
+                    for n, (a, w) in pairs.items()}
+            if not all(torch.isfinite(a).all() for a, _ in pairs.values()):
+                raise AssertionError(f"non-finite flash output {name}")
+            item = q.element_size()
+            if dtype == torch.float32:
+                ok = (errs["out"] <= 1e-5 and errs["lse"] <= 1e-5
+                      and max(errs[n] for n in ("dq", "dk", "dv")) <= 1e-4)
+                tol = "max abs err: out, lse <= 1e-5; dq, dk, dv <= 1e-4"
+                k_needed = None
+            else:
+                scales = flash_term_scales(q, k, v, pad, want_lse, grad,
+                                           seed, rate)
+                k_needed = {n: bf16_k_needed(*pairs[n], scales[n])
+                            for n in scales}
+                del scales
+                ok = (errs["lse"] <= 1e-5
+                      and max(k_needed.values()) <= BF16_K)
+                tol = (f"lse <= 1e-5; out, dq, dk, dv: every element "
+                       f"within 1e-5 + {BF16_K} bf16 ulps of the sum of "
+                       f"the absolute values of its terms")
+            if not ok:
+                raise AssertionError(
+                    f"flash kernels disagree with their plain versions at "
+                    f"{name} {dtype}: {errs} ulps {k_needed}")
+            numel = q.numel()
+            lse_bytes = 4 * batch * heads * length
+            mask_bytes = 0 if pad is None else pad.numel()
+            n_bytes = {"fwd": 4 * numel * item + lse_bytes + mask_bytes,
+                       "bwd": 7 * numel * item + lse_bytes + mask_bytes}
+            flops = {"fwd": 4 * batch * heads * length * length * dh,
+                     "bwd": 10 * batch * heads * length * length * dh}
+            dname = str(dtype).split(".")[-1]
+            attend = None if pad is None else ~pad[:, None, None, :]
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+            def sdpa_fwd_bwd():
+                F.scaled_dot_product_attention(qg, kg, vg, attend).backward(
+                    grad)
+
+            times = {
+                "fwd": (lambda: flash_tower_attention_fwd(
+                            q, k, v, pad, seed, rate),
+                        lambda: flash_tower_attention_fwd_reference(
+                            q, k, v, pad, seed, rate),
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attend)),
+                "bwd": (lambda: flash_tower_attention_bwd(
+                            q, k, v, pad, lse, grad, seed, rate),
+                        lambda: flash_tower_attention_bwd_reference(
+                            q, k, v, pad, lse, grad, seed, rate),
+                        sdpa_fwd_bwd),
+            }
+            if not backward:
+                del times["bwd"]
+            for direction, (kernel, plain, library) in times.items():
+                t_bytes = n_bytes[direction] / HBM_BYTES_PER_S * 1e3
+                t_ops = flops[direction] / PEAK_FLOPS[dname] * 1e3
+                results.append({
+                    "shape": name, "direction": direction, "dtype": dname,
+                    "b": batch, "h": heads, "l": length, "dh": dh,
+                    "rate": rate, "masked": masked, "max_abs_err": errs,
+                    "bf16_ulps": k_needed, "tolerance": tol,
+                    "ms": cuda_ms(kernel, flush, FLASH_ITERS),
+                    "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
+                    "library_ms": cuda_ms(library, flush, FLASH_ITERS),
+                    "library": ("F.scaled_dot_product_attention, rate 0"
+                                + (" (forward + backward)"
+                                   if direction == "bwd" else "")),
+                    "bytes": n_bytes[direction], "flops": flops[direction],
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                emit("flash_vs_plain", **results[-1])
+            del q, k, v, grad, qg, kg, vg
+    return results
+
+
+def flash_counts():
+    from leccr_torch.ops.flash_attention import flash_tower_attention
+
+    return (flash_tower_attention.fwd_launches,
+            flash_tower_attention.bwd_launches)
+
+
+def reset_counts() -> None:
+    from leccr_torch.ops.flash_attention import flash_tower_attention
+    from leccr_torch.ops.fused_cross_attention import fused_cross_attention
+
+    flash_tower_attention.fwd_launches = 0
+    flash_tower_attention.bwd_launches = 0
+    fused_cross_attention.launches = 0
+
+
+def flash_launches_per_step(cfg):
+    """Flash launches of one train step: forward in every vision block, in
+    every text block for the source + target texts and again for the
+    captions (no backward: they get no gradient)."""
+    from leccr_torch.models.clip import CLIP_VARIANTS
+
+    vision = (cfg.model.vision.depth
+              or CLIP_VARIANTS[cfg.model.vision.variant].vision_layers)
+    text = cfg.model.text.num_layers
+    return vision + 2 * text, vision + text
+
+
+def train_batch(cfg, batch: int, width: int, seed: int):
+    """bench.py's train-step inputs on the card: uint8 images, random flips,
+    texts and captions at one token width with all-ones masks except one
+    padded source text, idx = arange(batch)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    res, vocab = cfg.model.vision.image_res, cfg.model.text.vocab_size
+    out = {
+        "vision": torch.randint(0, 256, (batch, res, res, 3),
+                                dtype=torch.uint8, device="cuda",
+                                generator=g),
+        "flip": torch.rand(batch, device="cuda", generator=g) < 0.5,
+        "idx": torch.arange(batch, device="cuda"),
+    }
+    for key in ("text_s", "text_t", "caption"):
+        ids = torch.randint(1, vocab, (batch, width), device="cuda",
+                            generator=g)
+        mask = torch.ones_like(ids, dtype=torch.int32)
+        if key == "text_s":
+            mask[1, width // 3:] = 0
+            ids = ids * mask
+        name = key.split("_")[0]
+        suffix = key[len(name):]
+        out[f"{name}_ids{suffix}"] = ids
+        out[f"{name}_mask{suffix}"] = mask
+    return out
+
+
+def train_grad_check_phase(cfg, seed: int = 0, n: int = 4,
+                           width: int = 64):
+    """The full-width model in f32, dropouts at 0: grad_total's gradients
+    of one step through the flash kernels against the plain attention, and
+    both against the plain path in f64 (LayerNorm statistics, softmax and
+    the losses stay f32 there: the port computes them in f32)."""
+    import copy
+
+    import torch
+
+    from leccr_torch.models.leccr import LECCRModel
+    from leccr_torch.ops.attention import set_compute_dtype
+    from leccr_torch.train.step import make_train_step
+
+    grads = {}
+    for mode in ("kernel", "plain", "f64"):
+        tcfg = copy.deepcopy(cfg)
+        mc = tcfg.model
+        mc.dtype = "float32"
+        mc.dropout = mc.text.hidden_dropout = mc.text.attention_dropout = 0.0
+        mc.vision.fused_attention = mc.text.fused_attention = mode == "kernel"
+        tcfg.train.schedular.num_warmup_steps = 0
+        model = LECCRModel(mc, device="cuda", seed=seed)
+        if mode == "f64":
+            model.double()
+            set_compute_dtype(model, torch.float64)
+        step = make_train_step(tcfg, model, total_steps=10000)
+        before = flash_counts()
+        losses = step(train_batch(cfg, n, width, seed + 3), 0)
+        torch.cuda.synchronize()
+        launches = tuple(a - b for a, b in zip(flash_counts(), before))
+        want = flash_launches_per_step(cfg) if mode == "kernel" else (0, 0)
+        if launches != want:
+            raise AssertionError(f"{mode}: flash launches {launches}, "
+                                 f"want {want}")
+        grads[mode] = {name: p.grad.detach().double().clone()
+                       for name, p in model.named_parameters()}
+        if mode == "kernel":
+            kernel_losses, kernel_launches = losses, launches
+        del model, step
+        torch.cuda.empty_cache()
+    # relative to the parameter's largest gradient, floored at 1e-4 of the
+    # model's largest: below that, gradients are ill-conditioned sums
+    # (e.g. the last text layer's q/k, where only the CLS row has a
+    # gradient) that f32 itself gets only to ~1e-3 against f64, and the
+    # key biases' gradients are 0 in exact arithmetic (softmax is
+    # shift-invariant) and f32 noise on every path
+    floor = 1e-4 * max(g.abs().max().item() for g in grads["f64"].values())
+
+    def rel_errs(a, b):
+        return {name: (grads[a][name] - g).abs().max().item()
+                / max(g.abs().max().item(), floor)
+                for name, g in grads[b].items()}
+
+    rel = rel_errs("kernel", "plain")
+    worst = max(rel, key=rel.get)
+    vs_f64 = {mode: max(rel_errs(mode, "f64").values())
+              for mode in ("kernel", "plain")}
+    if rel[worst] > 1e-3:
+        raise AssertionError(f"kernel gradients differ: {worst} "
+                             f"{rel[worst]}")
+    emit("train_grad_check", dtype="float32", examples=n, tokens=width,
+         flash_launches={"fwd": kernel_launches[0],
+                         "bwd": kernel_launches[1]},
+         params_checked=len(rel), max_rel_grad_err=rel[worst],
+         worst_param=worst, max_rel_grad_err_vs_f64=vs_f64,
+         tolerance="max |Δg| / max(max |g|, 1e-4 · the model's largest "
+                   "|g|) <= 1e-3 for every parameter",
+         total=kernel_losses["total"])
+
+
+def train_step_phase(cfg, card_line: str, batch: int = 128, width: int = 64,
+                     warmup: int = 3, steps: int = 5, seed: int = 0):
+    """The flagship train step (bench.py:279-370's shapes) at bf16 compute
+    with f32 master weights: warm-up steps, then timed steps."""
+    import torch
+
+    from leccr_torch.models.leccr import LECCRModel
+    from leccr_torch.train.step import make_train_step
+
+    cfg.train.schedular.num_warmup_steps = 0  # linear_warmup_decay(1e-5, 10000, 0)
+    cfg.train.optimizer.lr = 1e-5
+    model = LECCRModel(cfg.model, device="cuda", seed=seed)
+    step = make_train_step(cfg, model, total_steps=10000)
+    data = train_batch(cfg, batch, width, seed + 5)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    per_step = flash_launches_per_step(cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    for i in range(warmup):
+        step(data, i)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = []
+    for i in range(warmup, warmup + steps):
+        history.append(step(data, i))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts()
+    want = tuple(n * (warmup + steps) for n in per_step)
+    if launches != want:
+        raise AssertionError(f"train steps launched {launches} flash "
+                             f"kernels, want {want} ({per_step} a step)")
+    if not all(math.isfinite(v) for losses in history
+               for v in losses.values()):
+        raise AssertionError(f"non-finite losses {history}")
+    unmoved = [n for n, p in model.named_parameters()
+               if torch.equal(p.detach(), start[n])]
+    if unmoved:
+        raise AssertionError(f"params that did not move: {unmoved[:5]}")
+    emit("train_step", card=card_line, batch=batch, tokens=width,
+         dtype=cfg.model.dtype, image_res=cfg.model.vision.image_res,
+         steps=steps, warmup_steps=warmup, warmup_s=warm_s,
+         ms_per_step=wall / steps * 1e3, pairs_per_s=batch * steps / wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         flash_launches={"fwd": launches[0], "bwd": launches[1]},
+         flash_launches_per_step={"fwd": per_step[0], "bwd": per_step[1]},
+         params=sum(p.numel() for p in model.parameters()),
+         losses_first=history[0], losses_last=history[-1])
+    profile_step(step, data, warmup + steps, wall / steps * 1e3)
+    del model, step, start
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_step(step, data, step_no: int, step_ms: float,
+                 top: int = 12) -> None:
+    """One more train step under torch.profiler: device time by kernel, the
+    flash kernels' share, and the device's busy share of an unprofiled
+    step (`step_ms`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(data, step_no)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in events
+                   if any(k in e.key for k in ("fwd_kernel<", "bwd_dq_kernel<",
+                                                "bwd_dkv_kernel<"))) / 1e3
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    emit("train_step_profile", profiled_wall_ms=wall_ms,
+         unprofiled_step_ms=step_ms, device_ms=device_ms,
+         device_busy_share=device_ms / step_ms, flash_ms=flash_ms,
+         flash_share_of_device=flash_ms / device_ms,
+         top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+               "calls": e.count} for e in rows])
+
+
 def model_check_phase(cfg, seed: int = 0, n: int = 4):
     """Full-width model in f32: kernel path vs plain attention path."""
     import copy
@@ -244,7 +647,7 @@ def serve_phase(cfg, n_images: int = 256, seed: int = 0):
     queries = [sentence(2, 12) for _ in range(5)]
     corpus = [sentence(2, 20) for _ in range(300)]
 
-    fused_cross_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     index = emb.build_image_index(images, captions)
     torch.cuda.synchronize()
@@ -255,6 +658,8 @@ def serve_phase(cfg, n_images: int = 256, seed: int = 0):
     hits_img = emb.search_images(index, corpus, k=5)
     search_s = time.perf_counter() - t0
     launches = fused_cross_attention.launches
+    if flash_counts() != (0, 0):
+        raise AssertionError("serving launched the training kernels")
 
     n_batches = math.ceil(n_images / emb.batch_size)
     if launches != launches_per_batch(cfg) * n_batches:
@@ -345,11 +750,13 @@ def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
     run()  # warm-up: cuBLAS handles, allocator, kernel library
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    fused_cross_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     img, txt, (i2t, t2i), times = run()
     wall = time.perf_counter() - t0
     launches = fused_cross_attention.launches
+    if flash_counts() != (0, 0):
+        raise AssertionError("the eval launched the training kernels")
     if launches != launches_per_batch(cfg) * math.ceil(n_img / img_bs):
         raise AssertionError(f"eval launched the kernel {launches} times")
 
@@ -403,15 +810,22 @@ def main() -> int:
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
     t0 = time.perf_counter()
-    _build.load("fused_cross_attention")
-    build_s, log = _build.build_info["fused_cross_attention"]
-    emit("build", kernel="fused_cross_attention",
-         wall_s=time.perf_counter() - t0, nvcc_s=build_s,
-         ptxas=[ln.strip() for ln in log.splitlines() if "ptxas" in ln])
+    _build.build(*KERNEL_LIBS)  # one nvcc per source, side by side
+    emit("build", kernels=list(KERNEL_LIBS),
+         wall_s=time.perf_counter() - t0,
+         nvcc_s={n: _build.build_info[n][0] for n in KERNEL_LIBS},
+         ptxas={n: sorted({ln.split(":", 1)[1].strip() for ln in
+                           _build.build_info[n][1].splitlines()
+                           if "ptxas info    : Used" in ln})
+                for n in KERNEL_LIBS})
 
     shapes = kernel_phase()
+    flash = flash_phase()
     cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
     model_check_phase(cfg)
+    train_grad_check_phase(cfg)
+    train_launches = train_step_phase(load_config(str(
+        ROOT / "configs" / "multi30k_all.yaml")), card_line)
     emb, serve_launches = serve_phase(cfg)
     eval_launches = eval_phase(emb, card_line)
 
@@ -419,6 +833,38 @@ def main() -> int:
         return sum(PATH_LAUNCHES[(r["lq"], r["lk"])] * r[key] for r in bf16)
 
     bf16 = [r for r in shapes if r["dtype"] == "bfloat16"]
+    fwd_per_step, bwd_per_step = flash_launches_per_step(cfg)
+    text_layers = cfg.model.text.num_layers
+    per_step = {"vision": bwd_per_step - text_layers, "text": text_layers,
+                "caption": text_layers}
+
+    def flash_entry(name, line, direction, launches, errs):
+        rows = [r for r in flash if r["direction"] == direction
+                and r["dtype"] == "bfloat16"]
+
+        def step_sum(key):  # bf16, the launches of one bs128 train step
+            return sum(per_step[r["shape"]] * r[key] for r in rows)
+
+        return {
+            "name": name, "route": "cuda",
+            "source": "leccr_torch/csrc/flash_tower_attention.cu",
+            "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"][e] for r in flash
+                               if r["direction"] == direction for e in errs),
+            "check": "ok",
+            "timed_as": "bf16, the launches of one bs128 train step: " + ", ".join(
+                f"{per_step[r['shape']]}x {r['shape']} [{r['b']},{r['h']},"
+                f"{r['l']},{r['dh']}]" for r in rows) + ", L2 flushed",
+            "ms": step_sum("ms"), "plain_ms": step_sum("plain_ms"),
+            "bound_ms": step_sum("bound_ms"),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in rows) else "operations"),
+            "library_ms": step_sum("library_ms"),
+            "library": rows[0]["library"],
+            "shapes": [r for r in flash if r["direction"] == direction],
+        }
+
     print(json.dumps({"kernels": [{
         "name": "fused_cross_attention",
         "route": "cuda",
@@ -438,7 +884,10 @@ def main() -> int:
                      else "operations"),
         "library_ms": path_sum("library_ms"),
         "shapes": shapes,
-    }]}), flush=True)
+    }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
+                   ("out", "lse")),
+        flash_entry("flash_tower_attention_bwd", 110, "bwd",
+                    train_launches[1], ("dq", "dk", "dv"))]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

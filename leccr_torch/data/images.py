@@ -1,4 +1,5 @@
-"""Eval image decode (host) and normalization (device).
+"""Eval image decode (host), normalization and train preprocessing
+(device).
 
 The host decodes and resizes to uint8 [H, W, 3] (PIL, bicubic, the
 reference's test transform); the device turns the uint8 batch into CLIP-
@@ -6,6 +7,8 @@ normalized f32, so the host hands over 1 byte per pixel.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,3 +36,18 @@ def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
     mean = torch.from_numpy(CLIP_MEAN).to(x.device)
     std = torch.from_numpy(CLIP_STD).to(x.device)
     return (x - mean) / std
+
+
+def preprocess_train_images(images_u8: torch.Tensor,
+                            flip: Optional[torch.Tensor],
+                            randaugment_n: int = 0) -> torch.Tensor:
+    """Device-side train preprocessing: /255, CLIP normalize, then a
+    horizontal flip of the images where flip [B] (bool) is set."""
+    if randaugment_n > 0:
+        raise NotImplementedError(
+            "device RandAugment (randaugment_n > 0) comes with a later "
+            "slice of the port")
+    x = normalize_images(images_u8)
+    if flip is not None:
+        x = torch.where(flip[:, None, None, None], x.flip(2), x)
+    return x

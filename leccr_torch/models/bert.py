@@ -1,13 +1,21 @@
-"""Multilingual BERT-family text tower (inference).
+"""Multilingual BERT-family text tower.
 
 The port of `leccr_tpu/models/bert.py`: post-LN layers, exact-erf GELU,
 LayerNorm epsilon `layer_norm_eps` (1e-12 for mBERT), and the same module
 for both `kind`s — `xlmr` only changes the position ids (RoBERTa style:
 cumulative over real tokens, offset by `pad_token_id`).
 
-The attention-mask bias follows the JAX order of casts:
+The attention-mask bias of the plain path follows the JAX order of casts:
 (1 - mask) · f32 min, computed in f32 and THEN cast to the compute dtype.
 In bf16 that cast rounds to -inf; in f32 it stays finite.
+
+Training (`deterministic=False`, with a `Generators`): dropout at
+`hidden_dropout` after the embeddings LayerNorm, the attention output
+projection and the FFN output.  With `fused_attention` the attention core
+is the flash tower-attention kernel pair, with its dropout at
+`attention_dropout` drawn in-kernel from one fresh int32 seed per layer per
+call (taken from the host generator, so no device sync); otherwise the
+plain core with dropout on the probabilities.
 """
 
 from __future__ import annotations
@@ -19,22 +27,27 @@ from torch import nn
 from torch.nn import functional as F
 
 from leccr_torch.config import TextConfig
-from leccr_torch.ops.attention import LayerNorm
+from leccr_torch.ops.attention import Dense, Embed, LayerNorm
+from leccr_torch.ops.dropout import Generators, lean_dropout
+from leccr_torch.ops.flash_attention import flash_tower_attention
 
 
 class _BertSelfAttention(nn.Module):
     def __init__(self, cfg: TextConfig):
         super().__init__()
         h = cfg.hidden_size
+        self.cfg = cfg
         self.num_heads = cfg.num_heads
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.out = nn.Linear(h, h)
+        self.query = Dense(h, h)
+        self.key = Dense(h, h)
+        self.value = Dense(h, h)
+        self.out = Dense(h, h)
         self.out_ln = LayerNorm(h, eps=cfg.layer_norm_eps)
 
-    def forward(self, hidden: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+                deterministic: bool = True,
+                gen: Optional[Generators] = None) -> torch.Tensor:
+        cfg = self.cfg
         b, l, width = hidden.shape
         head_dim = width // self.num_heads
 
@@ -44,27 +57,41 @@ class _BertSelfAttention(nn.Module):
         q = split(self.query(hidden))
         k = split(self.key(hidden))
         v = split(self.value(hidden))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
-        bias = 1.0 - attention_mask[:, None, None, :].float()
-        scores = scores + (bias * torch.finfo(torch.float32).min).to(
-            scores.dtype)
-        probs = torch.softmax(scores.float(), dim=-1).to(hidden.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, width)
-        return self.out_ln(self.out(out) + hidden)
+        if cfg.fused_attention and not deterministic:
+            rate = cfg.attention_dropout
+            seed = gen.flash_seed() if rate > 0.0 else 0
+            # padding = 1 - mask, nonzero where mask != 1
+            out = flash_tower_attention(q, k, v, attention_mask != 1, seed,
+                                        rate)
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
+            bias = 1.0 - attention_mask[:, None, None, :].float()
+            scores = scores + (bias * torch.finfo(torch.float32).min).to(
+                scores.dtype)
+            probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+            probs = lean_dropout(probs, cfg.attention_dropout, deterministic,
+                                 gen)
+            out = torch.matmul(probs, v)
+        out = self.out(out.transpose(1, 2).reshape(b, l, width))
+        out = lean_dropout(out, cfg.hidden_dropout, deterministic, gen)
+        return self.out_ln(out + hidden)
 
 
 class _BertLayer(nn.Module):
     def __init__(self, cfg: TextConfig):
         super().__init__()
+        self.hidden_dropout = cfg.hidden_dropout
         self.attention = _BertSelfAttention(cfg)
-        self.intermediate = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size)
+        self.output = Dense(cfg.intermediate_size, cfg.hidden_size)
         self.output_ln = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, hidden: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
-        attn = self.attention(hidden, attention_mask)
+    def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
+                deterministic: bool = True,
+                gen: Optional[Generators] = None) -> torch.Tensor:
+        attn = self.attention(hidden, attention_mask, deterministic, gen)
         out = self.output(F.gelu(self.intermediate(attn)))
+        out = lean_dropout(out, self.hidden_dropout, deterministic, gen)
         return self.output_ln(out + attn)
 
 
@@ -75,10 +102,9 @@ class BertEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
-        self.position_embeddings = nn.Embedding(
-            cfg.max_position_embeddings, h)
-        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
+        self.word_embeddings = Embed(cfg.vocab_size, h)
+        self.position_embeddings = Embed(cfg.max_position_embeddings, h)
+        self.token_type_embeddings = Embed(cfg.type_vocab_size, h)
         self.embeddings_ln = LayerNorm(h, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(
             _BertLayer(cfg) for _ in range(cfg.num_layers))
@@ -88,6 +114,8 @@ class BertEncoder(nn.Module):
         input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         token_type_ids: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        gen: Optional[Generators] = None,
     ) -> torch.Tensor:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
@@ -103,6 +131,8 @@ class BertEncoder(nn.Module):
                   + self.position_embeddings(positions)
                   + self.token_type_embeddings(token_type_ids))
         hidden = self.embeddings_ln(hidden)
+        hidden = lean_dropout(hidden, self.cfg.hidden_dropout, deterministic,
+                              gen)
         for layer in self.layers:
-            hidden = layer(hidden, attention_mask)
+            hidden = layer(hidden, attention_mask, deterministic, gen)
         return hidden

@@ -1,4 +1,4 @@
-"""OpenAI-CLIP-architecture vision tower (inference).
+"""OpenAI-CLIP-architecture vision tower.
 
 The port of the vision half of `leccr_tpu/models/clip.py`: pre-LN residual
 transformer with QuickGELU MLPs, a ViT patch embedding with a class token,
@@ -10,8 +10,10 @@ reshape of each P×P×3 patch into one row and a matmul, so no cuDNN (and no
 TF32 convolution) is involved; its weight is the flax conv kernel
 [kh, kw, in, out] flattened to [out, kh·kw·in].
 
-Eval attention stays plain PyTorch ops: the JAX package runs no kernel
-there either.
+The tower has no dropout.  With `fused_attention` and in training
+(`deterministic=False`) each block's attention core is the flash
+tower-attention kernel pair at rate 0 (`models/clip.py:78-80` of the JAX
+package); in eval it stays plain PyTorch ops, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from leccr_torch.ops.attention import LayerNorm
+from leccr_torch.ops.attention import Dense, LayerNorm
+from leccr_torch.ops.flash_attention import flash_tower_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,48 +57,56 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 class _CLIPAttention(nn.Module):
     """Non-causal self-attention of a CLIP block (packed in_proj)."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, fused: bool = False):
         super().__init__()
         self.heads = heads
-        self.in_proj = nn.Linear(width, 3 * width)
-        self.out_proj = nn.Linear(width, width)
+        self.fused = fused
+        self.in_proj = Dense(width, 3 * width)
+        self.out_proj = Dense(width, width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
         b, l, width = x.shape
         head_dim = width // self.heads
         q, k, v = (t.view(b, l, self.heads, head_dim).transpose(1, 2)
                    for t in self.in_proj(x).chunk(3, dim=-1))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
-        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, width)
-        return self.out_proj(out)
+        if self.fused and not deterministic:
+            out = flash_tower_attention(q, k, v, None, 0, 0.0)
+        else:
+            scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
+            probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+            out = torch.matmul(probs, v)
+        return self.out_proj(out.transpose(1, 2).reshape(b, l, width))
 
 
 class _ResidualBlock(nn.Module):
     """Pre-LN residual attention block."""
 
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, fused: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width, eps=1e-5)
-        self.attn = _CLIPAttention(width, heads)
+        self.attn = _CLIPAttention(width, heads, fused)
         self.ln_2 = LayerNorm(width, eps=1e-5)
-        self.c_fc = nn.Linear(width, 4 * width)
-        self.c_proj = nn.Linear(4 * width, width)
+        self.c_fc = Dense(width, 4 * width)
+        self.c_proj = Dense(4 * width, width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x))
+    def forward(self, x: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
+        x = x + self.attn(self.ln_1(x), deterministic)
         return x + self.c_proj(quick_gelu(self.c_fc(self.ln_2(x))))
 
 
 class _Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int,
+                 fused: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            _ResidualBlock(width, heads) for _ in range(layers))
+            _ResidualBlock(width, heads, fused) for _ in range(layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
         for block in self.resblocks:
-            x = block(x)
+            x = block(x, deterministic)
         return x
 
 
@@ -106,38 +117,43 @@ class CLIPVisionTower(nn.Module):
     G = image_res / patch_size.  For ViT-B/32 @ 384²: [B, 145, 512].
     """
 
+    compute_dtype = torch.float32
+
     def __init__(self, width: int, layers: int, heads: int, patch_size: int,
-                 embed_dim: int, image_res: int):
+                 embed_dim: int, image_res: int,
+                 fused_attention: bool = False):
         super().__init__()
         if image_res % patch_size:
             raise ValueError(f"image_res {image_res} is not a multiple of "
                              f"the patch size {patch_size}")
         grid = image_res // patch_size
         self.patch_size = patch_size
-        self.conv1 = nn.Linear(patch_size * patch_size * 3, width, bias=False)
+        self.conv1 = Dense(patch_size * patch_size * 3, width, bias=False)
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(grid * grid + 1, width))
         self.ln_pre = LayerNorm(width, eps=1e-5)
-        self.transformer = _Transformer(width, layers, heads)
+        self.transformer = _Transformer(width, layers, heads,
+                                        fused_attention)
         self.ln_post = LayerNorm(width, eps=1e-5)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
         b, h, w, c = image.shape
         p = self.patch_size
         n_tokens = self.positional_embedding.shape[0]
         if h % p or w % p or (h // p) * (w // p) + 1 != n_tokens:
             raise ValueError(f"image {h}x{w} does not match the tower's "
                              f"{n_tokens - 1} patches of {p}x{p}")
-        dtype = self.conv1.weight.dtype
+        dtype = self.compute_dtype
         patches = image.to(dtype).reshape(b, h // p, p, w // p, p, c)
         patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(
             b, (h // p) * (w // p), p * p * c)
         x = self.conv1(patches)
         cls = self.class_embedding.to(dtype).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
-        x = self.transformer(self.ln_pre(x))
+        x = self.transformer(self.ln_pre(x), deterministic)
         return self.ln_post(x) @ self.proj.to(dtype)
 
 
@@ -154,5 +170,6 @@ def build_vision_tower(cfg) -> Tuple[CLIPVisionTower, int]:
     embed_dim = var.embed_dim if not cfg.width else width
     tower = CLIPVisionTower(width=width, layers=depth, heads=heads,
                             patch_size=var.patch_size, embed_dim=embed_dim,
-                            image_res=cfg.image_res)
+                            image_res=cfg.image_res,
+                            fused_attention=cfg.fused_attention)
     return tower, embed_dim

@@ -1,5 +1,4 @@
-"""The LECCR retrieval model for inference: towers, caption interaction,
-heads.
+"""The LECCR retrieval model: towers, caption interaction, heads.
 
 The port of `leccr_tpu/models/leccr.py` for the `clip_vit` vision tower
 with the `mbert` caption encoder.  The caption encoder IS the text tower
@@ -9,15 +8,17 @@ to the slots and the slots attend back to the visual tokens.  Features are
 256-d L2-normalized projections of the CLS token (images) and the first
 token (texts).
 
-Parameters are made on the chosen device from a seeded torch.Generator;
-Linear and Embedding weights are then held in the compute dtype
-(`cfg.dtype`), LayerNorm params and `temp` in f32, and the raw tensors
-(class/position embeddings, proj, queries) are cast at use — which is
-what flax does with `dtype=` and f32 params.
+Parameters are made on the chosen device from a seeded torch.Generator and
+stay f32 (master weights); every Dense and Embed computes in `cfg.dtype`,
+casting at use, and the raw tensors (class/position embeddings, proj,
+queries) are cast at use too — what flax does with `dtype=` and f32 params.
+A fresh model is in eval mode with gradients on: `embed_images` /
+`embed_texts` serve, `model.train()` and `model(batch, generators)` train.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -27,17 +28,40 @@ from leccr_torch.config import ModelConfig
 from leccr_torch.device import resolve_device
 from leccr_torch.models.bert import BertEncoder
 from leccr_torch.models.clip import CLIPVisionTower, build_vision_tower
-from leccr_torch.ops.attention import CrossAttentionStack, LayerNorm
+from leccr_torch.ops.attention import (
+    CrossAttentionStack,
+    Dense,
+    Embed,
+    LayerNorm,
+    set_compute_dtype,
+)
+from leccr_torch.ops.dropout import Generators
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@dataclasses.dataclass
+class TrainEmbeddings:
+    """Everything the loss suite consumes, all f32.  B = batch,
+    n = num_queries, E = embed_dim, Dv = vision width."""
+
+    image_feat: torch.Tensor  # [B, E] L2-normalized fused visual feature
+    text_feat_s: torch.Tensor  # [B, E] source-language text feature
+    text_feat_t: torch.Tensor  # [B, E] target-language text feature
+    slots: torch.Tensor  # [B, n, E] caption_proj1(fused caption slots)
+    ori_slots: torch.Tensor  # [B, n, Dv] caption-only slots (pre-fusion)
+    cv_caption_mean: torch.Tensor  # [B, Dv] token-mean of normalized slots
+    cv_vision_mean: torch.Tensor  # [B, Dv] token-mean of normalized tokens
+    temp: torch.Tensor  # scalar temperature
+
+
 class LECCRModel(nn.Module):
-    """LECCR image retrieval model, eval mode.
+    """LECCR image retrieval model.
 
     device: None = the GPU (raises when there is none); pass "cpu" to run
-    on the CPU.  seed: the generator seed of the random initial weights
-    (load trained weights with `models.weights.load_jax_params`).
+    on the CPU ("meta" builds the module tree without weights).  seed: the
+    generator seed of the random initial weights (load trained weights with
+    `models.weights.load_jax_params`).
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -68,37 +92,47 @@ class LECCRModel(nn.Module):
             self.text_encoder = BertEncoder(cfg.text)
             heads = 8 if d % 8 == 0 else max(
                 h for h in (1, 2, 4) if d % h == 0)
-            self.caption_proj = nn.Linear(cfg.text.hidden_size, d)
+            self.caption_proj = Dense(cfg.text.hidden_size, d)
             self.queries = nn.Parameter(torch.empty(cfg.num_queries, d))
             self.crossattn_query = CrossAttentionStack(
-                d, heads, cfg.caption_ca_layer)
+                d, heads, cfg.caption_ca_layer, cfg.dropout)
             self.crossattn = CrossAttentionStack(
-                d, heads, cfg.caption_interaction_layer)
+                d, heads, cfg.caption_interaction_layer, cfg.dropout)
             self.crossattn2 = CrossAttentionStack(
-                d, heads, cfg.caption_interaction_layer)
-            self.caption_proj1 = nn.Linear(d, cfg.embed_dim)
-            self.cproj = nn.Linear(d, d)
-            self.vproj = nn.Linear(d, d)
-            self.text_proj = nn.Linear(cfg.text.hidden_size, cfg.embed_dim)
+                d, heads, cfg.caption_interaction_layer, cfg.dropout)
+            self.caption_proj1 = Dense(d, cfg.embed_dim)
+            self.cproj = Dense(d, d)
+            self.vproj = Dense(d, d)
+            self.text_proj = Dense(cfg.text.hidden_size, cfg.embed_dim)
             if cfg.use_one_cl_proj_only:
                 if d != cfg.text.hidden_size:
                     raise ValueError("use_one_cl_proj_only needs equal "
                                      "vision and text widths")
                 self.vision_proj = None
             else:
-                self.vision_proj = nn.Linear(d, cfg.embed_dim)
+                self.vision_proj = Dense(d, cfg.embed_dim)
             self.temp = nn.Parameter(torch.empty(()))
         self.to_empty(device=device)
-        self._init_weights(torch.Generator(device=device).manual_seed(seed))
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
-                m.to(self.compute_dtype)
-        self.requires_grad_(False)
+        if device.type != "meta":
+            self._init_weights(
+                torch.Generator(device=device).manual_seed(seed))
+        set_compute_dtype(self, self.compute_dtype)
         self.eval()
 
     @property
     def device(self) -> torch.device:
         return self.temp.device
+
+    @torch.no_grad()
+    def serve_in_compute_dtype_(self) -> "LECCRModel":
+        """Hold every Dense and Embed weight in the compute dtype, in place,
+        dropping the f32 masters: a model that only serves then skips the
+        cast at every call.  A model that trains keeps f32."""
+        for m in self.modules():
+            if isinstance(m, (Dense, Embed)):
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.to(self.compute_dtype)
+        return self
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -109,11 +143,11 @@ class LECCRModel(nn.Module):
             if isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            elif isinstance(m, nn.Linear):
+            elif isinstance(m, Dense):
                 m.weight.normal_(0.0, m.in_features ** -0.5, generator=gen)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.Embedding):
+            elif isinstance(m, Embed):
                 m.weight.normal_(0.0, m.embedding_dim ** -0.5, generator=gen)
             elif isinstance(m, CLIPVisionTower):
                 std = m.class_embedding.shape[0] ** -0.5
@@ -124,27 +158,38 @@ class LECCRModel(nn.Module):
 
     # ------------------------------------------------------------- towers
 
-    def encode_vision(self, images: torch.Tensor) -> torch.Tensor:
+    def encode_vision(self, images: torch.Tensor,
+                      deterministic: bool = True) -> torch.Tensor:
         """Image [B,H,W,3] -> [B, 1+G², Dv]."""
-        return self.vision_tower(images)
+        return self.vision_tower(images, deterministic)
 
     def encode_text(self, input_ids: torch.Tensor,
-                    attention_mask: torch.Tensor) -> torch.Tensor:
-        return self.text_encoder(input_ids, attention_mask)
+                    attention_mask: torch.Tensor, deterministic: bool = True,
+                    gen: Optional[Generators] = None) -> torch.Tensor:
+        return self.text_encoder(input_ids, attention_mask,
+                                 deterministic=deterministic, gen=gen)
 
     def encode_caption(
         self,
         caption_ids: Optional[torch.Tensor],
         caption_mask: torch.Tensor,
         caption_feats: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        gen: Optional[Generators] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Encode the MLLM-generated caption -> (embeds [B,L,Dc],
         key_padding_mask [B,L] True=pad).  caption_feats short-circuits the
-        encoder with precomputed per-token features."""
+        encoder with precomputed per-token features.  No gradient reaches
+        the caption encoder: in training it runs under no_grad (with its
+        dropout), the counterpart of the JAX package's stop_gradient."""
         padding_mask = ~caption_mask.bool()
         if caption_feats is not None:
-            return caption_feats.to(self.compute_dtype), padding_mask
-        return self.text_encoder(caption_ids, caption_mask), padding_mask
+            return (caption_feats.to(self.compute_dtype).detach(),
+                    padding_mask)
+        with torch.no_grad():
+            hidden = self.text_encoder(caption_ids, caption_mask,
+                                       deterministic=deterministic, gen=gen)
+        return hidden, padding_mask
 
     # ------------------------------------------------- caption interaction
 
@@ -155,18 +200,22 @@ class LECCRModel(nn.Module):
         caption_padding_mask: Optional[torch.Tensor],
         vision_padding_mask: Optional[torch.Tensor] = None,
         fused: bool = False,
+        deterministic: bool = True,
+        gen: Optional[Generators] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Returns (fused_vision [B,L,Dv], fused_slots [B,n,Dv],
-        ori_slots [B,n,Dv]).  fused=True runs the attention cores as the
-        fused cross-attention kernel."""
+        ori_slots [B,n,Dv]).  fused=True runs the eval attention cores as
+        the fused cross-attention kernel."""
         b = vision_embeds.shape[0]
         queries = self.queries.to(vision_embeds.dtype).expand(b, -1, -1)
         cap = self.caption_proj(caption_embeds)
         ori_slots = self.crossattn_query(queries, cap, caption_padding_mask,
-                                         fused)
-        fused_vision = self.crossattn(vision_embeds, ori_slots, None, fused)
+                                         fused, deterministic, gen)
+        fused_vision = self.crossattn(vision_embeds, ori_slots, None, fused,
+                                      deterministic, gen)
         fused_slots = self.crossattn2(ori_slots, vision_embeds,
-                                      vision_padding_mask, fused)
+                                      vision_padding_mask, fused,
+                                      deterministic, gen)
         return fused_vision, fused_slots, ori_slots
 
     # ------------------------------------------------------------ features
@@ -180,7 +229,53 @@ class LECCRModel(nn.Module):
     def text_features(self, text_embeds: torch.Tensor) -> torch.Tensor:
         return _l2_normalize(self.text_proj(text_embeds[:, 0]))
 
-    # --------------------------------------------------------- eval passes
+    # --------------------------------------------------------- full passes
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generators: Optional[Generators] = None) -> TrainEmbeddings:
+        """Training forward: towers + interaction + all loss inputs, with
+        dropout when the module is in training mode (`generators` then
+        gives the random streams).
+
+        batch: "vision" [B,H,W,3] normalized images, "text_ids_s" /
+        "text_mask_s", "text_ids_t" / "text_mask_t", "caption_mask" and
+        "caption_ids" or "caption_feats"."""
+        deterministic = not self.training
+        if not deterministic and generators is None:
+            raise ValueError("a training forward needs its Generators")
+        gen = generators
+        ori_vision = self.encode_vision(batch["vision"], deterministic)
+        caption_embeds, caption_padding = self.encode_caption(
+            batch.get("caption_ids"), batch["caption_mask"],
+            batch.get("caption_feats"), deterministic, gen)
+        fused_vision, fused_slots, ori_slots = self.interact(
+            ori_vision, caption_embeds, caption_padding, None,
+            deterministic=deterministic, gen=gen)
+        image_feat = self.vision_features(fused_vision)
+        # source and target texts in one tower call (doubled batch)
+        b = batch["text_ids_s"].shape[0]
+        text_embeds_st = self.encode_text(
+            torch.cat([batch["text_ids_s"], batch["text_ids_t"]]),
+            torch.cat([batch["text_mask_s"], batch["text_mask_t"]]),
+            deterministic, gen)
+        text_feat_st = self.text_features(text_embeds_st)
+        slots = self.caption_proj1(fused_slots)
+        # caption_vision_loss inputs: L2-normalize cproj/vproj outputs over
+        # cv_normalize_dim (1 = the TOKEN axis, the reference's F.normalize
+        # default), then the token mean
+        cv_dim = 1 if self.cfg.cv_normalize_dim == 1 else -1
+        cap_norm = _l2_normalize(self.cproj(ori_slots), dim=cv_dim)
+        vis_norm = _l2_normalize(self.vproj(ori_vision), dim=cv_dim)
+        return TrainEmbeddings(
+            image_feat=image_feat.float(),
+            text_feat_s=text_feat_st[:b].float(),
+            text_feat_t=text_feat_st[b:].float(),
+            slots=slots.float(),
+            ori_slots=ori_slots.float(),
+            cv_caption_mean=cap_norm.mean(dim=1).float(),
+            cv_vision_mean=vis_norm.mean(dim=1).float(),
+            temp=self.temp.float(),
+        )
 
     @torch.inference_mode()
     def embed_images(self, batch: Dict[str, torch.Tensor]

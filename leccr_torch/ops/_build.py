@@ -47,33 +47,58 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu into the build directory unless the library
-    for this exact source is already there; returns its path."""
+def _start(name: str):
+    """Start nvcc for csrc/<name>.cu unless its library is on disk:
+    (name, output, tmp, process, start time) or None."""
     out = library_path(name)
     if out.exists():
         build_info.setdefault(name, (0.0, ""))
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, out, tmp, proc, time.perf_counter()
+
+
+def _finish(job) -> None:
+    name, out, tmp, proc, t0 = job
+    try:
+        log, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}")
+            f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial
-    build_info[name] = (seconds, proc.stdout + proc.stderr)
-    return out
+    build_info[name] = (seconds, log)
+
+
+def build(*names: str) -> None:
+    """Compile each csrc/<name>.cu into the build directory unless the
+    library for that exact source is already there; the nvcc processes run
+    side by side."""
+    jobs = [job for job in map(_start, names) if job is not None]
+    try:
+        for job in jobs:
+            _finish(job)
+    finally:
+        for job in jobs:  # leave no compiler running if one failed
+            if job[3].poll() is None:
+                job[3].kill()
+                job[3].communicate()
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building it on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        build(name)
+        lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

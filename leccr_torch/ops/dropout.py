@@ -1,0 +1,55 @@
+"""Dropout for training, and the random generators a training step uses.
+
+`lean_dropout` has the semantics of the JAX package's `LeanDropout`
+(`leccr_tpu/ops/dropout.py`): 16-bit random bits thresholded at
+min(65535, round(rate · 65536)), survivors scaled by 1/(1−rate) in x's
+dtype, zeros for rate ≥ 1, the identity when deterministic or at rate 0.
+The bits come from an explicit `torch.Generator` on x's device, so a run is
+reproducible from its seeds; they are not JAX's bits (no two frameworks
+share a stream), which is why the parity tests run at rate 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class Generators:
+    """The random streams of one training forward.
+
+    device: dropout bits, on the device the model runs on.
+    host: a CPU generator for the per-layer flash-attention seeds, so that
+    drawing a seed never waits on the device."""
+
+    device: torch.Generator
+    host: torch.Generator
+
+    @classmethod
+    def from_seed(cls, seed: int, device) -> "Generators":
+        device = torch.device(device)
+        # another seed for the host stream: on a CPU model both generators
+        # would otherwise be one Mersenne Twister stream twice over
+        return cls(torch.Generator(device=device).manual_seed(seed),
+                   torch.Generator().manual_seed(seed ^ 0x5DEECE66D))
+
+    def flash_seed(self) -> int:
+        """One int32 flash-attention seed from [0, 2³¹ − 1)."""
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.host))
+
+
+def lean_dropout(x: torch.Tensor, rate: float, deterministic: bool,
+                 gen: Generators | None) -> torch.Tensor:
+    """x with elements dropped at `rate` (LeanDropout semantics)."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    thresh = min(65535, int(round(rate * 65536.0)))
+    bits = torch.randint(0, 65536, x.shape, generator=gen.device,
+                         device=x.device, dtype=torch.int32)
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    return torch.where(bits >= thresh, x * scale, torch.zeros((), dtype=x.dtype,
+                                                              device=x.device))

@@ -62,11 +62,13 @@ class Embedder:
                     device: Optional[Union[str, torch.device]] = None,
                     batch_size: int = 64) -> "Embedder":
         """Random weights from `seed`, or the JAX package's `params` (a
-        flax param tree of numpy arrays).  device: None = the GPU."""
+        flax param tree of numpy arrays).  device: None = the GPU.  The
+        model serves only, so its weights are held in the compute dtype
+        (no f32 masters, no cast per call)."""
         model = LECCRModel(cfg.model, device=device, seed=seed)
         if params is not None:
             load_jax_params(model, params)
-        return cls(cfg, model, batch_size)
+        return cls(cfg, model.serve_in_compute_dtype_(), batch_size)
 
     def _tokens(self, texts: Sequence[str]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,154 @@
+"""Optimizer factory: AdamW with the reference's parameter-group policy
+(the port of `leccr_tpu/train/optim.py`).
+
+- AdamW, betas (0.9, 0.98), eps 1e-8 from `OptimConfig`;
+- four groups, base/mult × decay/no_decay: no weight decay for flax leaves
+  named `bias` or `scale` (every bias and every LayerNorm weight; Embed
+  tables, `queries`, `temp` and the CLIP raw params decay), and lr × lr_mult
+  for params whose flax path matches one of `lr_mult_paths`;
+- params matching `frozen_paths` are in no group: they never move.
+
+Paths are the flax paths (`models.weights.flax_paths`), so the regexes of a
+config mean the same params in both packages.  `torch.optim.AdamW` is
+optax's `adamw` (decoupled decay lr·wd·p on the pre-update params, eps on
+the bias-corrected √v̂).  `legacy_eps` (eps on the uncorrected √v, bias
+correction on the step size: transformers < 4.46) and bf16 moment storage
+take `AdamW`, this module's own optimizer.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Callable, Dict, Iterable, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from leccr_torch.config import OptimConfig
+from leccr_torch.models.weights import flax_paths
+
+GROUPS = ("base_decay", "base_no_decay", "mult_decay", "mult_no_decay")
+_MOMENT_DTYPES = {"float32": torch.float32, "": torch.float32,
+                  None: torch.float32, "bfloat16": torch.bfloat16}
+
+
+def classify_params(model: nn.Module, lr_mult_paths: Sequence[str] = (),
+                    frozen_paths: Sequence[str] = ()) -> Dict[str, str]:
+    """Parameter name -> 'frozen' | '{base,mult}_{decay,no_decay}', decided
+    on the flax path as the JAX package does."""
+    mult_re = [re.compile(p) for p in lr_mult_paths]
+    frozen_re = [re.compile(p) for p in frozen_paths]
+    labels = {}
+    for name, path in flax_paths(model).items():
+        joined = "/".join(path)
+        if any(r.search(joined) for r in frozen_re):
+            labels[name] = "frozen"
+            continue
+        mult = any(r.search(joined) for r in mult_re)
+        no_decay = path[-1] in ("bias", "scale")
+        labels[name] = (("mult" if mult else "base")
+                        + ("_no_decay" if no_decay else "_decay"))
+    return labels
+
+
+class AdamW(torch.optim.Optimizer):
+    """AdamW with moments stored in `moment_dtype` (the math in f32) and,
+    with `legacy_eps`, the historical transformers update
+    -lr · (√(1−β₂ᵗ)/(1−β₁ᵗ) · m / (√v + eps) + wd · p), both moments
+    stored in `moment_dtype`.  Without `legacy_eps` it is optax's adamw
+    with mu_dtype: the first moment is stored in `moment_dtype` (and its
+    decay β₁ · m taken in that dtype, as optax does), the second in f32."""
+
+    def __init__(self, params, lr: float, betas: Tuple[float, float],
+                 eps: float, weight_decay: float, legacy_eps: bool,
+                 moment_dtype: torch.dtype):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay))
+        self.legacy_eps = legacy_eps
+        self.mu_dtype = moment_dtype
+        self.nu_dtype = moment_dtype if legacy_eps else torch.float32
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, wd, eps = group["lr"], group["weight_decay"], group["eps"]
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["mu"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    state["nu"] = torch.zeros_like(p, dtype=self.nu_dtype)
+                state["step"] += 1
+                count = state["step"]
+                g = p.grad.float()
+                if self.legacy_eps:
+                    decayed = b1 * state["mu"].float()
+                else:  # optax: b1 · mu in mu's dtype, b1 rounded to it
+                    mu = state["mu"]
+                    decayed = (mu * torch.tensor(b1, dtype=mu.dtype)).float()
+                mu = decayed + (1 - b1) * g
+                nu = b2 * state["nu"].float() + (1 - b2) * g * g
+                if self.legacy_eps:
+                    bias = math.sqrt(1.0 - b2 ** count) / (1.0 - b1 ** count)
+                    update = bias * mu / (nu.sqrt() + eps)
+                else:
+                    update = ((mu / (1.0 - b1 ** count))
+                              / ((nu / (1.0 - b2 ** count)).sqrt() + eps))
+                p.add_(update + wd * p, alpha=-lr)
+                state["mu"].copy_(mu)
+                state["nu"].copy_(nu)
+        return None
+
+
+def build_optimizer(
+    cfg: OptimConfig,
+    model: nn.Module,
+    schedule: Callable[[int], float],
+    lr_mult_paths: Sequence[str] = (),
+    frozen_paths: Sequence[str] = (),
+) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
+    """(optimizer, scheduler) over the four groups of `classify_params`.
+    Group g's learning rate is lr_mult(g) · schedule(step), the step
+    counting optimizer steps from 0; call scheduler.step() after each
+    optimizer.step()."""
+    labels = classify_params(model, lr_mult_paths, frozen_paths)
+    params = dict(model.named_parameters())
+    groups = []
+    for label in GROUPS:
+        members = [params[n] for n, lab in labels.items() if lab == label]
+        if members:
+            mult = cfg.lr_mult if label.startswith("mult") else 1.0
+            groups.append({
+                "params": members, "lr": mult, "label": label,
+                "weight_decay": (0.0 if label.endswith("no_decay")
+                                 else cfg.weight_decay)})
+    moment_dtype = _MOMENT_DTYPES[cfg.moment_dtype]
+    if cfg.legacy_eps or moment_dtype != torch.float32:
+        optimizer = AdamW(groups, lr=1.0, betas=cfg.betas, eps=cfg.eps,
+                          weight_decay=0.0, legacy_eps=cfg.legacy_eps,
+                          moment_dtype=moment_dtype)
+    else:
+        optimizer = torch.optim.AdamW(groups, lr=1.0, betas=tuple(cfg.betas),
+                                      eps=cfg.eps, weight_decay=0.0)
+    # base lr of each group is its multiplier: lr = mult · schedule(step)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, schedule)
+    return optimizer, scheduler
+
+
+def clip_by_global_norm(params: Iterable[torch.Tensor],
+                        max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the .grad of params, without a host
+    sync: grads are scaled by max_norm / norm where norm ≥ max_norm.
+    Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm),
+                        max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return norm

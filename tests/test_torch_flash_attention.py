@@ -1,0 +1,218 @@
+"""The port's flash tower attention (plain versions + CPU wrapper + autograd
+Function) against the JAX package's single-block Pallas kernels run in
+interpret mode, whose dropout mask is the same counter hash.
+
+Tolerances (f32): out and lse atol 1e-5 (the same f32 math summed in
+another order); gradients atol 5e-5 / rtol 1e-4 (products of three such
+sums).  bf16: 4 bf16 ulps at the scale of the largest output, since both
+sides round p (and ds) to bf16 and f32 noise can land a rounding the other
+way.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from leccr_torch.ops import flash_attention as port
+from leccr_torch.ops.flash_attention import (
+    fits_vmem,
+    flash_tower_attention,
+    flash_tower_attention_bwd,
+    flash_tower_attention_bwd_reference,
+    flash_tower_attention_fwd,
+    flash_tower_attention_fwd_reference,
+    keep_mask,
+)
+from leccr_tpu.ops import flash_attention as jfa
+
+B, H, D = 3, 2, 16
+
+
+def _inputs(lq, lk, seed, masked=True):
+    rs = np.random.RandomState(seed)
+    q = rs.randn(B, H, lq, D).astype(np.float32)
+    k = rs.randn(B, H, lk, D).astype(np.float32)
+    v = rs.randn(B, H, lk, D).astype(np.float32)
+    pad = None
+    if masked:
+        pad = (rs.rand(B, lk) < 0.3).astype(np.int32)
+        pad[0] = 1  # a fully padded row
+        pad[1] = 0
+    return q, k, v, pad
+
+
+def _jax_fwd(q, k, v, pad, seed, rate, dtype=jnp.float32):
+    out, res = jfa._flash_fwd(
+        *(jnp.asarray(x, dtype) for x in (q, k, v)),
+        None if pad is None else jnp.asarray(pad), seed, rate, True)
+    return np.asarray(out.astype(jnp.float32)), np.asarray(res[5])
+
+
+def _t(x, dtype=torch.float32):
+    return None if x is None else torch.from_numpy(x).to(
+        dtype if x.dtype == np.float32 else torch.int32)
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.2, 7), (0.2, 123456)])
+@pytest.mark.parametrize("masked", [True, False])
+def test_forward_matches_interpret(rate, seed, masked):
+    q, k, v, pad = _inputs(12, 12, seed=seed + int(masked), masked=masked)
+    want_out, want_lse = _jax_fwd(q, k, v, pad, seed, rate)
+    out, lse = flash_tower_attention_fwd_reference(
+        _t(q), _t(k), _t(v), _t(pad), seed, rate)
+    np.testing.assert_allclose(out.numpy(), want_out, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-5)
+    if masked and rate == 0.0:  # the fully padded row is the mean of v
+        np.testing.assert_allclose(
+            out[0].numpy(), np.broadcast_to(v[0].mean(1, keepdims=True),
+                                            out[0].shape), atol=1e-5)
+
+
+@pytest.mark.parametrize("rate,seed", [(0.0, 0), (0.2, 7)])
+@pytest.mark.parametrize("lq,lk", [(12, 12), (9, 20)])
+def test_grads_match_jax_grad(rate, seed, lq, lk):
+    """jax.grad of sum(out · cos(out)) through the JAX custom VJP against
+    the port's autograd Function on CPU (its plain backward), with key
+    padding and a fully padded row."""
+    q, k, v, pad = _inputs(lq, lk, seed=lq + lk + seed)
+
+    def loss(q, k, v):
+        out = jfa.flash_tower_attention(q, k, v, jnp.asarray(pad), seed,
+                                        rate, True)
+        return jnp.sum(out * jnp.cos(out))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    qt, kt, vt = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = flash_tower_attention(qt, kt, vt, _t(pad), seed, rate)
+    (out * torch.cos(out)).sum().backward()
+    for got, w in zip((qt.grad, kt.grad, vt.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=5e-5)
+
+
+def test_bf16_plain_versions_match_interpret():
+    q, k, v, pad = _inputs(12, 12, seed=5)
+    seed, rate = 11, 0.2
+    want_out, _ = _jax_fwd(q, k, v, pad, seed, rate, jnp.bfloat16)
+
+    def loss(q, k, v):
+        out = jfa.flash_tower_attention(q, k, v, jnp.asarray(pad), seed,
+                                        rate, True)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    qt, kt, vt = (_t(x, torch.bfloat16).requires_grad_(True)
+                  for x in (q, k, v))
+    out = flash_tower_attention(qt, kt, vt, _t(pad), seed, rate)
+    assert out.dtype == torch.bfloat16
+    (out.float() ** 2).sum().backward()
+    pairs = [(out, want_out)] + [
+        (g, np.asarray(w.astype(jnp.float32)))
+        for g, w in zip((qt.grad, kt.grad, vt.grad), want_grads)]
+    for got, want in pairs:
+        assert got.dtype == torch.bfloat16
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got.detach().float().numpy(), want,
+                                   rtol=0, atol=4 * ulp)
+
+
+def test_keep_mask_is_the_interpret_hash():
+    """Bit for bit the numpy replica of the JAX interpret-mode mask."""
+    from test_flash_attention import _interpret_keep_mask
+
+    for seed, rate in ((7, 0.2), (2 ** 31 - 2, 0.1), (0, 0.5)):
+        want = _interpret_keep_mask(seed, 4, 3, 5, 7, rate)
+        got = keep_mask(seed, 4, 3, 5, 7, rate).numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_backward_plain_version_is_the_hand_vjp():
+    """The plain backward called directly (the function the kernel is held
+    against) equals the Function's gradients, and the dropout mask it
+    regenerates is the forward's."""
+    q, k, v, pad = (_t(x) for x in _inputs(10, 10, seed=3))
+    g = torch.from_numpy(np.random.RandomState(4).randn(B, H, 10, D)
+                         .astype(np.float32))
+    out, lse = flash_tower_attention_fwd(q, k, v, pad, 99, 0.3)
+    grads = flash_tower_attention_bwd(q, k, v, pad, lse, g, 99, 0.3)
+    want = flash_tower_attention_bwd_reference(q, k, v, pad, lse, g, 99, 0.3)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    qt, kt, vt = (x.clone().requires_grad_(True) for x in (q, k, v))
+    flash_tower_attention(qt, kt, vt, pad, 99, 0.3).backward(g)
+    for a, b in zip((qt.grad, kt.grad, vt.grad), grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_cpu_path_launches_nothing_and_no_grad_saves_nothing():
+    q, k, v, pad = (_t(x) for x in _inputs(8, 8, seed=1))
+    fwd, bwd = (flash_tower_attention.fwd_launches,
+                flash_tower_attention.bwd_launches)
+    qt = q.clone().requires_grad_(True)
+    flash_tower_attention(qt, k, v, pad, 5, 0.1).sum().backward()
+    with torch.no_grad():
+        out = flash_tower_attention(qt, k, v, pad, 5, 0.1)
+    assert out.grad_fn is None
+    torch.testing.assert_close(
+        out, flash_tower_attention_fwd_reference(q, k, v, pad, 5, 0.1)[0],
+        rtol=0, atol=0)
+    assert (flash_tower_attention.fwd_launches,
+            flash_tower_attention.bwd_launches) == (fwd, bwd) == (0, 0)
+
+
+def test_head_split_views_need_no_copy():
+    """BERT passes [B, L, H, Dh] storage seen as [B, H, L, Dh]; CLIP passes
+    chunks of the packed in_proj output (row stride 3W)."""
+    q, k, v, pad = (_t(x) for x in _inputs(8, 8, seed=2))
+    want = flash_tower_attention_fwd_reference(q, k, v, pad, 3, 0.2)[0]
+    bert = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    packed = torch.cat([x.transpose(1, 2).reshape(B, 8, H * D)
+                        for x in (q, k, v)], dim=-1)
+    clip = [t.view(B, 8, H, D).transpose(1, 2)
+            for t in packed.chunk(3, dim=-1)]
+    for views in (bert, clip):
+        assert not views[0].is_contiguous()
+        got = flash_tower_attention(*views, pad, 3, 0.2)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def test_fits_vmem_is_the_jax_dispatch_and_longer_shapes_raise():
+    for h, lq, lk, d in ((12, 145, 145, 64), (12, 128, 128, 64),
+                         (12, 169, 169, 64), (12, 170, 170, 64),
+                         (16, 577, 577, 64), (1, 640, 640, 16)):
+        assert fits_vmem(h, lq, lk, d) == jfa.fits_vmem(h, lq, lk, d)
+    q = torch.zeros(1, 12, 200, 64)
+    with pytest.raises(NotImplementedError, match="long-sequence"):
+        flash_tower_attention(q, q, q, None, 0, 0.1)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "mask", "rate", "stride"])
+def test_wrapper_rejects_bad_inputs(case):
+    q, k, v, pad = (_t(x) for x in _inputs(8, 8, seed=1))
+    rate = 0.1
+    if case == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "shape":
+        k = k[..., :8]
+    elif case == "mask":
+        pad = pad[:, :5]
+    elif case == "rate":
+        rate = 1.0
+    else:
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises((ValueError, TypeError)):
+        flash_tower_attention(q, k, v, pad, 0, rate)
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    """A tensor on another device than the CPU goes to the kernels (or
+    raises); the plain versions are for CPU tensors only."""
+    q, k, v, pad = (_t(x).to("meta") for x in _inputs(8, 8, seed=1))
+    monkeypatch.setattr(port, "flash_tower_attention_fwd_reference",
+                        lambda *a: pytest.fail("plain version taken"))
+    with pytest.raises(ValueError, match="no flash_tower_attention kernel"):
+        flash_tower_attention(q, k, v, pad, 0, 0.1)

@@ -1,5 +1,5 @@
 """The port stands alone: importing every leccr_torch module pulls in no
-JAX, flax or leccr_tpu module, and builds no kernel."""
+JAX, flax, optax or leccr_tpu module, and builds no kernel."""
 
 import json
 import subprocess
@@ -20,7 +20,7 @@ print(json.dumps({
     "modules": names,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                             "leccr_tpu")),
+                                             "optax", "leccr_tpu")),
     "built": sorted(_build.build_info),
 }))
 """
@@ -33,6 +33,9 @@ def test_port_imports_no_jax_and_builds_nothing():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert {"leccr_torch.serve", "leccr_torch.eval.retrieval",
             "leccr_torch.ops.fused_cross_attention",
-            "leccr_torch.models.weights"} <= set(out["modules"])
+            "leccr_torch.models.weights", "leccr_torch.ops.dropout",
+            "leccr_torch.ops.flash_attention", "leccr_torch.models.losses",
+            "leccr_torch.train.optim", "leccr_torch.train.schedule",
+            "leccr_torch.train.step"} <= set(out["modules"])
     assert out["foreign"] == []
     assert out["built"] == []

@@ -124,15 +124,18 @@ def test_state_dict_is_complete_and_exact(jax_setup):
 
 
 def test_bf16_model_runs_and_normalizes(jax_setup):
-    """The compute-dtype path (bf16 weights, f32 LayerNorms) on the CPU:
-    finite unit-norm features close to the f32 model's."""
+    """The compute-dtype path (f32 master weights, bf16 compute, f32
+    LayerNorm statistics) on the CPU: finite unit-norm features close to
+    the f32 model's."""
     _, _, params, batch = jax_setup
     img_batch = _t({k: batch[k] for k in ("vision", "caption_ids",
                                           "caption_mask")})
     f32 = _torch_model(params).embed_images(img_batch)["feat"]
     bf16_model = _torch_model(params, **{"model.dtype": "bfloat16"})
-    assert bf16_model.vision_tower.conv1.weight.dtype == torch.bfloat16
-    assert bf16_model.vision_tower.ln_pre.weight.dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in bf16_model.parameters())
+    with torch.inference_mode():
+        tokens = bf16_model.encode_vision(img_batch["vision"])
+    assert tokens.dtype == torch.bfloat16
     feat = bf16_model.embed_images(img_batch)["feat"]
     assert feat.dtype == torch.float32 and torch.isfinite(feat).all()
     torch.testing.assert_close(feat.norm(dim=-1), torch.ones(B),
