@@ -20,35 +20,50 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    time the card could take (bytes at 3.35 TB/s vs flops at the dtype's
    peak).
 3. kernels 2/3 vs plain: the flash tower-attention forward and backward
-   against their plain versions at the train step's shapes (vision
-   [128,12,145,64] at rate 0; text [256,12,64,64] and caption
-   [128,12,64,64], forward only, with key padding, one fully padded row
-   and dropout 0.1), bf16 and f32: out, lse, dq, dk, dv.  Tolerance: f32
+   against their plain versions at the train steps' shapes (flagship:
+   vision [128,12,145,64] at rate 0; text [256,12,64,64] and caption
+   [128,12,64,64], forward only; long-sequence slice: text [64,16,64,64]
+   and caption [32,16,64,64], forward only; texts and captions with key
+   padding, one fully padded row and dropout 0.1), bf16 and f32: out, lse,
+   dq, dk, dv.  Tolerance: f32
    out and lse atol 1e-5, grads 1e-4; bf16 lse 1e-5 and every other
    element within 1e-5 + BF16_K bf16 ulps of the sum of the absolute
    values of its terms (see flash_term_scales).  Timed like phase 2, with
    SDPA at rate 0 (forward, and forward + backward) as the yardstick.
-4. model check: the full-width model in f32 with kernel 1 vs with the
+4. kernels 4/5 vs plain: the chunked flash forward and backward against
+   their plain versions at ViT-L/14 @336's [32,16,577,64] (rate 0, no
+   padding) and a 200-token text batch [64,16,200,64] (key padding, a
+   fully padded row: out 0, lse -inf, zero gradients; dropout 0.1), bf16
+   and f32, with phase 3's tolerances (the term sums under the chunked
+   rules) and timing.
+5. model check: the full-width model in f32 with kernel 1 vs with the
    plain attention path, on 4 images (atol 1e-4).
-5. train gradient check: one full-width f32 train step (dropouts 0, 4
-   examples at 64 tokens) through kernels 2/3, through the plain
-   attention, and through the plain attention in f64; every parameter's
-   gradient within 1e-3 of the plain path's, relative to max(its largest
-   |g|, 1e-4 · the model's largest |g|); 36 forward and 24 backward flash
-   launches.
-6. train step: the flagship step (bench.py:279-370's shapes: bs128, uint8
-   images at 384², random flips, texts and captions at 64 tokens, bf16
-   compute on f32 master weights, dropout as configured, AdamW with
-   linear_warmup_decay(1e-5, 10000, 0)): 3 warm-up and 5 timed steps;
-   finite losses, every parameter moved, exactly 36 forward and 24
-   backward flash launches a step; ms/step, pairs/s, peak memory; then one
-   step under torch.profiler (device time by kernel, busy share).
-7. serving: `Embedder` at the flagship widths of configs/multi30k_all.yaml
+6. train gradient checks, full width in f32, dropouts 0, 4 examples at 64
+   tokens: every parameter's gradient through the flash kernels within
+   1e-3 of the plain attention's, relative to max(its largest |g|, 1e-4 ·
+   the model's largest |g|); each step launches exactly the flash kernels
+   it should (FLAGSHIP_STEP_LAUNCHES, SLICE_STEP_LAUNCHES).  (a) The flagship through kernels 2/3, with the plain path
+   in f64 beside it.  (b) The long-sequence slice (configs/
+   scale_vitl_32k.yaml's ViT-L/14 @336 + XLM-R-large) through kernels 2-5
+   with remat off and on; remat on and off agree within 1e-6.
+7. train steps: (a) the flagship step (bench.py:279-370's shapes: bs128,
+   uint8 images at 384², random flips, texts and captions at 64 tokens,
+   bf16 compute on f32 master weights, dropout as configured, AdamW with
+   linear_warmup_decay(1e-5, 10000, 0)): exactly 36 forward and 24
+   backward launches of kernels 2/3 a step and none of kernels 4/5;
+   (b) the long-sequence slice at bs32 (slice_config: flash in both
+   towers, one card, remat): 48 launches of kernel 4 and 24 of kernel 5,
+   72 of kernel 2 and 24 of kernel 3 a step.  Each: 3 warm-up and 5 timed
+   steps; finite losses, every parameter moved; ms/step, pairs/s, peak
+   memory; then one step under torch.profiler (device time by kernel,
+   busy share).  (c) The slice step again with remat off (2 warm-up and 3
+   timed steps, then a profiled one): what remat costs.
+8. serving: `Embedder` at the flagship widths of configs/multi30k_all.yaml
    (ViT-B/32 @384², mBERT-base, 3/2/2 caption-interaction layers, bf16)
    with seeded random weights indexes 256 synthetic images with captions at
    200 tokens and answers search_texts (none, minmax) and search_images
    requests; kernel 1's launch count must be 7 per image batch.
-8. eval: Multi30K scale (1 000 images × 5 000 texts at 200 tokens, image
+9. eval: Multi30K scale (1 000 images × 5 000 texts at 200 tokens, image
    batch 50, text batch 256): embed + streaming ranks + Recall@K; the ranks
    must equal a dense count over the same block products; wall time and
    pairs/s.
@@ -73,17 +88,37 @@ ROOT = Path(__file__).resolve().parent
 SHAPES = [(4, 200), (145, 4), (4, 145)]  # (Lq, Lk) of the interaction stacks
 PATH_LAUNCHES = {(4, 200): 3, (145, 4): 2, (4, 145): 2}  # per embed_images
 # (name, B, H, L, dropout rate, key padding, backward) of the towers'
-# flash calls in one bs128 train step: the ViT at 145 tokens, the text
-# tower on source + target texts at the 64-token bucket, and again on the
-# captions (forward only: they get no gradient)
+# calls of kernels 2/3 in one train step: in the flagship's (bs128) the ViT
+# at 145 tokens, the text tower on source + target texts at the 64-token
+# bucket, and again on the captions (forward only: they get no gradient);
+# in the long-sequence slice's (bs32, 16 heads) the text tower likewise
 FLASH_SHAPES = [("vision", 128, 12, 145, 0.0, False, True),
                 ("text", 256, 12, 64, 0.1, True, True),
-                ("caption", 128, 12, 64, 0.1, True, False)]
+                ("caption", 128, 12, 64, 0.1, True, False),
+                ("slice-text", 64, 16, 64, 0.1, True, True),
+                ("slice-caption", 32, 16, 64, 0.1, True, False)]
+# (name, B, H, L, dropout rate, key padding) of kernels 4/5's checks: the
+# ViT-L/14 @336 tower of the long-sequence slice's bs32 step, and a text
+# batch at the 200-token bucket (past fits_vmem at 16 heads)
+CHUNKED_SHAPES = [("vit-l", 32, 16, 577, 0.0, False),
+                  ("text200", 64, 16, 200, 0.1, True)]
 FLASH_ITERS = 20
 BF16_K = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-KERNEL_LIBS = ("fused_cross_attention", "flash_tower_attention")
+KERNEL_LIBS = ("fused_cross_attention", "flash_tower_attention",
+               "flash_chunked_attention")
+COUNTERS = ("fwd_launches", "bwd_launches", "chunk_fwd_launches",
+            "chunk_bwd_launches")  # kernels 2, 3, 4, 5
+# Launches of kernels (2, 3, 4, 5) in one train step.  Flagship: 12 ViT-B/32
+# blocks at 145 tokens (single-block) and 12 mBERT layers at 64 tokens, a
+# forward each for the texts and for the captions, a backward for the texts.
+# Slice: 24 ViT-L/14 blocks at 577 tokens (chunked) and 24 XLM-R layers at
+# 64 tokens (single-block); with remat every block that takes a gradient
+# runs its forward once more (its recompute).
+FLAGSHIP_STEP_LAUNCHES = (36, 24, 0, 0)
+SLICE_STEP_LAUNCHES = {True: (72, 24, 48, 24),  # remat on
+                       False: (48, 24, 24, 24)}  # remat off
 WORDS = ("a man woman dog child rides walks runs red blue green bike street "
          "field beach ball water in on the with his her two people").split()
 
@@ -199,30 +234,43 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
     return results
 
 
-def flash_term_scales(q, k, v, pad, lse, grad, seed, rate):
+def flash_term_scales(q, k, v, pad, lse, grad, seed, rate, out=None):
     """Per output element of kernels 2 and 3, the sum of the absolute
     values of the terms it adds up (|p|·|v| for out, |pd|ᵀ|g| for dv,
     |ds|·|k| for dq, |ds|ᵀ|q| for dk), from the plain formulas.  The
     kernels round p, pd and ds to bf16 where the TPU kernel does; a
     rounding that lands the other way for f32 noise moves a term by up to
     one ulp of it, so the error scales with these sums, not with the
-    (possibly cancelling) result."""
+    (possibly cancelling) result.
+
+    With `out` (the forward's result) the sums are kernels 4 and 5's: the
+    chunked rules (padded keys −inf, p = 0 where lse is −inf, the per-tile
+    dropout mask, delta = rowsum(g·out)).  Their forward rounds the
+    unnormalised p̃ = p·e^(lse−m) of each key tile, scaled back by the same
+    factor, so a flipped rounding moves a term by about one ulp of p·|v|:
+    the out sum stays |p|·|v|."""
     import torch
 
-    from leccr_torch.ops.flash_attention import keep_mask
+    from leccr_torch.ops.flash_attention import keep_mask, tile_keep_mask
 
+    chunked = out is not None
     dt, scale = q.dtype, 1.0 / q.shape[-1] ** 0.5
     qf, kf, vf, gf = (t.float() for t in (q, k, v, grad))
     s = qf @ kf.transpose(-1, -2) * scale
     if pad is not None:
-        s = torch.where(pad[:, None, None, :], torch.finfo(torch.float32).min,
-                        s)
+        s = torch.where(pad[:, None, None, :], -math.inf if chunked
+                        else torch.finfo(torch.float32).min, s)
     p = torch.exp(s - lse[..., None])
-    keep = keep_mask(seed, *p.shape, rate, device=p.device) if rate else 1.0
+    if chunked:
+        p = torch.where(torch.isfinite(s) & torch.isfinite(lse)[..., None],
+                        p, 0.0)
+    mask = tile_keep_mask if chunked else keep_mask
+    keep = mask(seed, *p.shape, rate, device=p.device) if rate else 1.0
     pd = (p * keep).to(dt).float().abs()
     dp = gf @ vf.transpose(-1, -2) * keep
-    ds = (p * (dp - (dp * p).sum(-1, keepdim=True)) * scale).to(dt).float()
-    ds = ds.abs()
+    delta = ((gf * out.float()).sum(-1, keepdim=True) if chunked
+             else (dp * p).sum(-1, keepdim=True))
+    ds = (p * (dp - delta) * scale).to(dt).float().abs()
     return {"out": pd @ vf.abs(), "dv": pd.transpose(-1, -2) @ gf.abs(),
             "dq": ds @ kf.abs(), "dk": ds.transpose(-1, -2) @ qf.abs()}
 
@@ -351,32 +399,147 @@ def flash_phase(dh: int = 64, seed: int = 1234):
     return results
 
 
+def chunked_phase(dh: int = 64, seed: int = 1234):
+    """Kernels 4 and 5 against their plain versions at CHUNKED_SHAPES, bf16
+    and f32, timed beside their bound, the plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from leccr_torch.ops.flash_attention import (
+        flash_chunked_attention_bwd,
+        flash_chunked_attention_bwd_reference,
+        flash_chunked_attention_fwd,
+        flash_chunked_attention_fwd_reference,
+    )
+
+    flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    results = []
+    for name, batch, heads, length, rate, masked in CHUNKED_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(length)
+            # the path's layout: [B, L, H, Dh] storage seen as [B, H, L, Dh]
+            q, k, v, grad = (torch.randn(batch, length, heads, dh,
+                                         device="cuda", generator=g)
+                             .to(dtype).transpose(1, 2) for _ in range(4))
+            pad = None
+            if masked:
+                pad = torch.rand(batch, length, device="cuda",
+                                 generator=g) < 0.3
+                pad[0] = True  # a fully padded row: out 0, lse -inf
+                pad[1] = False
+            want_out, want_lse = flash_chunked_attention_fwd_reference(
+                q, k, v, pad, seed, rate)
+            want_grads = flash_chunked_attention_bwd_reference(
+                q, k, v, pad, want_out, want_lse, grad, seed, rate)
+            out, lse = flash_chunked_attention_fwd(q, k, v, pad, seed, rate)
+            grads = flash_chunked_attention_bwd(q, k, v, pad, out, lse, grad,
+                                                seed, rate)
+            torch.cuda.synchronize()
+            real = torch.isfinite(want_lse)
+            if not torch.equal(torch.isfinite(lse), real):
+                raise AssertionError(f"lse is -inf on other rows {name}")
+            if masked and not ((out[0] == 0).all() and all(
+                    (d[0] == 0).all() for d in grads)):
+                raise AssertionError("a fully padded row must give out 0 "
+                                     "and zero gradients")
+            pairs = {"out": (out, want_out),
+                     "lse": (lse[real], want_lse[real]),
+                     **{n: (a, w) for n, a, w in zip(("dq", "dk", "dv"),
+                                                      grads, want_grads)}}
+            errs = {n: (a.float() - w.float()).abs().max().item()
+                    for n, (a, w) in pairs.items()}
+            if not all(torch.isfinite(a).all() for a, _ in pairs.values()):
+                raise AssertionError(f"non-finite chunked output {name}")
+            if dtype == torch.float32:
+                ok = (errs["out"] <= 1e-5 and errs["lse"] <= 1e-5
+                      and max(errs[n] for n in ("dq", "dk", "dv")) <= 1e-4)
+                tol = "max abs err: out, lse <= 1e-5; dq, dk, dv <= 1e-4"
+                k_needed = None
+            else:
+                scales = flash_term_scales(q, k, v, pad, want_lse, grad,
+                                           seed, rate, out=want_out)
+                k_needed = {n: bf16_k_needed(*pairs[n], scales[n])
+                            for n in scales}
+                del scales
+                ok = (errs["lse"] <= 1e-5
+                      and max(k_needed.values()) <= BF16_K)
+                tol = (f"lse <= 1e-5; out, dq, dk, dv: every element "
+                       f"within 1e-5 + {BF16_K} bf16 ulps of the sum of "
+                       f"the absolute values of its terms (chunked rules)")
+            if not ok:
+                raise AssertionError(
+                    f"chunked kernels disagree with their plain versions at "
+                    f"{name} {dtype}: {errs} ulps {k_needed}")
+            del grads, pairs
+            item = q.element_size()
+            numel = q.numel()
+            lse_bytes = 4 * batch * heads * length
+            mask_bytes = 0 if pad is None else pad.numel()
+            # forward: q, k, v -> out, lse; backward: q, k, v, out, g, lse
+            # -> dq, dk, dv
+            n_bytes = {"fwd": 4 * numel * item + lse_bytes + mask_bytes,
+                       "bwd": 8 * numel * item + lse_bytes + mask_bytes}
+            flops = {"fwd": 4 * batch * heads * length * length * dh,
+                     "bwd": 10 * batch * heads * length * length * dh}
+            dname = str(dtype).split(".")[-1]
+            attend = None if pad is None else ~pad[:, None, None, :]
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+            def sdpa_fwd_bwd():
+                F.scaled_dot_product_attention(qg, kg, vg, attend).backward(
+                    grad)
+
+            times = {
+                "fwd": (lambda: flash_chunked_attention_fwd(
+                            q, k, v, pad, seed, rate),
+                        lambda: flash_chunked_attention_fwd_reference(
+                            q, k, v, pad, seed, rate),
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attend)),
+                "bwd": (lambda: flash_chunked_attention_bwd(
+                            q, k, v, pad, out, lse, grad, seed, rate),
+                        lambda: flash_chunked_attention_bwd_reference(
+                            q, k, v, pad, out, lse, grad, seed, rate),
+                        sdpa_fwd_bwd),
+            }
+            for direction, (kernel, plain, library) in times.items():
+                t_bytes = n_bytes[direction] / HBM_BYTES_PER_S * 1e3
+                t_ops = flops[direction] / PEAK_FLOPS[dname] * 1e3
+                results.append({
+                    "shape": name, "direction": direction, "dtype": dname,
+                    "b": batch, "h": heads, "l": length, "dh": dh,
+                    "rate": rate, "masked": masked, "max_abs_err": errs,
+                    "bf16_ulps": k_needed, "tolerance": tol,
+                    "ms": cuda_ms(kernel, flush, FLASH_ITERS),
+                    "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
+                    "library_ms": cuda_ms(library, flush, FLASH_ITERS),
+                    "library": ("F.scaled_dot_product_attention, rate 0"
+                                + (" (forward + backward)"
+                                   if direction == "bwd" else "")),
+                    "bytes": n_bytes[direction], "flops": flops[direction],
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+                emit("chunked_vs_plain", **results[-1])
+            del q, k, v, grad, qg, kg, vg, out, lse, want_out, want_grads
+            torch.cuda.empty_cache()
+    return results
+
+
 def flash_counts():
+    """Launches of kernels 2, 3, 4 and 5 so far."""
     from leccr_torch.ops.flash_attention import flash_tower_attention
 
-    return (flash_tower_attention.fwd_launches,
-            flash_tower_attention.bwd_launches)
+    return tuple(getattr(flash_tower_attention, c) for c in COUNTERS)
 
 
 def reset_counts() -> None:
     from leccr_torch.ops.flash_attention import flash_tower_attention
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
 
-    flash_tower_attention.fwd_launches = 0
-    flash_tower_attention.bwd_launches = 0
+    for c in COUNTERS:
+        setattr(flash_tower_attention, c, 0)
     fused_cross_attention.launches = 0
-
-
-def flash_launches_per_step(cfg):
-    """Flash launches of one train step: forward in every vision block, in
-    every text block for the source + target texts and again for the
-    captions (no backward: they get no gradient)."""
-    from leccr_torch.models.clip import CLIP_VARIANTS
-
-    vision = (cfg.model.vision.depth
-              or CLIP_VARIANTS[cfg.model.vision.variant].vision_layers)
-    text = cfg.model.text.num_layers
-    return vision + 2 * text, vision + text
 
 
 def train_batch(cfg, batch: int, width: int, seed: int):
@@ -408,12 +571,17 @@ def train_batch(cfg, batch: int, width: int, seed: int):
     return out
 
 
-def train_grad_check_phase(cfg, seed: int = 0, n: int = 4,
-                           width: int = 64):
+def train_grad_check_phase(cfg, modes, phase: str = "train_grad_check",
+                           seed: int = 0, n: int = 4, width: int = 64):
     """The full-width model in f32, dropouts at 0: grad_total's gradients
-    of one step through the flash kernels against the plain attention, and
-    both against the plain path in f64 (LayerNorm statistics, softmax and
-    the losses stay f32 there: the port computes them in f32)."""
+    of one step in each of `modes` ({name: (fused, remat, dtype, launches
+    of kernels 2-5 the step must make)}), held to
+    the "plain" mode's (fused attention off, remat off) with the floored
+    measure below ≤ 1e-3; with a "kernel_remat" mode, it and "kernel"
+    (remat off) agree within 1e-6; with an "f64" mode (the plain path in
+    f64; LayerNorm statistics, softmax and the losses stay f32 there: the
+    port computes them in f32) the distance of each f32 mode from it is
+    reported."""
     import copy
 
     import torch
@@ -422,31 +590,31 @@ def train_grad_check_phase(cfg, seed: int = 0, n: int = 4,
     from leccr_torch.ops.attention import set_compute_dtype
     from leccr_torch.train.step import make_train_step
 
-    grads = {}
-    for mode in ("kernel", "plain", "f64"):
+    grads, launches, kernel_losses = {}, {}, None
+    for mode, (fused, remat, dtype, want) in modes.items():
         tcfg = copy.deepcopy(cfg)
         mc = tcfg.model
         mc.dtype = "float32"
+        mc.remat = remat
         mc.dropout = mc.text.hidden_dropout = mc.text.attention_dropout = 0.0
-        mc.vision.fused_attention = mc.text.fused_attention = mode == "kernel"
+        mc.vision.fused_attention = mc.text.fused_attention = fused
         tcfg.train.schedular.num_warmup_steps = 0
         model = LECCRModel(mc, device="cuda", seed=seed)
-        if mode == "f64":
+        if dtype == torch.float64:
             model.double()
             set_compute_dtype(model, torch.float64)
         step = make_train_step(tcfg, model, total_steps=10000)
         before = flash_counts()
         losses = step(train_batch(cfg, n, width, seed + 3), 0)
         torch.cuda.synchronize()
-        launches = tuple(a - b for a, b in zip(flash_counts(), before))
-        want = flash_launches_per_step(cfg) if mode == "kernel" else (0, 0)
-        if launches != want:
-            raise AssertionError(f"{mode}: flash launches {launches}, "
+        launches[mode] = tuple(a - b for a, b in zip(flash_counts(), before))
+        if launches[mode] != want:
+            raise AssertionError(f"{mode}: flash launches {launches[mode]}, "
                                  f"want {want}")
-        grads[mode] = {name: p.grad.detach().double().clone()
+        grads[mode] = {name: p.grad.detach().clone()
                        for name, p in model.named_parameters()}
         if mode == "kernel":
-            kernel_losses, kernel_launches = losses, launches
+            kernel_losses = losses
         del model, step
         torch.cuda.empty_cache()
     # relative to the parameter's largest gradient, floored at 1e-4 of the
@@ -455,34 +623,51 @@ def train_grad_check_phase(cfg, seed: int = 0, n: int = 4,
     # gradient) that f32 itself gets only to ~1e-3 against f64, and the
     # key biases' gradients are 0 in exact arithmetic (softmax is
     # shift-invariant) and f32 noise on every path
-    floor = 1e-4 * max(g.abs().max().item() for g in grads["f64"].values())
+    ref = "f64" if "f64" in modes else "plain"
+    floor = 1e-4 * max(g.abs().max().item() for g in grads[ref].values())
 
     def rel_errs(a, b):
-        return {name: (grads[a][name] - g).abs().max().item()
-                / max(g.abs().max().item(), floor)
+        return {name: (grads[a][name].double() - g.double()).abs().max()
+                .item() / max(g.abs().max().item(), floor)
                 for name, g in grads[b].items()}
 
-    rel = rel_errs("kernel", "plain")
-    worst = max(rel, key=rel.get)
-    vs_f64 = {mode: max(rel_errs(mode, "f64").values())
-              for mode in ("kernel", "plain")}
-    if rel[worst] > 1e-3:
-        raise AssertionError(f"kernel gradients differ: {worst} "
-                             f"{rel[worst]}")
-    emit("train_grad_check", dtype="float32", examples=n, tokens=width,
-         flash_launches={"fwd": kernel_launches[0],
-                         "bwd": kernel_launches[1]},
-         params_checked=len(rel), max_rel_grad_err=rel[worst],
-         worst_param=worst, max_rel_grad_err_vs_f64=vs_f64,
+    checks = {f"{m}_vs_plain": (m, "plain", 1e-3) for m in modes
+              if m.startswith("kernel")}
+    if "kernel_remat" in modes:
+        checks["kernel_remat_vs_kernel"] = ("kernel_remat", "kernel", 1e-6)
+    worst = {}
+    for check, (a, b, tol) in checks.items():
+        rel = rel_errs(a, b)
+        name = max(rel, key=rel.get)
+        worst[check] = {"max_rel_grad_err": rel[name], "worst_param": name,
+                        "tolerance": tol}
+        if rel[name] > tol:
+            raise AssertionError(f"{check}: gradients differ at {name}: "
+                                 f"{rel[name]} > {tol}")
+    extra = {}
+    if "f64" in modes:
+        extra["max_rel_grad_err_vs_f64"] = {
+            m: max(rel_errs(m, "f64").values()) for m in modes if m != "f64"}
+    first = worst[next(iter(worst))]
+    emit(phase, dtype="float32", examples=n, tokens=width,
+         flash_launches={m: dict(zip(COUNTERS, c))
+                         for m, c in launches.items()},
+         params_checked=len(grads["plain"]),
+         max_rel_grad_err=first["max_rel_grad_err"],
+         worst_param=first["worst_param"], checks=worst, **extra,
          tolerance="max |Δg| / max(max |g|, 1e-4 · the model's largest "
-                   "|g|) <= 1e-3 for every parameter",
+                   "|g|), per parameter",
          total=kernel_losses["total"])
+    del grads
 
 
-def train_step_phase(cfg, card_line: str, batch: int = 128, width: int = 64,
-                     warmup: int = 3, steps: int = 5, seed: int = 0):
-    """The flagship train step (bench.py:279-370's shapes) at bf16 compute
-    with f32 master weights: warm-up steps, then timed steps."""
+def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
+                     batch: int = 128, width: int = 64, warmup: int = 3,
+                     steps: int = 5, seed: int = 0):
+    """A train step at bf16 compute with f32 master weights (bench.py:
+    279-370's inputs): warm-up steps, then timed steps, then one profiled
+    step.  Each step must launch kernels 2-5 exactly `per_step` times.
+    Returns the flash launches of the warm-up and timed steps."""
     import torch
 
     from leccr_torch.models.leccr import LECCRModel
@@ -494,7 +679,6 @@ def train_step_phase(cfg, card_line: str, batch: int = 128, width: int = 64,
     step = make_train_step(cfg, model, total_steps=10000)
     data = train_batch(cfg, batch, width, seed + 5)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
-    per_step = flash_launches_per_step(cfg)
     reset_counts()
     t0 = time.perf_counter()
     for i in range(warmup):
@@ -520,26 +704,30 @@ def train_step_phase(cfg, card_line: str, batch: int = 128, width: int = 64,
                if torch.equal(p.detach(), start[n])]
     if unmoved:
         raise AssertionError(f"params that did not move: {unmoved[:5]}")
-    emit("train_step", card=card_line, batch=batch, tokens=width,
+    emit(phase, card=card_line, batch=batch, tokens=width,
          dtype=cfg.model.dtype, image_res=cfg.model.vision.image_res,
-         steps=steps, warmup_steps=warmup, warmup_s=warm_s,
-         ms_per_step=wall / steps * 1e3, pairs_per_s=batch * steps / wall,
+         vision=cfg.model.vision.variant, text=cfg.model.text.kind,
+         remat=cfg.model.remat, steps=steps, warmup_steps=warmup,
+         warmup_s=warm_s, ms_per_step=wall / steps * 1e3,
+         pairs_per_s=batch * steps / wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         flash_launches={"fwd": launches[0], "bwd": launches[1]},
-         flash_launches_per_step={"fwd": per_step[0], "bwd": per_step[1]},
+         flash_launches=dict(zip(COUNTERS, launches)),
+         flash_launches_per_step=dict(zip(COUNTERS, per_step)),
          params=sum(p.numel() for p in model.parameters()),
          losses_first=history[0], losses_last=history[-1])
-    profile_step(step, data, warmup + steps, wall / steps * 1e3)
-    del model, step, start
+    del start
+    profile_step(step, data, warmup + steps, wall / steps * 1e3,
+                 phase + "_profile")
+    del model, step
     torch.cuda.empty_cache()
     return launches
 
 
 def profile_step(step, data, step_no: int, step_ms: float,
-                 top: int = 12) -> None:
+                 phase: str = "train_step_profile", top: int = 12) -> None:
     """One more train step under torch.profiler: device time by kernel, the
-    flash kernels' share, and the device's busy share of an unprofiled
-    step (`step_ms`)."""
+    flash kernels' share (kernels 2-5; the chunked ones 4/5 also alone),
+    and the device's busy share of an unprofiled step (`step_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -553,18 +741,40 @@ def profile_step(step, data, step_no: int, step_ms: float,
               if str(getattr(e, "device_type", "")).endswith("CUDA")
               and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    flash_ms = sum(e.self_device_time_total for e in events
-                   if any(k in e.key for k in ("fwd_kernel<", "bwd_dq_kernel<",
-                                                "bwd_dkv_kernel<"))) / 1e3
+
+    def ms_of(match):
+        return sum(e.self_device_time_total for e in events
+                   if match(e.key)) / 1e3
+
+    # kernels 4/5 (scalar and tensor-core variants) are ::chunk_*; kernels
+    # 2/3 are ::fwd_kernel<, ::bwd_dq_kernel<, ::bwd_dkv_kernel<
+    chunk_ms = ms_of(lambda k: "::chunk_" in k)
+    flash_ms = chunk_ms + ms_of(lambda k: any(
+        n in k for n in ("::fwd_kernel<", "::bwd_dq_kernel<",
+                         "::bwd_dkv_kernel<")))
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
-    emit("train_step_profile", profiled_wall_ms=wall_ms,
+    emit(phase, profiled_wall_ms=wall_ms,
          unprofiled_step_ms=step_ms, device_ms=device_ms,
          device_busy_share=device_ms / step_ms, flash_ms=flash_ms,
          flash_share_of_device=flash_ms / device_ms,
+         chunked_flash_ms=chunk_ms,
+         chunked_share_of_device=chunk_ms / device_ms,
          top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                "calls": e.count} for e in rows])
+
+
+def slice_config():
+    """The long-sequence slice's configuration: configs/scale_vitl_32k.yaml
+    (ViT-L/14 @336 + XLM-R-large, remat, ring_fused negatives) with flash
+    attention in both towers and one card (parallel data = model = 1)."""
+    from leccr_torch.config import load_config
+
+    cfg = load_config(str(ROOT / "configs" / "scale_vitl_32k.yaml"))
+    cfg.model.vision.fused_attention = cfg.model.text.fused_attention = True
+    cfg.parallel.data = cfg.parallel.model = 1
+    return cfg
 
 
 def model_check_phase(cfg, seed: int = 0, n: int = 4):
@@ -658,7 +868,7 @@ def serve_phase(cfg, n_images: int = 256, seed: int = 0):
     hits_img = emb.search_images(index, corpus, k=5)
     search_s = time.perf_counter() - t0
     launches = fused_cross_attention.launches
-    if flash_counts() != (0, 0):
+    if any(flash_counts()):
         raise AssertionError("serving launched the training kernels")
 
     n_batches = math.ceil(n_images / emb.batch_size)
@@ -755,7 +965,7 @@ def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
     img, txt, (i2t, t2i), times = run()
     wall = time.perf_counter() - t0
     launches = fused_cross_attention.launches
-    if flash_counts() != (0, 0):
+    if any(flash_counts()):
         raise AssertionError("the eval launched the training kernels")
     if launches != launches_per_batch(cfg) * math.ceil(n_img / img_bs):
         raise AssertionError(f"eval launched the kernel {launches} times")
@@ -799,6 +1009,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from leccr_torch.config import load_config
+    from leccr_torch.models.clip import CLIP_VARIANTS
     from leccr_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -821,11 +1032,30 @@ def main() -> int:
 
     shapes = kernel_phase()
     flash = flash_phase()
+    chunked = chunked_phase()
     cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
     model_check_phase(cfg)
-    train_grad_check_phase(cfg)
-    train_launches = train_step_phase(load_config(str(
-        ROOT / "configs" / "multi30k_all.yaml")), card_line)
+    f32, f64 = torch.float32, torch.float64
+    none = (0, 0, 0, 0)
+    train_grad_check_phase(cfg, {
+        "kernel": (True, False, f32, FLAGSHIP_STEP_LAUNCHES),
+        "plain": (False, False, f32, none), "f64": (False, False, f64, none)})
+    train_grad_check_phase(slice_config(), {
+        "kernel": (True, False, f32, SLICE_STEP_LAUNCHES[False]),
+        "kernel_remat": (True, True, f32, SLICE_STEP_LAUNCHES[True]),
+        "plain": (False, False, f32, none)}, phase="slice_grad_check")
+    # the flagship step launches none of kernels 4/5
+    train_launches = train_step_phase(
+        load_config(str(ROOT / "configs" / "multi30k_all.yaml")), card_line,
+        FLAGSHIP_STEP_LAUNCHES)
+    slice_launches = train_step_phase(
+        slice_config(), card_line, SLICE_STEP_LAUNCHES[True],
+        phase="slice_train_step", batch=32)
+    no_remat = slice_config()
+    no_remat.model.remat = False  # what remat costs, in the same call
+    train_step_phase(no_remat, card_line, SLICE_STEP_LAUNCHES[False],
+                     phase="slice_train_step_no_remat", batch=32, warmup=2,
+                     steps=3)
     emb, serve_launches = serve_phase(cfg)
     eval_launches = eval_phase(emb, card_line)
 
@@ -833,14 +1063,15 @@ def main() -> int:
         return sum(PATH_LAUNCHES[(r["lq"], r["lk"])] * r[key] for r in bf16)
 
     bf16 = [r for r in shapes if r["dtype"] == "bfloat16"]
-    fwd_per_step, bwd_per_step = flash_launches_per_step(cfg)
+    vision_layers = (cfg.model.vision.depth
+                     or CLIP_VARIANTS[cfg.model.vision.variant].vision_layers)
     text_layers = cfg.model.text.num_layers
-    per_step = {"vision": bwd_per_step - text_layers, "text": text_layers,
+    per_step = {"vision": vision_layers, "text": text_layers,
                 "caption": text_layers}
 
-    def flash_entry(name, line, direction, launches, errs):
+    def flash_entry(name, line, direction, launches, slice_launches, errs):
         rows = [r for r in flash if r["direction"] == direction
-                and r["dtype"] == "bfloat16"]
+                and r["dtype"] == "bfloat16" and r["shape"] in per_step]
 
         def step_sum(key):  # bf16, the launches of one bs128 train step
             return sum(per_step[r["shape"]] * r[key] for r in rows)
@@ -850,6 +1081,7 @@ def main() -> int:
             "source": "leccr_torch/csrc/flash_tower_attention.cu",
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
             "launches": launches,
+            "launches_slice_step": slice_launches,
             "max_abs_err": max(r["max_abs_err"][e] for r in flash
                                if r["direction"] == direction for e in errs),
             "check": "ok",
@@ -863,6 +1095,26 @@ def main() -> int:
             "library_ms": step_sum("library_ms"),
             "library": rows[0]["library"],
             "shapes": [r for r in flash if r["direction"] == direction],
+        }
+
+    def chunk_entry(name, line, direction, launches, per_step_n, errs):
+        r = next(r for r in chunked if r["direction"] == direction
+                 and r["dtype"] == "bfloat16" and r["shape"] == "vit-l")
+        return {
+            "name": name, "route": "cuda",
+            "source": "leccr_torch/csrc/flash_chunked_attention.cu",
+            "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(x["max_abs_err"][e] for x in chunked
+                               if x["direction"] == direction for e in errs),
+            "check": "ok",
+            "timed_as": (f"bf16, the launches of one slice train step (bs32, "
+                         f"remat): {per_step_n}x vit-l [{r['b']},{r['h']},"
+                         f"{r['l']},{r['dh']}], L2 flushed"),
+            **{key: per_step_n * r[key] for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": r["bound_by"], "library": r["library"],
+            "shapes": [x for x in chunked if x["direction"] == direction],
         }
 
     print(json.dumps({"kernels": [{
@@ -885,9 +1137,16 @@ def main() -> int:
         "library_ms": path_sum("library_ms"),
         "shapes": shapes,
     }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
-                   ("out", "lse")),
+                   slice_launches[0], ("out", "lse")),
         flash_entry("flash_tower_attention_bwd", 110, "bwd",
-                    train_launches[1], ("dq", "dk", "dv"))]}), flush=True)
+                    train_launches[1], slice_launches[1], ("dq", "dk", "dv")),
+        chunk_entry("flash_chunked_attention_fwd", 429, "fwd",
+                    slice_launches[2], SLICE_STEP_LAUNCHES[True][2],
+                    ("out", "lse")),
+        chunk_entry("flash_chunked_attention_bwd", 478, "bwd",
+                    slice_launches[3], SLICE_STEP_LAUNCHES[True][3],
+                    ("dq", "dk", "dv")),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

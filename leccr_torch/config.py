@@ -140,9 +140,10 @@ class ModelConfig:
     # run the caption-interaction attention as fused Pallas kernels in the
     # no-grad eval path (TPU only; training always uses XLA attention)
     fused_eval_attention: bool = True
-    # rematerialize tower blocks in the backward pass (jax.checkpoint):
-    # trades ~30% more FLOPs for O(layers) less activation memory —
-    # required for the 32k-negative scale config
+    # rematerialize tower blocks in the backward pass (jax.checkpoint; in
+    # the port torch.utils.checkpoint per block, ops/dropout.py
+    # checkpoint_block): trades ~30% more FLOPs for O(layers) less
+    # activation memory — required for the 32k-negative scale config
     remat: bool = False
     # run tower depth as lax.scan over stacked layer params (weight import
     # via convert.*(scan=True)): shrinks the HLO ~num_layers x — useful for

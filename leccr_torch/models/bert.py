@@ -16,6 +16,10 @@ is the flash tower-attention kernel pair, with its dropout at
 `attention_dropout` drawn in-kernel from one fresh int32 seed per layer per
 call (taken from the host generator, so no device sync); otherwise the
 plain core with dropout on the probabilities.
+
+With `remat` (the config's `model.remat`, flax's `nn.remat` per layer) each
+layer runs under `checkpoint_block` whenever a gradient is being taken: its
+activations are recomputed in the backward, with the same random draws.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from torch.nn import functional as F
 
 from leccr_torch.config import TextConfig
 from leccr_torch.ops.attention import Dense, Embed, LayerNorm
-from leccr_torch.ops.dropout import Generators, lean_dropout
+from leccr_torch.ops.dropout import Generators, checkpoint_block, lean_dropout
 from leccr_torch.ops.flash_attention import flash_tower_attention
 
 
@@ -98,9 +102,10 @@ class _BertLayer(nn.Module):
 class BertEncoder(nn.Module):
     """BERT encoder returning last_hidden_state [B, L, H]."""
 
-    def __init__(self, cfg: TextConfig):
+    def __init__(self, cfg: TextConfig, remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.remat = remat
         h = cfg.hidden_size
         self.word_embeddings = Embed(cfg.vocab_size, h)
         self.position_embeddings = Embed(cfg.max_position_embeddings, h)
@@ -133,6 +138,11 @@ class BertEncoder(nn.Module):
         hidden = self.embeddings_ln(hidden)
         hidden = lean_dropout(hidden, self.cfg.hidden_dropout, deterministic,
                               gen)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            hidden = layer(hidden, attention_mask, deterministic, gen)
+            if remat:
+                hidden = checkpoint_block(layer, gen, hidden, attention_mask,
+                                          deterministic, gen)
+            else:
+                hidden = layer(hidden, attention_mask, deterministic, gen)
         return hidden

@@ -14,6 +14,11 @@ The tower has no dropout.  With `fused_attention` and in training
 (`deterministic=False`) each block's attention core is the flash
 tower-attention kernel pair at rate 0 (`models/clip.py:78-80` of the JAX
 package); in eval it stays plain PyTorch ops, as in the JAX package.
+`flash_tower_attention` takes the single-block kernels at ViT-B/32 @384
+(145 tokens) and the chunked ones at ViT-L/14 @336 (577 tokens).
+
+With `remat` (flax's `nn.remat` per residual block) each block runs under
+`checkpoint_block` whenever a gradient is being taken.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from torch import nn
 
 from leccr_torch.ops.attention import Dense, LayerNorm
+from leccr_torch.ops.dropout import checkpoint_block
 from leccr_torch.ops.flash_attention import flash_tower_attention
 
 
@@ -98,15 +104,18 @@ class _ResidualBlock(nn.Module):
 
 class _Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int,
-                 fused: bool = False):
+                 fused: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             _ResidualBlock(width, heads, fused) for _ in range(layers))
 
     def forward(self, x: torch.Tensor,
                 deterministic: bool = True) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x, deterministic)
+            x = (checkpoint_block(block, None, x, deterministic) if remat
+                 else block(x, deterministic))
         return x
 
 
@@ -121,7 +130,7 @@ class CLIPVisionTower(nn.Module):
 
     def __init__(self, width: int, layers: int, heads: int, patch_size: int,
                  embed_dim: int, image_res: int,
-                 fused_attention: bool = False):
+                 fused_attention: bool = False, remat: bool = False):
         super().__init__()
         if image_res % patch_size:
             raise ValueError(f"image_res {image_res} is not a multiple of "
@@ -134,7 +143,7 @@ class CLIPVisionTower(nn.Module):
             torch.empty(grid * grid + 1, width))
         self.ln_pre = LayerNorm(width, eps=1e-5)
         self.transformer = _Transformer(width, layers, heads,
-                                        fused_attention)
+                                        fused_attention, remat)
         self.ln_post = LayerNorm(width, eps=1e-5)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 
@@ -157,7 +166,8 @@ class CLIPVisionTower(nn.Module):
         return self.ln_post(x) @ self.proj.to(dtype)
 
 
-def build_vision_tower(cfg) -> Tuple[CLIPVisionTower, int]:
+def build_vision_tower(cfg, remat: bool = False
+                       ) -> Tuple[CLIPVisionTower, int]:
     """Build a CLIPVisionTower from a VisionConfig; returns (tower, width
     seen by the retrieval head).  Test-size overrides (cfg.width/depth)
     follow the JAX package's rules: heads = width // 64 and embed_dim =
@@ -171,5 +181,6 @@ def build_vision_tower(cfg) -> Tuple[CLIPVisionTower, int]:
     tower = CLIPVisionTower(width=width, layers=depth, heads=heads,
                             patch_size=var.patch_size, embed_dim=embed_dim,
                             image_res=cfg.image_res,
-                            fused_attention=cfg.fused_attention)
+                            fused_attention=cfg.fused_attention,
+                            remat=remat)
     return tower, embed_dim

@@ -88,8 +88,9 @@ class LECCRModel(nn.Module):
         self.compute_dtype = _DTYPES[cfg.dtype]
 
         with torch.device("meta"):
-            self.vision_tower, d = build_vision_tower(cfg.vision)
-            self.text_encoder = BertEncoder(cfg.text)
+            self.vision_tower, d = build_vision_tower(cfg.vision,
+                                                      remat=cfg.remat)
+            self.text_encoder = BertEncoder(cfg.text, remat=cfg.remat)
             heads = 8 if d % 8 == 0 else max(
                 h for h in (1, 2, 4) if d % h == 0)
             self.caption_proj = Dense(cfg.text.hidden_size, d)

@@ -15,6 +15,9 @@ params)`).  Names carry over, with these rewrites:
 - raw params (`queries`, `temp`, `class_embedding`, `positional_embedding`,
   `proj`) as they are.
 
+flax's `nn.remat` keeps the module names it wraps, so the trees of a
+`remat: true` model (scanned or not) load with the same rules.
+
 `flax_paths` gives each parameter of a port module its flax path, from the
 module's type (a LayerNorm `weight` is flax's `scale`, an Embed `weight` its
 `embedding`), and `params_to_jax` uses it to export a port state_dict as an

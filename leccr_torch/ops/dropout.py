@@ -7,13 +7,18 @@ dtype, zeros for rate ≥ 1, the identity when deterministic or at rate 0.
 The bits come from an explicit `torch.Generator` on x's device, so a run is
 reproducible from its seeds; they are not JAX's bits (no two frameworks
 share a stream), which is why the parity tests run at rate 0.
+
+`checkpoint_block` is the counterpart of flax's `nn.remat` for a block that
+draws from these generators: it replays the block's draws in the recompute.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass
@@ -38,6 +43,39 @@ class Generators:
     def flash_seed(self) -> int:
         """One int32 flash-attention seed from [0, 2³¹ − 1)."""
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.host))
+
+    def get_state(self):
+        return self.device.get_state(), self.host.get_state()
+
+    def set_state(self, state) -> None:
+        self.device.set_state(state[0])
+        self.host.set_state(state[1])
+
+
+def checkpoint_block(block: Callable[..., Any], gen: Optional[Generators],
+                     *args: Any) -> Any:
+    """block(*args) under `torch.utils.checkpoint` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward, as flax's `nn.remat` does.
+
+    A block draws dropout bits and flash seeds from `gen`, explicit
+    generators that checkpoint's `preserve_rng_state` does not restore: the
+    recompute would draw anew, its masks would differ from the forward's and
+    the gradients would be wrong without an error.  So the generators'
+    states are taken before the call and set again at the start of both
+    runs: the recompute draws exactly what the forward drew.  The blocks
+    draw from nothing else, so the default generators are not saved."""
+    if gen is None:
+        return checkpoint(block, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    state = gen.get_state()
+
+    def replay(*inner):
+        gen.set_state(state)
+        return block(*inner)
+
+    return checkpoint(replay, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def lean_dropout(x: torch.Tensor, rate: float, deterministic: bool,

@@ -1,31 +1,46 @@
 """Flash tower attention (training) for the CLIP and BERT towers.
 
-The port of the single-block path of `leccr_tpu/ops/flash_attention.py`:
-two hand-written CUDA kernels (`csrc/flash_tower_attention.cu`) compute
-softmax(q kᵀ/√d + mask) with dropout on the probabilities, times v, and its
-backward, keeping the [L, L] scores, probabilities and dropout mask on
-chip.  The forward saves the row logsumexp; the backward recomputes the
-probabilities from it and regenerates the dropout mask from the seed.
+The port of `leccr_tpu/ops/flash_attention.py`'s single-block and chunked
+regimes: hand-written CUDA kernels compute softmax(q kᵀ/√d + mask) with
+dropout on the probabilities, times v, and its backward, keeping the
+scores, probabilities and dropout mask on chip.  The forward saves the row
+logsumexp; the backward recomputes the probabilities from it and
+regenerates the dropout mask from the seed.
 
-Dropout is the JAX package's interpret-mode hash: per-example seeds
-`seed + b · 0x9E3779B9` (int32 wrap), counter `h·Lq·Lk + i·Lk + j`, murmur3
-finalizer, keep where the hash ≥ uint32(rate · 2³²), scaled by 1/(1−rate).
-So the port's masks equal the JAX kernel's in interpret mode bit for bit
-(the TPU's hardware bits are another stream, which nothing reproduces).
+`flash_tower_attention` dispatches as the JAX function does
+(`_flash_fwd`): shapes within `fits_vmem` take the single-block kernels 2
+and 3 (`csrc/flash_tower_attention.cu`), longer ones within `fits_chunked`
+the chunked kernels 4 and 5 (`csrc/flash_chunked_attention.cu`), and
+longer ones still raise `NotImplementedError` (the tiled kernels 6–8 are
+not ported yet).  The two regimes differ on purpose, as in the JAX
+package:
 
-`flash_tower_attention` is the entry point, a `torch.autograd.Function`:
-for CUDA tensors it launches the kernels (or raises), for CPU tensors it
-runs the plain PyTorch versions `flash_tower_attention_fwd_reference` and
-`flash_tower_attention_bwd_reference`, which do the same f32 arithmetic
-with the same rounding points (the backward is the hand VJP of the TPU
-kernel, not autograd through the forward).  Shapes the JAX package sends
-to its chunked or tiled kernels raise `NotImplementedError` on every
-device: their dropout masks differ, and they are a later slice's work.
+- single-block: padded keys score f32 min, so a fully padded row gives the
+  mean of v; dropout hashes the counter `h·Lq·Lk + i·Lk + j`;
+- chunked: keys stream in 128-key tiles with a running max, padded keys
+  score −inf, so a fully padded row gives out 0, lse −inf and zero
+  gradients; the unnormalised probabilities are rounded to the input
+  dtype per key tile; dropout hashes per (head group, q tile, k tile)
+  (`_tile_keep_from`); the backward takes delta = rowsum(g·out) from the
+  rounded output.
+
+Both hashes are the JAX package's interpret-mode ones, keyed by the
+per-example seeds `seed + b · 0x9E3779B9` (int32 wrap) and finished by the
+murmur3 finalizer, keep where the hash ≥ uint32(rate · 2³²), scaled by
+1/(1−rate).  So the port's masks equal the JAX kernels' in interpret mode
+bit for bit (the TPU's hardware bits are another stream, which nothing
+reproduces).
+
+For CUDA tensors the wrappers launch the kernels (or raise); for CPU
+tensors they run the plain PyTorch versions (`*_reference`), which do the
+same f32 arithmetic with the same rounding points (the backwards are the
+hand VJPs of the TPU kernels, not autograd through the forward).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +48,7 @@ import torch
 from leccr_torch.ops import _build
 
 _LIB = "flash_tower_attention"
+_CHUNK_LIB = "flash_chunked_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = torch.finfo(torch.float32).min
 WARPS = 8  # warps per block; each owns one row at a time
@@ -52,6 +68,39 @@ def fits_vmem(h: int, lq: int, lk: int, d: int) -> bool:
     return tiles + qkv <= _VMEM_BUDGET
 
 
+CHUNK = 128  # keys (and query rows) of one chunked tile: the JAX _CHUNK
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def chunk_head_group(h: int) -> int:
+    """Heads per program of the JAX chunked kernels (a copy of
+    `_chunk_head_group`): the dropout mask hashes the head group and the
+    head within it."""
+    return 2 if h % 2 == 0 else 1
+
+
+def _chunk_budget(h: int, lq: int, lk: int, d: int, itemsize: int) -> int:
+    """A copy of the JAX package's calibrated chunked VMEM budget: the
+    q, k, v, g, dk, dv blocks at the io dtype plus the f32 dq block, twice,
+    and six f32 [hg, 128, 128] temporaries, five times."""
+    hg = chunk_head_group(h)
+    lqp, lkp = _round_up(lq, CHUNK), _round_up(lk, CHUNK)
+    refs = (6 * itemsize + 4) * hg * max(lqp, lkp) * d
+    temps = 6 * hg * CHUNK * CHUNK * 4
+    return 5 * temps + 2 * refs
+
+
+def fits_chunked(h: int, lq: int, lk: int, d: int,
+                 itemsize: int = 2) -> bool:
+    """Whether the JAX package takes its chunked kernels for a shape past
+    `fits_vmem` (a copy of `leccr_tpu.ops.flash_attention.fits_chunked`):
+    f32 (itemsize 4) reaches the limit at shorter lengths than bf16."""
+    return _chunk_budget(h, lq, lk, d, itemsize) <= 14 * 2 ** 20
+
+
 def _u32(x: torch.Tensor) -> torch.Tensor:
     return x & 0xFFFFFFFF
 
@@ -69,15 +118,49 @@ def keep_mask(seed: int, b: int, h: int, lq: int, lk: int, rate: float,
     both kernels compute inline, in plain PyTorch (uint32 arithmetic
     carried in int64)."""
     ctr = torch.arange(h * lq * lk, dtype=torch.int64, device=device)
+    x = _u32(ctr[None, :] + _seed_terms(seed, b, device)[:, None])
+    return _keep_factor(x, rate).view(b, h, lq, lk)
+
+
+def _seed_terms(seed: int, b: int, device) -> torch.Tensor:
+    """seed_b · 0x9E3779B9 (mod 2³²) of the per-example seeds seed_b =
+    seed + b · 0x9E3779B9, as int64 [B]."""
     seeds = _u32(int(seed) + _mul_u32(
         torch.arange(b, dtype=torch.int64, device=device), 0x9E3779B9))
-    x = _u32(ctr[None, :] + _mul_u32(seeds, 0x9E3779B9)[:, None])
+    return _mul_u32(seeds, 0x9E3779B9)
+
+
+def _keep_factor(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """The murmur3 finalizer of uint32 counters x (carried in int64), then
+    the dropout factor in {0, 1/(1-rate)} (f32)."""
     x = _mul_u32(x ^ (x >> 16), 0x85EBCA6B)
     x = _mul_u32(x ^ (x >> 13), 0xC2B2AE35)
     x = x ^ (x >> 16)
     keep = x >= int(rate * 4294967296.0)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)
-    return (keep.to(torch.float32) * scale.to(device)).view(b, h, lq, lk)
+    return keep.to(torch.float32) * scale.to(x.device)
+
+
+def tile_keep_mask(seed: int, b: int, h: int, lq: int, lk: int, rate: float,
+                   device=None) -> torch.Tensor:
+    """The chunked kernels' dropout factor [B, H, Lq, Lk] in {0,
+    1/(1-rate)} (f32): the JAX interpret-mode tile hash (`_tile_keep_from`)
+    of element (b, h, i, j) in head group hi = h // hg (hh = h % hg), query
+    tile i // 128 and key tile j // 128, computed in plain PyTorch."""
+    hg = chunk_head_group(h)
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    heads, rows, cols = ar(h), ar(lq), ar(lk)
+    ctr = ((heads % hg) * CHUNK * CHUNK)[:, None, None] + (
+        (rows % CHUNK) * CHUNK)[None, :, None] + (cols % CHUNK)[None, None, :]
+    tiles = (_mul_u32(heads // hg, 0x27D4EB2F)[:, None, None]
+             + _mul_u32(rows // CHUNK, 0x85EBCA77)[None, :, None]
+             + _mul_u32(cols // CHUNK, 0xC2B2AE3D)[None, None, :])
+    x = _u32(_u32(ctr + tiles)[None]
+             + _seed_terms(seed, b, device)[:, None, None, None])
+    return _keep_factor(x, rate)
 
 
 def _scores(q, k, padding_mask):
@@ -146,6 +229,100 @@ def flash_tower_attention_bwd_reference(
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def _chunk_scores(q, k, padding_mask):
+    """f32 scores with padded keys at −inf (the chunked regime)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    s = s * (1.0 / (q.shape[-1] ** 0.5))
+    if padding_mask is not None:
+        s = torch.where((padding_mask != 0)[:, None, None, :], -math.inf, s)
+    return s
+
+
+def flash_chunked_attention_fwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    padding_mask: Optional[torch.Tensor],
+    seed: int,
+    dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the chunked forward kernel (kernel 4): the
+    JAX `_chunk_fwd_kernel`'s loop over 128-key tiles with a running max,
+    the unnormalised probabilities rounded to v's dtype per tile, the
+    dropout mask applied after the running sum, −inf key padding.
+
+    Shapes as `flash_tower_attention_fwd_reference`.  Returns (out
+    [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq] f32); a row with no key gets
+    out 0 and lse −inf."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    keep = (tile_keep_mask(seed, b, h, lq, lk, dropout_rate,
+                           device=q.device) if dropout_rate > 0.0 else None)
+    qf = q.float()
+    m = torch.full((b, h, lq), -math.inf, device=q.device)
+    ssum = torch.zeros((b, h, lq), device=q.device)
+    o = torch.zeros((b, h, lq, d), device=q.device)
+    for j0 in range(0, lk, CHUNK):
+        cols = slice(j0, j0 + CHUNK)
+        s = torch.matmul(qf, k[:, :, cols].float().transpose(-1, -2)) * scale
+        if padding_mask is not None:
+            s = torch.where((padding_mask[:, cols] != 0)[:, None, None, :],
+                            -math.inf, s)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        safe_m = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - safe_m), 0.0)
+        p = torch.where(torch.isfinite(s), torch.exp(s - safe_m[..., None]),
+                        0.0)
+        ssum = ssum * alpha + p.sum(dim=-1)
+        if keep is not None:
+            p = p * keep[..., cols]
+        o = o * alpha[..., None] + torch.matmul(p.to(v.dtype).float(),
+                                                v[:, :, cols].float())
+        m = m_new
+    safe = torch.where(ssum > 0, ssum, 1.0)
+    out = (o / safe[..., None]).to(q.dtype)
+    lse = torch.where(ssum > 0, m + torch.log(safe), -math.inf)
+    return out, lse
+
+
+def flash_chunked_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    padding_mask: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    g: torch.Tensor,
+    seed: int,
+    dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the chunked backward kernel (kernel 5): the
+    JAX `_chunk_bwd_kernel`'s hand VJP with delta = rowsum(g·out) from the
+    forward's rounded output, p = exp(s − lse) (0 where s or lse is −inf),
+    pd rounded to g's dtype for dv, ds rounded to k's dtype, and dq, dk, dv
+    summed in f32 and rounded once.  The TPU kernel's tiles change only the
+    order of those f32 sums (the tile mask depends on the element, not the
+    tiling), so this version takes whole rows.  Returns (dq, dk, dv)."""
+    dt = q.dtype
+    gf = g.float()
+    delta = (gf * out.float()).sum(dim=-1)
+    s = _chunk_scores(q, k, padding_mask)
+    p = torch.where(torch.isfinite(s) & torch.isfinite(lse)[..., None],
+                    torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.matmul(gf, v.float().transpose(-1, -2))
+    pd = p
+    if dropout_rate > 0.0:
+        keep = tile_keep_mask(seed, *p.shape, dropout_rate, device=p.device)
+        pd, dp = p * keep, dp * keep
+    dv = torch.matmul(pd.to(g.dtype).float().transpose(-1, -2), gf)
+    ds = p * (dp - delta[..., None]) * (1.0 / (q.shape[-1] ** 0.5))
+    ds = ds.to(k.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
 def _check(q, k, v, padding_mask, dropout_rate) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, L, Dh]")
@@ -171,12 +348,24 @@ def _check(q, k, v, padding_mask, dropout_rate) -> None:
                              f"{tuple(padding_mask.shape)}")
         if padding_mask.device != q.device:
             raise ValueError("padding_mask must lie on q's device")
-    if not fits_vmem(h, lq, k.shape[2], dh):
-        raise NotImplementedError(
-            f"flash_tower_attention at H={h}, Lq={lq}, Lk={k.shape[2]}, "
-            f"Dh={dh} takes the JAX package's chunked or tiled kernels "
-            "(flash_attention.py:429-692), whose dropout masks differ; they "
-            "come with the long-sequence slice of the port")
+
+
+def chunked(q: torch.Tensor, k: torch.Tensor) -> bool:
+    """The JAX dispatch (`_flash_fwd`): False for the single-block regime
+    (kernels 2/3), True for the chunked one (kernels 4/5); a shape past
+    both takes the JAX package's tiled kernels and raises here."""
+    _, h, lq, dh = q.shape
+    lk = k.shape[2]
+    if fits_vmem(h, lq, lk, dh):
+        return False
+    if fits_chunked(h, lq, lk, dh, q.element_size()):
+        return True
+    raise NotImplementedError(
+        f"flash_tower_attention at H={h}, Lq={lq}, Lk={lk}, Dh={dh} in "
+        f"{q.dtype} is past fits_chunked: the JAX package takes its tiled "
+        "kernels 6–8 there (flash_attention.py:267 _tiled_fwd_kernel, :318 "
+        "_tiled_dq_kernel, :349 _tiled_dkv_kernel), which the port has not "
+        "ported yet")
 
 
 def _lib() -> ctypes.CDLL:
@@ -298,18 +487,54 @@ def _device_check(t: torch.Tensor) -> None:
         raise ValueError(f"no flash_tower_attention kernel for {t.device}")
 
 
+def _check_single_block(q, k) -> None:
+    """Kernels 2/3 take only the shapes within `fits_vmem`: past it the
+    JAX package takes its chunked kernels, whose padding and dropout mask
+    differ."""
+    _, h, lq, dh = q.shape
+    if not fits_vmem(h, lq, k.shape[2], dh):
+        raise ValueError(
+            f"flash_tower_attention_fwd/_bwd (kernels 2/3) at H={h}, "
+            f"Lq={lq}, Lk={k.shape[2]}, Dh={dh} is past fits_vmem: call "
+            "flash_tower_attention, which takes the chunked kernels 4/5 there")
+
+
+def _check_grad_inputs(q, lse, g) -> None:
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must match q: {tuple(g.shape)} {g.dtype} vs "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [B, H, Lq] f32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+
+
+# The four runners below take checked inputs and a bool padding mask (from
+# `_mask_bytes`): CPU tensors run the plain version, CUDA ones the kernel.
+def _single_fwd(q, k, v, mask, seed, rate):
+    if q.device.type == "cpu":
+        return flash_tower_attention_fwd_reference(q, k, v, mask, seed, rate)
+    _device_check(q)
+    return _launch_fwd(q, k, v, mask, seed, rate)
+
+
+def _single_bwd(q, k, v, mask, lse, g, seed, rate):
+    if q.device.type == "cpu":
+        return flash_tower_attention_bwd_reference(q, k, v, mask, lse, g,
+                                                   seed, rate)
+    _device_check(q)
+    return _launch_bwd(q, k, v, mask, lse, g, seed, rate)
+
+
 def flash_tower_attention_fwd(q, k, v, padding_mask, seed: int,
                               dropout_rate: float = 0.0):
     """The forward kernel (kernel 2) on CUDA tensors, its plain version on
     CPU tensors: (out [B, H, Lq, Dh] in [B, Lq, H, Dh] storage, lse
-    [B, H, Lq] f32).  Arguments as `flash_tower_attention`."""
+    [B, H, Lq] f32).  Arguments as `flash_tower_attention`; shapes within
+    `fits_vmem` only."""
     _check(q, k, v, padding_mask, dropout_rate)
-    mask = _mask_bytes(padding_mask)
-    if q.device.type == "cpu":
-        return flash_tower_attention_fwd_reference(q, k, v, mask, seed,
-                                                   dropout_rate)
-    _device_check(q)
-    return _launch_fwd(q, k, v, mask, seed, dropout_rate)
+    _check_single_block(q, k)
+    return _single_fwd(q, k, v, _mask_bytes(padding_mask), seed,
+                       dropout_rate)
 
 
 def flash_tower_attention_bwd(q, k, v, padding_mask, lse, g, seed: int,
@@ -318,35 +543,166 @@ def flash_tower_attention_bwd(q, k, v, padding_mask, lse, g, seed: int,
     plain version on CPU tensors: (dq, dk, dv), each [B, H, L, Dh] in
     [B, L, H, Dh] storage.  g: d(out), any strides with a unit last one."""
     _check(q, k, v, padding_mask, dropout_rate)
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"g must match q: {tuple(g.shape)} {g.dtype} vs "
-                         f"{tuple(q.shape)} {q.dtype}")
-    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be [B, H, Lq] f32, got "
-                         f"{tuple(lse.shape)} {lse.dtype}")
-    lse = lse.contiguous()
-    mask = _mask_bytes(padding_mask)
+    _check_single_block(q, k)
+    _check_grad_inputs(q, lse, g)
+    return _single_bwd(q, k, v, _mask_bytes(padding_mask), lse.contiguous(),
+                       g, seed, dropout_rate)
+
+
+def _chunk_lib() -> ctypes.CDLL:
+    lib = _build.load(_CHUNK_LIB)
+    if lib.fca_chunk_forward.argtypes is None:
+        ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, ptr]
+        lib.fca_chunk_forward.argtypes = [ptr] * 6 + [i32] * 7 + tail
+        lib.fca_chunk_backward.argtypes = [ptr] * 11 + [i32] * 7 + tail
+        lib.fca_chunk_forward.restype = i32
+        lib.fca_chunk_backward.restype = i32
+        lib.fca_chunk_smem_bytes.argtypes = [i32, i32]
+        lib.fca_chunk_smem_bytes.restype = ctypes.c_size_t
+        lib.fca_chunk_supported_dim.argtypes = [i32]
+        lib.fca_chunk_supported_dim.restype = i32
+    return lib
+
+
+def _chunk_prepare(q, seed, rate, launches):
+    """As `_prepare`, for the chunked kernels, whose shared memory depends
+    on the head dim only."""
+    lib = _chunk_lib()
+    dh = q.shape[-1]
+    if not lib.fca_chunk_supported_dim(dh):
+        raise ValueError(f"flash_chunked_attention kernels are compiled for "
+                         f"Dh in (16, 32, 64, 128), not {dh}")
+    for which in launches:
+        smem = lib.fca_chunk_smem_bytes(which, dh)
+        if smem > SMEM_PER_BLOCK:
+            raise ValueError(f"flash_chunked_attention launch {which} at "
+                             f"Dh={dh} needs {smem} bytes of shared memory, "
+                             f"more than the {SMEM_PER_BLOCK} a block may use")
+    drop = (int(seed) & 0xFFFFFFFF, int(rate * 4294967296.0),
+            float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)),
+            int(rate > 0.0))
+    return lib, 1.0 / (dh ** 0.5), drop
+
+
+def _launch_chunk_fwd(q, k, v, mask, seed, rate):
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,))
+    out = _heads_last(b, lq, h, dh, q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    vec = _aligned((q, k, v), q.element_size())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fca_chunk_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk, dh,
+            chunk_head_group(h), strides, scale, *drop, int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_chunked_attention forward kernel launch "
+                           f"failed: CUDA error {rc}")
+    flash_tower_attention.chunk_fwd_launches += 1
+    return out, lse
+
+
+def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (1, 2))
+    dq = _heads_last(b, lq, h, dh, q)
+    dk = _heads_last(b, lk, h, dh, k)
+    dv = _heads_last(b, lk, h, dh, v)
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
+    vec = _aligned((q, k, v, g), q.element_size())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fca_chunk_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk,
+            dh, chunk_head_group(h), strides, scale, *drop, int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_chunked_attention backward kernel launch "
+                           f"failed: CUDA error {rc}")
+    flash_tower_attention.chunk_bwd_launches += 1
+    return dq, dk, dv
+
+
+def _chunk_fwd(q, k, v, mask, seed, rate):
     if q.device.type == "cpu":
-        return flash_tower_attention_bwd_reference(q, k, v, mask, lse, g,
-                                                   seed, dropout_rate)
+        return flash_chunked_attention_fwd_reference(q, k, v, mask, seed, rate)
     _device_check(q)
-    return _launch_bwd(q, k, v, mask, lse, g, seed, dropout_rate)
+    return _launch_chunk_fwd(q, k, v, mask, seed, rate)
+
+
+def _chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
+    if q.device.type == "cpu":
+        return flash_chunked_attention_bwd_reference(q, k, v, mask, out, lse,
+                                                     g, seed, rate)
+    _device_check(q)
+    return _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate)
+
+
+def flash_chunked_attention_fwd(q, k, v, padding_mask, seed: int,
+                                dropout_rate: float = 0.0):
+    """The chunked forward kernel (kernel 4) on CUDA tensors, its plain
+    version on CPU tensors: (out [B, H, Lq, Dh] in [B, Lq, H, Dh] storage,
+    lse [B, H, Lq] f32).  Arguments as `flash_tower_attention`; any length
+    (the kernel streams 128-key tiles)."""
+    _check(q, k, v, padding_mask, dropout_rate)
+    return _chunk_fwd(q, k, v, _mask_bytes(padding_mask), seed, dropout_rate)
+
+
+def flash_chunked_attention_bwd(q, k, v, padding_mask, out, lse, g,
+                                seed: int, dropout_rate: float = 0.0):
+    """The chunked backward kernel (kernel 5, two launches) on CUDA
+    tensors, its plain version on CPU tensors: (dq, dk, dv), each
+    [B, H, L, Dh] in [B, L, H, Dh] storage.  out, lse: the forward's
+    results; g: d(out), any strides with a unit last one."""
+    _check(q, k, v, padding_mask, dropout_rate)
+    _check_grad_inputs(q, lse, g)
+    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
+        raise ValueError(f"out must match q: {tuple(out.shape)} {out.dtype} "
+                         f"vs {tuple(q.shape)} {q.dtype}")
+    if out.stride(-1) != 1:
+        raise ValueError("out needs a contiguous last (feature) dim")
+    return _chunk_bwd(q, k, v, _mask_bytes(padding_mask), out,
+                      lse.contiguous(), g, seed, dropout_rate)
 
 
 class _FlashTowerAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, rate):
-        out, lse = flash_tower_attention_fwd(q, k, v, mask, seed, rate)
-        ctx.save_for_backward(q, k, v, mask, lse)
-        ctx.seed, ctx.rate = seed, rate
+    def forward(ctx, q, k, v, mask, seed, rate, is_chunked):
+        ctx.seed, ctx.rate, ctx.chunked = seed, rate, is_chunked
+        if is_chunked:
+            # the chunked backward's delta = rowsum(g·out) needs the output,
+            # as the JAX residual keeps it (flash_attention.py:852-855)
+            out, lse = _chunk_fwd(q, k, v, mask, seed, rate)
+            ctx.save_for_backward(q, k, v, mask, lse, out)
+        else:
+            out, lse = _single_fwd(q, k, v, mask, seed, rate)
+            ctx.save_for_backward(q, k, v, mask, lse)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, mask, lse = ctx.saved_tensors
-        grads = flash_tower_attention_bwd(q, k, v, mask, lse, g, ctx.seed,
-                                          ctx.rate)
-        return (*grads, None, None, None)
+        if ctx.chunked:
+            q, k, v, mask, lse, out = ctx.saved_tensors
+            grads = _chunk_bwd(q, k, v, mask, out, lse, g, ctx.seed,
+                               ctx.rate)
+        else:
+            q, k, v, mask, lse = ctx.saved_tensors
+            grads = _single_bwd(q, k, v, mask, lse, g, ctx.seed, ctx.rate)
+        return (*grads, None, None, None, None)
 
 
 def flash_tower_attention(
@@ -364,17 +720,26 @@ def flash_tower_attention(
     contiguous, any outer strides); padding_mask: [B, Lk] (nonzero/True =
     padding) or None; seed: a Python int (the int32 layer seed; ignored at
     rate 0).  Returns [B, H, Lq, Dh] in q's dtype, in [B, Lq, H, Dh]
-    storage.  Without a gradient to take (torch.no_grad, or no input that
-    requires grad) it runs the forward alone and saves nothing.
-    `flash_tower_attention.fwd_launches` / `.bwd_launches` count the
-    kernels' launches (a backward's two launches count once)."""
+    storage.  Shapes within `fits_vmem` take kernels 2/3, longer ones
+    within `fits_chunked` kernels 4/5 (see `chunked`), longer ones still
+    raise `NotImplementedError`.  Without a gradient to take
+    (torch.no_grad, or no input that requires grad) it runs the forward
+    alone and saves nothing.  `flash_tower_attention.fwd_launches` /
+    `.bwd_launches` count the launches of kernels 2/3, `.chunk_fwd_launches`
+    / `.chunk_bwd_launches` those of kernels 4/5 (a backward's two launches
+    count once)."""
+    _check(q, k, v, padding_mask, dropout_rate)
     mask = _mask_bytes(padding_mask)
+    seed, rate = int(seed), float(dropout_rate)
+    is_chunked = chunked(q, k)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashTowerAttention.apply(q, k, v, mask, int(seed),
-                                          float(dropout_rate))
-    return flash_tower_attention_fwd(q, k, v, mask, int(seed),
-                                     float(dropout_rate))[0]
+        return _FlashTowerAttention.apply(q, k, v, mask, seed, rate,
+                                          is_chunked)
+    fwd = _chunk_fwd if is_chunked else _single_fwd
+    return fwd(q, k, v, mask, seed, rate)[0]
 
 
 flash_tower_attention.fwd_launches = 0
 flash_tower_attention.bwd_launches = 0
+flash_tower_attention.chunk_fwd_launches = 0
+flash_tower_attention.chunk_bwd_launches = 0

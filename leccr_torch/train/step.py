@@ -12,6 +12,12 @@ the gradient of the `grad_total` objective (the DDP-parity weighting of the
 JAX trainer; with num_blocks = 1 it equals `total`), clips by global norm
 when `train.grad_clip` > 0, and takes one optimizer and one scheduler step.
 The losses are read back from the device once, as one tensor.
+
+`parallel.negatives`: on one device (num_blocks = 1) `ring` and
+`ring_fused` are the dense losses, as in the JAX trainer, whose ring
+applies only across blocks (trainer.py:342-359); `ring` sets the streaming
+rows to 256 when the config leaves them at 0.  `fused` (the fused InfoNCE
+kernels) raises until that slice is ported.
 """
 
 from __future__ import annotations
@@ -61,10 +67,20 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
     "text_ids_s"/"text_mask_s", "text_ids_t"/"text_mask_t", "caption_ids"/
     "caption_mask", all on the model's device."""
     tc, mc = cfg.train, cfg.model
-    if cfg.parallel.negatives != "gather":
+    negatives = cfg.parallel.negatives
+    stream_rows = cfg.parallel.stream_loss_block_rows
+    if negatives == "fused":
         raise NotImplementedError(
-            f"negatives: {cfg.parallel.negatives} (the fused and ring "
-            "InfoNCE) comes with a later slice of the port")
+            "negatives: fused (the fused InfoNCE kernels 9-11, "
+            "leccr_tpu/ops/infonce.py) comes with a later slice of the port")
+    if negatives not in ("gather", "ring", "ring_fused"):
+        raise ValueError(f"unknown negatives: {negatives!r}")
+    if negatives != "gather" and num_blocks > 1:
+        raise NotImplementedError(
+            f"negatives: {negatives} over {num_blocks} blocks (the ring "
+            "InfoNCE) comes with the multi-device slice of the port")
+    if negatives == "ring" and stream_rows == 0:
+        stream_rows = 256  # the JAX trainer's default (trainer.py:344-345)
     if tc.grad_cache_microbatches > 1 or tc.ema_decay > 0:
         raise NotImplementedError(
             "GradCache and the EMA come with the trainer slice of the port")
@@ -76,7 +92,6 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
         frozen_paths=("clip_text_tower",))
     params = list(model.parameters())
     randaugment_n = cfg.data.randaugment_n if cfg.data.randaugment else 0
-    stream_rows = cfg.parallel.stream_loss_block_rows
     model.train()
 
     def step(batch: Dict[str, torch.Tensor], step_no: int

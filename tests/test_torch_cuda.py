@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels have no CPU mode.
 
-The fused cross-attention kernel (eval) and the flash tower-attention
-kernels (training, forward and backward) against their plain versions on
-the card, and the launch counters that show a path went through them.
+The fused cross-attention kernel (eval), the single-block flash
+tower-attention kernels 2/3 and the chunked kernels 4/5 (training, forward
+and backward) against their plain versions on the card, and the launch
+counters that show a path went through them.
 
 They import neither JAX nor the JAX package, so they also run where JAX is
 not installed:
@@ -15,6 +16,10 @@ import torch
 
 from chip_smoke import BF16_K, bf16_k_needed, flash_term_scales
 from leccr_torch.ops.flash_attention import (
+    flash_chunked_attention_bwd,
+    flash_chunked_attention_bwd_reference,
+    flash_chunked_attention_fwd,
+    flash_chunked_attention_fwd_reference,
     flash_tower_attention,
     flash_tower_attention_bwd,
     flash_tower_attention_bwd_reference,
@@ -64,10 +69,10 @@ def _needs_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
-def _flash_inputs(batch, length, dtype, masked, seed=0):
+def _flash_inputs(batch, length, dtype, masked, seed=0, heads=12, dh=64):
     g = torch.Generator(device="cuda").manual_seed(seed)
     # the path's layout: [B, L, H, Dh] storage seen as [B, H, L, Dh]
-    q, k, v, grad = (torch.randn(batch, length, 12, 64, device="cuda",
+    q, k, v, grad = (torch.randn(batch, length, heads, dh, device="cuda",
                                  generator=g).to(dtype).transpose(1, 2)
                      for _ in range(4))
     pad = None
@@ -115,22 +120,68 @@ def test_flash_kernels_match_plain_versions(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 32])
+@pytest.mark.parametrize("shape", ["vision", "text"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_kernels_match_plain_versions(shape, dtype, dh):
+    """Kernels 4 and 5 against their plain versions: ViT-L/14 @336 (577
+    tokens, 16 heads, no mask, rate 0) and the 200-token text bucket (key
+    padding with a fully padded row, rate 0.1), batch cut to 4; bf16 at
+    Dh=64 takes the tensor-core kernels, every other case the scalar ones.
+    Tolerances as kernels 2/3's, with the chunked rounding points in the
+    term sums."""
+    _needs_card()
+    length, rate, masked = (577, 0.0, False) if shape == "vision" else (
+        200, 0.1, True)
+    q, k, v, grad, pad = _flash_inputs(4, length, dtype, masked, heads=16,
+                                       dh=dh)
+    seed = 4242
+    out, lse = flash_chunked_attention_fwd(q, k, v, pad, seed, rate)
+    grads = flash_chunked_attention_bwd(q, k, v, pad, out, lse, grad, seed,
+                                        rate)
+    want_out, want_lse = flash_chunked_attention_fwd_reference(
+        q, k, v, pad, seed, rate)
+    want_grads = flash_chunked_attention_bwd_reference(
+        q, k, v, pad, want_out, want_lse, grad, seed, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(want_lse))
+    real = torch.isfinite(want_lse)
+    assert (lse[real] - want_lse[real]).abs().max().item() <= 1e-5
+    pairs = {"out": (out, want_out),
+             **dict(zip(("dq", "dk", "dv"), zip(grads, want_grads)))}
+    assert all(torch.isfinite(a).all() for a, _ in pairs.values())
+    if dtype == torch.float32:
+        for name, (got, want) in pairs.items():
+            tol = 1e-5 if name == "out" else 1e-4
+            assert (got - want).abs().max().item() <= tol, name
+    else:
+        scales = flash_term_scales(q, k, v, pad, want_lse, grad, seed, rate,
+                                   out=want_out)
+        for name, (got, want) in pairs.items():
+            assert bf16_k_needed(got, want, scales[name]) <= BF16_K, name
+
+
+@pytest.mark.cuda
 def test_flash_launch_counters():
     """One forward launch per call, one backward per backward (its two
-    launches count once), none for a backward under no_grad; shapes the
-    JAX package sends to its chunked kernels raise on the card too."""
+    launches count once), none for a backward under no_grad, each on the
+    counters of its regime; shapes past fits_chunked (the tiled kernels
+    6–8) raise on the card too."""
     _needs_card()
-    q, k, v, _, pad = _flash_inputs(4, 64, torch.bfloat16, True)
-    fwd, bwd = (flash_tower_attention.fwd_launches,
-                flash_tower_attention.bwd_launches)
-    qg = q.detach().requires_grad_(True)
-    flash_tower_attention(qg, k, v, pad, 1, 0.1).float().sum().backward()
-    with torch.no_grad():
-        flash_tower_attention(q, k, v, pad, 1, 0.1)
-    torch.cuda.synchronize()
-    assert flash_tower_attention.fwd_launches == fwd + 2
-    assert flash_tower_attention.bwd_launches == bwd + 1
-    assert qg.grad is not None and torch.isfinite(qg.grad).all()
-    long = torch.zeros(1, 12, 200, 64, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="long-sequence"):
+    counters = ("fwd_launches", "bwd_launches", "chunk_fwd_launches",
+                "chunk_bwd_launches")
+    for length, want in ((64, (2, 1, 0, 0)), (577, (0, 0, 2, 1))):
+        q, k, v, _, pad = _flash_inputs(2, length, torch.bfloat16, True,
+                                        heads=16)
+        before = [getattr(flash_tower_attention, c) for c in counters]
+        qg = q.detach().requires_grad_(True)
+        flash_tower_attention(qg, k, v, pad, 1, 0.1).float().sum().backward()
+        with torch.no_grad():
+            flash_tower_attention(q, k, v, pad, 1, 0.1)
+        torch.cuda.synchronize()
+        assert tuple(getattr(flash_tower_attention, c) - b
+                     for c, b in zip(counters, before)) == want
+        assert qg.grad is not None and torch.isfinite(qg.grad).all()
+    long = torch.zeros(1, 2, 4096, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="6–8"):
         flash_tower_attention(long, long, long, None, 0, 0.1)

@@ -181,13 +181,28 @@ def test_head_split_views_need_no_copy():
 
 
 def test_fits_vmem_is_the_jax_dispatch_and_longer_shapes_raise():
+    """The dispatch is the JAX package's: a 200-token H=12 shape is past
+    fits_vmem and computes through the chunked regime (kernels 4/5), which
+    the single-block wrappers (kernels 2/3) refuse, and a shape past
+    fits_chunked raises, naming the tiled kernels 6–8."""
     for h, lq, lk, d in ((12, 145, 145, 64), (12, 128, 128, 64),
                          (12, 169, 169, 64), (12, 170, 170, 64),
                          (16, 577, 577, 64), (1, 640, 640, 16)):
         assert fits_vmem(h, lq, lk, d) == jfa.fits_vmem(h, lq, lk, d)
-    q = torch.zeros(1, 12, 200, 64)
-    with pytest.raises(NotImplementedError, match="long-sequence"):
-        flash_tower_attention(q, q, q, None, 0, 0.1)
+    q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(1, 12, 200, 64)
+                                .astype(np.float32)) for i in range(3))
+    assert port.chunked(q, k) and not port.chunked(q[:, :, :145],
+                                                   k[:, :, :145])
+    out = flash_tower_attention(q, k, v, None, 3, 0.1)
+    want = port.flash_chunked_attention_fwd_reference(q, k, v, None, 3, 0.1)
+    torch.testing.assert_close(out, want[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="past fits_vmem"):
+        flash_tower_attention_fwd(q, k, v, None, 3, 0.1)
+    with pytest.raises(ValueError, match="past fits_vmem"):
+        flash_tower_attention_bwd(q, k, v, None, want[1], q, 3, 0.1)
+    long = torch.zeros(1, 2, 4096, 64, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="6–8"):
+        flash_tower_attention(long, long, long, None, 0, 0.1)
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "mask", "rate", "stride"])

@@ -309,6 +309,9 @@ def test_params_to_jax_round_trip():
     {"train.grad_cache_microbatches": 2},
     {"train.ema_decay": 0.999}])
 def test_unported_train_options_raise(override):
+    """`negatives: fused` (the fused InfoNCE kernels), GradCache and the
+    EMA are later slices; `ring` and `ring_fused` train on one device
+    (tests/test_torch_scale_step.py)."""
     cfg = torch_tiny_config(**override)
     model = TorchLECCR(cfg.model, device="cpu")
     with pytest.raises(NotImplementedError):
