@@ -36,34 +36,55 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    fully padded row: out 0, lse -inf, zero gradients; dropout 0.1), bf16
    and f32, with phase 3's tolerances (the term sums under the chunked
    rules) and timing.
-5. model check: the full-width model in f32 with kernel 1 vs with the
+5. kernels 9-11 vs plain: the fused InfoNCE statistics, dq and dk
+   kernels against their plain versions at E = 256, inv_temp 1/0.07, at
+   INFONCE_SHAPES: the large-batch step's [4096] x [4096] (idx = arange),
+   the same with every id twice, a ragged [1000] x [1000], a ring block
+   [256] x [32768] (q's ids a subset of k's, some rows without a positive)
+   and [32768] x [32768].  Tolerance: lse and pos_sum within 1e-5 of
+   max(1, |x|), pos_cnt exact, dq_raw and dk_raw within 1e-4 of their
+   largest element.  Timed beside the bound (flops at 67 TFLOP/s f32), the
+   plain versions and the dense composition the port does not call (no
+   single PyTorch call computes them).  Then the whole loss (compute_losses
+   forward + backward on 4096 random embeddings at the flagship's widths):
+   fused + streaming against dense gather, time and peak memory, the 10
+   keys within 1e-4 of max(1, |x|).
+6. model check: the full-width model in f32 with kernel 1 vs with the
    plain attention path, on 4 images (atol 1e-4).
-6. train gradient checks, full width in f32, dropouts 0, 4 examples at 64
-   tokens: every parameter's gradient through the flash kernels within
-   1e-3 of the plain attention's, relative to max(its largest |g|, 1e-4 ·
-   the model's largest |g|); each step launches exactly the flash kernels
-   it should (FLAGSHIP_STEP_LAUNCHES, SLICE_STEP_LAUNCHES).  (a) The flagship through kernels 2/3, with the plain path
-   in f64 beside it.  (b) The long-sequence slice (configs/
+7. train gradient checks, full width in f32, dropouts 0, at 64 tokens:
+   every parameter's gradient within 1e-3 of the reference's, relative to
+   max(its largest |g|, 1e-4 · the model's largest |g|); each step
+   launches exactly the kernels it should (FLAGSHIP_STEP_LAUNCHES,
+   SLICE_STEP_LAUNCHES, LARGE_CHECK_LAUNCHES).  (a) The flagship through
+   kernels 2/3 against the plain attention (4 examples), with the plain
+   path in f64 beside it.  (b) The long-sequence slice (configs/
    scale_vitl_32k.yaml's ViT-L/14 @336 + XLM-R-large) through kernels 2-5
-   with remat off and on; remat on and off agree within 1e-6.
-7. train steps: (a) the flagship step (bench.py:279-370's shapes: bs128,
+   with remat off and on; remat on and off agree within 1e-6.  (c) The
+   large-batch path: GradCache (4 microbatches) + fused InfoNCE + 8-row
+   streaming against the monolithic dense step, 16 examples, both through
+   kernels 2/3; the 10 loss keys within 1e-5 of max(1, |x|).
+8. train steps: (a) the flagship step (bench.py:279-370's shapes: bs128,
    uint8 images at 384², random flips, texts and captions at 64 tokens,
    bf16 compute on f32 master weights, dropout as configured, AdamW with
    linear_warmup_decay(1e-5, 10000, 0)): exactly 36 forward and 24
-   backward launches of kernels 2/3 a step and none of kernels 4/5;
-   (b) the long-sequence slice at bs32 (slice_config: flash in both
+   backward launches of kernels 2/3 a step and none of kernels 4/5 or
+   9-11; (b) the long-sequence slice at bs32 (slice_config: flash in both
    towers, one card, remat): 48 launches of kernel 4 and 24 of kernel 5,
    72 of kernel 2 and 24 of kernel 3 a step.  Each: 3 warm-up and 5 timed
    steps; finite losses, every parameter moved; ms/step, pairs/s, peak
    memory; then one step under torch.profiler (device time by kernel,
    busy share).  (c) The slice step again with remat off (2 warm-up and 3
-   timed steps, then a profiled one): what remat costs.
-8. serving: `Embedder` at the flagship widths of configs/multi30k_all.yaml
+   timed steps, then a profiled one): what remat costs.  (d) The
+   large-batch step (large_batch_config: the flagship at bs4096 in 16
+   GradCache microbatches, fused negatives, 256-row streaming losses): 1
+   warm-up and 2 timed steps, then a profiled one; 1152 and 384 launches
+   of kernels 2/3 and 6 of each of kernels 9, 10 and 11 a step.
+9. serving: `Embedder` at the flagship widths of configs/multi30k_all.yaml
    (ViT-B/32 @384², mBERT-base, 3/2/2 caption-interaction layers, bf16)
    with seeded random weights indexes 256 synthetic images with captions at
    200 tokens and answers search_texts (none, minmax) and search_images
    requests; kernel 1's launch count must be 7 per image batch.
-9. eval: Multi30K scale (1 000 images × 5 000 texts at 200 tokens, image
+10. eval: Multi30K scale (1 000 images × 5 000 texts at 200 tokens, image
    batch 50, text batch 256): embed + streaming ranks + Recall@K; the ranks
    must equal a dense count over the same block products; wall time and
    pairs/s.
@@ -107,18 +128,39 @@ BF16_K = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_LIBS = ("fused_cross_attention", "flash_tower_attention",
-               "flash_chunked_attention")
+               "flash_chunked_attention", "fused_infonce")
 COUNTERS = ("fwd_launches", "bwd_launches", "chunk_fwd_launches",
             "chunk_bwd_launches")  # kernels 2, 3, 4, 5
-# Launches of kernels (2, 3, 4, 5) in one train step.  Flagship: 12 ViT-B/32
-# blocks at 145 tokens (single-block) and 12 mBERT layers at 64 tokens, a
-# forward each for the texts and for the captions, a backward for the texts.
-# Slice: 24 ViT-L/14 blocks at 577 tokens (chunked) and 24 XLM-R layers at
-# 64 tokens (single-block); with remat every block that takes a gradient
-# runs its forward once more (its recompute).
-FLAGSHIP_STEP_LAUNCHES = (36, 24, 0, 0)
-SLICE_STEP_LAUNCHES = {True: (72, 24, 48, 24),  # remat on
-                       False: (48, 24, 24, 24)}  # remat off
+INFONCE_COUNTERS = ("stats_launches", "dq_launches",
+                    "dk_launches")  # kernels 9, 10, 11
+STEP_COUNTERS = COUNTERS + INFONCE_COUNTERS
+# Launches of kernels (2, 3, 4, 5, 9, 10, 11) in one train step.  Flagship:
+# 12 ViT-B/32 blocks at 145 tokens (single-block) and 12 mBERT layers at 64
+# tokens, a forward each for the texts and for the captions, a backward for
+# the texts.  Slice: 24 ViT-L/14 blocks at 577 tokens (chunked) and 24 XLM-R
+# layers at 64 tokens (single-block); with remat every block that takes a
+# gradient runs its forward once more (its recompute).  Large batch: the
+# flagship's 36 forwards in each of GradCache's two forward passes over 16
+# microbatches and its 24 backwards once per microbatch; each InfoNCE kernel
+# twice (one launch per direction) for each of the 3 ITC losses.
+FLAGSHIP_STEP_LAUNCHES = (36, 24, 0, 0, 0, 0, 0)
+SLICE_STEP_LAUNCHES = {True: (72, 24, 48, 24, 0, 0, 0),  # remat on
+                       False: (48, 24, 24, 24, 0, 0, 0)}  # remat off
+LARGE_BATCH = 4096
+LARGE_MICROBATCHES = 16
+LARGE_STREAM_ROWS = 256
+LARGE_STEP_LAUNCHES = (1152, 384, 0, 0, 6, 6, 6)
+# (name, M, N, ids) of kernels 9-11's checks, E = 256: the large-batch
+# step's [4096] x [4096] (idx = arange), the same with every id twice, a
+# ragged size, a ring block of the multi-device loss (256 q rows against
+# 32 768 keys) and the scale config's 32 768 negatives on one card
+INFONCE_SHAPES = [("path", LARGE_BATCH, LARGE_BATCH, "arange"),
+                  ("dup", LARGE_BATCH, LARGE_BATCH, "half"),
+                  ("ragged", 1000, 1000, "ragged"),
+                  ("ring", 256, 32768, "ring"),
+                  ("32k", 32768, 32768, "arange")]
+INFONCE_DIM = 256
+INFONCE_INV_TEMP = 1.0 / 0.07
 WORDS = ("a man woman dog child rides walks runs red blue green bike street "
          "field beach ball water in on the with his her two people").split()
 
@@ -526,19 +568,243 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
     return results
 
 
-def flash_counts():
-    """Launches of kernels 2, 3, 4 and 5 so far."""
+def infonce_ids(kind: str, m: int, n: int, device):
+    """(idx_q, idx_k) of an INFONCE_SHAPES case: "arange" (every row its
+    own id), "half" (every id twice), "ragged" (every id three times),
+    "ring" (q's ids a strided subset of k's, every 8th q row with no
+    positive at all)."""
+    import torch
+
+    def ar(r):
+        return torch.arange(r, device=device)
+
+    if kind == "half":
+        return ar(m) // 2, ar(n) // 2
+    if kind == "ragged":
+        return ar(m) // 3, ar(n) // 3
+    if kind == "ring":
+        idx_q = ar(m) * (n // m)
+        idx_q[::8] = -1 - ar(m)[::8]
+        return idx_q, ar(n)
+    return ar(m), ar(n)
+
+
+def infonce_errors(stats, want, grads, want_grads):
+    """Kernels 9-11 against their plain versions: lse and pos_sum as
+    max |Δ| / max(1, |plain|), pos_cnt as max |Δ|, dq_raw and dk_raw as
+    max |Δ| / max |plain|; under "abs" the max absolute errors."""
+    errs, absolute = {}, {}
+    for name, got, ref in zip(("lse", "pos_sum", "pos_cnt", "dq", "dk"),
+                              (*stats, *grads), (*want, *want_grads)):
+        diff = (got.float() - ref.float()).abs()
+        absolute[name] = diff.max().item()
+        if name in ("lse", "pos_sum"):
+            errs[name] = (diff / ref.abs().clamp_min(1.0)).max().item()
+        elif name == "pos_cnt":
+            errs[name] = absolute[name]
+        else:
+            errs[name] = absolute[name] / ref.abs().max().item()
+    return {**errs, "abs": absolute}
+
+
+def infonce_phase(iters: int = 20):
+    """Kernels 9, 10 and 11 against their plain versions at INFONCE_SHAPES
+    (E = 256, unit-norm rows, inv_temp 1/0.07 as a device tensor; the
+    backward kernels take the plain lse and pos_cnt).  Tolerance: lse and
+    pos_sum within 1e-5 of max(1, |x|), pos_cnt exact, dq_raw and dk_raw
+    within 1e-4 of their largest element.  Each kernel, its plain version
+    and the dense composition the port does not call (q kᵀ, logsumexp and
+    the masked sums; for the backward the autograd of that dense half loss,
+    which gives dq and dk together) are timed with the L2 flushed, beside
+    the bound: flops at the f32 rate against the bytes in and out."""
+    import torch
+    import torch.nn.functional as F
+
+    from leccr_torch.ops import infonce
+
+    flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    e = INFONCE_DIM
+    results = []
+    for name, m, n, ids in INFONCE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(m + n)
+        q, k = (F.normalize(torch.randn(r, e, device="cuda", generator=g),
+                            dim=-1) for r in (m, n))
+        iq, ik = infonce_ids(ids, m, n, "cuda")
+        invt = torch.tensor(INFONCE_INV_TEMP, device="cuda")
+        args = (q, k, iq, ik, invt)
+        stats = infonce.infonce_stats(*args)
+        want = infonce.infonce_stats_reference(*args)
+        lse, pc = want[0], want[2]
+        grads = (infonce.infonce_bwd_dq(*args, lse, pc),
+                 infonce.infonce_bwd_dk(*args, lse, pc))
+        want_grads = (infonce.infonce_bwd_dq_reference(*args, lse, pc),
+                      infonce.infonce_bwd_dk_reference(*args, lse, pc))
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(t).all() for t in (*stats, *grads)):
+            raise AssertionError(f"non-finite InfoNCE kernel output {name}")
+        errs = infonce_errors(stats, want, grads, want_grads)
+        if not (errs["pos_cnt"] == 0 and errs["lse"] <= 1e-5
+                and errs["pos_sum"] <= 1e-5 and errs["dq"] <= 1e-4
+                and errs["dk"] <= 1e-4):
+            raise AssertionError(f"InfoNCE kernels disagree with their "
+                                 f"plain versions at {name}: {errs}")
+        del stats, want, grads, want_grads
+        qg, kg = (t.detach().requires_grad_(True) for t in (q, k))
+
+        def dense_stats():
+            logits = (q @ k.T) * invt
+            pos = iq[:, None] == ik[None, :]
+            return (torch.logsumexp(logits, 1),
+                    torch.where(pos, logits, 0.0).sum(1), pos.sum(1))
+
+        def dense_half_loss_fwd_bwd():
+            logits = (qg @ kg.T) * invt
+            pos = iq[:, None] == ik[None, :]
+            loss = (torch.logsumexp(logits, 1)
+                    - torch.where(pos, logits, 0.0).sum(1)
+                    / pos.sum(1).clamp_min(1)).mean()
+            torch.autograd.grad(loss, (qg, kg))
+
+        it = 3 if m * n > 2 ** 27 else iters
+        composition_bwd = cuda_ms(dense_half_loss_fwd_bwd, flush, it)
+        row = {"shape": name, "m": m, "n": n, "e": e, "ids": ids,
+               "errors": errs,
+               "tolerance": "lse, pos_sum: |Δ| <= 1e-5 max(1, |x|); "
+                            "pos_cnt exact; dq_raw, dk_raw: |Δ| <= 1e-4 "
+                            "max |x|"}
+        id_bytes = 4 * (m + n)  # the int32 ids the kernels read
+        in_bytes = 4 * (m + n) * e + id_bytes + 4
+        for kernel, fn, plain, flops, n_bytes, comp in (
+                ("stats", lambda: infonce.infonce_stats(*args),
+                 lambda: infonce.infonce_stats_reference(*args),
+                 2 * m * n * e, in_bytes + 3 * 4 * m,
+                 cuda_ms(dense_stats, flush, it)),
+                ("dq", lambda: infonce.infonce_bwd_dq(*args, lse, pc),
+                 lambda: infonce.infonce_bwd_dq_reference(*args, lse, pc),
+                 4 * m * n * e, in_bytes + 8 * m + 4 * m * e,
+                 composition_bwd),
+                ("dk", lambda: infonce.infonce_bwd_dk(*args, lse, pc),
+                 lambda: infonce.infonce_bwd_dk_reference(*args, lse, pc),
+                 4 * m * n * e, in_bytes + 8 * m + 4 * n * e,
+                 composition_bwd)):
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+            row[kernel] = {
+                "ms": cuda_ms(fn, flush, it),
+                "plain_ms": cuda_ms(plain, flush, it),
+                "composition_ms": comp, "flops": flops, "bytes": n_bytes,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row["composition"] = (
+            "stats: (q @ k.T) * inv_temp, torch.logsumexp and the masked "
+            "sums; dq, dk: forward + autograd of that dense half loss (one "
+            "direction of soft_label_contrastive_loss), both together")
+        results.append(row)
+        emit("infonce_vs_plain", **row)
+        del q, k, qg, kg, lse, pc
+        torch.cuda.empty_cache()
+    return results
+
+
+def loss_phase(cfg, batch: int = LARGE_BATCH, iters: int = 5, seed: int = 0):
+    """compute_losses forward + backward of grad_total on `batch` random
+    embeddings at the flagship's widths, in the two ways a step can take
+    them: the fused InfoNCE (kernels 9-11) with the dstl and caption-vision
+    losses streamed in LARGE_STREAM_ROWS-row blocks, and the dense gather
+    losses.  Device ms (events around each synchronised call), peak memory
+    beyond the inputs; the 10 loss keys agree within 1e-4 of max(1, |x|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from leccr_torch.models.clip import CLIP_VARIANTS
+    from leccr_torch.models.leccr import TrainEmbeddings
+    from leccr_torch.models.losses import LOSS_KEYS, compute_losses
+    from leccr_torch.ops.infonce import infonce_loss
+    from leccr_torch.train.step import grad_total
+
+    mc = cfg.model
+    dv, nq, e = (CLIP_VARIANTS[mc.vision.variant].embed_dim, mc.num_queries,
+                 mc.embed_dim)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    fields = {"image_feat": F.normalize(rand(batch, e), dim=-1),
+              "text_feat_s": F.normalize(rand(batch, e), dim=-1),
+              "text_feat_t": F.normalize(rand(batch, e), dim=-1),
+              "slots": rand(batch, nq, e) * 0.1,
+              "ori_slots": rand(batch, nq, dv),
+              "cv_caption_mean": rand(batch, dv) * 0.05,
+              "cv_vision_mean": rand(batch, dv) * 0.05,
+              "temp": torch.tensor(mc.temp, device="cuda")}
+    idx = torch.arange(batch, device="cuda")
+    modes = {"fused_streaming": (infonce_loss, LARGE_STREAM_ROWS),
+             "dense": (None, 0)}
+    out, values = {}, {}
+    for mode, (itc, rows) in modes.items():
+        def run():
+            leaves = {n: t.detach().requires_grad_(True)
+                      for n, t in fields.items()}
+            losses = compute_losses(
+                TrainEmbeddings(**leaves), idx,
+                weight_caption_loss=mc.weight_caption_loss,
+                weight_reg_loss=mc.weight_reg_loss,
+                weight_dstl_loss=mc.weight_dstl_loss,
+                weight_cv_loss=mc.weight_cv_loss, dstl_alpha=mc.dstl_alpha,
+                itc_loss_fn=itc, stream_block_rows=rows)
+            grad_total(losses, mc).backward()
+            return losses
+
+        losses = run()
+        torch.cuda.synchronize()
+        values[mode] = {k: losses[k].item() for k in LOSS_KEYS}
+        del losses
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(iters):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        out[mode] = {"ms": sum(ms) / iters, "ms_min": min(ms),
+                     "peak_mem_gb": (torch.cuda.max_memory_allocated()
+                                     - base) / 1e9}
+    err = max(abs(values["fused_streaming"][k] - values["dense"][k])
+              / max(1.0, abs(values["dense"][k])) for k in LOSS_KEYS)
+    if not err <= 1e-4:
+        raise AssertionError(f"fused + streaming losses differ from the "
+                             f"dense ones by {err}")
+    emit("loss_fwd_bwd", batch=batch, embed_dim=e,
+         stream_rows=LARGE_STREAM_ROWS, iters=iters, max_rel_loss_err=err, tolerance="1e-4 max(1, |x|)",
+         total=values["dense"]["total"], **out)
+    return out
+
+
+def step_counts():
+    """Launches of the training kernels (2, 3, 4, 5, 9, 10, 11) so far."""
+    from leccr_torch.ops import infonce
     from leccr_torch.ops.flash_attention import flash_tower_attention
 
-    return tuple(getattr(flash_tower_attention, c) for c in COUNTERS)
+    return (tuple(getattr(flash_tower_attention, c) for c in COUNTERS)
+            + tuple(getattr(infonce, c) for c in INFONCE_COUNTERS))
 
 
 def reset_counts() -> None:
+    from leccr_torch.ops import infonce
     from leccr_torch.ops.flash_attention import flash_tower_attention
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
 
     for c in COUNTERS:
         setattr(flash_tower_attention, c, 0)
+    for c in INFONCE_COUNTERS:
+        setattr(infonce, c, 0)
     fused_cross_attention.launches = 0
 
 
@@ -571,17 +837,29 @@ def train_batch(cfg, batch: int, width: int, seed: int):
     return out
 
 
+def set_options(cfg, options) -> None:
+    """Set dotted config options ({"parallel.negatives": "fused", ...})."""
+    for key, value in options.items():
+        node = cfg
+        *path, last = key.split(".")
+        for part in path:
+            node = getattr(node, part)
+        setattr(node, last, value)
+
+
 def train_grad_check_phase(cfg, modes, phase: str = "train_grad_check",
-                           seed: int = 0, n: int = 4, width: int = 64):
+                           seed: int = 0, n: int = 4, width: int = 64,
+                           loss_tol=None):
     """The full-width model in f32, dropouts at 0: grad_total's gradients
     of one step in each of `modes` ({name: (fused, remat, dtype, launches
-    of kernels 2-5 the step must make)}), held to
+    of kernels 2-5 and 9-11 the step must make[, config options])}), held to
     the "plain" mode's (fused attention off, remat off) with the floored
     measure below ≤ 1e-3; with a "kernel_remat" mode, it and "kernel"
     (remat off) agree within 1e-6; with an "f64" mode (the plain path in
     f64; LayerNorm statistics, softmax and the losses stay f32 there: the
     port computes them in f32) the distance of each f32 mode from it is
-    reported."""
+    reported.  With `loss_tol`, every loss key of each "kernel" mode is
+    within loss_tol · max(1, |plain's|) of the plain mode's."""
     import copy
 
     import torch
@@ -590,9 +868,10 @@ def train_grad_check_phase(cfg, modes, phase: str = "train_grad_check",
     from leccr_torch.ops.attention import set_compute_dtype
     from leccr_torch.train.step import make_train_step
 
-    grads, launches, kernel_losses = {}, {}, None
-    for mode, (fused, remat, dtype, want) in modes.items():
+    grads, launches, losses = {}, {}, {}
+    for mode, (fused, remat, dtype, want, *options) in modes.items():
         tcfg = copy.deepcopy(cfg)
+        set_options(tcfg, options[0] if options else {})
         mc = tcfg.model
         mc.dtype = "float32"
         mc.remat = remat
@@ -604,17 +883,15 @@ def train_grad_check_phase(cfg, modes, phase: str = "train_grad_check",
             model.double()
             set_compute_dtype(model, torch.float64)
         step = make_train_step(tcfg, model, total_steps=10000)
-        before = flash_counts()
-        losses = step(train_batch(cfg, n, width, seed + 3), 0)
+        before = step_counts()
+        losses[mode] = step(train_batch(cfg, n, width, seed + 3), 0)
         torch.cuda.synchronize()
-        launches[mode] = tuple(a - b for a, b in zip(flash_counts(), before))
+        launches[mode] = tuple(a - b for a, b in zip(step_counts(), before))
         if launches[mode] != want:
-            raise AssertionError(f"{mode}: flash launches {launches[mode]}, "
+            raise AssertionError(f"{mode}: kernel launches {launches[mode]}, "
                                  f"want {want}")
         grads[mode] = {name: p.grad.detach().clone()
                        for name, p in model.named_parameters()}
-        if mode == "kernel":
-            kernel_losses = losses
         del model, step
         torch.cuda.empty_cache()
     # relative to the parameter's largest gradient, floored at 1e-4 of the
@@ -645,19 +922,28 @@ def train_grad_check_phase(cfg, modes, phase: str = "train_grad_check",
             raise AssertionError(f"{check}: gradients differ at {name}: "
                                  f"{rel[name]} > {tol}")
     extra = {}
+    if loss_tol is not None:
+        plain = losses["plain"]
+        extra["max_rel_loss_err"] = {m: max(
+            abs(losses[m][key] - plain[key]) / max(1.0, abs(plain[key]))
+            for key in plain) for m in modes if m.startswith("kernel")}
+        extra["loss_tolerance"] = loss_tol
+        if max(extra["max_rel_loss_err"].values()) > loss_tol:
+            raise AssertionError(f"losses differ: {extra['max_rel_loss_err']}"
+                                 f" > {loss_tol}")
     if "f64" in modes:
         extra["max_rel_grad_err_vs_f64"] = {
             m: max(rel_errs(m, "f64").values()) for m in modes if m != "f64"}
     first = worst[next(iter(worst))]
     emit(phase, dtype="float32", examples=n, tokens=width,
-         flash_launches={m: dict(zip(COUNTERS, c))
-                         for m, c in launches.items()},
+         launches={m: dict(zip(STEP_COUNTERS, c))
+                   for m, c in launches.items()},
          params_checked=len(grads["plain"]),
          max_rel_grad_err=first["max_rel_grad_err"],
          worst_param=first["worst_param"], checks=worst, **extra,
          tolerance="max |Δg| / max(max |g|, 1e-4 · the model's largest "
                    "|g|), per parameter",
-         total=kernel_losses["total"])
+         total=losses["kernel"]["total"])
     del grads
 
 
@@ -666,7 +952,8 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
                      steps: int = 5, seed: int = 0):
     """A train step at bf16 compute with f32 master weights (bench.py:
     279-370's inputs): warm-up steps, then timed steps, then one profiled
-    step.  Each step must launch kernels 2-5 exactly `per_step` times.
+    step.  Each step must launch kernels 2-5 and 9-11 exactly `per_step`
+    times.
     Returns the flash launches of the warm-up and timed steps."""
     import torch
 
@@ -692,11 +979,11 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
         history.append(step(data, i))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_counts()
+    launches = step_counts()
     want = tuple(n * (warmup + steps) for n in per_step)
     if launches != want:
-        raise AssertionError(f"train steps launched {launches} flash "
-                             f"kernels, want {want} ({per_step} a step)")
+        raise AssertionError(f"train steps launched kernels {launches}, "
+                             f"want {want} ({per_step} a step)")
     if not all(math.isfinite(v) for losses in history
                for v in losses.values()):
         raise AssertionError(f"non-finite losses {history}")
@@ -711,8 +998,8 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
          warmup_s=warm_s, ms_per_step=wall / steps * 1e3,
          pairs_per_s=batch * steps / wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         flash_launches=dict(zip(COUNTERS, launches)),
-         flash_launches_per_step=dict(zip(COUNTERS, per_step)),
+         launches=dict(zip(STEP_COUNTERS, launches)),
+         launches_per_step=dict(zip(STEP_COUNTERS, per_step)),
          params=sum(p.numel() for p in model.parameters()),
          losses_first=history[0], losses_last=history[-1])
     del start
@@ -727,7 +1014,8 @@ def profile_step(step, data, step_no: int, step_ms: float,
                  phase: str = "train_step_profile", top: int = 12) -> None:
     """One more train step under torch.profiler: device time by kernel, the
     flash kernels' share (kernels 2-5; the chunked ones 4/5 also alone),
-    and the device's busy share of an unprofiled step (`step_ms`)."""
+    the InfoNCE kernels' (9-11) and the device's busy share of an
+    unprofiled step (`step_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -747,11 +1035,13 @@ def profile_step(step, data, step_no: int, step_ms: float,
                    if match(e.key)) / 1e3
 
     # kernels 4/5 (scalar and tensor-core variants) are ::chunk_*; kernels
-    # 2/3 are ::fwd_kernel<, ::bwd_dq_kernel<, ::bwd_dkv_kernel<
+    # 2/3 are ::fwd_kernel<, ::bwd_dq_kernel<, ::bwd_dkv_kernel<; kernels
+    # 9-11 are ::infonce_*
     chunk_ms = ms_of(lambda k: "::chunk_" in k)
     flash_ms = chunk_ms + ms_of(lambda k: any(
         n in k for n in ("::fwd_kernel<", "::bwd_dq_kernel<",
                          "::bwd_dkv_kernel<")))
+    infonce_ms = ms_of(lambda k: "::infonce_" in k)
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
@@ -761,6 +1051,7 @@ def profile_step(step, data, step_no: int, step_ms: float,
          flash_share_of_device=flash_ms / device_ms,
          chunked_flash_ms=chunk_ms,
          chunked_share_of_device=chunk_ms / device_ms,
+         infonce_ms=infonce_ms, infonce_share_of_device=infonce_ms / device_ms,
          top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                "calls": e.count} for e in rows])
 
@@ -774,6 +1065,32 @@ def slice_config():
     cfg = load_config(str(ROOT / "configs" / "scale_vitl_32k.yaml"))
     cfg.model.vision.fused_attention = cfg.model.text.fused_attention = True
     cfg.parallel.data = cfg.parallel.model = 1
+    return cfg
+
+
+# the large-batch slice's cuts of configs/multi30k_all.yaml (the warmup is
+# cut to 0 in train_step_phase); the gradient check takes the same path at
+# 16 examples in 4 microbatches and blocks of 8 rows
+LARGE_BATCH_OPTIONS = {"parallel.negatives": "fused",
+                       "train.batch_size_train": LARGE_BATCH,
+                       "train.grad_cache_microbatches": LARGE_MICROBATCHES,
+                       "parallel.stream_loss_block_rows": LARGE_STREAM_ROWS,
+                       "parallel.data": 1}
+LARGE_CHECK_OPTIONS = {"parallel.negatives": "fused",
+                       "train.grad_cache_microbatches": 4,
+                       "parallel.stream_loss_block_rows": 8}
+LARGE_CHECK_LAUNCHES = (36 * 4 * 2, 24 * 4, 0, 0, 6, 6, 6)
+
+
+def large_batch_config():
+    """The large-batch slice's configuration: configs/multi30k_all.yaml's
+    model at full width with `negatives: fused`, a 4096-example batch in
+    16 GradCache microbatches, the dstl and caption-vision losses streamed
+    in 256-row blocks, one card."""
+    from leccr_torch.config import load_config
+
+    cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+    set_options(cfg, LARGE_BATCH_OPTIONS)
     return cfg
 
 
@@ -868,7 +1185,7 @@ def serve_phase(cfg, n_images: int = 256, seed: int = 0):
     hits_img = emb.search_images(index, corpus, k=5)
     search_s = time.perf_counter() - t0
     launches = fused_cross_attention.launches
-    if any(flash_counts()):
+    if any(step_counts()):
         raise AssertionError("serving launched the training kernels")
 
     n_batches = math.ceil(n_images / emb.batch_size)
@@ -965,7 +1282,7 @@ def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
     img, txt, (i2t, t2i), times = run()
     wall = time.perf_counter() - t0
     launches = fused_cross_attention.launches
-    if any(flash_counts()):
+    if any(step_counts()):
         raise AssertionError("the eval launched the training kernels")
     if launches != launches_per_batch(cfg) * math.ceil(n_img / img_bs):
         raise AssertionError(f"eval launched the kernel {launches} times")
@@ -1033,10 +1350,12 @@ def main() -> int:
     shapes = kernel_phase()
     flash = flash_phase()
     chunked = chunked_phase()
+    infonce = infonce_phase()
     cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+    loss_phase(cfg)
     model_check_phase(cfg)
     f32, f64 = torch.float32, torch.float64
-    none = (0, 0, 0, 0)
+    none = (0,) * len(STEP_COUNTERS)
     train_grad_check_phase(cfg, {
         "kernel": (True, False, f32, FLAGSHIP_STEP_LAUNCHES),
         "plain": (False, False, f32, none), "f64": (False, False, f64, none)})
@@ -1044,7 +1363,14 @@ def main() -> int:
         "kernel": (True, False, f32, SLICE_STEP_LAUNCHES[False]),
         "kernel_remat": (True, True, f32, SLICE_STEP_LAUNCHES[True]),
         "plain": (False, False, f32, none)}, phase="slice_grad_check")
-    # the flagship step launches none of kernels 4/5
+    # GradCache + fused InfoNCE + streaming against the monolithic dense
+    # step, both through the flash kernels
+    train_grad_check_phase(cfg, {
+        "kernel": (True, False, f32, LARGE_CHECK_LAUNCHES,
+                   LARGE_CHECK_OPTIONS),
+        "plain": (True, False, f32, FLAGSHIP_STEP_LAUNCHES)},
+        phase="large_batch_grad_check", n=16, loss_tol=1e-5)
+    # the flagship step launches none of kernels 4/5 and 9-11
     train_launches = train_step_phase(
         load_config(str(ROOT / "configs" / "multi30k_all.yaml")), card_line,
         FLAGSHIP_STEP_LAUNCHES)
@@ -1056,6 +1382,9 @@ def main() -> int:
     train_step_phase(no_remat, card_line, SLICE_STEP_LAUNCHES[False],
                      phase="slice_train_step_no_remat", batch=32, warmup=2,
                      steps=3)
+    large_launches = train_step_phase(
+        large_batch_config(), card_line, LARGE_STEP_LAUNCHES,
+        phase="large_batch_step", batch=LARGE_BATCH, warmup=1, steps=2)
     emb, serve_launches = serve_phase(cfg)
     eval_launches = eval_phase(emb, card_line)
 
@@ -1069,7 +1398,8 @@ def main() -> int:
     per_step = {"vision": vision_layers, "text": text_layers,
                 "caption": text_layers}
 
-    def flash_entry(name, line, direction, launches, slice_launches, errs):
+    def flash_entry(name, line, direction, launches, slice_launches,
+                    large_launches, errs):
         rows = [r for r in flash if r["direction"] == direction
                 and r["dtype"] == "bfloat16" and r["shape"] in per_step]
 
@@ -1082,6 +1412,7 @@ def main() -> int:
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
             "launches": launches,
             "launches_slice_step": slice_launches,
+            "launches_large_batch_step": large_launches,
             "max_abs_err": max(r["max_abs_err"][e] for r in flash
                                if r["direction"] == direction for e in errs),
             "check": "ok",
@@ -1117,6 +1448,33 @@ def main() -> int:
             "shapes": [x for x in chunked if x["direction"] == direction],
         }
 
+    def infonce_entry(name, line, kernel, launches, errs):
+        r = next(r for r in infonce if r["shape"] == "path")
+        per_step = LARGE_STEP_LAUNCHES[STEP_COUNTERS.index(
+            f"{kernel}_launches")]
+        return {
+            "name": name, "route": "cuda",
+            "source": "leccr_torch/csrc/fused_infonce.cu",
+            "replaces": f"leccr_tpu/ops/infonce.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(x["errors"]["abs"][e] for x in infonce
+                               for e in errs),
+            "check": "ok",
+            "timed_as": (f"f32, the launches of one large-batch step: "
+                         f"{per_step}x [{r['m']},{r['e']}] x [{r['n']},"
+                         f"{r['e']}], L2 flushed"),
+            **{key: per_step * r[kernel][key]
+               for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": r[kernel]["bound_by"],
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "composition_ms": per_step * r[kernel]["composition_ms"],
+            "composition": r["composition"],
+            "shapes": [{"shape": x["shape"], "m": x["m"], "n": x["n"],
+                        "ids": x["ids"], "errors": x["errors"], **x[kernel]}
+                       for x in infonce],
+        }
+
     print(json.dumps({"kernels": [{
         "name": "fused_cross_attention",
         "route": "cuda",
@@ -1137,15 +1495,22 @@ def main() -> int:
         "library_ms": path_sum("library_ms"),
         "shapes": shapes,
     }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
-                   slice_launches[0], ("out", "lse")),
+                   slice_launches[0], large_launches[0], ("out", "lse")),
         flash_entry("flash_tower_attention_bwd", 110, "bwd",
-                    train_launches[1], slice_launches[1], ("dq", "dk", "dv")),
+                    train_launches[1], slice_launches[1], large_launches[1],
+                    ("dq", "dk", "dv")),
         chunk_entry("flash_chunked_attention_fwd", 429, "fwd",
                     slice_launches[2], SLICE_STEP_LAUNCHES[True][2],
                     ("out", "lse")),
         chunk_entry("flash_chunked_attention_bwd", 478, "bwd",
                     slice_launches[3], SLICE_STEP_LAUNCHES[True][3],
                     ("dq", "dk", "dv")),
+        infonce_entry("infonce_stats", 86, "stats", large_launches[4],
+                      ("lse", "pos_sum", "pos_cnt")),
+        infonce_entry("infonce_bwd_dq", 202, "dq", large_launches[5],
+                      ("dq",)),
+        infonce_entry("infonce_bwd_dk", 229, "dk", large_launches[6],
+                      ("dk",)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

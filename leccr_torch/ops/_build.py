@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+from concurrent.futures import ThreadPoolExecutor
 import shutil
 import subprocess
 import time
@@ -82,11 +83,13 @@ def _finish(job) -> None:
 def build(*names: str) -> None:
     """Compile each csrc/<name>.cu into the build directory unless the
     library for that exact source is already there; the nvcc processes run
-    side by side."""
+    side by side, each waited for on its own thread, so that its recorded
+    seconds end when it does."""
     jobs = [job for job in map(_start, names) if job is not None]
     try:
-        for job in jobs:
-            _finish(job)
+        if jobs:
+            with ThreadPoolExecutor(len(jobs)) as pool:
+                list(pool.map(_finish, jobs))
     finally:
         for job in jobs:  # leave no compiler running if one failed
             if job[3].poll() is None:

@@ -1,6 +1,6 @@
 """One training step on one device: the port of the train step of
-`leccr_tpu/train/trainer.py` (`_make_train_step`, without GradCache, EMA or
-a mesh).
+`leccr_tpu/train/trainer.py` (`_make_train_step` with `_grad_cache_grads`,
+without the EMA or a mesh).
 
     step = make_train_step(cfg, model, total_steps)
     losses = step(batch, step_no)   # dict of the 10 loss keys, as floats
@@ -13,31 +13,52 @@ JAX trainer; with num_blocks = 1 it equals `total`), clips by global norm
 when `train.grad_clip` > 0, and takes one optimizer and one scheduler step.
 The losses are read back from the device once, as one tensor.
 
-`parallel.negatives`: on one device (num_blocks = 1) `ring` and
-`ring_fused` are the dense losses, as in the JAX trainer, whose ring
-applies only across blocks (trainer.py:342-359); `ring` sets the streaming
-rows to 256 when the config leaves them at 0.  `fused` (the fused InfoNCE
-kernels) raises until that slice is ported.
+`train.grad_cache_microbatches` = m > 1 takes the gradient by GradCache
+(`grad_cache_backward`): the loss sees the whole batch as negatives while
+the towers hold one microbatch's activations at a time.
+
+`parallel.negatives`: `fused` routes the three ITC losses through the
+fused InfoNCE kernels 9-11 (`ops.infonce.infonce_loss`; the [B, B] logits
+never exist).  On one device (num_blocks = 1) `ring` and `ring_fused` are
+the dense losses, as in the JAX trainer, whose ring applies only across
+blocks (trainer.py:342-359); `ring` sets the streaming rows to 256 when the
+config leaves them at 0.  `parallel.stream_loss_block_rows` streams dstl
+and the caption-vision loss in row blocks when it divides a larger batch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
 from leccr_torch.config import LECCRConfig, ModelConfig
 from leccr_torch.data.images import preprocess_train_images
-from leccr_torch.models.leccr import LECCRModel
+from leccr_torch.models.leccr import LECCRModel, TrainEmbeddings
 from leccr_torch.models.losses import LOSS_KEYS, compute_losses
 from leccr_torch.ops.dropout import Generators
+from leccr_torch.ops.infonce import infonce_loss
 from leccr_torch.train.optim import build_optimizer, clip_by_global_norm
 from leccr_torch.train.schedule import linear_warmup_decay
+
+_U64 = 2 ** 64 - 1
 
 
 def step_generators(seed: int, step_no: int, device) -> Generators:
     """The random streams of step `step_no` of a run seeded with `seed`."""
     return Generators.from_seed((seed << 32) + step_no, device)
+
+
+def microbatch_generators(seed: int, step_no: int, k: int,
+                          device) -> Generators:
+    """The random streams of microbatch `k` of step `step_no` under
+    GradCache: one stream per microbatch, as the JAX trainer folds k into
+    the step's keys (trainer.py:385-390)."""
+    if not 0 <= k < 0xFFFF:
+        raise ValueError(f"microbatch {k} out of range")
+    return Generators.from_seed(
+        ((((seed << 32) + step_no) << 16) + k + 1) & _U64, device)
 
 
 def grad_total(losses: Dict[str, torch.Tensor], mc: ModelConfig,
@@ -52,6 +73,73 @@ def grad_total(losses: Dict[str, torch.Tensor], mc: ModelConfig,
                 + losses["raw_cv"])
     local = losses["loss_itc_c"] + losses["loss_reg_c"]
     return gathered / num_blocks + local
+
+
+def grad_cache_backward(
+    model: LECCRModel,
+    batch: Dict[str, torch.Tensor],
+    gens: List[Generators],
+    objective: Callable[[TrainEmbeddings],
+                        Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
+    randaugment_n: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """GradCache (Gao et al., arXiv 2101.06983; `_grad_cache_grads`,
+    trainer.py:58-120): the exact gradient of `objective` over the whole
+    batch, holding one microbatch's tower activations at a time.
+
+    batch: the model's inputs plus "flip" (optional), cut into
+    len(gens) = m equal microbatches; microbatch k draws from gens[k].
+    objective(emb) -> (scalar to differentiate, losses) on the whole
+    batch's embeddings.  Three passes:
+
+      1. forward each microbatch without a graph (training mode, dropout
+         on) and concatenate the 8 TrainEmbeddings fields; temp is the
+         same in every microbatch;
+      2. differentiate the objective on the concatenated fields alone
+         (no tower is involved): their cotangents;
+      3. forward each microbatch again with a graph and back-propagate its
+         slice of the cotangents (temp's divided by m: every microbatch's
+         forward reads the same temp), accumulating into the parameters'
+         `.grad`.
+
+    Pass 3 must draw exactly the dropout bits and flash seeds pass 1 drew,
+    or the gradient is of other masks and nothing reports it: each
+    microbatch's generators are set back to their state before pass 1.
+    Returns the losses of pass 2."""
+    m = len(gens)
+    b = next(iter(batch.values())).shape[0]
+    if b % m:
+        raise ValueError(f"batch {b} does not split into {m} microbatches")
+    rows = [slice(k * (b // m), (k + 1) * (b // m)) for k in range(m)]
+    flip = batch.get("flip")
+    inputs = {key: v for key, v in batch.items() if key != "flip"}
+
+    def forward(k: int) -> TrainEmbeddings:
+        mb = {key: v[rows[k]] for key, v in inputs.items()}
+        mb["vision"] = preprocess_train_images(
+            mb["vision"], None if flip is None else flip[rows[k]],
+            randaugment_n)
+        return model(mb, gens[k])
+
+    states = [g.get_state() for g in gens]
+    with torch.no_grad():
+        embs = [forward(k) for k in range(m)]
+    names = [f.name for f in dataclasses.fields(TrainEmbeddings)]
+    fields = {n: (embs[0].temp if n == "temp"
+                  else torch.cat([getattr(e, n) for e in embs]))
+              .detach().requires_grad_(True) for n in names}
+    del embs
+    value, losses = objective(TrainEmbeddings(**fields))
+    value.backward()
+    cots = {n: f.grad for n, f in fields.items() if f.grad is not None}
+    del fields
+    for k in range(m):
+        gens[k].set_state(states[k])
+        emb = forward(k)
+        pairs = [(getattr(emb, n), g / m if n == "temp" else g[rows[k]])
+                 for n, g in cots.items() if getattr(emb, n).requires_grad]
+        torch.autograd.backward([t for t, _ in pairs], [g for _, g in pairs])
+    return {key: v.detach() for key, v in losses.items()}
 
 
 def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
@@ -69,21 +157,19 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
     tc, mc = cfg.train, cfg.model
     negatives = cfg.parallel.negatives
     stream_rows = cfg.parallel.stream_loss_block_rows
-    if negatives == "fused":
-        raise NotImplementedError(
-            "negatives: fused (the fused InfoNCE kernels 9-11, "
-            "leccr_tpu/ops/infonce.py) comes with a later slice of the port")
-    if negatives not in ("gather", "ring", "ring_fused"):
+    if negatives not in ("gather", "fused", "ring", "ring_fused"):
         raise ValueError(f"unknown negatives: {negatives!r}")
-    if negatives != "gather" and num_blocks > 1:
+    if negatives in ("ring", "ring_fused") and num_blocks > 1:
         raise NotImplementedError(
             f"negatives: {negatives} over {num_blocks} blocks (the ring "
             "InfoNCE) comes with the multi-device slice of the port")
     if negatives == "ring" and stream_rows == 0:
         stream_rows = 256  # the JAX trainer's default (trainer.py:344-345)
-    if tc.grad_cache_microbatches > 1 or tc.ema_decay > 0:
-        raise NotImplementedError(
-            "GradCache and the EMA come with the trainer slice of the port")
+    itc_loss_fn = infonce_loss if negatives == "fused" else None
+    if tc.ema_decay > 0:
+        raise NotImplementedError("the EMA comes with the trainer slice of "
+                                  "the port")
+    microbatches = tc.grad_cache_microbatches
     schedule = linear_warmup_decay(tc.optimizer.lr, total_steps,
                                    tc.schedular.num_warmup_steps)
     optimizer, scheduler = build_optimizer(
@@ -92,17 +178,10 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
         frozen_paths=("clip_text_tower",))
     params = list(model.parameters())
     randaugment_n = cfg.data.randaugment_n if cfg.data.randaugment else 0
+    seed = tc.seed + 17
     model.train()
 
-    def step(batch: Dict[str, torch.Tensor], step_no: int
-             ) -> Dict[str, float]:
-        gens = step_generators(tc.seed + 17, step_no, model.device)
-        batch = dict(batch)
-        idx = batch.pop("idx")
-        batch["vision"] = preprocess_train_images(
-            batch["vision"], batch.pop("flip", None), randaugment_n)
-        optimizer.zero_grad(set_to_none=True)
-        emb = model(batch, gens)
+    def objective(emb: TrainEmbeddings, idx: torch.Tensor):
         b = idx.shape[0]
         losses = compute_losses(
             emb, idx,
@@ -112,9 +191,28 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
             weight_cv_loss=mc.weight_cv_loss,
             dstl_alpha=mc.dstl_alpha,
             num_blocks=num_blocks,
+            itc_loss_fn=itc_loss_fn,
             stream_block_rows=(stream_rows if 0 < stream_rows < b
                                and b % stream_rows == 0 else 0))
-        grad_total(losses, mc, num_blocks).backward()
+        return grad_total(losses, mc, num_blocks), losses
+
+    def step(batch: Dict[str, torch.Tensor], step_no: int
+             ) -> Dict[str, float]:
+        batch = dict(batch)
+        idx = batch.pop("idx")
+        optimizer.zero_grad(set_to_none=True)
+        if microbatches > 1:
+            gens = [microbatch_generators(seed, step_no, k, model.device)
+                    for k in range(microbatches)]
+            losses = grad_cache_backward(
+                model, batch, gens, lambda emb: objective(emb, idx),
+                randaugment_n)
+        else:
+            batch["vision"] = preprocess_train_images(
+                batch["vision"], batch.pop("flip", None), randaugment_n)
+            emb = model(batch, step_generators(seed, step_no, model.device))
+            value, losses = objective(emb, idx)
+            value.backward()
         for p in params:  # optax decays a param whose gradient is zero
             if p.grad is None:
                 p.grad = torch.zeros_like(p)

@@ -2,8 +2,9 @@
 
 The fused cross-attention kernel (eval), the single-block flash
 tower-attention kernels 2/3 and the chunked kernels 4/5 (training, forward
-and backward) against their plain versions on the card, and the launch
-counters that show a path went through them.
+and backward), and the fused InfoNCE kernels 9-11 against their plain
+versions on the card, and the launch counters that show a path went
+through them.
 
 They import neither JAX nor the JAX package, so they also run where JAX is
 not installed:
@@ -14,7 +15,14 @@ not installed:
 import pytest
 import torch
 
-from chip_smoke import BF16_K, bf16_k_needed, flash_term_scales
+from chip_smoke import (
+    BF16_K,
+    bf16_k_needed,
+    flash_term_scales,
+    infonce_errors,
+    infonce_ids,
+)
+from leccr_torch.ops import infonce
 from leccr_torch.ops.flash_attention import (
     flash_chunked_attention_bwd,
     flash_chunked_attention_bwd_reference,
@@ -185,3 +193,68 @@ def test_flash_launch_counters():
     long = torch.zeros(1, 2, 4096, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="6–8"):
         flash_tower_attention(long, long, long, None, 0, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,ids", [(1000, 1000, "ragged"),
+                                     (256, 32768, "ring")])
+def test_infonce_kernels_match_plain_versions(m, n, ids):
+    """Kernels 9, 10 and 11 against their plain versions at E = 256,
+    inv_temp 1/0.07 (a device tensor): a ragged [1000] x [1000] with
+    duplicated ids, and a ring block [256] x [32768] whose q ids are a
+    subset of k's with some rows that have no positive.  lse and pos_sum
+    within 1e-5 of max(1, |x|), pos_cnt exact, dq_raw and dk_raw within
+    1e-4 of their largest element; one launch each."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    q, k = (torch.nn.functional.normalize(
+        torch.randn(r, 256, device="cuda", generator=g), dim=-1)
+        for r in (m, n))
+    idx_q, idx_k = infonce_ids(ids, m, n, "cuda")
+    invt = torch.tensor(1.0 / 0.07, device="cuda")
+    before = (infonce.stats_launches, infonce.dq_launches,
+              infonce.dk_launches)
+    stats = infonce.infonce_stats(q, k, idx_q, idx_k, invt)
+    grads = infonce.infonce_bwd_raw(q, k, idx_q, idx_k, invt, stats[0],
+                                    stats[2])
+    assert (infonce.stats_launches, infonce.dq_launches,
+            infonce.dk_launches) == tuple(b + 1 for b in before)
+    want = infonce.infonce_stats_reference(q, k, idx_q, idx_k, invt)
+    want_grads = (infonce.infonce_bwd_dq_reference(
+        q, k, idx_q, idx_k, invt, stats[0], stats[2]),
+        infonce.infonce_bwd_dk_reference(q, k, idx_q, idx_k, invt, stats[0],
+                                         stats[2]))
+    torch.cuda.synchronize()
+    errs = infonce_errors(stats, want, grads, want_grads)
+    assert errs["pos_cnt"] == 0
+    assert errs["lse"] <= 1e-5 and errs["pos_sum"] <= 1e-5, errs
+    assert errs["dq"] <= 1e-4 and errs["dk"] <= 1e-4, errs
+    if ids == "ring":
+        assert (stats[2] == 0).any() and (stats[2] == 1).any()
+
+
+@pytest.mark.cuda
+def test_infonce_loss_gradients_through_kernels():
+    """infonce_loss on the card (kernels 9-11, two launches of each: one
+    per direction) against the same loss on the CPU (the plain versions):
+    value within 1e-5 of max(1, |loss|), the gradients in a, b and temp
+    within 1e-4 of their largest element."""
+    _needs_card()
+    g = torch.Generator().manual_seed(5)
+    a, b = (torch.nn.functional.normalize(torch.randn(700, 256, generator=g),
+                                          dim=-1) for _ in range(2))
+    idx = torch.randint(0, 300, (700,), generator=g)
+    temp = torch.tensor(0.07)
+    results = {}
+    for device in ("cpu", "cuda"):
+        leaves = [t.to(device).requires_grad_(True) for t in (a, b, temp)]
+        before = infonce.stats_launches
+        loss = infonce.infonce_loss(*leaves, idx.to(device))
+        results[device] = (loss.detach().cpu(), [
+            x.cpu() for x in torch.autograd.grad(loss, leaves)])
+        assert infonce.stats_launches - before == (2 if device == "cuda"
+                                                   else 0)
+    (loss, grads), (want, want_grads) = results["cuda"], results["cpu"]
+    assert (loss - want).abs().item() <= 1e-5 * max(1.0, want.abs().item())
+    for got, ref in zip(grads, want_grads):
+        assert ((got - ref).abs().max() <= 1e-4 * ref.abs().max()).item()

@@ -2,7 +2,10 @@
 against the JAX package on CPU, in f32.
 
 Losses: each function and all 10 `compute_losses` keys on the same inputs
-(duplicated idx, num_blocks 1 and 2), atol 1e-6.  The training forward's
+(duplicated idx, num_blocks 1 and 2), atol 1e-6; the streaming dstl and
+caption-vision losses (B = 12 in blocks of 4), values and gradients,
+against JAX's and the port's dense ones, and `compute_losses` with the fused
+InfoNCE and streaming against JAX's, atol 1e-6.  The training forward's
 `TrainEmbeddings` at the same params with every dropout at 0, for both
 `cv_normalize_dim` values, atol 1e-5.  Dropout: statistics (no two
 frameworks share a random stream).
@@ -23,10 +26,12 @@ from leccr_torch.models.leccr import LECCRModel as TorchLECCR
 from leccr_torch.models.leccr import TrainEmbeddings as TorchEmb
 from leccr_torch.models.weights import load_jax_params
 from leccr_torch.ops.dropout import Generators, lean_dropout
+from leccr_torch.ops.infonce import infonce_loss
 from leccr_tpu.config import tiny_test_config
 from leccr_tpu.data.images import preprocess_train_images as jax_preprocess
 from leccr_tpu.models import losses as ref
 from leccr_tpu.models.leccr import LECCRModel, TrainEmbeddings
+from leccr_tpu.ops.infonce import infonce_loss as jax_infonce_loss
 
 B, N, E, DV = 8, 4, 16, 24
 IDX = np.array([0, 1, 2, 0, 3, 1, 4, 2], np.int32)  # duplicated ids
@@ -138,14 +143,93 @@ def test_compute_losses_all_keys(emb, num_blocks, cv_local, weights):
         assert float(got["raw_dstl"]) == float(got["raw_cv"]) == 0.0
 
 
-def test_streaming_losses_raise(emb):
+@pytest.fixture(scope="module")
+def emb12():
+    """Loss inputs at B = 12 (three blocks of 4), duplicated ids."""
+    rs = np.random.RandomState(11)
+    b = 12
+    return {
+        "image_feat": _unit(rs.randn(b, E)).astype(np.float32),
+        "text_feat_s": _unit(rs.randn(b, E)).astype(np.float32),
+        "text_feat_t": _unit(rs.randn(b, E)).astype(np.float32),
+        "slots": rs.randn(b, N, E).astype(np.float32),
+        "ori_slots": rs.randn(b, N, DV).astype(np.float32),
+        "cv_caption_mean": rs.randn(b, DV).astype(np.float32) * 0.3,
+        "cv_vision_mean": rs.randn(b, DV).astype(np.float32) * 0.3,
+        "temp": np.float32(0.07),
+        "idx": np.array([0, 1, 2, 0, 3, 1, 4, 5, 6, 2, 7, 8], np.int32),
+    }
+
+
+def _value_and_grads(fn, tensors):
+    """fn's value and its gradient in each tensor (zeros where none
+    reaches it)."""
+    leaves = [t.clone().requires_grad_(True) for t in tensors]
+    value = fn(*leaves)
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    return value.detach(), [torch.zeros_like(t) if g is None else g
+                            for t, g in zip(leaves, grads)]
+
+
+def _check_streaming(emb12, keys, port_stream, port_dense, jax_stream):
+    j, t = _both(emb12, keys)
+    idx_t = torch.from_numpy(emb12["idx"])
+    idx_j = jnp.asarray(emb12["idx"])
+    got, got_g = _value_and_grads(lambda *x: port_stream(*x, idx_t), t)
+    dense, dense_g = _value_and_grads(lambda *x: port_dense(*x, idx_t), t)
+    want, want_g = jax.value_and_grad(
+        lambda *x: jax_stream(*x, idx_j), argnums=tuple(range(len(j))))(*j)
+    for value, grads in ((want, want_g), (dense, dense_g)):
+        _close(got, value)
+        for g, w in zip(got_g, grads):
+            _close(g, w)
+
+
+def test_dstl_loss_blockwise(emb12):
+    """Rows in 3 blocks of 4; the source texts and slots reach the loss only
+    through the detached labels, so their gradients are 0 on all sides."""
+    _check_streaming(
+        emb12, ("image_feat", "slots", "text_feat_s", "text_feat_t"),
+        lambda i, s, ts, tt, idx: port.dstl_loss_blockwise(i, s, ts, tt, 0.8,
+                                                           4),
+        lambda i, s, ts, tt, idx: port.dstl_loss(i, s, ts, tt, 0.8),
+        lambda i, s, ts, tt, idx: ref.dstl_loss_blockwise(i, s, ts, tt, 0.8,
+                                                          4))
+
+
+def test_caption_vision_loss_blockwise(emb12):
+    _check_streaming(
+        emb12, ("cv_caption_mean", "cv_vision_mean"),
+        lambda c, v, idx: port.caption_vision_loss_blockwise(c, v, idx, 4),
+        lambda c, v, idx: port.caption_vision_loss(c, v, idx),
+        lambda c, v, idx: ref.caption_vision_loss_blockwise(c, v, idx, 4))
+
+
+def test_blockwise_losses_refuse_ragged_blocks(emb12):
+    _, t = _both(emb12, ("cv_caption_mean", "cv_vision_mean"))
+    with pytest.raises(ValueError, match="blocks of 5"):
+        port.caption_vision_loss_blockwise(*t, torch.from_numpy(
+            emb12["idx"]), 5)
+
+
+@pytest.mark.parametrize("cv_local", [False, True])
+def test_compute_losses_fused_and_streaming(emb12, cv_local):
+    """The 10 keys with the fused InfoNCE and 4 streaming rows against JAX's
+    compute_losses with its infonce_loss and the same streaming; the video
+    semantics (cv_loss_local) keep the caption-vision loss dense."""
     keys = [f.name for f in dataclasses.fields(TrainEmbeddings)]
-    _, t = _both(emb, keys)
-    with pytest.raises(NotImplementedError, match="scale path"):
-        port.compute_losses(TorchEmb(*t), torch.from_numpy(IDX),
-                            weight_caption_loss=0.01, weight_reg_loss=0.01,
-                            weight_dstl_loss=0.5, weight_cv_loss=0.01,
-                            stream_block_rows=4)
+    j, t = _both(emb12, keys)
+    kw = dict(weight_caption_loss=0.01, weight_reg_loss=0.01,
+              weight_dstl_loss=0.5, weight_cv_loss=0.01, dstl_alpha=0.8,
+              num_blocks=2 if cv_local else 1, cv_loss_local=cv_local,
+              stream_block_rows=4)
+    want = ref.compute_losses(TrainEmbeddings(*j), jnp.asarray(emb12["idx"]),
+                              itc_loss_fn=jax_infonce_loss, **kw)
+    got = port.compute_losses(TorchEmb(*t), torch.from_numpy(emb12["idx"]),
+                              itc_loss_fn=infonce_loss, **kw)
+    assert set(got) == set(want) == set(port.LOSS_KEYS)
+    for key in port.LOSS_KEYS:
+        _close(got[key], want[key])
 
 
 def test_preprocess_train_images_matches_jax():

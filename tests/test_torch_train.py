@@ -304,14 +304,11 @@ def test_params_to_jax_round_trip():
         torch.testing.assert_close(sd[name], value, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("override", [
-    {"parallel.negatives": "fused"},
-    {"train.grad_cache_microbatches": 2},
-    {"train.ema_decay": 0.999}])
+@pytest.mark.parametrize("override", [{"train.ema_decay": 0.999}])
 def test_unported_train_options_raise(override):
-    """`negatives: fused` (the fused InfoNCE kernels), GradCache and the
-    EMA are later slices; `ring` and `ring_fused` train on one device
-    (tests/test_torch_scale_step.py)."""
+    """The EMA is a later slice; `negatives: fused` and GradCache train on
+    one device (tests/test_torch_large_batch_step.py), as do `ring` and
+    `ring_fused` (tests/test_torch_scale_step.py)."""
     cfg = torch_tiny_config(**override)
     model = TorchLECCR(cfg.model, device="cpu")
     with pytest.raises(NotImplementedError):
