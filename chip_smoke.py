@@ -29,13 +29,28 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    out and lse atol 1e-5, grads 1e-4; bf16 lse 1e-5 and every other
    element within 1e-5 + BF16_K bf16 ulps of the sum of the absolute
    values of its terms (see flash_term_scales).  Timed like phase 2, with
-   SDPA at rate 0 (forward, and forward + backward) as the yardstick.
+   SDPA at rate 0 (forward, and the backward alone of a saved forward) as
+   the yardstick.
 4. kernels 4/5 vs plain: the chunked flash forward and backward against
    their plain versions at ViT-L/14 @336's [32,16,577,64] (rate 0, no
    padding) and a 200-token text batch [64,16,200,64] (key padding, a
    fully padded row: out 0, lse -inf, zero gradients; dropout 0.1), bf16
    and f32, with phase 3's tolerances (the term sums under the chunked
    rules) and timing.
+4b. kernels 6/7/8 vs plain (`tiled_phase`): the tiled flash forward, dq
+   and dk/dv kernels against their plain versions at TILED_SHAPES: the
+   high-resolution step's ViT-L/14 @728 as the step calls them,
+   [8,16,2705,64] bf16 at rate 0, the same at batch 2 with dropout 0.1,
+   and with key padding and a fully padded row, [2,16,1601,64]
+   f32 (ViT-L/14 @560, tiled in f32 only) and [2,12,2705,64] bf16 (head
+   group 6), with phase 4's tolerances (the term sums under the tiled head
+   group; delta within 1e-5 of max(1, |delta|) of rowsum(g·out) from the
+   kernel's own output); the dropout masks each
+   kernel applies, read back bit for bit (`tiled_masks`), equal the plain
+   hash.  Each kernel timed per launch at [8,16,2705,64] bf16 beside its
+   bound, its plain version, SDPA (forward; the backward alone for 7 + 8
+   together, on kernel 7's row) and the chunked kernels 4/5 forced onto the
+   same shape (kernel 5 likewise once, for 7 + 8).
 5. kernels 9-11 vs plain: the fused InfoNCE statistics, dq and dk
    kernels against their plain versions at E = 256, inv_temp 1/0.07, at
    INFONCE_SHAPES: the large-batch step's [4096] x [4096] (idx = arange),
@@ -59,7 +74,11 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    kernels 2/3 against the plain attention (4 examples), with the plain
    path in f64 beside it.  (b) The long-sequence slice (configs/
    scale_vitl_32k.yaml's ViT-L/14 @336 + XLM-R-large) through kernels 2-5
-   with remat off and on; remat on and off agree within 1e-6.  (c) The
+   with remat off and on; remat on and off agree within 1e-6.  (b') The
+   high-resolution slice (the same at 728², 2705 vision tokens, 2
+   examples) through kernels 2, 3 and 6-8 with remat off and on against
+   the plain attention (recomputed per block, to hold one layer's scores
+   at a time), remat on = off within 1e-6 (HIRES_STEP_LAUNCHES).  (c) The
    large-batch path: GradCache (4 microbatches) + fused InfoNCE + 8-row
    streaming against the monolithic dense step, 16 examples, both through
    kernels 2/3; the 10 loss keys within 1e-5 of max(1, |x|).
@@ -74,7 +93,11 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    steps; finite losses, every parameter moved; ms/step, pairs/s, peak
    memory; then one step under torch.profiler (device time by kernel,
    busy share).  (c) The slice step again with remat off (2 warm-up and 3
-   timed steps, then a profiled one): what remat costs.  (d) The
+   timed steps, then a profiled one): what remat costs.  (c') The
+   high-resolution step (hires_config: the slice at 728², bs8, remat; 2
+   warm-up and 3 timed steps, then a profiled one with kernels 6-8's share
+   of device time): 48, 24 and 24 launches of kernels 6, 7 and 8 and the
+   slice's 72/24 of kernels 2/3 a step, none of 4/5.  (d) The
    large-batch step (large_batch_config: the flagship at bs4096 in 16
    GradCache microbatches, fused negatives, 256-row streaming losses): 1
    warm-up and 2 timed steps, then a profiled one; 1152 and 384 launches
@@ -123,33 +146,57 @@ FLASH_SHAPES = [("vision", 128, 12, 145, 0.0, False, True),
 # batch at the 200-token bucket (past fits_vmem at 16 heads)
 CHUNKED_SHAPES = [("vit-l", 32, 16, 577, 0.0, False),
                   ("text200", 64, 16, 200, 0.1, True)]
+# (name, B, H, L, dtype, dropout rate, key padding) of kernels 6-8's
+# checks: the high-resolution step's ViT-L/14 @728 (2705 tokens, past
+# fits_chunked in bf16) exactly as the step calls them (bs8, no dropout: the
+# CLIP tower has none), the same at batch 2 with dropout, and with key
+# padding and a fully padded row, ViT-L/14 @560 in f32 (1601 tokens: tiled
+# in f32 only) and 12 heads (head group 6; the chunked group is 2)
+HIRES_RES = 728
+HIRES_TOKENS = (HIRES_RES // 14) ** 2 + 1  # 52 x 52 patches + CLS = 2705
+HIRES_BATCH = 8
+TILED_SHAPES = [("vit-l@728-step", HIRES_BATCH, 16, HIRES_TOKENS, "bfloat16",
+                 0.0, False),
+                ("vit-l@728", 2, 16, HIRES_TOKENS, "bfloat16", 0.1, False),
+                ("vit-l@728-padded", 2, 16, HIRES_TOKENS, "bfloat16", 0.1,
+                 True),
+                ("vit-l@560-f32", 2, 16, 1601, "float32", 0.0, False),
+                ("h12", 2, 12, HIRES_TOKENS, "bfloat16", 0.1, False)]
+TILED_TIMED = (HIRES_BATCH, 16, HIRES_TOKENS)  # bf16, rate 0: the step's ViT
 FLASH_ITERS = 20
 BF16_K = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_LIBS = ("fused_cross_attention", "flash_tower_attention",
-               "flash_chunked_attention", "fused_infonce")
+               "flash_chunked_attention", "flash_tiled_attention",
+               "fused_infonce")
 COUNTERS = ("fwd_launches", "bwd_launches", "chunk_fwd_launches",
-            "chunk_bwd_launches")  # kernels 2, 3, 4, 5
+            "chunk_bwd_launches", "tiled_fwd_launches", "tiled_dq_launches",
+            "tiled_dkv_launches")  # kernels 2, 3, 4, 5, 6, 7, 8
 INFONCE_COUNTERS = ("stats_launches", "dq_launches",
                     "dk_launches")  # kernels 9, 10, 11
 STEP_COUNTERS = COUNTERS + INFONCE_COUNTERS
-# Launches of kernels (2, 3, 4, 5, 9, 10, 11) in one train step.  Flagship:
-# 12 ViT-B/32 blocks at 145 tokens (single-block) and 12 mBERT layers at 64
-# tokens, a forward each for the texts and for the captions, a backward for
-# the texts.  Slice: 24 ViT-L/14 blocks at 577 tokens (chunked) and 24 XLM-R
-# layers at 64 tokens (single-block); with remat every block that takes a
-# gradient runs its forward once more (its recompute).  Large batch: the
-# flagship's 36 forwards in each of GradCache's two forward passes over 16
-# microbatches and its 24 backwards once per microbatch; each InfoNCE kernel
-# twice (one launch per direction) for each of the 3 ITC losses.
-FLAGSHIP_STEP_LAUNCHES = (36, 24, 0, 0, 0, 0, 0)
-SLICE_STEP_LAUNCHES = {True: (72, 24, 48, 24, 0, 0, 0),  # remat on
-                       False: (48, 24, 24, 24, 0, 0, 0)}  # remat off
+# Launches of kernels (2, 3, 4, 5, 6, 7, 8, 9, 10, 11) in one train step.
+# Flagship: 12 ViT-B/32 blocks at 145 tokens (single-block) and 12 mBERT
+# layers at 64 tokens, a forward each for the texts and for the captions, a
+# backward for the texts.  Slice: 24 ViT-L/14 blocks at 577 tokens (chunked)
+# and 24 XLM-R layers at 64 tokens (single-block); with remat every block
+# that takes a gradient runs its forward once more (its recompute).
+# High-resolution: the slice's text launches, the 24 ViT-L/14 blocks at 2705
+# tokens tiled (a forward, its recompute, one dq and one dk/dv launch a
+# block).  Large batch: the flagship's 36 forwards in each of GradCache's
+# two forward passes over 16 microbatches and its 24 backwards once per
+# microbatch; each InfoNCE kernel twice (one launch per direction) for each
+# of the 3 ITC losses.
+FLAGSHIP_STEP_LAUNCHES = (36, 24, 0, 0, 0, 0, 0, 0, 0, 0)
+SLICE_STEP_LAUNCHES = {True: (72, 24, 48, 24, 0, 0, 0, 0, 0, 0),  # remat on
+                       False: (48, 24, 24, 24, 0, 0, 0, 0, 0, 0)}  # off
+HIRES_STEP_LAUNCHES = {True: (72, 24, 0, 0, 48, 24, 24, 0, 0, 0),
+                       False: (48, 24, 0, 0, 24, 24, 24, 0, 0, 0)}
 LARGE_BATCH = 4096
 LARGE_MICROBATCHES = 16
 LARGE_STREAM_ROWS = 256
-LARGE_STEP_LAUNCHES = (1152, 384, 0, 0, 6, 6, 6)
+LARGE_STEP_LAUNCHES = (1152, 384, 0, 0, 0, 0, 0, 6, 6, 6)
 # (name, M, N, ids) of kernels 9-11's checks, E = 256: the large-batch
 # step's [4096] x [4096] (idx = arange), the same with every id twice, a
 # ragged size, a ring block of the multi-device loss (256 q rows against
@@ -276,7 +323,22 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
     return results
 
 
-def flash_term_scales(q, k, v, pad, lse, grad, seed, rate, out=None):
+def sdpa_backward(q, k, v, grad, attend=None):
+    """A call that runs F.scaled_dot_product_attention's backward alone:
+    one forward is saved and its backward replayed (fresh dq, dk, dv each
+    call, nothing accumulated), the yardstick of the kernels that compute
+    dq, dk and dv from a saved forward."""
+    import torch
+    import torch.nn.functional as F
+
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, attend)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), grad,
+                                       retain_graph=True)
+
+
+def flash_term_scales(q, k, v, pad, lse, grad, seed, rate, out=None,
+                      hg=None):
     """Per output element of kernels 2 and 3, the sum of the absolute
     values of the terms it adds up (|p|·|v| for out, |pd|ᵀ|g| for dv,
     |ds|·|k| for dq, |ds|ᵀ|q| for dk), from the plain formulas.  The
@@ -290,7 +352,8 @@ def flash_term_scales(q, k, v, pad, lse, grad, seed, rate, out=None):
     dropout mask, delta = rowsum(g·out)).  Their forward rounds the
     unnormalised p̃ = p·e^(lse−m) of each key tile, scaled back by the same
     factor, so a flipped rounding moves a term by about one ulp of p·|v|:
-    the out sum stays |p|·|v|."""
+    the out sum stays |p|·|v|.  Kernels 6-8 follow the same rules with the
+    tiled head group: `hg` is passed to the tile mask."""
     import torch
 
     from leccr_torch.ops.flash_attention import keep_mask, tile_keep_mask
@@ -306,8 +369,11 @@ def flash_term_scales(q, k, v, pad, lse, grad, seed, rate, out=None):
     if chunked:
         p = torch.where(torch.isfinite(s) & torch.isfinite(lse)[..., None],
                         p, 0.0)
-    mask = tile_keep_mask if chunked else keep_mask
-    keep = mask(seed, *p.shape, rate, device=p.device) if rate else 1.0
+    keep = 1.0
+    if rate and chunked:
+        keep = tile_keep_mask(seed, *p.shape, rate, device=p.device, hg=hg)
+    elif rate:
+        keep = keep_mask(seed, *p.shape, rate, device=p.device)
     pd = (p * keep).to(dt).float().abs()
     dp = gf @ vf.transpose(-1, -2) * keep
     delta = ((gf * out.float()).sum(-1, keepdim=True) if chunked
@@ -398,27 +464,20 @@ def flash_phase(dh: int = 64, seed: int = 1234):
                      "bwd": 10 * batch * heads * length * length * dh}
             dname = str(dtype).split(".")[-1]
             attend = None if pad is None else ~pad[:, None, None, :]
-            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-            def sdpa_fwd_bwd():
-                F.scaled_dot_product_attention(qg, kg, vg, attend).backward(
-                    grad)
-
             times = {
                 "fwd": (lambda: flash_tower_attention_fwd(
                             q, k, v, pad, seed, rate),
                         lambda: flash_tower_attention_fwd_reference(
                             q, k, v, pad, seed, rate),
                         lambda: F.scaled_dot_product_attention(
-                            q, k, v, attend)),
-                "bwd": (lambda: flash_tower_attention_bwd(
-                            q, k, v, pad, lse, grad, seed, rate),
-                        lambda: flash_tower_attention_bwd_reference(
-                            q, k, v, pad, lse, grad, seed, rate),
-                        sdpa_fwd_bwd),
-            }
-            if not backward:
-                del times["bwd"]
+                            q, k, v, attend))}
+            if backward:
+                times["bwd"] = (
+                    lambda: flash_tower_attention_bwd(
+                        q, k, v, pad, lse, grad, seed, rate),
+                    lambda: flash_tower_attention_bwd_reference(
+                        q, k, v, pad, lse, grad, seed, rate),
+                    sdpa_backward(q, k, v, grad, attend))
             for direction, (kernel, plain, library) in times.items():
                 t_bytes = n_bytes[direction] / HBM_BYTES_PER_S * 1e3
                 t_ops = flops[direction] / PEAK_FLOPS[dname] * 1e3
@@ -431,13 +490,13 @@ def flash_phase(dh: int = 64, seed: int = 1234):
                     "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
                     "library_ms": cuda_ms(library, flush, FLASH_ITERS),
                     "library": ("F.scaled_dot_product_attention, rate 0"
-                                + (" (forward + backward)"
+                                + (" (backward alone, of a saved forward)"
                                    if direction == "bwd" else "")),
                     "bytes": n_bytes[direction], "flops": flops[direction],
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
                 emit("flash_vs_plain", **results[-1])
-            del q, k, v, grad, qg, kg, vg
+            del q, k, v, grad, times
     return results
 
 
@@ -526,12 +585,6 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                      "bwd": 10 * batch * heads * length * length * dh}
             dname = str(dtype).split(".")[-1]
             attend = None if pad is None else ~pad[:, None, None, :]
-            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-
-            def sdpa_fwd_bwd():
-                F.scaled_dot_product_attention(qg, kg, vg, attend).backward(
-                    grad)
-
             times = {
                 "fwd": (lambda: flash_chunked_attention_fwd(
                             q, k, v, pad, seed, rate),
@@ -543,7 +596,7 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                             q, k, v, pad, out, lse, grad, seed, rate),
                         lambda: flash_chunked_attention_bwd_reference(
                             q, k, v, pad, out, lse, grad, seed, rate),
-                        sdpa_fwd_bwd),
+                        sdpa_backward(q, k, v, grad, attend)),
             }
             for direction, (kernel, plain, library) in times.items():
                 t_bytes = n_bytes[direction] / HBM_BYTES_PER_S * 1e3
@@ -557,15 +610,270 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                     "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
                     "library_ms": cuda_ms(library, flush, FLASH_ITERS),
                     "library": ("F.scaled_dot_product_attention, rate 0"
-                                + (" (forward + backward)"
+                                + (" (backward alone, of a saved forward)"
                                    if direction == "bwd" else "")),
                     "bytes": n_bytes[direction], "flops": flops[direction],
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
                 emit("chunked_vs_plain", **results[-1])
-            del q, k, v, grad, qg, kg, vg, out, lse, want_out, want_grads
+            del q, k, v, grad, times, out, lse, want_out, want_grads
             torch.cuda.empty_cache()
     return results
+
+
+def tiled_inputs(batch, heads, length, dtype, masked, seed, dh=64):
+    """q, k, v, d(out) in the path's layout ([B, L, H, Dh] storage seen as
+    [B, H, L, Dh]) and, with `masked`, a key padding mask with one fully
+    padded row (example 0)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, grad = (torch.randn(batch, length, heads, dh, device="cuda",
+                                 generator=g).to(dtype).transpose(1, 2)
+                     for _ in range(4))
+    pad = None
+    if masked:
+        pad = torch.rand(batch, length, device="cuda", generator=g) < 0.3
+        pad[0] = True
+        pad[1] = False
+    return q, k, v, grad, pad
+
+
+def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
+    """The dropout masks that kernels 6, 7 and 8 apply, read back bit for
+    bit ([B, H, Lq, Lk] bool, True = kept), one 64-key (or 64-query) block
+    per launch.  With q = k = 0 every score is 0 and p = 1/L, so with v the
+    identity on block [c, c + 64) kernel 6's out[i, d] is nonzero exactly
+    where (i, c + d) is kept; kernel 7 with k = v = that identity, g = 1
+    and out = 0 (delta 0) gives dq[i, d] = ds[i, c + d], and kernel 8 with
+    g the identity on query block c gives dv[j, d] = pd[c + d, j]."""
+    import torch
+
+    from leccr_torch.ops.flash_attention import (
+        flash_tiled_attention_dkv,
+        flash_tiled_attention_dq,
+        flash_tiled_attention_fwd,
+    )
+
+    shape = (batch, length, heads, dh)
+
+    def layout(t):
+        return t.transpose(1, 2)
+
+    zeros = layout(torch.zeros(shape, dtype=dtype, device="cuda"))
+    ones = layout(torch.ones(shape, dtype=dtype, device="cuda"))
+    _, lse = flash_tiled_attention_fwd(zeros, zeros, zeros, None, seed, rate)
+    delta = torch.zeros_like(lse)
+    masks = [torch.empty((batch, heads, length, length), dtype=torch.bool,
+                         device="cuda") for _ in range(3)]
+    eye = torch.eye(dh, dtype=dtype, device="cuda")
+    for c in range(0, length, dh):
+        n = min(dh, length - c)
+        block = torch.zeros(shape, dtype=dtype, device="cuda")
+        block[:, c:c + n] = eye[:n][None, :, None, :]
+        block = layout(block)
+        out, _ = flash_tiled_attention_fwd(zeros, zeros, block, None, seed,
+                                           rate)
+        masks[0][..., c:c + n] = out[..., :n] != 0
+        dq, _ = flash_tiled_attention_dq(zeros, block, block, None, zeros,
+                                         lse, ones, seed, rate)
+        masks[1][..., c:c + n] = dq[..., :n] != 0
+        _, dv = flash_tiled_attention_dkv(zeros, zeros, zeros, None, lse,
+                                          delta, block, seed, rate)
+        masks[2][:, :, c:c + n, :] = (dv[..., :n] != 0).transpose(-1, -2)
+    return masks
+
+
+def tiled_phase(dh: int = 64, seed: int = 1234):
+    """Kernels 6, 7 and 8 against their plain versions at TILED_SHAPES (out,
+    lse, dq, delta, dk, dv; the masks each kernel applies bit for bit
+    against the plain hash at head_group(H)), then each timed per launch at
+    the high-resolution step's [8, 16, 2705, 64] bf16 beside its bound, its
+    plain version, SDPA and the chunked kernels 4/5 forced onto the same
+    shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from leccr_torch.ops.flash_attention import (
+        chunk_head_group,
+        flash_chunked_attention_bwd,
+        flash_chunked_attention_fwd,
+        flash_tiled_attention_dkv,
+        flash_tiled_attention_dkv_reference,
+        flash_tiled_attention_dq,
+        flash_tiled_attention_dq_reference,
+        flash_tiled_attention_fwd,
+        flash_tiled_attention_fwd_reference,
+        head_group,
+        regime,
+        tile_keep_mask,
+    )
+
+    checks = []
+    for name, batch, heads, length, dname, rate, masked in TILED_SHAPES:
+        dtype = getattr(torch, dname)
+        q, k, v, grad, pad = tiled_inputs(batch, heads, length, dtype,
+                                          masked, seed + length)
+        if regime(q, k) != "tiled":
+            raise AssertionError(f"{name} does not dispatch to the tiled "
+                                 f"kernels: {regime(q, k)}")
+        want_out, want_lse = flash_tiled_attention_fwd_reference(
+            q, k, v, pad, seed, rate)
+        want_dq, want_delta = flash_tiled_attention_dq_reference(
+            q, k, v, pad, want_out, want_lse, grad, seed, rate)
+        want_dk, want_dv = flash_tiled_attention_dkv_reference(
+            q, k, v, pad, want_lse, want_delta, grad, seed, rate)
+        out, lse = flash_tiled_attention_fwd(q, k, v, pad, seed, rate)
+        dq, delta = flash_tiled_attention_dq(q, k, v, pad, out, lse, grad,
+                                             seed, rate)
+        dk, dv = flash_tiled_attention_dkv(q, k, v, pad, lse, delta, grad,
+                                           seed, rate)
+        torch.cuda.synchronize()
+        real = torch.isfinite(want_lse)
+        if not torch.equal(torch.isfinite(lse), real):
+            raise AssertionError(f"lse is -inf on other rows {name}")
+        if masked and not ((out[0] == 0).all() and (dq[0] == 0).all()
+                           and (dk[0] == 0).all() and (dv[0] == 0).all()):
+            raise AssertionError("a fully padded row must give out 0 and "
+                                 "zero gradients")
+        # kernel 7's delta sums g·out of the kernel's own rounded output
+        own_delta = (grad.float() * out.float()).sum(dim=-1)
+        pairs = {"out": (out, want_out), "lse": (lse[real], want_lse[real]),
+                 "dq": (dq, want_dq), "delta": (delta, own_delta),
+                 "dk": (dk, want_dk), "dv": (dv, want_dv)}
+        errs = {n: (a.float() - w.float()).abs().max().item()
+                for n, (a, w) in pairs.items()}
+        if not all(torch.isfinite(a).all() for a, _ in pairs.values()):
+            raise AssertionError(f"non-finite tiled output {name}")
+        if dtype == torch.float32:
+            ok = (errs["out"] <= 1e-5 and errs["lse"] <= 1e-5
+                  and max(errs[n] for n in ("dq", "delta", "dk", "dv"))
+                  <= 1e-4)
+            tol = ("max abs err: out, lse <= 1e-5; dq, dk, dv, delta (against "
+                   "rowsum(g·out) of the kernel's out) <= 1e-4")
+            k_needed = None
+        else:
+            scales = flash_term_scales(q, k, v, pad, want_lse, grad, seed,
+                                       rate, out=want_out,
+                                       hg=head_group(heads))
+            k_needed = {n: bf16_k_needed(*pairs[n], scales[n])
+                        for n in scales}
+            del scales
+            ok = (errs["lse"] <= 1e-5
+                  and errs["delta"] <= 1e-5 * max(
+                      1.0, own_delta.abs().max().item())
+                  and max(k_needed.values()) <= BF16_K)
+            tol = (f"lse <= 1e-5, delta <= 1e-5 max(1, |delta|) against "
+                   f"rowsum(g·out) of the kernel's out; out, dq, dk, dv: "
+                   f"every element within 1e-5 + {BF16_K} bf16 ulps of the "
+                   f"sum of the absolute values of its terms (tiled rules)")
+        if not ok:
+            raise AssertionError(
+                f"tiled kernels disagree with their plain versions at "
+                f"{name} {dname}: {errs} ulps {k_needed}")
+        del q, k, v, grad, pairs, out, lse, dq, delta, dk, dv, own_delta
+        del want_out, want_lse, want_dq, want_delta, want_dk, want_dv
+        mask_check = None
+        if rate:
+            plain = tile_keep_mask(seed, batch, heads, length, length, rate,
+                                   device="cuda", hg=head_group(heads)) != 0
+            got = tiled_masks(batch, heads, length, dtype, rate, seed, dh)
+            equal = [torch.equal(m, plain) for m in got]
+            chunked = tile_keep_mask(seed, batch, heads, length, length, rate,
+                                     device="cuda",
+                                     hg=chunk_head_group(heads)) != 0
+            mask_check = {"kernels_6_7_8_equal_plain": equal,
+                          "kept_share": plain.float().mean().item(),
+                          "head_group": head_group(heads),
+                          "equals_chunked_mask": torch.equal(plain, chunked)}
+            if not all(equal):
+                raise AssertionError(f"tiled dropout masks differ from the "
+                                     f"plain hash at {name}: {equal}")
+            del plain, got, chunked
+        checks.append({"shape": name, "dtype": dname, "b": batch,
+                       "h": heads, "l": length, "dh": dh, "rate": rate,
+                       "masked": masked, "max_abs_err": errs,
+                       "bf16_ulps": k_needed, "tolerance": tol,
+                       "masks": mask_check})
+        emit("tiled_vs_plain", **checks[-1])
+        torch.cuda.empty_cache()
+
+    # per launch at the high-resolution step's ViT calls (bf16, rate 0, no
+    # padding), L2 flushed
+    batch, heads, length = TILED_TIMED
+    q, k, v, grad, _ = tiled_inputs(batch, heads, length, torch.bfloat16,
+                                    False, seed)
+    out, lse = flash_tiled_attention_fwd(q, k, v, None, seed, 0.0)
+    _, delta = flash_tiled_attention_dq(q, k, v, None, out, lse, grad, seed,
+                                        0.0)
+    flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+    flush = flush_buf.zero_
+    numel, item = q.numel(), q.element_size()
+    rows = 4 * batch * heads * length  # bytes of one [B, H, L] f32 row stat
+    flops = 2 * batch * heads * length * length * dh  # one L x L product
+    work = {  # (products, bytes: inputs read once, outputs written once)
+        "fwd": (2, 4 * numel * item + rows),          # q k v -> out, lse
+        "dq": (3, 6 * numel * item + 2 * rows),       # q k v out g -> dq
+        "dkv": (4, 6 * numel * item + 2 * rows),      # q k v g -> dk dv
+    }
+    sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                          flush, FLASH_ITERS)
+    sdpa_bwd = sdpa_backward(q, k, v, grad)
+    sdpa_bwd_ms = cuda_ms(sdpa_bwd, flush, FLASH_ITERS)
+    del sdpa_bwd
+    chunk_fwd_ms = cuda_ms(lambda: flash_chunked_attention_fwd(
+        q, k, v, None, seed, 0.0), flush, FLASH_ITERS)
+    chunk_bwd_ms = cuda_ms(lambda: flash_chunked_attention_bwd(
+        q, k, v, None, out, lse, grad, seed, 0.0), flush, FLASH_ITERS)
+    runs = {
+        "fwd": (lambda: flash_tiled_attention_fwd(q, k, v, None, seed, 0.0),
+                lambda: flash_tiled_attention_fwd_reference(
+                    q, k, v, None, seed, 0.0)),
+        "dq": (lambda: flash_tiled_attention_dq(q, k, v, None, out, lse,
+                                                grad, seed, 0.0),
+               lambda: flash_tiled_attention_dq_reference(
+                   q, k, v, None, out, lse, grad, seed, 0.0)),
+        "dkv": (lambda: flash_tiled_attention_dkv(q, k, v, None, lse, delta,
+                                                  grad, seed, 0.0),
+                lambda: flash_tiled_attention_dkv_reference(
+                    q, k, v, None, lse, delta, grad, seed, 0.0)),
+    }
+    timed = {}
+    for which, (kernel, plain) in runs.items():
+        products, n_bytes = work[which]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = products * flops / PEAK_FLOPS["bfloat16"] * 1e3
+        timed[which] = {
+            "ms": cuda_ms(kernel, flush, FLASH_ITERS),
+            "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
+            "bytes": n_bytes, "flops": products * flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # kernels 7 + 8 together do what SDPA's backward and kernel 5
+            # each do in one call: that yardstick stands once, on the dq row
+            "library_ms": {"fwd": sdpa_fwd_ms, "dq": sdpa_bwd_ms,
+                           "dkv": None}[which],
+            "library": {
+                "fwd": "F.scaled_dot_product_attention, forward",
+                "dq": ("F.scaled_dot_product_attention, backward alone of a "
+                       "saved forward (dq, dk and dv at once): the "
+                       "yardstick of kernels 7 + 8 together"),
+                "dkv": ("none alone: SDPA's backward computes dq, dk and dv "
+                        "at once and stands on flash_tiled_attention_dq's "
+                        "row")}[which],
+            "chunked_ms": {"fwd": chunk_fwd_ms, "dq": chunk_bwd_ms,
+                           "dkv": None}[which],
+            "chunked": {
+                "fwd": "kernel 4 at the same shape",
+                "dq": ("kernel 5 (its dq and dk/dv launches) at the same "
+                       "shape: the yardstick of kernels 7 + 8 together"),
+                "dkv": "on flash_tiled_attention_dq's row"}[which]}
+    timed["dq"]["pair_ms"] = timed["dq"]["ms"] + timed["dkv"]["ms"]
+    emit("tiled_timed", b=batch, h=heads, l=length, dh=dh, dtype="bfloat16",
+         rate=0.0, **timed)
+    del q, k, v, grad, out, lse, delta, flush_buf
+    torch.cuda.empty_cache()
+    return {"checks": checks, "timed": timed}
 
 
 def infonce_ids(kind: str, m: int, n: int, device):
@@ -788,7 +1096,7 @@ def loss_phase(cfg, batch: int = LARGE_BATCH, iters: int = 5, seed: int = 0):
 
 
 def step_counts():
-    """Launches of the training kernels (2, 3, 4, 5, 9, 10, 11) so far."""
+    """Launches of the training kernels (2-11) so far."""
     from leccr_torch.ops import infonce
     from leccr_torch.ops.flash_attention import flash_tower_attention
 
@@ -852,8 +1160,8 @@ def train_grad_check_phase(cfg, modes, phase: str = "train_grad_check",
                            loss_tol=None):
     """The full-width model in f32, dropouts at 0: grad_total's gradients
     of one step in each of `modes` ({name: (fused, remat, dtype, launches
-    of kernels 2-5 and 9-11 the step must make[, config options])}), held to
-    the "plain" mode's (fused attention off, remat off) with the floored
+    of kernels 2-11 the step must make[, config options])}), held to the
+    "plain" mode's (fused attention off) with the floored
     measure below ≤ 1e-3; with a "kernel_remat" mode, it and "kernel"
     (remat off) agree within 1e-6; with an "f64" mode (the plain path in
     f64; LayerNorm statistics, softmax and the losses stay f32 there: the
@@ -952,8 +1260,7 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
                      steps: int = 5, seed: int = 0):
     """A train step at bf16 compute with f32 master weights (bench.py:
     279-370's inputs): warm-up steps, then timed steps, then one profiled
-    step.  Each step must launch kernels 2-5 and 9-11 exactly `per_step`
-    times.
+    step.  Each step must launch kernels 2-11 exactly `per_step` times.
     Returns the flash launches of the warm-up and timed steps."""
     import torch
 
@@ -1013,9 +1320,9 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
 def profile_step(step, data, step_no: int, step_ms: float,
                  phase: str = "train_step_profile", top: int = 12) -> None:
     """One more train step under torch.profiler: device time by kernel, the
-    flash kernels' share (kernels 2-5; the chunked ones 4/5 also alone),
-    the InfoNCE kernels' (9-11) and the device's busy share of an
-    unprofiled step (`step_ms`)."""
+    flash kernels' share (kernels 2-8; the chunked ones 4/5 and the tiled
+    ones 6, 7, 8 also alone), the InfoNCE kernels' (9-11) and the device's
+    busy share of an unprofiled step (`step_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1034,11 +1341,14 @@ def profile_step(step, data, step_no: int, step_ms: float,
         return sum(e.self_device_time_total for e in events
                    if match(e.key)) / 1e3
 
-    # kernels 4/5 (scalar and tensor-core variants) are ::chunk_*; kernels
-    # 2/3 are ::fwd_kernel<, ::bwd_dq_kernel<, ::bwd_dkv_kernel<; kernels
-    # 9-11 are ::infonce_*
+    # kernels 4/5 (scalar and tensor-core variants) are ::chunk_*, kernels
+    # 6/7/8 ::tiled_fwd*, ::tiled_dq*, ::tiled_dkv*; kernels 2/3 are
+    # ::fwd_kernel<, ::bwd_dq_kernel<, ::bwd_dkv_kernel<; kernels 9-11 are
+    # ::infonce_*
     chunk_ms = ms_of(lambda k: "::chunk_" in k)
-    flash_ms = chunk_ms + ms_of(lambda k: any(
+    tiled_ms = {n: ms_of(lambda k, n=n: f"::tiled_{n}_" in k)
+                for n in ("fwd", "dq", "dkv")}
+    flash_ms = chunk_ms + sum(tiled_ms.values()) + ms_of(lambda k: any(
         n in k for n in ("::fwd_kernel<", "::bwd_dq_kernel<",
                          "::bwd_dkv_kernel<")))
     infonce_ms = ms_of(lambda k: "::infonce_" in k)
@@ -1051,6 +1361,9 @@ def profile_step(step, data, step_no: int, step_ms: float,
          flash_share_of_device=flash_ms / device_ms,
          chunked_flash_ms=chunk_ms,
          chunked_share_of_device=chunk_ms / device_ms,
+         tiled_flash_ms=tiled_ms,
+         tiled_share_of_device={n: t / device_ms
+                                for n, t in tiled_ms.items()},
          infonce_ms=infonce_ms, infonce_share_of_device=infonce_ms / device_ms,
          top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
                "calls": e.count} for e in rows])
@@ -1068,6 +1381,15 @@ def slice_config():
     return cfg
 
 
+def hires_config():
+    """The high-resolution slice's configuration: slice_config() with the
+    vision tower at 728² (ViT-L/14: 52 x 52 patches + CLS = 2705 tokens,
+    past fits_chunked in bf16 and f32: kernels 6-8)."""
+    cfg = slice_config()
+    cfg.model.vision.image_res = HIRES_RES
+    return cfg
+
+
 # the large-batch slice's cuts of configs/multi30k_all.yaml (the warmup is
 # cut to 0 in train_step_phase); the gradient check takes the same path at
 # 16 examples in 4 microbatches and blocks of 8 rows
@@ -1079,7 +1401,7 @@ LARGE_BATCH_OPTIONS = {"parallel.negatives": "fused",
 LARGE_CHECK_OPTIONS = {"parallel.negatives": "fused",
                        "train.grad_cache_microbatches": 4,
                        "parallel.stream_loss_block_rows": 8}
-LARGE_CHECK_LAUNCHES = (36 * 4 * 2, 24 * 4, 0, 0, 6, 6, 6)
+LARGE_CHECK_LAUNCHES = (36 * 4 * 2, 24 * 4, 0, 0, 0, 0, 0, 6, 6, 6)
 
 
 def large_batch_config():
@@ -1350,6 +1672,7 @@ def main() -> int:
     shapes = kernel_phase()
     flash = flash_phase()
     chunked = chunked_phase()
+    tiled = tiled_phase()
     infonce = infonce_phase()
     cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
     loss_phase(cfg)
@@ -1363,6 +1686,13 @@ def main() -> int:
         "kernel": (True, False, f32, SLICE_STEP_LAUNCHES[False]),
         "kernel_remat": (True, True, f32, SLICE_STEP_LAUNCHES[True]),
         "plain": (False, False, f32, none)}, phase="slice_grad_check")
+    # the high-resolution slice through kernels 6-8 (f32 at 2705 tokens is
+    # tiled); the plain path recomputes its blocks (remat) to hold one
+    # layer's [2, 16, 2705, 2705] f32 scores at a time
+    train_grad_check_phase(hires_config(), {
+        "kernel": (True, False, f32, HIRES_STEP_LAUNCHES[False]),
+        "kernel_remat": (True, True, f32, HIRES_STEP_LAUNCHES[True]),
+        "plain": (False, True, f32, none)}, phase="hires_grad_check", n=2)
     # GradCache + fused InfoNCE + streaming against the monolithic dense
     # step, both through the flash kernels
     train_grad_check_phase(cfg, {
@@ -1382,6 +1712,9 @@ def main() -> int:
     train_step_phase(no_remat, card_line, SLICE_STEP_LAUNCHES[False],
                      phase="slice_train_step_no_remat", batch=32, warmup=2,
                      steps=3)
+    hires_launches = train_step_phase(
+        hires_config(), card_line, HIRES_STEP_LAUNCHES[True],
+        phase="hires_train_step", batch=HIRES_BATCH, warmup=2, steps=3)
     large_launches = train_step_phase(
         large_batch_config(), card_line, LARGE_STEP_LAUNCHES,
         phase="large_batch_step", batch=LARGE_BATCH, warmup=1, steps=2)
@@ -1399,7 +1732,7 @@ def main() -> int:
                 "caption": text_layers}
 
     def flash_entry(name, line, direction, launches, slice_launches,
-                    large_launches, errs):
+                    hires_launches, large_launches, errs):
         rows = [r for r in flash if r["direction"] == direction
                 and r["dtype"] == "bfloat16" and r["shape"] in per_step]
 
@@ -1412,6 +1745,7 @@ def main() -> int:
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
             "launches": launches,
             "launches_slice_step": slice_launches,
+            "launches_hires_step": hires_launches,
             "launches_large_batch_step": large_launches,
             "max_abs_err": max(r["max_abs_err"][e] for r in flash
                                if r["direction"] == direction for e in errs),
@@ -1446,6 +1780,31 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": r["bound_by"], "library": r["library"],
             "shapes": [x for x in chunked if x["direction"] == direction],
+        }
+
+    def tiled_entry(name, line, which, counter):
+        r = tiled["timed"][which]
+        index = STEP_COUNTERS.index(counter)
+        per_step_n = HIRES_STEP_LAUNCHES[True][index]
+        errs = {"fwd": ("out", "lse"), "dq": ("dq", "delta"),
+                "dkv": ("dk", "dv")}[which]
+        return {
+            "name": name, "route": "cuda",
+            "source": "leccr_torch/csrc/flash_tiled_attention.cu",
+            "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
+            "launches": hires_launches[index],
+            "max_abs_err": max(c["max_abs_err"][e] for c in tiled["checks"]
+                               for e in errs),
+            "check": "ok",
+            "timed_as": (f"bf16, the launches of one high-resolution step "
+                         f"(bs{HIRES_BATCH}, remat): {per_step_n}x "
+                         f"[{HIRES_BATCH},16,{HIRES_TOKENS},64], L2 flushed"),
+            **{key: None if r.get(key) is None else per_step_n * r[key]
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                           "chunked_ms", "pair_ms")},
+            "bound_by": r["bound_by"], "library": r["library"],
+            "chunked": r["chunked"], "per_launch": r,
+            "shapes": tiled["checks"],
         }
 
     def infonce_entry(name, line, kernel, launches, errs):
@@ -1495,21 +1854,31 @@ def main() -> int:
         "library_ms": path_sum("library_ms"),
         "shapes": shapes,
     }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
-                   slice_launches[0], large_launches[0], ("out", "lse")),
+                   slice_launches[0], hires_launches[0], large_launches[0],
+                   ("out", "lse")),
         flash_entry("flash_tower_attention_bwd", 110, "bwd",
-                    train_launches[1], slice_launches[1], large_launches[1],
-                    ("dq", "dk", "dv")),
+                    train_launches[1], slice_launches[1], hires_launches[1],
+                    large_launches[1], ("dq", "dk", "dv")),
         chunk_entry("flash_chunked_attention_fwd", 429, "fwd",
                     slice_launches[2], SLICE_STEP_LAUNCHES[True][2],
                     ("out", "lse")),
         chunk_entry("flash_chunked_attention_bwd", 478, "bwd",
                     slice_launches[3], SLICE_STEP_LAUNCHES[True][3],
                     ("dq", "dk", "dv")),
-        infonce_entry("infonce_stats", 86, "stats", large_launches[4],
+        tiled_entry("flash_tiled_attention_fwd", 267, "fwd",
+                    "tiled_fwd_launches"),
+        tiled_entry("flash_tiled_attention_dq", 318, "dq",
+                    "tiled_dq_launches"),
+        tiled_entry("flash_tiled_attention_dkv", 349, "dkv",
+                    "tiled_dkv_launches"),
+        infonce_entry("infonce_stats", 86, "stats",
+                      large_launches[STEP_COUNTERS.index("stats_launches")],
                       ("lse", "pos_sum", "pos_cnt")),
-        infonce_entry("infonce_bwd_dq", 202, "dq", large_launches[5],
+        infonce_entry("infonce_bwd_dq", 202, "dq",
+                      large_launches[STEP_COUNTERS.index("dq_launches")],
                       ("dq",)),
-        infonce_entry("infonce_bwd_dk", 229, "dk", large_launches[6],
+        infonce_entry("infonce_bwd_dk", 229, "dk",
+                      large_launches[STEP_COUNTERS.index("dk_launches")],
                       ("dk",)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,220 @@
+// Tiled flash tower self-attention, forward and backward, for Hopper
+// (sm_90a): the regime past the chunked one.
+//
+// Replaces: leccr_tpu/ops/flash_attention.py `_tiled_fwd_kernel` (kernel 6,
+// :267), `_tiled_dq_kernel` (kernel 7, :318) and `_tiled_dkv_kernel` (kernel
+// 8, :349), with the per-tile dropout mask of `_tile_keep_from` at the head
+// group hg = `_head_group(H)`: the Pallas kernels `flash_tower_attention`
+// takes past `fits_chunked`, i.e. past 2560 tokens in bf16 and 1408 in f32
+// at an even head count and Dh = 64 (ViT-L/14 @728: 2705 tokens).
+//
+// What it computes, per (batch b, head h), with scale = 1/sqrt(Dh) and the
+// other side streamed in tiles of kTile = 128 (the TPU's _TILE_Q/_TILE_K):
+//   kernel 6  s_ij = (q_i . k_j) * scale in f32, -inf where mask[b, j] != 0;
+//             per key tile: m' = max(m, max_j s), alpha = exp(m - m') (0 while
+//             m = -inf), p_ij = exp(s_ij - m') (0 where s = -inf), l = l*alpha
+//             + sum_j p, then p *= keep_ij, o = o*alpha + sum_j round(p_ij) v_j;
+//             at the end out_i = round(o / l) and lse_i = m + log l, or out 0
+//             and lse -inf for a row with no key.  p is rounded to the input
+//             dtype against the running max of each 128-key tile, as on the
+//             TPU, so the key tiling is part of the result.
+//   kernel 7  delta_i = sum_d g_id out_id (f32, from the rounded output; the
+//             TPU package takes it outside the kernel), written for kernel 8;
+//             p_ij = exp(s_ij - lse_i) (0 where s or lse is -inf); dp_ij =
+//             (g_i . v_j) * keep_ij; ds_ij = round(p_ij (dp_ij - delta_i)
+//             scale); dq_i = sum_j ds_ij k_j, summed in f32, rounded once.
+//   kernel 8  the same p, dp and ds per (query, key); pd = round(p * keep);
+//             dv_j = sum_i pd_ij g_i and dk_j = sum_i ds_ij q_i, summed in
+//             f32, rounded once.
+// keep_ij in {0, 1/(1-rate)} is the JAX package's interpret-mode tile hash
+// (flash_attention.py:234-246) with hg = the largest divisor of H that is
+// <= 8 (16 heads: 8; 12: 6; 3: 3), hi = h / hg, hh = h % hg, qi = i / 128,
+// kj = j / 128: the counter hh*128^2 + (i % 128)*128 + (j % 128) plus
+// seed_b*0x9E3779B9 + hi*0x27D4EB2F + qi*0x85EBCA77 + kj*0xC2B2AE3D (uint32
+// wrap, seed_b = seed + b*0x9E3779B9), then the murmur3 finalizer; kept where
+// the hash >= uint32(rate * 2^32).  The chunked kernels hash the same way
+// with hg = 2 (or 1), so the two families' masks differ wherever the groups
+// do.  The backward kernels regenerate the mask rather than store it.
+//
+// What bounds it: at the path's [8, 16, 2705, 64] in bf16 kernel 6 does
+// 4 B H L^2 Dh = 240 GFLOP (0.242 ms at the card's 989 TFLOP/s) on 89 MB of
+// q, k, v and out (0.026 ms at 3.35 TB/s), kernel 7 6 B H L^2 Dh (0.364 ms)
+// and kernel 8 8 B H L^2 Dh (0.485 ms): all three are bound by operations.
+// Besides the products every score takes an exp (and, with dropout, the
+// hash) on the scalar units.
+//
+// The design: the TPU grid (B, H/hg, Lqp/128, Lkp/128) carries scratch along
+// its sequential last axis; blocks here run in no order, so a block owns one
+// (b, h, 128-row tile) of its side (queries for kernels 6 and 7, keys for
+// kernel 8) and loops over the other side's 128-row tiles itself.  Nothing
+// crosses blocks: no atomics, a deterministic result.  The ragged edge is
+// handled in the kernels (rows past L are never read or written, keys past
+// Lk count as padding), so nothing is padded in device memory; loads take
+// any outer strides and outputs go to [B, L, H, Dh] storage.  Two variants:
+// - bf16 at Dh = 64 with 16-byte aligned rows (every tower of the path):
+//   the tensor-core bodies of flash_tiles.cuh (mma.sync m16n8k16, a block of
+//   8 warps owning one 128-row tile, cp.async double buffering, ldmatrix);
+// - every other case: the scalar f32-FMA bodies of flash_tiles.cuh, a block
+//   of 8 warps owning 64 rows (two blocks per 128-row tile).
+// The chunked kernels 4/5 wrap the same bodies with their own head group.
+// Both stay far above the bound (PERF.md): no TMA, no wgmma.
+
+#include "flash_tiles.cuh"
+
+namespace {
+
+// ------------------------------------------------------ scalar kernels
+template <typename T, int DH>
+__global__ void __launch_bounds__(kWarps* kWarp) tiled_fwd_kernel(Params p) {
+  streamed_fwd<T, DH>(p);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kWarps* kWarp) tiled_dq_kernel(Params p) {
+  streamed_dq<T, DH>(p);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kWarps* kWarp) tiled_dkv_kernel(Params p) {
+  streamed_dkv<T, DH>(p);
+}
+
+// ------------------------------------------------- tensor-core kernels
+__global__ void __launch_bounds__(kTcWarps* kWarp)
+    tiled_fwd_tc_kernel(Params p) {
+  tc_fwd(p);
+}
+
+__global__ void __launch_bounds__(kTcWarps* kWarp)
+    tiled_dq_tc_kernel(Params p) {
+  tc_dq(p);
+}
+
+__global__ void __launch_bounds__(kTcWarps* kWarp)
+    tiled_dkv_tc_kernel(Params p) {
+  tc_dkv(p);
+}
+
+typedef void (*Kernel)(Params);
+
+// Launch `which` (0: kernel 6, 1: kernel 7, 2: kernel 8) on the grid
+// (B * H, blocks of the side it owns).
+template <typename T, int DH>
+int run(int which, const Params& p, int batch, cudaStream_t s) {
+  const int n = which == 2 ? p.lk : p.lq;
+  if (tensor_cores<T, DH>(p)) {
+    const Kernel tc[3] = {tiled_fwd_tc_kernel, tiled_dq_tc_kernel,
+                          tiled_dkv_tc_kernel};
+    return launch(tc[which],
+                  dim3(batch * p.heads, (n + kTcRows - 1) / kTcRows),
+                  kTcWarps, tc_smem_bytes(which), s, p);
+  }
+  const Kernel scalar[3] = {tiled_fwd_kernel<T, DH>, tiled_dq_kernel<T, DH>,
+                            tiled_dkv_kernel<T, DH>};
+  return launch(scalar[which], dim3(batch * p.heads, (n + kRows - 1) / kRows),
+                kWarps, smem_bytes(which, DH), s, p);
+}
+
+int dispatch(int which, int dtype, int dh, const Params& p, int batch,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return by_dim(dh, [&](auto d) {
+      return run<bf16, decltype(d)::value>(which, p, batch, s);
+    });
+  return by_dim(dh, [&](auto d) {
+    return run<float, decltype(d)::value>(which, p, batch, s);
+  });
+}
+
+}  // namespace
+
+extern "C" {
+
+// Head dims the kernels are compiled for.
+int ftl_supported_dim(int dh) {
+  return dh == 16 || dh == 32 || dh == 64 || dh == 128;
+}
+
+// Bytes of dynamic shared memory of launch `which` (0: kernel 6, 1: kernel
+// 7, 2: kernel 8) for dtype, head dim dh and vec as the launches take them.
+size_t ftl_smem_bytes(int which, int dtype, int dh, int vec) {
+  return launch_smem_bytes(which, dtype, dh, vec);
+}
+
+// Kernel 6.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).
+// strides: 12 element strides, (b, h, l) of q, k, v, out.  lse: [B, H, Lq]
+// f32 out.  hg: heads per dropout head group.  seed/threshold/keep_scale/
+// dropout: the dropout mask (see the head of this file).  vec: 1 when every
+// staged row starts 16-byte aligned and Dh spans whole 16-byte words (bf16
+// at Dh = 64 with vec takes the tensor-core kernels).  Returns
+// cudaGetLastError() after the launch (0 = success), -1 for an unsupported
+// head dim.
+int ftl_forward(const void* q, const void* k, const void* v,
+                const unsigned char* mask, void* out, float* lse, int dtype,
+                int batch, int heads, int lq, int lk, int dh, int hg,
+                const long long* strides, float scale, unsigned int seed,
+                unsigned int threshold, float keep_scale, int dropout,
+                int vec, void* stream) {
+  Params p = make_params(q, k, v, mask, lse, heads, lq, lk, hg, scale, seed,
+                         threshold, keep_scale, dropout, vec);
+  p.out = out;
+  p.sq = strides_at(strides, 0);
+  p.sk = strides_at(strides, 1);
+  p.sv = strides_at(strides, 2);
+  p.sout = strides_at(strides, 3);
+  return dispatch(0, dtype, dh, p, batch, stream);
+}
+
+// Kernel 7: delta [B, H, Lq] f32 (written) and dq.  o: the forward's output;
+// g: d(out).  strides: 18 element strides, (b, h, l) of q, k, v, o, g, dq.
+// Other arguments as ftl_forward.
+int ftl_dq(const void* q, const void* k, const void* v,
+           const unsigned char* mask, const void* o, const float* lse,
+           const void* g, void* dq, float* delta, int dtype, int batch,
+           int heads, int lq, int lk, int dh, int hg,
+           const long long* strides, float scale, unsigned int seed,
+           unsigned int threshold, float keep_scale, int dropout, int vec,
+           void* stream) {
+  Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
+                         lk, hg, scale, seed, threshold, keep_scale, dropout,
+                         vec);
+  p.o = o;
+  p.g = g;
+  p.out = dq;
+  p.delta = delta;
+  p.sq = strides_at(strides, 0);
+  p.sk = strides_at(strides, 1);
+  p.sv = strides_at(strides, 2);
+  p.so = strides_at(strides, 3);
+  p.sg = strides_at(strides, 4);
+  p.sout = strides_at(strides, 5);
+  return dispatch(1, dtype, dh, p, batch, stream);
+}
+
+// Kernel 8: dk and dv from lse and kernel 7's delta.  strides: 18 element
+// strides, (b, h, l) of q, k, v, g, dk, dv.  Other arguments as ftl_dq.
+int ftl_dkv(const void* q, const void* k, const void* v,
+            const unsigned char* mask, const float* lse, const float* delta,
+            const void* g, void* dk, void* dv, int dtype, int batch,
+            int heads, int lq, int lk, int dh, int hg,
+            const long long* strides, float scale, unsigned int seed,
+            unsigned int threshold, float keep_scale, int dropout, int vec,
+            void* stream) {
+  Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
+                         lk, hg, scale, seed, threshold, keep_scale, dropout,
+                         vec);
+  p.g = g;
+  p.dk = dk;
+  p.dv = dv;
+  p.delta = const_cast<float*>(delta);
+  p.sq = strides_at(strides, 0);
+  p.sk = strides_at(strides, 1);
+  p.sv = strides_at(strides, 2);
+  p.sg = strides_at(strides, 3);
+  p.sdk = strides_at(strides, 4);
+  p.sdv = strides_at(strides, 5);
+  return dispatch(2, dtype, dh, p, batch, stream);
+}
+
+}  // extern "C"

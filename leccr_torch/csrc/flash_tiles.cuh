@@ -1,0 +1,1130 @@
+// Shared pieces of the streamed flash-attention kernels for Hopper (sm_90a):
+// the chunked kernels 4/5 (flash_chunked_attention.cu) and the tiled kernels
+// 6-8 (flash_tiled_attention.cu).  Both families stream 128-row tiles of the
+// other side through shared memory with running state in registers; they
+// differ only in the dropout mask's head group (Params.hg).  This header
+// holds their launch parameters, the interpret-mode tile hash, the element
+// helpers, the mma.sync m16n8k16 fragment helpers, and the kernel bodies,
+// scalar (f32 FMA, any dtype and head dim) and tensor-core (bf16 at Dh =
+// 64), which each file wraps in its own __global__ functions.
+//
+// The scalar bodies, per (batch b, head h) and a block of kRows rows (8
+// warps of 8 rows, each warp carrying its rows' state across tiles in
+// registers): tiles are staged as f32, rows padded by one float so that
+// lanes walking different rows at the same feature hit different banks;
+// lanes split a tile's 128 rows for the dot products, warp shuffles give the
+// max and sums, lanes split the features for the weighted sums.  The
+// semantics (rounding points, -inf padding, the mask) are stated at the head
+// of each .cu file.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kTile = 128;        // rows of the streamed tile (TPU _CHUNK)
+constexpr int kWarps = 8;         // warps per block
+constexpr int kRowsPerWarp = 8;   // rows each warp owns
+constexpr int kRows = kWarps * kRowsPerWarp;  // rows a block owns
+constexpr int kPerLane = kTile / kWarp;       // tile rows a lane scores
+
+struct Strides {
+  long long b, h, l;  // element strides of dims 0, 1, 2; dim 3 has stride 1
+};
+
+struct Dropout {
+  unsigned int seed;       // the call's int32 seed, as uint32
+  unsigned int threshold;  // keep where hash >= threshold
+  float scale;             // 1 / (1 - rate), in f32
+  int on;                  // rate > 0
+};
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* g;              // backward: d(out)
+  const void* o;              // backward: the forward's (rounded) output
+  const unsigned char* mask;  // [B, Lk] bool, nonzero = padding; or null
+  void* out;                  // forward: out; backward: dq
+  void* dk;
+  void* dv;
+  float* lse;    // [B, H, Lq] f32
+  float* delta;  // [B, H, Lq] f32 (backward scratch)
+  Strides sq, sk, sv, sg, so, sout, sdk, sdv;
+  int heads, lq, lk, hg;  // hg: heads per dropout head group
+  float scale;
+  Dropout drop;
+  int vec;  // 1: staged rows are 16-byte aligned and span 16-byte words
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+// x rounded to T and widened back: the TPU kernel's `.astype(dtype)`.
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+// jnp.isfinite: false for +-inf and NaN.
+__device__ __forceinline__ bool finite(float x) { return fabsf(x) < INFINITY; }
+
+template <typename T>
+struct Vec {
+  static constexpr int n = 16 / sizeof(T);
+};
+
+template <typename T>
+__device__ __forceinline__ void load16(const T* src, float* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int t = 0; t < Vec<T>::n; ++t) dst[t] = to_f32(e[t]);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The dropout factor of element (b, h, i, j) in {0, scale}: the tile hash.
+__device__ __forceinline__ float tile_keep(const Dropout& d, int b, int h,
+                                           int hg, int i, int j) {
+  const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
+  const unsigned int hi = h / hg, hh = h % hg;
+  const unsigned int qi = i / kTile, kj = j / kTile;
+  unsigned int x = hh * (unsigned int)(kTile * kTile) +
+                   (unsigned int)(i % kTile) * kTile + (unsigned int)(j % kTile);
+  x += seed_b * 0x9E3779B9u + hi * 0x27D4EB2Fu + qi * 0x85EBCA77u +
+       kj * 0xC2B2AE3Du;
+  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;  // murmur3 finalizer
+  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= d.threshold ? d.scale : 0.f;
+}
+
+// All of the block's threads copy rows [0, n) of a [n, DH] head matrix (row
+// stride `stride` elements) into shared memory as f32, row pitch `ld`.
+template <typename T, int DH>
+__device__ __forceinline__ void stage(const T* src, long long stride, int n,
+                                      float* dst, int ld, int vec) {
+  if (vec) {
+    constexpr int w = Vec<T>::n, per_row = DH / w;
+    for (int e = threadIdx.x; e < n * per_row; e += blockDim.x) {
+      const int r = e / per_row, d = (e % per_row) * w;
+      float t[w];
+      load16(src + r * stride + d, t);
+#pragma unroll
+      for (int u = 0; u < w; ++u) dst[r * ld + d + u] = t[u];
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * DH; e += blockDim.x) {
+      const int r = e / DH, d = e % DH;
+      dst[r * ld + d] = to_f32(src[r * stride + d]);
+    }
+  }
+}
+
+// a . b over DH features: `a` is a 16-byte aligned row that every lane of
+// the warp reads (a broadcast), `b` a padded row of a staged tile.
+template <int DH>
+__device__ __forceinline__ float dot(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d);
+    acc = fmaf(x.x, b[d], acc);
+    acc = fmaf(x.y, b[d + 1], acc);
+    acc = fmaf(x.z, b[d + 2], acc);
+    acc = fmaf(x.w, b[d + 3], acc);
+  }
+  return acc;
+}
+
+// Features each lane owns in the weighted sums.
+__host__ __device__ constexpr int lanes_per(int dh) {
+  return (dh + kWarp - 1) / kWarp;
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+// floats of one staged [kTile][DH+1] tile
+__host__ __device__ constexpr int tile_floats(int dh) {
+  return round4(kTile * (dh + 1));
+}
+
+// ------------------------------------------------------------- forward
+// Scalar bodies.  Each is launched on a grid (B * H, ceil(L / kRows)) of
+// kWarps warps; the file that wraps it says which rows are the block's.
+// Shared memory (floats): the block's Q rows [kRows][DH], the K and V tiles
+// [kTile][DH+1], per warp a p row [kTile], then the tile's padding as bytes.
+template <typename T, int DH>
+__device__ __forceinline__ void streamed_fwd(const Params& p) {
+  extern __shared__ float smem[];
+  constexpr int ld = DH + 1, kD = lanes_per(DH);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  float* qs = smem;
+  float* ks = qs + kRows * DH;
+  float* vs = ks + tile_floats(DH);
+  float* prow = vs + tile_floats(DH) + warp * kTile;
+  unsigned char* pad =
+      reinterpret_cast<unsigned char*>(vs + tile_floats(DH) + kWarps * kTile);
+
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int row0 = blockIdx.y * kRows;
+  stage<T, DH>(static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h +
+                   row0 * p.sq.l,
+               p.sq.l, min(kRows, p.lq - row0), qs, DH, p.vec);
+  const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const T* vg = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
+
+  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kD];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kD; ++t) acc[r][t] = 0.f;
+  }
+
+  const int n_tiles = (p.lk + kTile - 1) / kTile;
+  for (int kj = 0; kj < n_tiles; ++kj) {
+    const int j0 = kj * kTile, n_keys = min(kTile, p.lk - j0);
+    __syncthreads();  // every warp is done with the previous tile
+    stage<T, DH>(kg + j0 * p.sk.l, p.sk.l, n_keys, ks, ld, p.vec);
+    stage<T, DH>(vg + j0 * p.sv.l, p.sv.l, n_keys, vs, ld, p.vec);
+    for (int j = threadIdx.x; j < kTile; j += blockDim.x)
+      pad[j] = j >= n_keys ||
+               (p.mask && p.mask[(long long)b * p.lk + j0 + j]);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int i = row0 + warp + r * kWarps;
+      if (i < p.lq) {  // warp-uniform
+        const float* qrow = qs + (i - row0) * DH;
+        float s[kPerLane];
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t) {
+          const int j = lane + t * kWarp;
+          s[t] = pad[j] ? -INFINITY : dot<DH>(qrow, ks + j * ld) * p.scale;
+          tmax = fmaxf(tmax, s[t]);
+        }
+        const float m_new = fmaxf(m[r], warp_max(tmax));
+        const float safe_m = finite(m_new) ? m_new : 0.f;
+        const float alpha = finite(m[r]) ? expf(m[r] - safe_m) : 0.f;
+        float psum = 0.f;
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t) {
+          const int j = lane + t * kWarp;
+          float pj = finite(s[t]) ? expf(s[t] - safe_m) : 0.f;
+          psum += pj;
+          if (p.drop.on) pj *= tile_keep(p.drop, b, h, p.hg, i, j0 + j);
+          prow[j] = round_to(pj, T());
+        }
+        l[r] = l[r] * alpha + warp_sum(psum);
+        m[r] = m_new;
+        __syncwarp();  // prow is read by every lane below
+        float pv[kD];
+#pragma unroll
+        for (int t = 0; t < kD; ++t) pv[t] = 0.f;
+        for (int j = 0; j < n_keys; ++j) {
+          const float pj = prow[j];
+          const float* vr = vs + j * ld;
+#pragma unroll
+          for (int t = 0; t < kD; ++t)
+            if (lane + t * kWarp < DH)
+              pv[t] = fmaf(pj, vr[lane + t * kWarp], pv[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < kD; ++t) acc[r][t] = acc[r][t] * alpha + pv[t];
+        __syncwarp();  // prow is rewritten for the next row
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int i = row0 + warp + r * kWarps;
+    if (i < p.lq) {
+      const float safe = l[r] > 0.f ? l[r] : 1.f;
+      T* og = static_cast<T*>(p.out) + b * p.sout.b + h * p.sout.h +
+              i * p.sout.l;
+#pragma unroll
+      for (int t = 0; t < kD; ++t)
+        if (lane + t * kWarp < DH) store(og + lane + t * kWarp, acc[r][t] / safe);
+      if (lane == 0)
+        p.lse[((long long)b * p.heads + h) * p.lq + i] =
+            l[r] > 0.f ? m[r] + logf(safe) : -INFINITY;
+    }
+  }
+}
+
+// ------------------------------------- backward, pass 1: delta and dq
+// Shared memory (floats): the block's Q and G rows [kRows][DH], the K and V
+// tiles [kTile][DH+1], per warp a ds row [kTile], then the padding bytes.
+template <typename T, int DH>
+__device__ __forceinline__ void streamed_dq(const Params& p) {
+  extern __shared__ float smem[];
+  constexpr int ld = DH + 1, kD = lanes_per(DH);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  float* qs = smem;
+  float* gs = qs + kRows * DH;
+  float* ks = gs + kRows * DH;
+  float* vs = ks + tile_floats(DH);
+  float* dsrow = vs + tile_floats(DH) + warp * kTile;
+  unsigned char* pad =
+      reinterpret_cast<unsigned char*>(vs + tile_floats(DH) + kWarps * kTile);
+
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int row0 = blockIdx.y * kRows;
+  const int n_rows = min(kRows, p.lq - row0);
+  stage<T, DH>(static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h +
+                   row0 * p.sq.l,
+               p.sq.l, n_rows, qs, DH, p.vec);
+  stage<T, DH>(static_cast<const T*>(p.g) + b * p.sg.b + h * p.sg.h +
+                   row0 * p.sg.l,
+               p.sg.l, n_rows, gs, DH, p.vec);
+  const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const T* vg = static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const long long rows = ((long long)b * p.heads + h) * p.lq;
+  __syncthreads();  // gs is read below
+
+  // delta = rowsum(g * out) from the rounded output, and each row's lse
+  float lse[kRowsPerWarp], delta[kRowsPerWarp], acc[kRowsPerWarp][kD];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int i = row0 + warp + r * kWarps;
+    lse[r] = delta[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kD; ++t) acc[r][t] = 0.f;
+    if (i < p.lq) {
+      const T* orow = static_cast<const T*>(p.o) + b * p.so.b + h * p.so.h +
+                      i * p.so.l;
+      const float* grow = gs + (i - row0) * DH;
+      float partial = 0.f;
+      for (int d = lane; d < DH; d += kWarp)
+        partial = fmaf(grow[d], to_f32(orow[d]), partial);
+      delta[r] = warp_sum(partial);
+      lse[r] = p.lse[rows + i];
+      if (lane == 0) p.delta[rows + i] = delta[r];
+    }
+  }
+
+  const int n_tiles = (p.lk + kTile - 1) / kTile;
+  for (int kj = 0; kj < n_tiles; ++kj) {
+    const int j0 = kj * kTile, n_keys = min(kTile, p.lk - j0);
+    __syncthreads();
+    stage<T, DH>(kg + j0 * p.sk.l, p.sk.l, n_keys, ks, ld, p.vec);
+    stage<T, DH>(vg + j0 * p.sv.l, p.sv.l, n_keys, vs, ld, p.vec);
+    for (int j = threadIdx.x; j < kTile; j += blockDim.x)
+      pad[j] = j >= n_keys ||
+               (p.mask && p.mask[(long long)b * p.lk + j0 + j]);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int i = row0 + warp + r * kWarps;
+      if (i < p.lq) {
+        const float* qrow = qs + (i - row0) * DH;
+        const float* grow = gs + (i - row0) * DH;
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t) {
+          const int j = lane + t * kWarp;
+          float ds = 0.f;
+          if (!pad[j]) {
+            const float s = dot<DH>(qrow, ks + j * ld) * p.scale;
+            const float pij = finite(lse[r]) ? expf(s - lse[r]) : 0.f;
+            float dp = dot<DH>(grow, vs + j * ld);
+            if (p.drop.on) dp *= tile_keep(p.drop, b, h, p.hg, i, j0 + j);
+            ds = round_to(pij * (dp - delta[r]) * p.scale, T());
+          }
+          dsrow[j] = ds;
+        }
+        __syncwarp();
+        for (int j = 0; j < n_keys; ++j) {
+          const float ds = dsrow[j];
+          const float* kr = ks + j * ld;
+#pragma unroll
+          for (int t = 0; t < kD; ++t)
+            if (lane + t * kWarp < DH)
+              acc[r][t] = fmaf(ds, kr[lane + t * kWarp], acc[r][t]);
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int i = row0 + warp + r * kWarps;
+    if (i < p.lq) {
+      T* dq = static_cast<T*>(p.out) + b * p.sout.b + h * p.sout.h +
+              i * p.sout.l;
+#pragma unroll
+      for (int t = 0; t < kD; ++t)
+        if (lane + t * kWarp < DH) store(dq + lane + t * kWarp, acc[r][t]);
+    }
+  }
+}
+
+// --------------------------------------- backward, pass 2: dk and dv
+// Shared memory (floats): the block's K and V rows [kRows][DH], the Q and G
+// tiles [kTile][DH+1], the tile's lse and delta [kTile], per warp a
+// round(pd) row and a ds row [kTile].
+template <typename T, int DH>
+__device__ __forceinline__ void streamed_dkv(const Params& p) {
+  extern __shared__ float smem[];
+  constexpr int ld = DH + 1, kD = lanes_per(DH);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  float* kr_s = smem;
+  float* vr_s = kr_s + kRows * DH;
+  float* qs = vr_s + kRows * DH;
+  float* gs = qs + tile_floats(DH);
+  float* lse_s = gs + tile_floats(DH);
+  float* delta_s = lse_s + kTile;
+  float* pdrow = delta_s + kTile + warp * 2 * kTile;
+  float* dsrow = pdrow + kTile;
+
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int row0 = blockIdx.y * kRows;
+  const int n_rows = min(kRows, p.lk - row0);
+  stage<T, DH>(static_cast<const T*>(p.k) + b * p.sk.b + h * p.sk.h +
+                   row0 * p.sk.l,
+               p.sk.l, n_rows, kr_s, DH, p.vec);
+  stage<T, DH>(static_cast<const T*>(p.v) + b * p.sv.b + h * p.sv.h +
+                   row0 * p.sv.l,
+               p.sv.l, n_rows, vr_s, DH, p.vec);
+  const T* qg = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const T* gg = static_cast<const T*>(p.g) + b * p.sg.b + h * p.sg.h;
+  const long long rows = ((long long)b * p.heads + h) * p.lq;
+
+  float acc_k[kRowsPerWarp][kD], acc_v[kRowsPerWarp][kD];
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int t = 0; t < kD; ++t) acc_k[r][t] = acc_v[r][t] = 0.f;
+
+  const int n_tiles = (p.lq + kTile - 1) / kTile;
+  for (int qi = 0; qi < n_tiles; ++qi) {
+    const int i0 = qi * kTile, n_q = min(kTile, p.lq - i0);
+    __syncthreads();
+    stage<T, DH>(qg + i0 * p.sq.l, p.sq.l, n_q, qs, ld, p.vec);
+    stage<T, DH>(gg + i0 * p.sg.l, p.sg.l, n_q, gs, ld, p.vec);
+    for (int i = threadIdx.x; i < n_q; i += blockDim.x) {
+      lse_s[i] = p.lse[rows + i0 + i];
+      delta_s[i] = p.delta[rows + i0 + i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int j = row0 + warp + r * kWarps;
+      if (j < p.lk) {
+        const float* krow = kr_s + (j - row0) * DH;
+        const float* vrow = vr_s + (j - row0) * DH;
+        const bool padded = p.mask && p.mask[(long long)b * p.lk + j];
+#pragma unroll
+        for (int t = 0; t < kPerLane; ++t) {
+          const int i = lane + t * kWarp;
+          float pd = 0.f, ds = 0.f;
+          if (i < n_q && !padded) {
+            const float s = dot<DH>(krow, qs + i * ld) * p.scale;
+            const float l = lse_s[i];
+            const float pij = finite(l) ? expf(s - l) : 0.f;
+            float dp = dot<DH>(vrow, gs + i * ld);
+            pd = pij;
+            if (p.drop.on) {
+              const float keep = tile_keep(p.drop, b, h, p.hg, i0 + i, j);
+              pd *= keep;
+              dp *= keep;
+            }
+            pd = round_to(pd, T());
+            ds = round_to(pij * (dp - delta_s[i]) * p.scale, T());
+          }
+          pdrow[i] = pd;
+          dsrow[i] = ds;
+        }
+        __syncwarp();
+        for (int i = 0; i < n_q; ++i) {
+          const float pd = pdrow[i], ds = dsrow[i];
+          const float* gr = gs + i * ld;
+          const float* qr = qs + i * ld;
+#pragma unroll
+          for (int t = 0; t < kD; ++t)
+            if (lane + t * kWarp < DH) {
+              acc_v[r][t] = fmaf(pd, gr[lane + t * kWarp], acc_v[r][t]);
+              acc_k[r][t] = fmaf(ds, qr[lane + t * kWarp], acc_k[r][t]);
+            }
+        }
+        __syncwarp();
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int j = row0 + warp + r * kWarps;
+    if (j < p.lk) {
+      T* dv = static_cast<T*>(p.dv) + b * p.sdv.b + h * p.sdv.h + j * p.sdv.l;
+      T* dk = static_cast<T*>(p.dk) + b * p.sdk.b + h * p.sdk.h + j * p.sdk.l;
+#pragma unroll
+      for (int t = 0; t < kD; ++t)
+        if (lane + t * kWarp < DH) {
+          store(dv + lane + t * kWarp, acc_v[r][t]);
+          store(dk + lane + t * kWarp, acc_k[r][t]);
+        }
+    }
+  }
+}
+
+// ------------------------------------------ tensor-core helpers
+// bf16 at Dh = 64: mma.sync m16n8k16, bf16 operands, f32 accumulators.
+// Fragment layout (PTX ISA, mma.m16n8k16 .bf16), g = lane / 4, t = lane % 4:
+// A (16x16) regs {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)};
+// B (16x8) regs {(k 2t..2t+1, n g), (k 2t+8.., n g)}; C (16x8) floats
+// {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+
+constexpr int kTcDim = 64;              // the head dim of the tensor-core path
+constexpr int kRowPitch = kTcDim + 8;   // bf16 per staged row-major row
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragments of 16 rows x 64 features of a head matrix in device
+// memory (rows from `row0`, row stride `stride`); rows at or past `n` are 0.
+__device__ __forceinline__ void load_a(const bf16* src, long long stride,
+                                       int row0, int n,
+                                       uint32_t (&a)[kTcDim / 16][4]) {
+  const int g = (threadIdx.x % kWarp) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < kTcDim / 16; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + g + 8 * (r & 1);
+      const int col = 16 * ks + 2 * t + 8 * (r >> 1);
+      a[ks][r] = row < n ? ld32(src + row * stride + col) : 0u;
+    }
+}
+
+// The A fragments of a 16 x 16*KS matrix held as C fragments of 8-column
+// n-tiles (two per 16-column k-step), rounded to bf16.
+template <int KS>
+__device__ __forceinline__ void c_to_a(const float (&c)[2 * KS][4],
+                                       uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    a[ks][0] = pack(c[2 * ks][0], c[2 * ks][1]);
+    a[ks][1] = pack(c[2 * ks][2], c[2 * ks][3]);
+    a[ks][2] = pack(c[2 * ks + 1][0], c[2 * ks + 1][1]);
+    a[ks][3] = pack(c[2 * ks + 1][2], c[2 * ks + 1][3]);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Shared-memory bytes of each scalar launch (0: forward, 1: backward dq
+// pass, 2: backward dk/dv pass) for head dim dh.
+size_t smem_bytes(int which, int dh) {
+  const size_t f = sizeof(float);
+  const size_t rows = (size_t)kRows * dh, tile = (size_t)tile_floats(dh);
+  const size_t per_warp = (size_t)kWarps * kTile;
+  if (which == 0) return f * (rows + 2 * tile + per_warp) + kTile;
+  if (which == 1) return f * (2 * rows + 2 * tile + per_warp) + kTile;
+  return f * (2 * rows + 2 * tile + 2 * kTile + 2 * per_warp);
+}
+
+template <typename K>
+int launch(K kernel, dim3 grid, int warps, size_t smem, cudaStream_t stream,
+           const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, warps * kWarp, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// Calls fn(std::integral_constant<int, DH>) for the runtime head dim; -1 for
+// one the kernels are not compiled for.
+template <typename Fn>
+int by_dim(int dh, Fn fn) {
+  switch (dh) {
+    case 16: return fn(std::integral_constant<int, 16>());
+    case 32: return fn(std::integral_constant<int, 32>());
+    case 64: return fn(std::integral_constant<int, 64>());
+    case 128: return fn(std::integral_constant<int, 128>());
+  }
+  return -1;
+}
+
+Params make_params(const void* q, const void* k, const void* v,
+                   const unsigned char* mask, float* lse, int heads, int lq,
+                   int lk, int hg, float scale, unsigned int seed,
+                   unsigned int threshold, float keep_scale, int dropout,
+                   int vec) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.mask = mask;
+  p.lse = lse;
+  p.heads = heads;
+  p.lq = lq;
+  p.lk = lk;
+  p.hg = hg;
+  p.scale = scale;
+  p.drop = {seed, threshold, keep_scale, dropout};
+  p.vec = vec;
+  return p;
+}
+
+Strides strides_at(const long long* s, int t) {
+  return {s[3 * t], s[3 * t + 1], s[3 * t + 2]};
+}
+
+// ------------------------------------------- tensor-core kernel bodies
+// bf16 at Dh = 64 with 16-byte aligned rows (every tower of the path): the
+// forward, dq and dk/dv passes with their products on tensor cores
+// (mma.sync m16n8k16, f32 accumulators).  A product of two bf16 values is
+// exact in f32, so only the order of the f32 sums differs from the scalar
+// bodies; the roundings to bf16 (p, pd, ds, the outputs) sit at the same
+// points.  A block is 8 warps of 16 rows, each warp holding its rows as A
+// fragments and its sums as C fragments in registers.  The streamed tiles
+// are staged row-major in shared memory by cp.async into two buffers, so
+// the copy of tile j+1 runs under the products of tile j; B fragments are
+// read with ldmatrix, transposed in the load (.trans) where a product
+// contracts over the tile's rows, so no tile is stored twice.  The backward
+// passes take a tile in two halves of 64 to bound the registers (the mask
+// hashes absolute indices, so the halves change nothing).  The head group
+// of the mask is Params.hg, so the chunked and the tiled kernels wrap the
+// same bodies.
+constexpr int kTcWarps = 8;                    // warps of a block
+constexpr int kTcRows = kTcWarps * 16;         // rows a block owns (= kTile)
+constexpr int kTileElems = kTile * kRowPitch;  // bf16 of one staged tile
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from device to shared memory, asynchronously; when !valid, 16
+// zero bytes and nothing read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8 and receives, of matrix m, register m = (row l / 4,
+// columns 2(l % 4), 2(l % 4) + 1); with .trans, (rows 2(l % 4) and
+// 2(l % 4) + 1, column l / 4).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// acc[nt] += A . B over 16*KS features for NT 8-column n-tiles, where
+// column n of B is row n of the staged tile `b` (row-major [n][Dh]): the
+// products that contract over Dh (q kᵀ, g vᵀ, k qᵀ, v gᵀ).  Matrices 0-3 of
+// one ldmatrix are (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
+// (n 8-15, k 8-15): the two B registers of two n-tiles.
+template <int NT, int KS>
+__device__ __forceinline__ void mma_nt(float (&acc)[NT][4],
+                                       const uint32_t (&a)[KS][4],
+                                       const bf16* b) {
+  const int lane = threadIdx.x % kWarp, m = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int n2 = 0; n2 < NT / 2; ++n2)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t f[4];
+      ldsm4(f, b + (16 * n2 + 8 * (m >> 1) + r) * kRowPitch + 16 * ks +
+                   8 * (m & 1));
+      mma(acc[2 * n2], a[ks], f[0], f[1]);
+      mma(acc[2 * n2 + 1], a[ks], f[2], f[3]);
+    }
+}
+
+// acc[nf] += A . B over 16*KS rows of the staged tile `b` (row-major
+// [rows][Dh], k = its rows, n = Dh): the products that contract over the
+// tile's rows (p v, ds k, dsᵀ q, pdᵀ g).  Matrices 0-3 of one transposed
+// ldmatrix are (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15),
+// (k 8-15, n 8-15).
+template <int NF, int KS>
+__device__ __forceinline__ void mma_nn(float (&acc)[NF][4],
+                                       const uint32_t (&a)[KS][4],
+                                       const bf16* b) {
+  const int lane = threadIdx.x % kWarp, m = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int n2 = 0; n2 < NF / 2; ++n2)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t f[4];
+      ldsm4_t(f, b + (16 * ks + 8 * (m & 1) + r) * kRowPitch + 16 * n2 +
+                     8 * (m >> 1));
+      mma(acc[2 * n2], a[ks], f[0], f[1]);
+      mma(acc[2 * n2 + 1], a[ks], f[2], f[3]);
+    }
+}
+
+// All of the block's threads start copying rows [r0, r0 + kTile) of a
+// [n, 64] head matrix (row stride `stride`) into `dst` (row-major, pitch
+// kRowPitch); rows at or past n become zeros.
+__device__ __forceinline__ void stage_async(const bf16* src, long long stride,
+                                            int r0, int n, bf16* dst) {
+  constexpr int per_row = kTcDim / 8;
+  for (int e = threadIdx.x; e < kTile * per_row; e += blockDim.x) {
+    const int r = e / per_row, c = (e % per_row) * 8;
+    const bool valid = r0 + r < n;
+    cp_async16(dst + r * kRowPitch + c,
+               src + (valid ? (long long)(r0 + r) * stride : 0) + c, valid);
+  }
+}
+
+// Key tile kj of (b, h) into buffer `buf`: K and V (one copy group) and the
+// tile's padding bytes.  Shared memory: [buf][K, V] tiles, then [buf] pads.
+__device__ __forceinline__ void stage_keys(const Params& p, int b,
+                                           const bf16* kg, const bf16* vg,
+                                           int kj, int buf, bf16* tiles,
+                                           unsigned char* pads) {
+  const int j0 = kj * kTile;
+  stage_async(kg, p.sk.l, j0, p.lk, tiles + 2 * buf * kTileElems);
+  stage_async(vg, p.sv.l, j0, p.lk, tiles + (2 * buf + 1) * kTileElems);
+  cp_async_commit();
+  unsigned char* pad = pads + buf * kTile;
+  for (int j = threadIdx.x; j < kTile; j += blockDim.x)
+    pad[j] = j0 + j >= p.lk ||
+             (p.mask && p.mask[(long long)b * p.lk + j0 + j]);
+}
+
+// Waits for the tile staged into `buf` (the next one may stay in flight).
+__device__ __forceinline__ void await_tile(bool next_in_flight) {
+  if (next_in_flight)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The forward (kernels 4 and 6).  Each thread owns rows g and g + 8 of its
+// warp's 16: element e of an n-tile's C fragment lies in row g + 8 (e >> 1),
+// column 8 nt + 2t + (e & 1).
+__device__ __forceinline__ void tc_fwd(const Params& p) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NT = kTile / 8;
+  bf16* tiles = reinterpret_cast<bf16*>(smem_tc);
+  unsigned char* pads = smem_tc + 4 * kTileElems * sizeof(bf16);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int row0 = blockIdx.y * kTcRows + warp * 16;
+  const bool active = row0 < p.lq;  // warp-uniform
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
+
+  uint32_t qa[KS][4];
+  load_a(static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.l,
+         row0, p.lq, qa);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NF][4];
+#pragma unroll
+  for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
+
+  const int n_tiles = (p.lk + kTile - 1) / kTile;
+  stage_keys(p, b, kg, vg, 0, 0, tiles, pads);
+  for (int kj = 0; kj < n_tiles; ++kj) {
+    const int buf = kj & 1, j0 = kj * kTile;
+    const bool next = kj + 1 < n_tiles;
+    if (next) stage_keys(p, b, kg, vg, kj + 1, buf ^ 1, tiles, pads);
+    await_tile(next);
+    const bf16* ks = tiles + 2 * buf * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    const unsigned char* pad = pads + buf * kTile;
+    if (active) {
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      mma_nt<NT, KS>(s, qa, ks);
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = pad[8 * nt + 2 * t + (e & 1)]
+                              ? -INFINITY : s[nt][e] * p.scale;
+          s[nt][e] = v;
+          tmax[e >> 1] = fmaxf(tmax[e >> 1], v);
+        }
+      float safe_m[2], alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(tmax[r]));
+        safe_m[r] = finite(m_new) ? m_new : 0.f;
+        alpha[r] = finite(m[r]) ? expf(m[r] - safe_m[r]) : 0.f;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pj = finite(s[nt][e]) ? expf(s[nt][e] - safe_m[r]) : 0.f;
+          psum[r] += pj;
+          if (p.drop.on)
+            pj *= tile_keep(p.drop, b, h, p.hg, row0 + g + 8 * r,
+                            j0 + 8 * nt + 2 * t + (e & 1));
+          s[nt][e] = pj;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nf][e] *= alpha[e >> 1];
+      uint32_t pa[NT / 2][4];  // round(p) as A fragments over the tile's keys
+      c_to_a<NT / 2>(s, pa);
+      mma_nn<NF, NT / 2>(o, pa, vs);
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+  bf16* og = static_cast<bf16*>(p.out) + b * p.sout.b + h * p.sout.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + g + 8 * r;
+    if (i < p.lq) {
+      const float safe = l[r] > 0.f ? l[r] : 1.f;
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+        *reinterpret_cast<uint32_t*>(og + i * p.sout.l + 8 * nf + 2 * t) =
+            pack(o[nf][2 * r] / safe, o[nf][2 * r + 1] / safe);
+      if (t == 0)
+        p.lse[((long long)b * p.heads + h) * p.lq + i] =
+            l[r] > 0.f ? m[r] + logf(safe) : -INFINITY;
+    }
+  }
+}
+
+// The dq pass (delta and dq; kernel 5's first launch, kernel 7).  Shared
+// memory as the forward's.
+__device__ __forceinline__ void tc_dq(const Params& p) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NH = 8;  // NH: n-tiles
+  bf16* tiles = reinterpret_cast<bf16*>(smem_tc);           // of a half tile
+  unsigned char* pads = smem_tc + 4 * kTileElems * sizeof(bf16);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int row0 = blockIdx.y * kTcRows + warp * 16;
+  const bool active = row0 < p.lq;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
+  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h;
+  const bf16* og = static_cast<const bf16*>(p.o) + b * p.so.b + h * p.so.h;
+  const long long rows = ((long long)b * p.heads + h) * p.lq;
+
+  uint32_t qa[KS][4], ga[KS][4];
+  load_a(static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.l,
+         row0, p.lq, qa);
+  load_a(gg, p.sg.l, row0, p.lq, ga);
+  // delta = rowsum(g * out) from the rounded output: each lane of a quad
+  // sums 16 features of rows g and g + 8
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + g + 8 * r;
+    float partial = 0.f;
+    lse[r] = 0.f;
+    if (i < p.lq) {
+      for (int d = 16 * t; d < 16 * t + 16; ++d)
+        partial = fmaf(to_f32(gg[i * p.sg.l + d]), to_f32(og[i * p.so.l + d]),
+                       partial);
+      lse[r] = p.lse[rows + i];
+    }
+    delta[r] = quad_sum(partial);
+    if (i < p.lq && t == 0) p.delta[rows + i] = delta[r];
+  }
+  float dq[NF][4];
+#pragma unroll
+  for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[nf][e] = 0.f;
+
+  const int n_tiles = (p.lk + kTile - 1) / kTile;
+  stage_keys(p, b, kg, vg, 0, 0, tiles, pads);
+  for (int kj = 0; kj < n_tiles; ++kj) {
+    const int buf = kj & 1, j0 = kj * kTile;
+    const bool next = kj + 1 < n_tiles;
+    if (next) stage_keys(p, b, kg, vg, kj + 1, buf ^ 1, tiles, pads);
+    await_tile(next);
+    const bf16* ks = tiles + 2 * buf * kTileElems;
+    const bf16* vs = ks + kTileElems;
+    const unsigned char* pad = pads + buf * kTile;
+    if (active) {
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = half * kTile / 2;  // the half's first key in the tile
+        float s[NH][4], dp[NH][4];
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        mma_nt<NH, KS>(s, qa, ks + c0 * kRowPitch);
+        mma_nt<NH, KS>(dp, ga, vs + c0 * kRowPitch);
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, jl = c0 + 8 * nt + 2 * t + (e & 1);
+            float ds = 0.f;
+            if (!pad[jl]) {
+              const float sv = s[nt][e] * p.scale;
+              const float pij = finite(lse[r]) ? expf(sv - lse[r]) : 0.f;
+              float dpv = dp[nt][e];
+              if (p.drop.on)
+                dpv *= tile_keep(p.drop, b, h, p.hg, row0 + g + 8 * r,
+                                 j0 + jl);
+              ds = pij * (dpv - delta[r]) * p.scale;
+            }
+            s[nt][e] = ds;
+          }
+        uint32_t dsa[NH / 2][4];  // round(ds) as A fragments over the keys
+        c_to_a<NH / 2>(s, dsa);
+        mma_nn<NF, NH / 2>(dq, dsa, ks + c0 * kRowPitch);
+      }
+    }
+    __syncthreads();
+  }
+
+  bf16* dqg = static_cast<bf16*>(p.out) + b * p.sout.b + h * p.sout.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + g + 8 * r;
+    if (i < p.lq)
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+        *reinterpret_cast<uint32_t*>(dqg + i * p.sout.l + 8 * nf + 2 * t) =
+            pack(dq[nf][2 * r], dq[nf][2 * r + 1]);
+  }
+}
+
+// Query tile qi of (b, h) into buffer `buf`: Q and G (one copy group), then
+// the tile's lse and delta (-inf and 0 past Lq).  Shared memory: [buf][Q, G]
+// tiles, then [buf][lse, delta] rows of kTile floats.
+__device__ __forceinline__ void stage_queries(const Params& p,
+                                              const bf16* qg, const bf16* gg,
+                                              long long rows, int qi, int buf,
+                                              bf16* tiles, float* stats) {
+  const int i0 = qi * kTile;
+  stage_async(qg, p.sq.l, i0, p.lq, tiles + 2 * buf * kTileElems);
+  stage_async(gg, p.sg.l, i0, p.lq, tiles + (2 * buf + 1) * kTileElems);
+  cp_async_commit();
+  float* lse_s = stats + 2 * buf * kTile;
+  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
+    const bool real = i0 + i < p.lq;
+    lse_s[i] = real ? p.lse[rows + i0 + i] : -INFINITY;
+    lse_s[kTile + i] = real ? p.delta[rows + i0 + i] : 0.f;
+  }
+}
+
+// The dk/dv pass (kernel 5's second launch, kernel 8), rows = keys.
+__device__ __forceinline__ void tc_dkv(const Params& p) {
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NH = 8;
+  bf16* tiles = reinterpret_cast<bf16*>(smem_tc);
+  float* stats = reinterpret_cast<float*>(tiles + 4 * kTileElems);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int row0 = blockIdx.y * kTcRows + warp * 16;
+  const bool active = row0 < p.lk;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h;
+  const long long rows = ((long long)b * p.heads + h) * p.lq;
+
+  uint32_t ka[KS][4], va[KS][4];
+  load_a(static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h, p.sk.l,
+         row0, p.lk, ka);
+  load_a(static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h, p.sv.l,
+         row0, p.lk, va);
+  bool padded[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = row0 + g + 8 * r;
+    padded[r] = j >= p.lk || (p.mask && p.mask[(long long)b * p.lk + j]);
+  }
+  float dk[NF][4], dv[NF][4];
+#pragma unroll
+  for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[nf][e] = dv[nf][e] = 0.f;
+
+  const int n_tiles = (p.lq + kTile - 1) / kTile;
+  stage_queries(p, qg, gg, rows, 0, 0, tiles, stats);
+  for (int qi = 0; qi < n_tiles; ++qi) {
+    const int buf = qi & 1, i0 = qi * kTile;
+    const bool next = qi + 1 < n_tiles;
+    if (next) stage_queries(p, qg, gg, rows, qi + 1, buf ^ 1, tiles, stats);
+    await_tile(next);
+    const bf16* qs = tiles + 2 * buf * kTileElems;
+    const bf16* gs = qs + kTileElems;
+    const float* lse_s = stats + 2 * buf * kTile;
+    const float* delta_s = lse_s + kTile;
+    if (active) {
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = half * kTile / 2;  // the half's first query
+        float s[NH][4], dp[NH][4];
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        mma_nt<NH, KS>(s, ka, qs + c0 * kRowPitch);
+        mma_nt<NH, KS>(dp, va, gs + c0 * kRowPitch);
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, il = c0 + 8 * nt + 2 * t + (e & 1);
+            float pd = 0.f, ds = 0.f;
+            if (i0 + il < p.lq && !padded[r]) {
+              const float sv = s[nt][e] * p.scale;
+              const float l = lse_s[il];
+              const float pij = finite(l) ? expf(sv - l) : 0.f;
+              float dpv = dp[nt][e];
+              pd = pij;
+              if (p.drop.on) {
+                const float keep = tile_keep(p.drop, b, h, p.hg, i0 + il,
+                                             row0 + g + 8 * r);
+                pd *= keep;
+                dpv *= keep;
+              }
+              ds = pij * (dpv - delta_s[il]) * p.scale;
+            }
+            dp[nt][e] = pd;
+            s[nt][e] = ds;
+          }
+        uint32_t pda[NH / 2][4], dsa[NH / 2][4];  // round(pd), round(ds)
+        c_to_a<NH / 2>(dp, pda);
+        c_to_a<NH / 2>(s, dsa);
+        mma_nn<NF, NH / 2>(dv, pda, gs + c0 * kRowPitch);
+        mma_nn<NF, NH / 2>(dk, dsa, qs + c0 * kRowPitch);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int j = row0 + g + 8 * r;
+    if (j < p.lk) {
+      bf16* dvg = static_cast<bf16*>(p.dv) + b * p.sdv.b + h * p.sdv.h +
+                  j * p.sdv.l;
+      bf16* dkg = static_cast<bf16*>(p.dk) + b * p.sdk.b + h * p.sdk.h +
+                  j * p.sdk.l;
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf) {
+        *reinterpret_cast<uint32_t*>(dvg + 8 * nf + 2 * t) =
+            pack(dv[nf][2 * r], dv[nf][2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dkg + 8 * nf + 2 * t) =
+            pack(dk[nf][2 * r], dk[nf][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// Shared-memory bytes of the tensor-core launches (0: forward, 1: dq pass,
+// 2: dk/dv pass): two buffers of two staged tiles, then the padding bytes or
+// the lse and delta rows.
+size_t tc_smem_bytes(int which) {
+  const size_t tiles = 4 * (size_t)kTileElems * sizeof(bf16);
+  if (which == 2) return tiles + 4 * kTile * sizeof(float);
+  return tiles + 2 * kTile;
+}
+
+// bf16 at Dh = 64 with 16-byte aligned rows takes the tensor-core kernels.
+bool tensor_cores(int dtype, int dh, int vec) {
+  return dtype == 1 && dh == kTcDim && vec;
+}
+
+template <typename T, int DH>
+bool tensor_cores(const Params& p) {
+  return tensor_cores(std::is_same<T, bf16>::value ? 1 : 0, DH, p.vec);
+}
+
+// Shared-memory bytes of launch `which` (0: forward, 1: dq pass, 2: dk/dv
+// pass) for dtype (0: float32, 1: bfloat16), head dim dh and vec, as the
+// kernels take them.
+size_t launch_smem_bytes(int which, int dtype, int dh, int vec) {
+  return tensor_cores(dtype, dh, vec) ? tc_smem_bytes(which)
+                                      : smem_bytes(which, dh);
+}
+
+}  // namespace

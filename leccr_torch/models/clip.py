@@ -10,12 +10,17 @@ reshape of each P×P×3 patch into one row and a matmul, so no cuDNN (and no
 TF32 convolution) is involved; its weight is the flax conv kernel
 [kh, kw, in, out] flattened to [out, kh·kw·in].
 
+The tower's position embedding has one row per patch of `image_res` (plus
+the class token): a checkpoint trained at another resolution is carried
+over by `interpolate_pos_embed` (see `models/convert.py`).
+
 The tower has no dropout.  With `fused_attention` and in training
 (`deterministic=False`) each block's attention core is the flash
 tower-attention kernel pair at rate 0 (`models/clip.py:78-80` of the JAX
 package); in eval it stays plain PyTorch ops, as in the JAX package.
 `flash_tower_attention` takes the single-block kernels at ViT-B/32 @384
-(145 tokens) and the chunked ones at ViT-L/14 @336 (577 tokens).
+(145 tokens), the chunked ones at ViT-L/14 @336 (577 tokens) and the tiled
+ones at ViT-L/14 @728 (2705 tokens; past 1408 tokens in f32).
 
 With `remat` (flax's `nn.remat` per residual block) each block runs under
 `checkpoint_block` whenever a gradient is being taken.
@@ -27,6 +32,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from leccr_torch.ops.attention import Dense, LayerNorm
@@ -53,6 +59,30 @@ CLIP_VARIANTS = {
     "ViT-B/16": CLIPVariant(768, 12, 12, 16, 512, 512, 12, 8),
     "ViT-L/14": CLIPVariant(1024, 24, 16, 14, 768, 768, 12, 12),
 }
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor,
+                          target_grid: int) -> torch.Tensor:
+    """Bicubic-resample a [1+G*G, W] CLIP position embedding to a
+    target_grid × target_grid patch grid, keeping the class token's row
+    (the port of `leccr_tpu/models/clip.py:167-186`).  `jax.image.resize`'s
+    bicubic is Keys' cubic at a = −0.5 with antialiasing, which is what
+    `F.interpolate(..., antialias=True)` computes, up and down (without
+    antialiasing PyTorch takes a = −0.75 and differs by ~0.3 on a unit
+    normal grid).  Computed in f32; returns pos_embed's dtype."""
+    num_tokens, width = pos_embed.shape
+    grid = int(round((num_tokens - 1) ** 0.5))
+    if grid * grid + 1 != num_tokens:
+        raise ValueError(f"{num_tokens} rows are not a class token and a "
+                         f"square patch grid")
+    if grid == target_grid:
+        return pos_embed
+    patches = pos_embed[1:].float().reshape(grid, grid, width)
+    patches = F.interpolate(patches.permute(2, 0, 1)[None],
+                            size=(target_grid, target_grid), mode="bicubic",
+                            align_corners=False, antialias=True)
+    patches = patches[0].permute(1, 2, 0).reshape(-1, width)
+    return torch.cat([pos_embed[:1], patches.to(pos_embed.dtype)])
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

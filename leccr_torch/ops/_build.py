@@ -2,9 +2,12 @@
 
 Each `leccr_torch/csrc/<name>.cu` exposes a plain C interface.  At first use
 it is compiled for Hopper (`sm_90a`) into a shared library under
-`leccr_torch/_build/`, named by a hash of its source so that an edited source
-is never served from a stale library, and loaded with `ctypes`.  Nothing is
-compiled or loaded when this module is imported.
+`leccr_torch/_build/`, named by a hash of its source and of the headers
+under `csrc/` that it includes (`#include "..."`, followed through the
+headers) so that an edited source is never served from a stale library,
+and an edit to a header rebuilds only the libraries that include it.  The
+library is loaded with `ctypes`.  Nothing is compiled or loaded when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 from concurrent.futures import ThreadPoolExecutor
 import shutil
 import subprocess
@@ -43,9 +47,28 @@ def _nvcc() -> str:
         "kernels of leccr_torch are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(path: Path) -> list:
+    """The headers under csrc/ that `path` includes, directly or through
+    another such header, sorted."""
+    found, todo = set(), [path]
+    while todo:
+        for header in _LOCAL_INCLUDE.findall(todo.pop().read_text()):
+            dep = CSRC / header
+            if dep.exists() and dep not in found:
+                found.add(dep)
+                todo.append(dep)
+    return sorted(found)
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in local_headers(source):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -1,19 +1,20 @@
 """Flash tower attention (training) for the CLIP and BERT towers.
 
-The port of `leccr_tpu/ops/flash_attention.py`'s single-block and chunked
-regimes: hand-written CUDA kernels compute softmax(q kᵀ/√d + mask) with
-dropout on the probabilities, times v, and its backward, keeping the
-scores, probabilities and dropout mask on chip.  The forward saves the row
+The port of `leccr_tpu/ops/flash_attention.py`'s three regimes:
+hand-written CUDA kernels compute softmax(q kᵀ/√d + mask) with dropout on
+the probabilities, times v, and its backward, keeping the scores,
+probabilities and dropout mask on chip.  The forward saves the row
 logsumexp; the backward recomputes the probabilities from it and
 regenerates the dropout mask from the seed.
 
-`flash_tower_attention` dispatches as the JAX function does
-(`_flash_fwd`): shapes within `fits_vmem` take the single-block kernels 2
+`flash_tower_attention` dispatches as the JAX function does (`_flash_fwd`,
+see `regime`): shapes within `fits_vmem` take the single-block kernels 2
 and 3 (`csrc/flash_tower_attention.cu`), longer ones within `fits_chunked`
 the chunked kernels 4 and 5 (`csrc/flash_chunked_attention.cu`), and
-longer ones still raise `NotImplementedError` (the tiled kernels 6–8 are
-not ported yet).  The two regimes differ on purpose, as in the JAX
-package:
+longer ones still (past 2560 tokens in bf16 and 1408 in f32 at an even
+head count and Dh = 64) the tiled kernels 6, 7 and 8
+(`csrc/flash_tiled_attention.cu`).  The regimes differ on purpose, as in
+the JAX package:
 
 - single-block: padded keys score f32 min, so a fully padded row gives the
   mean of v; dropout hashes the counter `h·Lq·Lk + i·Lk + j`;
@@ -23,8 +24,13 @@ package:
   dtype per key tile; dropout hashes per (head group, q tile, k tile)
   (`_tile_keep_from`); the backward takes delta = rowsum(g·out) from the
   rounded output.
+- tiled: the chunked regime's arithmetic and rounding points, but the
+  dropout hash's head group is `head_group(H)` (the largest divisor of H
+  that is ≤ 8) instead of `chunk_head_group(H)` (2 or 1); its backward is
+  a dq pass (kernel 7, which also writes delta) and a dk/dv pass (kernel
+  8), each launched and counted on its own.
 
-Both hashes are the JAX package's interpret-mode ones, keyed by the
+The hashes are the JAX package's interpret-mode ones, keyed by the
 per-example seeds `seed + b · 0x9E3779B9` (int32 wrap) and finished by the
 murmur3 finalizer, keep where the hash ≥ uint32(rate · 2³²), scaled by
 1/(1−rate).  So the port's masks equal the JAX kernels' in interpret mode
@@ -49,6 +55,7 @@ from leccr_torch.ops import _build
 
 _LIB = "flash_tower_attention"
 _CHUNK_LIB = "flash_chunked_attention"
+_TILED_LIB = "flash_tiled_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = torch.finfo(torch.float32).min
 WARPS = 8  # warps per block; each owns one row at a time
@@ -80,6 +87,17 @@ def chunk_head_group(h: int) -> int:
     `_chunk_head_group`): the dropout mask hashes the head group and the
     head within it."""
     return 2 if h % 2 == 0 else 1
+
+
+def head_group(h: int) -> int:
+    """Heads per program of the JAX tiled kernels (a copy of
+    `_head_group`): the largest divisor of h that is ≤ 8 (16 → 8, 12 → 6,
+    3 → 3).  The tiled dropout mask hashes the group and the head within
+    it."""
+    for hg in (8, 7, 6, 5, 4, 3, 2, 1):
+        if h % hg == 0:
+            return hg
+    return 1
 
 
 def _chunk_budget(h: int, lq: int, lk: int, d: int, itemsize: int) -> int:
@@ -142,12 +160,15 @@ def _keep_factor(x: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 def tile_keep_mask(seed: int, b: int, h: int, lq: int, lk: int, rate: float,
-                   device=None) -> torch.Tensor:
-    """The chunked kernels' dropout factor [B, H, Lq, Lk] in {0,
+                   device=None, hg: Optional[int] = None) -> torch.Tensor:
+    """The streamed kernels' dropout factor [B, H, Lq, Lk] in {0,
     1/(1-rate)} (f32): the JAX interpret-mode tile hash (`_tile_keep_from`)
     of element (b, h, i, j) in head group hi = h // hg (hh = h % hg), query
-    tile i // 128 and key tile j // 128, computed in plain PyTorch."""
-    hg = chunk_head_group(h)
+    tile i // 128 and key tile j // 128, computed in plain PyTorch.  hg:
+    heads per group, `chunk_head_group(h)` (the chunked kernels, the
+    default) or `head_group(h)` (the tiled ones)."""
+    if hg is None:
+        hg = chunk_head_group(h)
 
     def ar(n):
         return torch.arange(n, dtype=torch.int64, device=device)
@@ -238,27 +259,18 @@ def _chunk_scores(q, k, padding_mask):
     return s
 
 
-def flash_chunked_attention_fwd_reference(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    padding_mask: Optional[torch.Tensor],
-    seed: int,
-    dropout_rate: float = 0.0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the chunked forward kernel (kernel 4): the
-    JAX `_chunk_fwd_kernel`'s loop over 128-key tiles with a running max,
-    the unnormalised probabilities rounded to v's dtype per tile, the
-    dropout mask applied after the running sum, −inf key padding.
-
-    Shapes as `flash_tower_attention_fwd_reference`.  Returns (out
-    [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq] f32); a row with no key gets
-    out 0 and lse −inf."""
+def _streamed_fwd_reference(q, k, v, padding_mask, seed, dropout_rate, hg):
+    """The streamed regimes' forward (kernels 4 and 6): a loop over 128-key
+    tiles with a running max, the unnormalised probabilities rounded to v's
+    dtype per tile, the dropout mask (head group hg) applied after the
+    running sum, −inf key padding.  A row with no key gets out 0 and lse
+    −inf."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     scale = 1.0 / (d ** 0.5)
     keep = (tile_keep_mask(seed, b, h, lq, lk, dropout_rate,
-                           device=q.device) if dropout_rate > 0.0 else None)
+                           device=q.device, hg=hg)
+            if dropout_rate > 0.0 else None)
     qf = q.float()
     m = torch.full((b, h, lq), -math.inf, device=q.device)
     ssum = torch.zeros((b, h, lq), device=q.device)
@@ -286,6 +298,50 @@ def flash_chunked_attention_fwd_reference(
     return out, lse
 
 
+def flash_chunked_attention_fwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    padding_mask: Optional[torch.Tensor],
+    seed: int,
+    dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the chunked forward kernel (kernel 4): the
+    JAX `_chunk_fwd_kernel`'s loop over 128-key tiles with a running max,
+    the unnormalised probabilities rounded to v's dtype per tile, the
+    dropout mask applied after the running sum, −inf key padding.
+
+    Shapes as `flash_tower_attention_fwd_reference`.  Returns (out
+    [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq] f32); a row with no key gets
+    out 0 and lse −inf."""
+    return _streamed_fwd_reference(q, k, v, padding_mask, seed, dropout_rate,
+                                   chunk_head_group(q.shape[1]))
+
+
+def _streamed_grad_terms(q, k, v, padding_mask, lse, delta, g, seed,
+                         dropout_rate, hg):
+    """The streamed regimes' backward terms per (query, key): p = exp(s −
+    lse) (0 where s or lse is −inf), pd = p·keep and ds = p·(dp − delta)·
+    scale with dp = (g·v)·keep, ds rounded to k's dtype.  Returns (pd, ds)
+    in f32."""
+    s = _chunk_scores(q, k, padding_mask)
+    p = torch.where(torch.isfinite(s) & torch.isfinite(lse)[..., None],
+                    torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.matmul(g.float(), v.float().transpose(-1, -2))
+    pd = p
+    if dropout_rate > 0.0:
+        keep = tile_keep_mask(seed, *p.shape, dropout_rate, device=p.device,
+                              hg=hg)
+        pd, dp = p * keep, dp * keep
+    ds = p * (dp - delta[..., None]) * (1.0 / (q.shape[-1] ** 0.5))
+    return pd, ds.to(k.dtype).float()
+
+
+def _delta(out, g):
+    """rowsum(g·out) in f32 from the forward's rounded output."""
+    return (g.float() * out.float()).sum(dim=-1)
+
+
 def flash_chunked_attention_bwd_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -305,22 +361,72 @@ def flash_chunked_attention_bwd_reference(
     order of those f32 sums (the tile mask depends on the element, not the
     tiling), so this version takes whole rows.  Returns (dq, dk, dv)."""
     dt = q.dtype
-    gf = g.float()
-    delta = (gf * out.float()).sum(dim=-1)
-    s = _chunk_scores(q, k, padding_mask)
-    p = torch.where(torch.isfinite(s) & torch.isfinite(lse)[..., None],
-                    torch.exp(s - lse[..., None]), 0.0)
-    dp = torch.matmul(gf, v.float().transpose(-1, -2))
-    pd = p
-    if dropout_rate > 0.0:
-        keep = tile_keep_mask(seed, *p.shape, dropout_rate, device=p.device)
-        pd, dp = p * keep, dp * keep
-    dv = torch.matmul(pd.to(g.dtype).float().transpose(-1, -2), gf)
-    ds = p * (dp - delta[..., None]) * (1.0 / (q.shape[-1] ** 0.5))
-    ds = ds.to(k.dtype).float()
+    pd, ds = _streamed_grad_terms(q, k, v, padding_mask, lse, _delta(out, g),
+                                  g, seed, dropout_rate,
+                                  chunk_head_group(q.shape[1]))
+    dv = torch.matmul(pd.to(g.dtype).float().transpose(-1, -2), g.float())
     dq = torch.matmul(ds, k.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def flash_tiled_attention_fwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    padding_mask: Optional[torch.Tensor],
+    seed: int,
+    dropout_rate: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the tiled forward kernel (kernel 6): the
+    JAX `_tiled_fwd_kernel` over the (q tile, k tile) grid, its m, s and o
+    scratch carried along the key axis: the chunked forward's arithmetic
+    with the tile mask at `head_group(H)`.  The JAX caller pads both
+    sequences to 128-multiples (`_flash_fwd:839-850`) with padded keys
+    masked and padded query rows sliced off; a masked key scores −inf and
+    adds nothing to any tile (p = 0, the max unchanged) and the mask hashes
+    absolute indices, so this version takes the unpadded sequences.
+    Returns (out [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq] f32); a row
+    with no key gets out 0 and lse −inf."""
+    return _streamed_fwd_reference(q, k, v, padding_mask, seed, dropout_rate,
+                                   head_group(q.shape[1]))
+
+
+def flash_tiled_attention_dq_reference(q, k, v, padding_mask, out, lse, g,
+                                       seed: int, dropout_rate: float = 0.0):
+    """Plain PyTorch version of the tiled dq kernel (kernel 7, JAX
+    `_tiled_dq_kernel` with delta = rowsum(g·out) from `_flash_bwd:873`):
+    ds rounded to k's dtype, dq summed in f32 over the key tiles and
+    rounded once.  A padded query row of the JAX caller has g = 0, hence
+    ds = 0.  Returns (dq in q's dtype, delta [B, H, Lq] f32)."""
+    delta = _delta(out, g)
+    _, ds = _streamed_grad_terms(q, k, v, padding_mask, lse, delta, g, seed,
+                                 dropout_rate, head_group(q.shape[1]))
+    return torch.matmul(ds, k.float()).to(q.dtype), delta
+
+
+def flash_tiled_attention_dkv_reference(q, k, v, padding_mask, lse, delta, g,
+                                        seed: int, dropout_rate: float = 0.0):
+    """Plain PyTorch version of the tiled dk/dv kernel (kernel 8, JAX
+    `_tiled_dkv_kernel`): pd rounded to g's dtype for dv, ds to q's for dk,
+    both summed in f32 over the query tiles and rounded once.  delta: kernel
+    7's.  Returns (dk, dv) in k's dtype."""
+    pd, ds = _streamed_grad_terms(q, k, v, padding_mask, lse, delta, g, seed,
+                                  dropout_rate, head_group(q.shape[1]))
+    dv = torch.matmul(pd.to(g.dtype).float().transpose(-1, -2), g.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_tiled_attention_bwd_reference(q, k, v, padding_mask, out, lse, g,
+                                        seed: int, dropout_rate: float = 0.0):
+    """Plain PyTorch version of the tiled backward (kernels 7 then 8).
+    Returns (dq, dk, dv)."""
+    dq, delta = flash_tiled_attention_dq_reference(
+        q, k, v, padding_mask, out, lse, g, seed, dropout_rate)
+    dk, dv = flash_tiled_attention_dkv_reference(
+        q, k, v, padding_mask, lse, delta, g, seed, dropout_rate)
+    return dq, dk, dv
 
 
 def _check(q, k, v, padding_mask, dropout_rate) -> None:
@@ -350,22 +456,18 @@ def _check(q, k, v, padding_mask, dropout_rate) -> None:
             raise ValueError("padding_mask must lie on q's device")
 
 
-def chunked(q: torch.Tensor, k: torch.Tensor) -> bool:
-    """The JAX dispatch (`_flash_fwd`): False for the single-block regime
-    (kernels 2/3), True for the chunked one (kernels 4/5); a shape past
-    both takes the JAX package's tiled kernels and raises here."""
+def regime(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The JAX dispatch (`_flash_fwd`, `_flash_bwd`): "single" within
+    `fits_vmem` (kernels 2/3), "chunked" within `fits_chunked` at q's
+    element size (kernels 4/5), "tiled" past both (kernels 6–8).  Both
+    budgets key on max(Lq, Lk) rounded up to 128."""
     _, h, lq, dh = q.shape
     lk = k.shape[2]
     if fits_vmem(h, lq, lk, dh):
-        return False
+        return "single"
     if fits_chunked(h, lq, lk, dh, q.element_size()):
-        return True
-    raise NotImplementedError(
-        f"flash_tower_attention at H={h}, Lq={lq}, Lk={lk}, Dh={dh} in "
-        f"{q.dtype} is past fits_chunked: the JAX package takes its tiled "
-        "kernels 6–8 there (flash_attention.py:267 _tiled_fwd_kernel, :318 "
-        "_tiled_dq_kernel, :349 _tiled_dkv_kernel), which the port has not "
-        "ported yet")
+        return "chunked"
+    return "tiled"
 
 
 def _lib() -> ctypes.CDLL:
@@ -398,6 +500,15 @@ def _aligned(tensors, item) -> bool:
                for t in tensors) and tensors[0].shape[-1] * item % 16 == 0
 
 
+def _dropout_args(seed, rate):
+    """The kernels' dropout arguments: the seed as uint32, the keep
+    threshold uint32(rate · 2³²), the f32 scale 1/(1−rate), and whether
+    dropout is on."""
+    return (int(seed) & 0xFFFFFFFF, int(rate * 4294967296.0),
+            float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)),
+            int(rate > 0.0))
+
+
 def _prepare(q, k, seed, rate, launches):
     """The loaded library, the score scale and the dropout arguments of a
     call, after checking the head dim and the shared memory of each launch
@@ -416,10 +527,7 @@ def _prepare(q, k, seed, rate, launches):
                 f"head in shared memory: launch {which} at Lq={lq}, "
                 f"Lk={lk}, Dh={dh} needs {smem} bytes, more than the "
                 f"{SMEM_PER_BLOCK} a block may use")
-    drop = (int(seed) & 0xFFFFFFFF, int(rate * 4294967296.0),
-            float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)),
-            int(rate > 0.0))
-    return lib, 1.0 / (dh ** 0.5), drop
+    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
 
 
 def _mask_bytes(padding_mask):
@@ -558,42 +666,39 @@ def _chunk_lib() -> ctypes.CDLL:
         lib.fca_chunk_backward.argtypes = [ptr] * 11 + [i32] * 7 + tail
         lib.fca_chunk_forward.restype = i32
         lib.fca_chunk_backward.restype = i32
-        lib.fca_chunk_smem_bytes.argtypes = [i32, i32]
+        lib.fca_chunk_smem_bytes.argtypes = [i32] * 4
         lib.fca_chunk_smem_bytes.restype = ctypes.c_size_t
         lib.fca_chunk_supported_dim.argtypes = [i32]
         lib.fca_chunk_supported_dim.restype = i32
     return lib
 
 
-def _chunk_prepare(q, seed, rate, launches):
+def _chunk_prepare(q, seed, rate, launches, vec):
     """As `_prepare`, for the chunked kernels, whose shared memory depends
-    on the head dim only."""
+    on the dtype, the head dim and `vec` (rows 16-byte aligned)."""
     lib = _chunk_lib()
     dh = q.shape[-1]
     if not lib.fca_chunk_supported_dim(dh):
         raise ValueError(f"flash_chunked_attention kernels are compiled for "
                          f"Dh in (16, 32, 64, 128), not {dh}")
     for which in launches:
-        smem = lib.fca_chunk_smem_bytes(which, dh)
+        smem = lib.fca_chunk_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec))
         if smem > SMEM_PER_BLOCK:
             raise ValueError(f"flash_chunked_attention launch {which} at "
                              f"Dh={dh} needs {smem} bytes of shared memory, "
                              f"more than the {SMEM_PER_BLOCK} a block may use")
-    drop = (int(seed) & 0xFFFFFFFF, int(rate * 4294967296.0),
-            float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)),
-            int(rate > 0.0))
-    return lib, 1.0 / (dh ** 0.5), drop
+    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
 
 
 def _launch_chunk_fwd(q, k, v, mask, seed, rate):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
-    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,))
+    vec = _aligned((q, k, v), q.element_size())
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,), vec)
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    vec = _aligned((q, k, v), q.element_size())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fca_chunk_forward(
@@ -613,7 +718,8 @@ def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
     lk = k.shape[2]
     if g.stride(-1) != 1:
         g = g.contiguous()
-    lib, scale, drop = _chunk_prepare(q, seed, rate, (1, 2))
+    vec = _aligned((q, k, v, g), q.element_size())
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (1, 2), vec)
     dq = _heads_last(b, lq, h, dh, q)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
@@ -621,7 +727,6 @@ def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
     strides = (ctypes.c_longlong * 24)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
-    vec = _aligned((q, k, v, g), q.element_size())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fca_chunk_backward(
@@ -670,38 +775,223 @@ def flash_chunked_attention_bwd(q, k, v, padding_mask, out, lse, g,
     results; g: d(out), any strides with a unit last one."""
     _check(q, k, v, padding_mask, dropout_rate)
     _check_grad_inputs(q, lse, g)
+    _check_out(q, out)
+    return _chunk_bwd(q, k, v, _mask_bytes(padding_mask), out,
+                      lse.contiguous(), g, seed, dropout_rate)
+
+
+def _tiled_lib() -> ctypes.CDLL:
+    lib = _build.load(_TILED_LIB)
+    if lib.ftl_forward.argtypes is None:
+        ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+        tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, ptr]
+        lib.ftl_forward.argtypes = [ptr] * 6 + [i32] * 7 + tail
+        lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + tail
+        lib.ftl_dkv.argtypes = [ptr] * 9 + [i32] * 7 + tail
+        lib.ftl_forward.restype = lib.ftl_dq.restype = i32
+        lib.ftl_dkv.restype = i32
+        lib.ftl_smem_bytes.argtypes = [i32] * 4
+        lib.ftl_smem_bytes.restype = ctypes.c_size_t
+        lib.ftl_supported_dim.argtypes = [i32]
+        lib.ftl_supported_dim.restype = i32
+    return lib
+
+
+def _tiled_prepare(q, seed, rate, which, vec):
+    """The loaded library, the score scale and the dropout arguments of one
+    tiled launch (0: kernel 6, 1: kernel 7, 2: kernel 8), after checking the
+    head dim and the launch's shared memory (`vec`: rows 16-byte aligned)."""
+    lib = _tiled_lib()
+    dh = q.shape[-1]
+    if not lib.ftl_supported_dim(dh):
+        raise ValueError(f"flash_tiled_attention kernels are compiled for "
+                         f"Dh in (16, 32, 64, 128), not {dh}")
+    smem = lib.ftl_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec))
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"flash_tiled_attention launch {which} at Dh={dh} "
+                         f"needs {smem} bytes of shared memory, more than "
+                         f"the {SMEM_PER_BLOCK} a block may use")
+    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
+
+
+def _tiled_call(fn, name, *args):
+    """fn(*args, stream) on the current stream of args[0]'s device, each
+    tensor passed as its data pointer; raises on a nonzero CUDA error."""
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                  for a in args), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_tiled_attention {name} kernel launch "
+                           f"failed: CUDA error {rc}")
+
+
+def _launch_tiled_fwd(q, k, v, mask, seed, rate):
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    vec = _aligned((q, k, v), q.element_size())
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 0, vec)
+    out = _heads_last(b, lq, h, dh, q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
+    _tiled_call(lib.ftl_forward, "forward", q, k, v, mask, out, lse,
+                _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
+                scale, *drop, int(vec))
+    flash_tower_attention.tiled_fwd_launches += 1
+    return out, lse
+
+
+def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    vec = _aligned((q, k, v, g), q.element_size())
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 1, vec)
+    dq = _heads_last(b, lq, h, dh, q)
+    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *g.stride()[:3], *dq.stride()[:3])
+    _tiled_call(lib.ftl_dq, "dq", q, k, v, mask, out, lse, g, dq, delta,
+                _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
+                scale, *drop, int(vec))
+    flash_tower_attention.tiled_dq_launches += 1
+    return dq, delta
+
+
+def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    vec = _aligned((q, k, v, g), q.element_size())
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 2, vec)
+    dk = _heads_last(b, lk, h, dh, k)
+    dv = _heads_last(b, lk, h, dh, v)
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3])
+    _tiled_call(lib.ftl_dkv, "dk/dv", q, k, v, mask, lse, delta, g, dk, dv,
+                _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
+                scale, *drop, int(vec))
+    flash_tower_attention.tiled_dkv_launches += 1
+    return dk, dv
+
+
+def _tiled_fwd(q, k, v, mask, seed, rate):
+    if q.device.type == "cpu":
+        return flash_tiled_attention_fwd_reference(q, k, v, mask, seed, rate)
+    _device_check(q)
+    return _launch_tiled_fwd(q, k, v, mask, seed, rate)
+
+
+def _tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
+    if q.device.type == "cpu":
+        return flash_tiled_attention_dq_reference(q, k, v, mask, out, lse, g,
+                                                  seed, rate)
+    _device_check(q)
+    return _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate)
+
+
+def _tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
+    if q.device.type == "cpu":
+        return flash_tiled_attention_dkv_reference(q, k, v, mask, lse, delta,
+                                                   g, seed, rate)
+    _device_check(q)
+    return _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate)
+
+
+def _tiled_bwd(q, k, v, mask, out, lse, g, seed, rate):
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    dq, delta = _tiled_dq(q, k, v, mask, out, lse, g, seed, rate)
+    dk, dv = _tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate)
+    return dq, dk, dv
+
+
+def _check_out(q, out) -> None:
     if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
         raise ValueError(f"out must match q: {tuple(out.shape)} {out.dtype} "
                          f"vs {tuple(q.shape)} {q.dtype}")
     if out.stride(-1) != 1:
         raise ValueError("out needs a contiguous last (feature) dim")
-    return _chunk_bwd(q, k, v, _mask_bytes(padding_mask), out,
+
+
+def flash_tiled_attention_fwd(q, k, v, padding_mask, seed: int,
+                              dropout_rate: float = 0.0):
+    """The tiled forward kernel (kernel 6) on CUDA tensors, its plain
+    version on CPU tensors: (out [B, H, Lq, Dh] in [B, Lq, H, Dh] storage,
+    lse [B, H, Lq] f32).  Arguments as `flash_tower_attention`; any
+    length."""
+    _check(q, k, v, padding_mask, dropout_rate)
+    return _tiled_fwd(q, k, v, _mask_bytes(padding_mask), seed, dropout_rate)
+
+
+def flash_tiled_attention_dq(q, k, v, padding_mask, out, lse, g, seed: int,
+                             dropout_rate: float = 0.0):
+    """The tiled dq kernel (kernel 7) on CUDA tensors, its plain version on
+    CPU tensors: (dq [B, H, Lq, Dh] in [B, Lq, H, Dh] storage, delta
+    [B, H, Lq] f32 = rowsum(g·out), which kernel 8 takes).  out, lse: the
+    forward's results; g: d(out) with a unit last stride."""
+    _check(q, k, v, padding_mask, dropout_rate)
+    _check_grad_inputs(q, lse, g)
+    _check_out(q, out)
+    if g.stride(-1) != 1:
+        raise ValueError("g needs a contiguous last (feature) dim")
+    return _tiled_dq(q, k, v, _mask_bytes(padding_mask), out,
+                     lse.contiguous(), g, seed, dropout_rate)
+
+
+def flash_tiled_attention_dkv(q, k, v, padding_mask, lse, delta, g,
+                              seed: int, dropout_rate: float = 0.0):
+    """The tiled dk/dv kernel (kernel 8) on CUDA tensors, its plain version
+    on CPU tensors: (dk, dv), each [B, H, Lk, Dh] in [B, Lk, H, Dh]
+    storage.  delta: kernel 7's [B, H, Lq] f32."""
+    _check(q, k, v, padding_mask, dropout_rate)
+    _check_grad_inputs(q, lse, g)
+    if delta.shape != lse.shape or delta.dtype != torch.float32:
+        raise ValueError(f"delta must be [B, H, Lq] f32, got "
+                         f"{tuple(delta.shape)} {delta.dtype}")
+    if g.stride(-1) != 1:
+        raise ValueError("g needs a contiguous last (feature) dim")
+    return _tiled_dkv(q, k, v, _mask_bytes(padding_mask), lse.contiguous(),
+                      delta.contiguous(), g, seed, dropout_rate)
+
+
+def flash_tiled_attention_bwd(q, k, v, padding_mask, out, lse, g, seed: int,
+                              dropout_rate: float = 0.0):
+    """The tiled backward (kernel 7, then kernel 8) on CUDA tensors, the
+    plain versions on CPU tensors: (dq, dk, dv), each [B, H, L, Dh] in
+    [B, L, H, Dh] storage.  g: any strides with a unit last one."""
+    _check(q, k, v, padding_mask, dropout_rate)
+    _check_grad_inputs(q, lse, g)
+    _check_out(q, out)
+    return _tiled_bwd(q, k, v, _mask_bytes(padding_mask), out,
                       lse.contiguous(), g, seed, dropout_rate)
+
+
+# per regime: the forward runner and the backward runner; the streamed
+# regimes' backward takes delta = rowsum(g·out), so they keep the output as
+# the JAX residual does (flash_attention.py:852-855)
+_RUNNERS = {"single": (_single_fwd, _single_bwd),
+            "chunked": (_chunk_fwd, _chunk_bwd),
+            "tiled": (_tiled_fwd, _tiled_bwd)}
 
 
 class _FlashTowerAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, rate, is_chunked):
-        ctx.seed, ctx.rate, ctx.chunked = seed, rate, is_chunked
-        if is_chunked:
-            # the chunked backward's delta = rowsum(g·out) needs the output,
-            # as the JAX residual keeps it (flash_attention.py:852-855)
-            out, lse = _chunk_fwd(q, k, v, mask, seed, rate)
-            ctx.save_for_backward(q, k, v, mask, lse, out)
-        else:
-            out, lse = _single_fwd(q, k, v, mask, seed, rate)
+    def forward(ctx, q, k, v, mask, seed, rate, kind):
+        ctx.seed, ctx.rate, ctx.kind = seed, rate, kind
+        out, lse = _RUNNERS[kind][0](q, k, v, mask, seed, rate)
+        if kind == "single":
             ctx.save_for_backward(q, k, v, mask, lse)
+        else:
+            ctx.save_for_backward(q, k, v, mask, lse, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.chunked:
-            q, k, v, mask, lse, out = ctx.saved_tensors
-            grads = _chunk_bwd(q, k, v, mask, out, lse, g, ctx.seed,
-                               ctx.rate)
-        else:
-            q, k, v, mask, lse = ctx.saved_tensors
-            grads = _single_bwd(q, k, v, mask, lse, g, ctx.seed, ctx.rate)
+        q, k, v, mask, lse, *out = ctx.saved_tensors
+        grads = _RUNNERS[ctx.kind][1](q, k, v, mask, *out, lse, g, ctx.seed,
+                                      ctx.rate)
         return (*grads, None, None, None, None)
 
 
@@ -721,25 +1011,27 @@ def flash_tower_attention(
     padding) or None; seed: a Python int (the int32 layer seed; ignored at
     rate 0).  Returns [B, H, Lq, Dh] in q's dtype, in [B, Lq, H, Dh]
     storage.  Shapes within `fits_vmem` take kernels 2/3, longer ones
-    within `fits_chunked` kernels 4/5 (see `chunked`), longer ones still
-    raise `NotImplementedError`.  Without a gradient to take
-    (torch.no_grad, or no input that requires grad) it runs the forward
-    alone and saves nothing.  `flash_tower_attention.fwd_launches` /
-    `.bwd_launches` count the launches of kernels 2/3, `.chunk_fwd_launches`
-    / `.chunk_bwd_launches` those of kernels 4/5 (a backward's two launches
-    count once)."""
+    within `fits_chunked` kernels 4/5, longer ones still kernels 6–8 (see
+    `regime`).  Without a gradient to take (torch.no_grad, or no input that
+    requires grad) it runs the forward alone and saves nothing.
+    `flash_tower_attention.fwd_launches` / `.bwd_launches` count the
+    launches of kernels 2/3, `.chunk_fwd_launches` / `.chunk_bwd_launches`
+    those of kernels 4/5 (a backward's two launches count once), and
+    `.tiled_fwd_launches` / `.tiled_dq_launches` / `.tiled_dkv_launches`
+    those of kernels 6, 7 and 8."""
     _check(q, k, v, padding_mask, dropout_rate)
     mask = _mask_bytes(padding_mask)
     seed, rate = int(seed), float(dropout_rate)
-    is_chunked = chunked(q, k)
+    kind = regime(q, k)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashTowerAttention.apply(q, k, v, mask, seed, rate,
-                                          is_chunked)
-    fwd = _chunk_fwd if is_chunked else _single_fwd
-    return fwd(q, k, v, mask, seed, rate)[0]
+        return _FlashTowerAttention.apply(q, k, v, mask, seed, rate, kind)
+    return _RUNNERS[kind][0](q, k, v, mask, seed, rate)[0]
 
 
 flash_tower_attention.fwd_launches = 0
 flash_tower_attention.bwd_launches = 0
 flash_tower_attention.chunk_fwd_launches = 0
 flash_tower_attention.chunk_bwd_launches = 0
+flash_tower_attention.tiled_fwd_launches = 0
+flash_tower_attention.tiled_dq_launches = 0
+flash_tower_attention.tiled_dkv_launches = 0

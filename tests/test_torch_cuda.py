@@ -1,10 +1,10 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels have no CPU mode.
 
 The fused cross-attention kernel (eval), the single-block flash
-tower-attention kernels 2/3 and the chunked kernels 4/5 (training, forward
-and backward), and the fused InfoNCE kernels 9-11 against their plain
-versions on the card, and the launch counters that show a path went
-through them.
+tower-attention kernels 2/3, the chunked kernels 4/5 and the tiled kernels
+6/7/8 (training, forward and backward), and the fused InfoNCE kernels 9-11
+against their plain versions on the card, and the launch counters that show
+a path went through them.
 
 They import neither JAX nor the JAX package, so they also run where JAX is
 not installed:
@@ -21,6 +21,7 @@ from chip_smoke import (
     flash_term_scales,
     infonce_errors,
     infonce_ids,
+    tiled_masks,
 )
 from leccr_torch.ops import infonce
 from leccr_torch.ops.flash_attention import (
@@ -28,11 +29,17 @@ from leccr_torch.ops.flash_attention import (
     flash_chunked_attention_bwd_reference,
     flash_chunked_attention_fwd,
     flash_chunked_attention_fwd_reference,
+    flash_tiled_attention_bwd,
+    flash_tiled_attention_bwd_reference,
+    flash_tiled_attention_fwd,
+    flash_tiled_attention_fwd_reference,
     flash_tower_attention,
     flash_tower_attention_bwd,
     flash_tower_attention_bwd_reference,
     flash_tower_attention_fwd,
     flash_tower_attention_fwd_reference,
+    head_group,
+    tile_keep_mask,
 )
 from leccr_torch.ops.fused_cross_attention import (
     fused_cross_attention,
@@ -172,13 +179,17 @@ def test_chunked_kernels_match_plain_versions(shape, dtype, dh):
 @pytest.mark.cuda
 def test_flash_launch_counters():
     """One forward launch per call, one backward per backward (its two
-    launches count once), none for a backward under no_grad, each on the
-    counters of its regime; shapes past fits_chunked (the tiled kernels
-    6–8) raise on the card too."""
+    launches count once; the tiled dq and dk/dv launches count on their own
+    counters), none for a backward under no_grad, each on the counters of
+    its regime; shapes past fits_chunked (bf16 at 4096 tokens) take the
+    tiled kernels 6-8 on the card."""
     _needs_card()
     counters = ("fwd_launches", "bwd_launches", "chunk_fwd_launches",
-                "chunk_bwd_launches")
-    for length, want in ((64, (2, 1, 0, 0)), (577, (0, 0, 2, 1))):
+                "chunk_bwd_launches", "tiled_fwd_launches",
+                "tiled_dq_launches", "tiled_dkv_launches")
+    for length, want in ((64, (2, 1, 0, 0, 0, 0, 0)),
+                         (577, (0, 0, 2, 1, 0, 0, 0)),
+                         (4096, (0, 0, 0, 0, 2, 1, 1))):
         q, k, v, _, pad = _flash_inputs(2, length, torch.bfloat16, True,
                                         heads=16)
         before = [getattr(flash_tower_attention, c) for c in counters]
@@ -190,9 +201,58 @@ def test_flash_launch_counters():
         assert tuple(getattr(flash_tower_attention, c) - b
                      for c, b in zip(counters, before)) == want
         assert qg.grad is not None and torch.isfinite(qg.grad).all()
-    long = torch.zeros(1, 2, 4096, 64, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="6–8"):
-        flash_tower_attention(long, long, long, None, 0, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 32])
+@pytest.mark.parametrize("heads", [16, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiled_kernels_match_plain_versions(dtype, heads, dh):
+    """Kernels 6, 7 and 8 against their plain versions at 2705 tokens (ViT-L
+    /14 @728) with key padding, a fully padded row and dropout 0.1, batch
+    2, 16 heads (head group 8) and 12 (head group 6); bf16 at Dh=64 takes
+    the tensor-core kernels, every other case the scalar ones.  Tolerances
+    as kernels 4/5's, with the tiled head group in the term sums."""
+    _needs_card()
+    q, k, v, grad, pad = _flash_inputs(2, 2705, dtype, True, heads=heads,
+                                       dh=dh)
+    seed, rate = 99, 0.1
+    out, lse = flash_tiled_attention_fwd(q, k, v, pad, seed, rate)
+    grads = flash_tiled_attention_bwd(q, k, v, pad, out, lse, grad, seed,
+                                      rate)
+    want_out, want_lse = flash_tiled_attention_fwd_reference(
+        q, k, v, pad, seed, rate)
+    want_grads = flash_tiled_attention_bwd_reference(
+        q, k, v, pad, want_out, want_lse, grad, seed, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(want_lse))
+    real = torch.isfinite(want_lse)
+    assert (lse[real] - want_lse[real]).abs().max().item() <= 1e-5
+    assert (out[0] == 0).all() and all((d[0] == 0).all() for d in grads)
+    pairs = {"out": (out, want_out),
+             **dict(zip(("dq", "dk", "dv"), zip(grads, want_grads)))}
+    assert all(torch.isfinite(a).all() for a, _ in pairs.values())
+    if dtype == torch.float32:
+        for name, (got, want) in pairs.items():
+            tol = 1e-5 if name == "out" else 1e-4
+            assert (got - want).abs().max().item() <= tol, name
+    else:
+        scales = flash_term_scales(q, k, v, pad, want_lse, grad, seed, rate,
+                                   out=want_out, hg=head_group(heads))
+        for name, (got, want) in pairs.items():
+            assert bf16_k_needed(got, want, scales[name]) <= BF16_K, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [16, 12, 3])
+def test_tiled_masks_are_the_plain_hash(heads):
+    """The dropout masks kernels 6, 7 and 8 apply, read back bit for bit,
+    equal the plain tile hash at head_group(H)."""
+    _needs_card()
+    want = tile_keep_mask(7, 2, heads, 300, 300, 0.2, device="cuda",
+                          hg=head_group(heads)) != 0
+    for got in tiled_masks(2, heads, 300, torch.bfloat16, 0.2, 7):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -184,15 +184,16 @@ def test_fits_vmem_is_the_jax_dispatch_and_longer_shapes_raise():
     """The dispatch is the JAX package's: a 200-token H=12 shape is past
     fits_vmem and computes through the chunked regime (kernels 4/5), which
     the single-block wrappers (kernels 2/3) refuse, and a shape past
-    fits_chunked raises, naming the tiled kernels 6–8."""
+    fits_chunked (4096 tokens in bf16) no longer raises: it computes through
+    the tiled regime (kernels 6-8) and equals its plain version."""
     for h, lq, lk, d in ((12, 145, 145, 64), (12, 128, 128, 64),
                          (12, 169, 169, 64), (12, 170, 170, 64),
                          (16, 577, 577, 64), (1, 640, 640, 16)):
         assert fits_vmem(h, lq, lk, d) == jfa.fits_vmem(h, lq, lk, d)
     q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(1, 12, 200, 64)
                                 .astype(np.float32)) for i in range(3))
-    assert port.chunked(q, k) and not port.chunked(q[:, :, :145],
-                                                   k[:, :, :145])
+    assert port.regime(q, k) == "chunked"
+    assert port.regime(q[:, :, :145], k[:, :, :145]) == "single"
     out = flash_tower_attention(q, k, v, None, 3, 0.1)
     want = port.flash_chunked_attention_fwd_reference(q, k, v, None, 3, 0.1)
     torch.testing.assert_close(out, want[0], rtol=0, atol=0)
@@ -200,9 +201,13 @@ def test_fits_vmem_is_the_jax_dispatch_and_longer_shapes_raise():
         flash_tower_attention_fwd(q, k, v, None, 3, 0.1)
     with pytest.raises(ValueError, match="past fits_vmem"):
         flash_tower_attention_bwd(q, k, v, None, want[1], q, 3, 0.1)
-    long = torch.zeros(1, 2, 4096, 64, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="6–8"):
-        flash_tower_attention(long, long, long, None, 0, 0.1)
+    long = torch.from_numpy(np.random.RandomState(5).randn(1, 2, 4096, 64)
+                            .astype(np.float32)).to(torch.bfloat16)
+    assert port.regime(long, long) == "tiled"
+    got = flash_tower_attention(long, long, long, None, 0, 0.1)
+    want = port.flash_tiled_attention_fwd_reference(long, long, long, None,
+                                                    0, 0.1)
+    torch.testing.assert_close(got, want[0], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "mask", "rate", "stride"])

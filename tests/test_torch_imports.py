@@ -39,3 +39,27 @@ def test_port_imports_no_jax_and_builds_nothing():
             "leccr_torch.train.step"} <= set(out["modules"])
     assert out["foreign"] == []
     assert out["built"] == []
+
+
+def test_library_name_hashes_only_the_headers_a_source_includes(
+        tmp_path, monkeypatch):
+    """A header edit renames (so rebuilds) only the libraries whose source
+    includes it, directly or through another header."""
+    from leccr_torch.ops import _build
+
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    (tmp_path / "uses.cu").write_text(
+        '#include <cuda_runtime.h>\n  #  include "outer.cuh"\n')
+    (tmp_path / "plain.cu").write_text("#include <stdint.h>\n")
+    assert [h.name for h in _build.local_headers(tmp_path / "uses.cu")] == [
+        "inner.cuh", "outer.cuh"]
+    assert _build.local_headers(tmp_path / "plain.cu") == []
+    before = {n: _build.library_path(n) for n in ("uses", "plain")}
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    assert {n: _build.library_path(n) for n in ("uses", "plain")} == before
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    assert _build.library_path("uses") != before["uses"]
+    assert _build.library_path("plain") == before["plain"]

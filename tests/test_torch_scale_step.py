@@ -93,11 +93,10 @@ def _jax_params(cfg, seed):
     return batch, jax.tree.map(np.asarray, params)
 
 
-@pytest.fixture(scope="module")
-def jax_step():
-    """JAX's one-device train step with remat: params, losses, the
-    gradients of grad_total and the params after tx.update."""
-    cfg = tiny_test_config(**SLICE, **NO_DROPOUT)
+def jax_step_of(cfg):
+    """JAX's one-device train step of `cfg` (the JAX package's config) with
+    remat: the batch, params, losses, the gradients of grad_total and the
+    params after tx.update."""
     mc = cfg.model
     batch, params = _jax_params(cfg, 0)
     model = LECCRModel(mc)
@@ -136,6 +135,11 @@ def jax_step():
 
     losses, grads, new_params = jax.tree.map(np.asarray, step(params))
     return batch, params, losses, grads, new_params
+
+
+@pytest.fixture(scope="module")
+def jax_step():
+    return jax_step_of(tiny_test_config(**SLICE, **NO_DROPOUT))
 
 
 def test_slice_train_step_matches_jax(jax_step, force_chunked,
