@@ -24,13 +24,18 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    vision [128,12,145,64] at rate 0; text [256,12,64,64] and caption
    [128,12,64,64], forward only; long-sequence slice: text [64,16,64,64]
    and caption [32,16,64,64], forward only; texts and captions with key
-   padding, one fully padded row and dropout 0.1), bf16 and f32: out, lse,
-   dq, dk, dv.  Tolerance: f32
+   padding, one fully padded row and dropout 0.1), bf16 and f32, and the
+   text shape in bf16 with unaligned rows: out, lse, dq, dk, dv.  Every
+   bf16 path shape must take the tensor-core variant, f32 and the
+   unaligned shape the scalar one (`single_block_variant`, and the
+   tensor-core launch counters).  Tolerance: f32
    out and lse atol 1e-5, grads 1e-4; bf16 lse 1e-5 and every other
    element within 1e-5 + BF16_K bf16 ulps of the sum of the absolute
    values of its terms (see flash_term_scales).  Timed like phase 2, with
    SDPA at rate 0 (forward, and the backward alone of a saved forward) as
-   the yardstick.
+   the yardstick.  Then the dropout masks that the forward and the
+   backward's two passes apply, read back bit for bit at the text shape
+   (`single_masks`), must equal keep_mask.
 4. kernels 4/5 vs plain: the chunked flash forward and backward against
    their plain versions at ViT-L/14 @336's [32,16,577,64] (rate 0, no
    padding) and a 200-token text batch [64,16,200,64] (key padding, a
@@ -90,10 +95,12 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    9-11; (b) the long-sequence slice at bs32 (slice_config: flash in both
    towers, one card, remat): 48 launches of kernel 4 and 24 of kernel 5,
    72 of kernel 2 and 24 of kernel 3 a step.  Each: 3 warm-up and 5 timed
-   steps; finite losses, every parameter moved; ms/step, pairs/s, peak
+   steps; finite losses, every parameter moved; in bf16 every launch of
+   kernels 2/3 on the tensor-core variant; ms/step, pairs/s, peak
    memory; then one step under torch.profiler (device time by kernel,
-   busy share).  (c) The slice step again with remat off (2 warm-up and 3
-   timed steps, then a profiled one): what remat costs.  (c') The
+   busy share, kernels 2 and 3 alone).  (c) The slice step again with
+   remat off (2 warm-up and 3 timed steps, then a profiled one): what
+   remat costs.  (c') The
    high-resolution step (hires_config: the slice at 728², bs8, remat; 2
    warm-up and 3 timed steps, then a profiled one with kernels 6-8's share
    of device time): 48, 24 and 24 launches of kernels 6, 7 and 8 and the
@@ -123,6 +130,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -141,6 +149,10 @@ FLASH_SHAPES = [("vision", 128, 12, 145, 0.0, False, True),
                 ("caption", 128, 12, 64, 0.1, True, False),
                 ("slice-text", 64, 16, 64, 0.1, True, True),
                 ("slice-caption", 32, 16, 64, 0.1, True, False)]
+# the text shape again in bf16, its rows 2 bytes off 16-byte alignment: the
+# scalar variant of kernels 2/3, which f32, other head dims and unaligned
+# views take, checked and timed beside the tensor-core one
+SCALAR_FLASH_SHAPE = ("text-unaligned", 256, 12, 64, 0.1, True, True)
 # (name, B, H, L, dropout rate, key padding) of kernels 4/5's checks: the
 # ViT-L/14 @336 tower of the long-sequence slice's bs32 step, and a text
 # batch at the 200-token bucket (past fits_vmem at 16 heads)
@@ -176,6 +188,8 @@ COUNTERS = ("fwd_launches", "bwd_launches", "chunk_fwd_launches",
 INFONCE_COUNTERS = ("stats_launches", "dq_launches",
                     "dk_launches")  # kernels 9, 10, 11
 STEP_COUNTERS = COUNTERS + INFONCE_COUNTERS
+TC_COUNTERS = ("tc_fwd_launches", "tc_bwd_launches")  # kernels 2/3 on tensor
+# cores: a subset of fwd_launches / bwd_launches
 # Launches of kernels (2, 3, 4, 5, 6, 7, 8, 9, 10, 11) in one train step.
 # Flagship: 12 ViT-B/32 blocks at 145 tokens (single-block) and 12 mBERT
 # layers at 64 tokens, a forward each for the texts and for the captions, a
@@ -390,9 +404,28 @@ def bf16_k_needed(got, want, scale) -> float:
     return float((excess / bf16_ulp(scale)).max().item())
 
 
+def path_layout(x, aligned: bool = True):
+    """x [B, L, H, Dh] as the towers pass it: [B, L, H, Dh] storage seen as
+    [B, H, L, Dh]; with aligned=False, in storage that starts one element
+    past a 16-byte boundary (rows unaligned: the scalar variant)."""
+    if not aligned:
+        buf = x.new_empty(x.numel() + 1)[1:]
+        x = buf.view(x.shape).copy_(x)
+    return x.transpose(1, 2)
+
+
+def tc_counts():
+    """Launches of kernels 2/3 on the tensor-core variant so far."""
+    from leccr_torch.ops.flash_attention import flash_tower_attention
+
+    return tuple(getattr(flash_tower_attention, c) for c in TC_COUNTERS)
+
+
 def flash_phase(dh: int = 64, seed: int = 1234):
-    """Kernels 2 and 3 against their plain versions at the path's shapes,
-    timed beside their bound, the plain version and SDPA."""
+    """Kernels 2 and 3 against their plain versions at the path's shapes
+    (and SCALAR_FLASH_SHAPE on the scalar variant), timed beside their
+    bound, the plain version and SDPA; then their dropout masks read back
+    bit for bit at the text shape."""
     import torch
     import torch.nn.functional as F
 
@@ -401,103 +434,181 @@ def flash_phase(dh: int = 64, seed: int = 1234):
         flash_tower_attention_bwd_reference,
         flash_tower_attention_fwd,
         flash_tower_attention_fwd_reference,
+        keep_mask,
+        single_block_variant,
     )
 
     flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     results = []
-    for name, batch, heads, length, rate, masked, backward in FLASH_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            g = torch.Generator(device="cuda").manual_seed(length)
-            # the path's layout: [B, L, H, Dh] storage seen as [B, H, L, Dh]
-            q, k, v, grad = (torch.randn(batch, length, heads, dh,
-                                         device="cuda", generator=g)
-                             .to(dtype).transpose(1, 2) for _ in range(4))
-            pad = None
-            if masked:
-                pad = torch.rand(batch, length, device="cuda",
-                                 generator=g) < 0.3
-                pad[0] = True  # a fully padded row
-                pad[1] = False
-            out, lse = flash_tower_attention_fwd(q, k, v, pad, seed, rate)
-            grads = flash_tower_attention_bwd(q, k, v, pad, lse, grad, seed,
-                                              rate)
-            want_out, want_lse = flash_tower_attention_fwd_reference(
-                q, k, v, pad, seed, rate)
-            want_grads = flash_tower_attention_bwd_reference(
-                q, k, v, pad, want_lse, grad, seed, rate)
-            torch.cuda.synchronize()
-            pairs = {"out": (out, want_out), "lse": (lse, want_lse),
-                     **{n: (a, w) for n, a, w in zip(("dq", "dk", "dv"),
-                                                      grads, want_grads)}}
-            errs = {n: (a.float() - w.float()).abs().max().item()
-                    for n, (a, w) in pairs.items()}
-            if not all(torch.isfinite(a).all() for a, _ in pairs.values()):
-                raise AssertionError(f"non-finite flash output {name}")
-            item = q.element_size()
-            if dtype == torch.float32:
-                ok = (errs["out"] <= 1e-5 and errs["lse"] <= 1e-5
-                      and max(errs[n] for n in ("dq", "dk", "dv")) <= 1e-4)
-                tol = "max abs err: out, lse <= 1e-5; dq, dk, dv <= 1e-4"
-                k_needed = None
-            else:
-                scales = flash_term_scales(q, k, v, pad, want_lse, grad,
-                                           seed, rate)
-                k_needed = {n: bf16_k_needed(*pairs[n], scales[n])
-                            for n in scales}
-                del scales
-                ok = (errs["lse"] <= 1e-5
-                      and max(k_needed.values()) <= BF16_K)
-                tol = (f"lse <= 1e-5; out, dq, dk, dv: every element "
-                       f"within 1e-5 + {BF16_K} bf16 ulps of the sum of "
-                       f"the absolute values of its terms")
-            if not ok:
-                raise AssertionError(
-                    f"flash kernels disagree with their plain versions at "
-                    f"{name} {dtype}: {errs} ulps {k_needed}")
-            numel = q.numel()
-            lse_bytes = 4 * batch * heads * length
-            mask_bytes = 0 if pad is None else pad.numel()
-            n_bytes = {"fwd": 4 * numel * item + lse_bytes + mask_bytes,
-                       "bwd": 7 * numel * item + lse_bytes + mask_bytes}
-            flops = {"fwd": 4 * batch * heads * length * length * dh,
-                     "bwd": 10 * batch * heads * length * length * dh}
-            dname = str(dtype).split(".")[-1]
-            attend = None if pad is None else ~pad[:, None, None, :]
-            times = {
-                "fwd": (lambda: flash_tower_attention_fwd(
-                            q, k, v, pad, seed, rate),
-                        lambda: flash_tower_attention_fwd_reference(
-                            q, k, v, pad, seed, rate),
-                        lambda: F.scaled_dot_product_attention(
-                            q, k, v, attend))}
-            if backward:
-                times["bwd"] = (
-                    lambda: flash_tower_attention_bwd(
-                        q, k, v, pad, lse, grad, seed, rate),
-                    lambda: flash_tower_attention_bwd_reference(
-                        q, k, v, pad, lse, grad, seed, rate),
-                    sdpa_backward(q, k, v, grad, attend))
-            for direction, (kernel, plain, library) in times.items():
-                t_bytes = n_bytes[direction] / HBM_BYTES_PER_S * 1e3
-                t_ops = flops[direction] / PEAK_FLOPS[dname] * 1e3
-                results.append({
-                    "shape": name, "direction": direction, "dtype": dname,
-                    "b": batch, "h": heads, "l": length, "dh": dh,
-                    "rate": rate, "masked": masked, "max_abs_err": errs,
-                    "bf16_ulps": k_needed, "tolerance": tol,
-                    "ms": cuda_ms(kernel, flush, FLASH_ITERS),
-                    "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
-                    "library_ms": cuda_ms(library, flush, FLASH_ITERS),
-                    "library": ("F.scaled_dot_product_attention, rate 0"
-                                + (" (backward alone, of a saved forward)"
-                                   if direction == "bwd" else "")),
-                    "bytes": n_bytes[direction], "flops": flops[direction],
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-                emit("flash_vs_plain", **results[-1])
-            del q, k, v, grad, times
+    cases = [(shape, dtype, True) for shape in FLASH_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)]
+    cases.append((SCALAR_FLASH_SHAPE, torch.bfloat16, False))
+    for shape, dtype, aligned in cases:
+        name, batch, heads, length, rate, masked, backward = shape
+        g = torch.Generator(device="cuda").manual_seed(length)
+        q, k, v, grad = (path_layout(torch.randn(
+            batch, length, heads, dh, device="cuda", generator=g).to(dtype),
+            aligned) for _ in range(4))
+        pad = None
+        if masked:
+            pad = torch.rand(batch, length, device="cuda",
+                             generator=g) < 0.3
+            pad[0] = True  # a fully padded row
+            pad[1] = False
+        variant = single_block_variant(q, k, v, grad)
+        if variant != ("tc" if dtype == torch.bfloat16 and aligned
+                       else "scalar"):
+            raise AssertionError(f"{name} {dtype} takes the {variant} "
+                                 f"variant")
+        before = tc_counts()
+        out, lse = flash_tower_attention_fwd(q, k, v, pad, seed, rate)
+        grads = flash_tower_attention_bwd(q, k, v, pad, lse, grad, seed,
+                                          rate)
+        tc_launched = tuple(a - b for a, b in zip(tc_counts(), before))
+        if tc_launched != ((1, 1) if variant == "tc" else (0, 0)):
+            raise AssertionError(f"{name} {dtype}: tensor-core launches "
+                                 f"{tc_launched} on the {variant} variant")
+        want_out, want_lse = flash_tower_attention_fwd_reference(
+            q, k, v, pad, seed, rate)
+        want_grads = flash_tower_attention_bwd_reference(
+            q, k, v, pad, want_lse, grad, seed, rate)
+        torch.cuda.synchronize()
+        pairs = {"out": (out, want_out), "lse": (lse, want_lse),
+                 **{n: (a, w) for n, a, w in zip(("dq", "dk", "dv"),
+                                                  grads, want_grads)}}
+        errs = {n: (a.float() - w.float()).abs().max().item()
+                for n, (a, w) in pairs.items()}
+        if not all(torch.isfinite(a).all() for a, _ in pairs.values()):
+            raise AssertionError(f"non-finite flash output {name}")
+        item = q.element_size()
+        if dtype == torch.float32:
+            ok = (errs["out"] <= 1e-5 and errs["lse"] <= 1e-5
+                  and max(errs[n] for n in ("dq", "dk", "dv")) <= 1e-4)
+            tol = "max abs err: out, lse <= 1e-5; dq, dk, dv <= 1e-4"
+            k_needed = None
+        else:
+            scales = flash_term_scales(q, k, v, pad, want_lse, grad,
+                                       seed, rate)
+            k_needed = {n: bf16_k_needed(*pairs[n], scales[n])
+                        for n in scales}
+            del scales
+            ok = (errs["lse"] <= 1e-5
+                  and max(k_needed.values()) <= BF16_K)
+            tol = (f"lse <= 1e-5; out, dq, dk, dv: every element "
+                   f"within 1e-5 + {BF16_K} bf16 ulps of the sum of "
+                   f"the absolute values of its terms")
+        if not ok:
+            raise AssertionError(
+                f"flash kernels disagree with their plain versions at "
+                f"{name} {dtype}: {errs} ulps {k_needed}")
+        numel = q.numel()
+        lse_bytes = 4 * batch * heads * length
+        mask_bytes = 0 if pad is None else pad.numel()
+        n_bytes = {"fwd": 4 * numel * item + lse_bytes + mask_bytes,
+                   "bwd": 7 * numel * item + lse_bytes + mask_bytes}
+        flops = {"fwd": 4 * batch * heads * length * length * dh,
+                 "bwd": 10 * batch * heads * length * length * dh}
+        dname = str(dtype).split(".")[-1]
+        attend = None if pad is None else ~pad[:, None, None, :]
+        # SDPA refuses rows off 16-byte alignment: it gets aligned copies
+        sdpa_in = [t if aligned else t.clone() for t in (q, k, v, grad)]
+        times = {
+            "fwd": (lambda: flash_tower_attention_fwd(
+                        q, k, v, pad, seed, rate),
+                    lambda: flash_tower_attention_fwd_reference(
+                        q, k, v, pad, seed, rate),
+                    lambda: F.scaled_dot_product_attention(
+                        *sdpa_in[:3], attend))}
+        if backward:
+            times["bwd"] = (
+                lambda: flash_tower_attention_bwd(
+                    q, k, v, pad, lse, grad, seed, rate),
+                lambda: flash_tower_attention_bwd_reference(
+                    q, k, v, pad, lse, grad, seed, rate),
+                sdpa_backward(*sdpa_in, attend))
+        for direction, (kernel, plain, library) in times.items():
+            t_bytes = n_bytes[direction] / HBM_BYTES_PER_S * 1e3
+            t_ops = flops[direction] / PEAK_FLOPS[dname] * 1e3
+            results.append({
+                "shape": name, "direction": direction, "dtype": dname,
+                "variant": variant, "b": batch, "h": heads, "l": length,
+                "dh": dh, "rate": rate, "masked": masked,
+                "max_abs_err": errs, "bf16_ulps": k_needed,
+                "tolerance": tol,
+                "ms": cuda_ms(kernel, flush, FLASH_ITERS),
+                "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
+                "library_ms": cuda_ms(library, flush, FLASH_ITERS),
+                "library": ("F.scaled_dot_product_attention, rate 0"
+                            + (" (backward alone, of a saved forward)"
+                               if direction == "bwd" else "")),
+                "bytes": n_bytes[direction], "flops": flops[direction],
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            emit("flash_vs_plain", **results[-1])
+        del q, k, v, grad, sdpa_in, times
+    # the masks each kernel applies, bit for bit, at the text shape
+    _, batch, heads, length, rate, _, _ = FLASH_SHAPES[1]
+    want = keep_mask(seed, batch, heads, length, length, rate,
+                     device="cuda") != 0
+    before = tc_counts()
+    masks = single_masks(batch, heads, length, torch.bfloat16, rate, seed)
+    equal = [bool(torch.equal(m, want)) for m in masks]
+    tc_launched = tuple(a - b for a, b in zip(tc_counts(), before))
+    emit("flash_masks", shape=[batch, heads, length, length], rate=rate,
+         kernels=["forward (out)", "backward dq pass (dq)",
+                  "backward dk/dv pass (dv)"],
+         equal=equal, kept_share=want.float().mean().item(),
+         tc_launches=tc_launched)
+    if not all(equal) or 0 in tc_launched:
+        raise AssertionError(f"kernels 2/3's masks differ from keep_mask: "
+                             f"{equal}, tensor-core launches {tc_launched}")
     return results
+
+
+def single_masks(batch, heads, length, dtype, rate, seed, dh=64):
+    """The dropout masks that kernel 2 and kernel 3's two passes apply, read
+    back bit for bit ([B, H, L, L] bool, True = kept), one block of dh keys
+    (or queries) at a time.  With q = k = 0 every score is 0 and the
+    forward's p is 1/L, so with v the identity on keys [c, c + dh) its
+    out[i, d] = round(keep_ij / L) for j = c + d is nonzero exactly where
+    (i, j) is kept.  The backward is given lse = log(2L), so p = 1/(2L) and
+    sum_j p = 1/2: with k = v = that identity and g = 1 the dq pass has
+    dp_ij = keep_ij on the block, delta_i = sum_j keep_ij / (2L) <= keep/2
+    and ds_ij = p (dp_ij - delta_i) scale, positive exactly where kept, so
+    dq[i, d] = round(ds_ij) > 0 there; with g the identity on queries
+    [c, c + dh) and q = k = v = 0 the dk/dv pass gives dv[j, d] =
+    round(pd_ij) for i = c + d, nonzero exactly where kept."""
+    import torch
+
+    from leccr_torch.ops.flash_attention import (
+        flash_tower_attention_bwd,
+        flash_tower_attention_fwd,
+    )
+
+    shape = (batch, length, heads, dh)
+    zeros = path_layout(torch.zeros(shape, dtype=dtype, device="cuda"))
+    ones = path_layout(torch.ones(shape, dtype=dtype, device="cuda"))
+    lse = torch.full((batch, heads, length), math.log(2 * length),
+                     dtype=torch.float32, device="cuda")
+    masks = [torch.empty((batch, heads, length, length), dtype=torch.bool,
+                         device="cuda") for _ in range(3)]
+    eye = torch.eye(dh, dtype=dtype, device="cuda")
+    for c in range(0, length, dh):
+        n = min(dh, length - c)
+        block = torch.zeros(shape, dtype=dtype, device="cuda")
+        block[:, c:c + n] = eye[:n][None, :, None, :]
+        block = path_layout(block)
+        out, _ = flash_tower_attention_fwd(zeros, zeros, block, None, seed,
+                                           rate)
+        masks[0][..., c:c + n] = out[..., :n] != 0
+        dq, _, _ = flash_tower_attention_bwd(zeros, block, block, None, lse,
+                                             ones, seed, rate)
+        masks[1][..., c:c + n] = dq[..., :n] > 0
+        _, _, dv = flash_tower_attention_bwd(zeros, zeros, zeros, None, lse,
+                                             block, seed, rate)
+        masks[2][:, :, c:c + n, :] = (dv[..., :n] != 0).transpose(-1, -2)
+    return masks
 
 
 def chunked_phase(dh: int = 64, seed: int = 1234):
@@ -656,12 +767,8 @@ def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
     )
 
     shape = (batch, length, heads, dh)
-
-    def layout(t):
-        return t.transpose(1, 2)
-
-    zeros = layout(torch.zeros(shape, dtype=dtype, device="cuda"))
-    ones = layout(torch.ones(shape, dtype=dtype, device="cuda"))
+    zeros = path_layout(torch.zeros(shape, dtype=dtype, device="cuda"))
+    ones = path_layout(torch.ones(shape, dtype=dtype, device="cuda"))
     _, lse = flash_tiled_attention_fwd(zeros, zeros, zeros, None, seed, rate)
     delta = torch.zeros_like(lse)
     masks = [torch.empty((batch, heads, length, length), dtype=torch.bool,
@@ -671,7 +778,7 @@ def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
         n = min(dh, length - c)
         block = torch.zeros(shape, dtype=dtype, device="cuda")
         block[:, c:c + n] = eye[:n][None, :, None, :]
-        block = layout(block)
+        block = path_layout(block)
         out, _ = flash_tiled_attention_fwd(zeros, zeros, block, None, seed,
                                            rate)
         masks[0][..., c:c + n] = out[..., :n] != 0
@@ -1109,7 +1216,7 @@ def reset_counts() -> None:
     from leccr_torch.ops.flash_attention import flash_tower_attention
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
 
-    for c in COUNTERS:
+    for c in COUNTERS + TC_COUNTERS:
         setattr(flash_tower_attention, c, 0)
     for c in INFONCE_COUNTERS:
         setattr(infonce, c, 0)
@@ -1291,6 +1398,10 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
     if launches != want:
         raise AssertionError(f"train steps launched kernels {launches}, "
                              f"want {want} ({per_step} a step)")
+    tc = tc_counts()  # bf16 at Dh = 64: kernels 2/3 on tensor cores only
+    if cfg.model.dtype == "bfloat16" and tc != launches[:2]:
+        raise AssertionError(f"kernels 2/3 launched {launches[:2]}, of them "
+                             f"{tc} on the tensor-core variant")
     if not all(math.isfinite(v) for losses in history
                for v in losses.values()):
         raise AssertionError(f"non-finite losses {history}")
@@ -1307,6 +1418,7 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          launches=dict(zip(STEP_COUNTERS, launches)),
          launches_per_step=dict(zip(STEP_COUNTERS, per_step)),
+         tc_launches=dict(zip(TC_COUNTERS, tc)),
          params=sum(p.numel() for p in model.parameters()),
          losses_first=history[0], losses_last=history[-1])
     del start
@@ -1317,12 +1429,46 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
     return launches
 
 
+# the __global__ functions of kernels 2/3, scalar and tensor-core variants
+SINGLE_BLOCK_KERNELS = {"fwd_kernel": "single_fwd",
+                        "fwd_tc_kernel": "single_fwd",
+                        "bwd_dq_kernel": "single_bwd",
+                        "bwd_dkv_kernel": "single_bwd",
+                        "bwd_dq_tc_kernel": "single_bwd",
+                        "bwd_dkv_tc_kernel": "single_bwd"}
+_KERNEL_NAME = re.compile(r"(?:^|::|\s)(\w+)[<(]")
+
+
+def flash_kernel_of(key: str):
+    """The family of a profiled kernel name (e.g. "void (anonymous
+    namespace)::fwd_tc_kernel((anonymous namespace)::Params)"), from its
+    function's own name: "single_fwd" (kernel 2) and "single_bwd" (kernel
+    3's two passes), in either variant; "chunked" (kernels 4/5,
+    chunk_*); "tiled_fwd", "tiled_dq", "tiled_dkv" (kernels 6, 7, 8);
+    "infonce" (kernels 9-11); None for every other kernel."""
+    match = _KERNEL_NAME.search(key)
+    if match is None:
+        return None
+    fn = match.group(1)
+    if fn in SINGLE_BLOCK_KERNELS:
+        return SINGLE_BLOCK_KERNELS[fn]
+    if fn.startswith("chunk_"):
+        return "chunked"
+    for n in ("fwd", "dq", "dkv"):
+        if fn.startswith(f"tiled_{n}_"):
+            return f"tiled_{n}"
+    if fn.startswith("infonce_"):
+        return "infonce"
+    return None
+
+
 def profile_step(step, data, step_no: int, step_ms: float,
                  phase: str = "train_step_profile", top: int = 12) -> None:
     """One more train step under torch.profiler: device time by kernel, the
-    flash kernels' share (kernels 2-8; the chunked ones 4/5 and the tiled
-    ones 6, 7, 8 also alone), the InfoNCE kernels' (9-11) and the device's
-    busy share of an unprofiled step (`step_ms`)."""
+    flash kernels' share (kernels 2-8; the single-block ones 2 and 3, the
+    chunked ones 4/5 and the tiled ones 6, 7, 8 also alone; see
+    `flash_kernel_of`), the InfoNCE kernels' (9-11) and the device's busy
+    share of an unprofiled step (`step_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1336,22 +1482,17 @@ def profile_step(step, data, step_no: int, step_ms: float,
               if str(getattr(e, "device_type", "")).endswith("CUDA")
               and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-
-    def ms_of(match):
-        return sum(e.self_device_time_total for e in events
-                   if match(e.key)) / 1e3
-
-    # kernels 4/5 (scalar and tensor-core variants) are ::chunk_*, kernels
-    # 6/7/8 ::tiled_fwd*, ::tiled_dq*, ::tiled_dkv*; kernels 2/3 are
-    # ::fwd_kernel<, ::bwd_dq_kernel<, ::bwd_dkv_kernel<; kernels 9-11 are
-    # ::infonce_*
-    chunk_ms = ms_of(lambda k: "::chunk_" in k)
-    tiled_ms = {n: ms_of(lambda k, n=n: f"::tiled_{n}_" in k)
+    families = {}
+    for e in events:
+        family = flash_kernel_of(e.key)
+        families[family] = (families.get(family, 0.0)
+                             + e.self_device_time_total / 1e3)
+    single_ms = {n: families.get(f"single_{n}", 0.0) for n in ("fwd", "bwd")}
+    chunk_ms = families.get("chunked", 0.0)
+    tiled_ms = {n: families.get(f"tiled_{n}", 0.0)
                 for n in ("fwd", "dq", "dkv")}
-    flash_ms = chunk_ms + sum(tiled_ms.values()) + ms_of(lambda k: any(
-        n in k for n in ("::fwd_kernel<", "::bwd_dq_kernel<",
-                         "::bwd_dkv_kernel<")))
-    infonce_ms = ms_of(lambda k: "::infonce_" in k)
+    flash_ms = sum(single_ms.values()) + chunk_ms + sum(tiled_ms.values())
+    infonce_ms = families.get("infonce", 0.0)
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
     rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
@@ -1359,6 +1500,9 @@ def profile_step(step, data, step_no: int, step_ms: float,
          unprofiled_step_ms=step_ms, device_ms=device_ms,
          device_busy_share=device_ms / step_ms, flash_ms=flash_ms,
          flash_share_of_device=flash_ms / device_ms,
+         single_flash_ms=single_ms,
+         single_share_of_device={n: t / device_ms
+                                 for n, t in single_ms.items()},
          chunked_flash_ms=chunk_ms,
          chunked_share_of_device=chunk_ms / device_ms,
          tiled_flash_ms=tiled_ms,
@@ -1743,6 +1887,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "leccr_torch/csrc/flash_tower_attention.cu",
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
+            "variant": sorted({r["variant"] for r in rows}),
             "launches": launches,
             "launches_slice_step": slice_launches,
             "launches_hires_step": hires_launches,

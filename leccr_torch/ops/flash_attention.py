@@ -37,6 +37,12 @@ murmur3 finalizer, keep where the hash ≥ uint32(rate · 2³²), scaled by
 bit for bit (the TPU's hardware bits are another stream, which nothing
 reproduces).
 
+Kernels 2/3 have two bodies (`single_block_variant`): tensor cores
+(mma.sync) for bf16 at Dh = 64 with 16-byte aligned rows, every call of
+the train steps, and scalar f32 FMA for f32, other head dims and unaligned
+views.  The choice is made from the shapes before the launch; a launch that
+fails raises and is never retried on the other body.
+
 For CUDA tensors the wrappers launch the kernels (or raise); for CPU
 tensors they run the plain PyTorch versions (`*_reference`), which do the
 same f32 arithmetic with the same rounding points (the backwards are the
@@ -58,8 +64,11 @@ _CHUNK_LIB = "flash_chunked_attention"
 _TILED_LIB = "flash_tiled_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = torch.finfo(torch.float32).min
-WARPS = 8  # warps per block; each owns one row at a time
-ROWS = 64  # rows of one block's tile
+WARPS = 8  # warps per scalar block; each owns one row at a time
+ROWS = 64  # rows of one block's tile (a tensor-core block: 4 warps of 16)
+TC_CHUNK = 32  # staged rows a tensor-core kernel sweeps at a time
+TC_PITCH = 72  # bf16 per staged row of a tensor-core kernel
+TC_MAX_KEYS = 192  # keys whose scores the tensor-core forward holds per row
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
 
 # the JAX single-block kernel's VMEM budget (flash_attention.py:37)
@@ -470,17 +479,57 @@ def regime(q: torch.Tensor, k: torch.Tensor) -> str:
     return "tiled"
 
 
+def tc_smem_bytes(which: int, lq: int, lk: int) -> int:
+    """Shared memory of tensor-core launch `which` (0: forward, 1: dq pass,
+    2: dk/dv pass), as `fta_tc_smem_bytes` computes it: the head's two
+    staged [L, 64] bf16 operands (rows rounded up to TC_CHUNK, TC_PITCH
+    apart), then a byte per key or lse and delta (f32) per query."""
+    operands = 2 * TC_PITCH * 2
+    if which == 2:
+        return _round_up(lq, TC_CHUNK) * (operands + 8)
+    return _round_up(lk, TC_CHUNK) * (operands + 1)
+
+
+def single_block_variant(q: torch.Tensor, k: torch.Tensor,
+                         *others: torch.Tensor) -> str:
+    """Which body kernels 2/3 run a call on, from the shapes alone:
+    "tc" (tensor cores) for bf16 at Dh = 64 when q, k and `others` (v; g
+    for the backward) have 16-byte aligned rows, Lk ≤ TC_MAX_KEYS (every
+    train-step call: 168 keys is the longest self-attention within
+    `fits_vmem` at 12 heads) and every launch's staged operands fit a
+    block's shared memory; "scalar" otherwise (f32, whose 1e-5 tolerance
+    TF32 would break, other head dims, unaligned views and longer keys,
+    where the scalar kernels raise if their shared memory does not fit)."""
+    _, _, lq, dh = q.shape
+    lk = k.shape[2]
+    if q.dtype != torch.bfloat16 or dh != 64 or lk > TC_MAX_KEYS:
+        return "scalar"
+    if not _aligned((q, k, *others), q.element_size()):
+        return "scalar"
+    if max(tc_smem_bytes(w, lq, lk) for w in (0, 1, 2)) > SMEM_PER_BLOCK:
+        return "scalar"
+    return "tc"
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if lib.fta_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         f32 = ctypes.c_float
-        tail = [f32, u32, u32, f32, i32, i32, i32, i32, ptr]
+        drop = [f32, u32, u32, f32, i32]
+        tail = drop + [i32, i32, i32, ptr]
         lib.fta_forward.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] + tail
         lib.fta_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] + tail
-        lib.fta_forward.restype = lib.fta_backward.restype = i32
+        tc_tail = [i32] * 4 + [ptr] + drop + [ptr]
+        lib.fta_tc_forward.argtypes = [ptr] * 6 + tc_tail
+        lib.fta_tc_backward.argtypes = [ptr] * 10 + tc_tail
+        for fn in (lib.fta_forward, lib.fta_backward, lib.fta_tc_forward,
+                   lib.fta_tc_backward):
+            fn.restype = i32
         lib.fta_smem_bytes.argtypes = [i32] * 5
         lib.fta_smem_bytes.restype = ctypes.c_size_t
+        lib.fta_tc_smem_bytes.argtypes = [i32] * 3
+        lib.fta_tc_smem_bytes.restype = ctypes.c_size_t
         lib.fta_supported_dim.argtypes = [i32]
         lib.fta_supported_dim.restype = i32
     return lib
@@ -509,10 +558,11 @@ def _dropout_args(seed, rate):
             int(rate > 0.0))
 
 
-def _prepare(q, k, seed, rate, launches):
+def _prepare(q, k, seed, rate, launches, variant):
     """The loaded library, the score scale and the dropout arguments of a
     call, after checking the head dim and the shared memory of each launch
-    (0: forward, 1: backward dq pass, 2: backward dk/dv pass)."""
+    (0: forward, 1: backward dq pass, 2: backward dk/dv pass) of `variant`
+    ("tc" or "scalar")."""
     lib = _lib()
     _, _, lq, dh = q.shape
     lk = k.shape[2]
@@ -520,7 +570,8 @@ def _prepare(q, k, seed, rate, launches):
         raise ValueError(f"flash_tower_attention kernels are compiled for "
                          f"Dh in (16, 32, 64, 128), not {dh}")
     for which in launches:
-        smem = lib.fta_smem_bytes(which, lq, lk, dh, WARPS)
+        smem = (lib.fta_tc_smem_bytes(which, lq, lk) if variant == "tc"
+                else lib.fta_smem_bytes(which, lq, lk, dh, WARPS))
         if smem > SMEM_PER_BLOCK:
             raise ValueError(
                 f"flash_tower_attention stages two [L, Dh] operands of one "
@@ -541,23 +592,31 @@ def _mask_bytes(padding_mask):
 def _launch_fwd(q, k, v, mask, seed, rate):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
-    lib, scale, drop = _prepare(q, k, seed, rate, (0,))
+    variant = single_block_variant(q, k, v)
+    lib, scale, drop = _prepare(q, k, seed, rate, (0,), variant)
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    vec = _aligned((k, v), q.element_size())
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fta_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk, dh, strides,
-            scale, *drop, ROWS, WARPS, int(vec), stream)
+        if variant == "tc":
+            rc = lib.fta_tc_forward(*head, b, h, lq, lk, strides, scale,
+                                    *drop, stream)
+        else:
+            vec = _aligned((k, v), q.element_size())
+            rc = lib.fta_forward(*head, _DTYPES[q.dtype], b, h, lq, lk, dh,
+                                 strides, scale, *drop, ROWS, WARPS,
+                                 int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"flash_tower_attention forward kernel launch "
-                           f"failed: CUDA error {rc}")
+                           f"({variant}) failed: CUDA error {rc}")
     flash_tower_attention.fwd_launches += 1
+    if variant == "tc":
+        flash_tower_attention.tc_fwd_launches += 1
     return out, lse
 
 
@@ -566,7 +625,8 @@ def _launch_bwd(q, k, v, mask, lse, g, seed, rate):
     lk = k.shape[2]
     if g.stride(-1) != 1:
         g = g.contiguous()
-    lib, scale, drop = _prepare(q, k, seed, rate, (1, 2))
+    variant = single_block_variant(q, k, v, g)
+    lib, scale, drop = _prepare(q, k, seed, rate, (1, 2), variant)
     dq = _heads_last(b, lq, h, dh, q)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
@@ -574,19 +634,26 @@ def _launch_bwd(q, k, v, mask, lse, g, seed, rate):
     strides = (ctypes.c_longlong * 21)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
-    vec = _aligned((q, k, v, g), q.element_size())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fta_backward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), lse.data_ptr(),
             g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk, dh, strides,
-            scale, *drop, ROWS, WARPS, int(vec), stream)
+            delta.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant == "tc":
+            rc = lib.fta_tc_backward(*head, b, h, lq, lk, strides, scale,
+                                     *drop, stream)
+        else:
+            vec = _aligned((q, k, v, g), q.element_size())
+            rc = lib.fta_backward(*head, _DTYPES[q.dtype], b, h, lq, lk, dh,
+                                  strides, scale, *drop, ROWS, WARPS,
+                                  int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"flash_tower_attention backward kernel launch "
-                           f"failed: CUDA error {rc}")
+                           f"({variant}) failed: CUDA error {rc}")
     flash_tower_attention.bwd_launches += 1
+    if variant == "tc":
+        flash_tower_attention.tc_bwd_launches += 1
     return dq, dk, dv
 
 
@@ -1015,8 +1082,10 @@ def flash_tower_attention(
     `regime`).  Without a gradient to take (torch.no_grad, or no input that
     requires grad) it runs the forward alone and saves nothing.
     `flash_tower_attention.fwd_launches` / `.bwd_launches` count the
-    launches of kernels 2/3, `.chunk_fwd_launches` / `.chunk_bwd_launches`
-    those of kernels 4/5 (a backward's two launches count once), and
+    launches of kernels 2/3 (`.tc_fwd_launches` / `.tc_bwd_launches` those
+    of them on the tensor-core variant), `.chunk_fwd_launches` /
+    `.chunk_bwd_launches` those of kernels 4/5 (a backward's two launches
+    count once), and
     `.tiled_fwd_launches` / `.tiled_dq_launches` / `.tiled_dkv_launches`
     those of kernels 6, 7 and 8."""
     _check(q, k, v, padding_mask, dropout_rate)
@@ -1030,6 +1099,8 @@ def flash_tower_attention(
 
 flash_tower_attention.fwd_launches = 0
 flash_tower_attention.bwd_launches = 0
+flash_tower_attention.tc_fwd_launches = 0
+flash_tower_attention.tc_bwd_launches = 0
 flash_tower_attention.chunk_fwd_launches = 0
 flash_tower_attention.chunk_bwd_launches = 0
 flash_tower_attention.tiled_fwd_launches = 0

@@ -21,6 +21,9 @@ from chip_smoke import (
     flash_term_scales,
     infonce_errors,
     infonce_ids,
+    path_layout,
+    single_masks,
+    tc_counts,
     tiled_masks,
 )
 from leccr_torch.ops import infonce
@@ -39,6 +42,8 @@ from leccr_torch.ops.flash_attention import (
     flash_tower_attention_fwd,
     flash_tower_attention_fwd_reference,
     head_group,
+    keep_mask,
+    single_block_variant,
     tile_keep_mask,
 )
 from leccr_torch.ops.fused_cross_attention import (
@@ -135,6 +140,67 @@ def test_flash_kernels_match_plain_versions(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,heads,lq,lk,aligned", [
+    (4, 12, 1, 1, True), (4, 12, 17, 17, True), (4, 12, 145, 145, True),
+    (4, 12, 168, 168, True), (16, 12, 64, 64, True), (2, 1, 700, 64, True),
+    (2, 2, 300, 300, True), (16, 12, 64, 64, False)],
+    ids=["L1", "L17", "L145", "L168", "text", "q700-k64", "L300-h2",
+         "text-unaligned"])
+def test_single_block_variants_match_plain_versions(batch, heads, lq, lk,
+                                                    aligned):
+    """Kernels 2/3 in bf16 at heads of 64 against their plain versions, with
+    key padding, a fully padded row and dropout 0.1, each on the variant
+    single_block_variant names: the tensor-core one at 12 heads at ragged
+    lengths up to the longest within fits_vmem (168; a chunk of 32 keys is
+    rounded up past Lk, and those keys must count for nothing), at the text
+    shape and at 700 queries against 64 keys (22 query chunks in the dk/dv
+    pass); the scalar one past the tensor-core forward's 192 keys (2 heads,
+    300 tokens) and for the text shape with its rows 2 bytes off 16-byte
+    alignment.  Tolerances as test_flash_kernels_match_plain_versions (lse
+    atol 1e-5; out and grads within 1e-5 + BF16_K bf16 ulps of their term
+    sums)."""
+    _needs_card()
+    rate = 0.1
+    g = torch.Generator(device="cuda").manual_seed(lq + lk)
+    q, k, v, grad = (path_layout(torch.randn(
+        batch, n, heads, 64, device="cuda", generator=g).to(torch.bfloat16),
+        aligned) for n in (lq, lk, lk, lq))
+    pad = torch.rand(batch, lk, device="cuda", generator=g) < 0.3
+    pad[0] = True  # a fully padded row: the mean of v over the Lk keys
+    pad[1] = False
+    tc = aligned and lk <= 192
+    assert single_block_variant(q, k, v, grad) == ("tc" if tc else "scalar")
+    seed = 77
+    before = tc_counts()
+    out, lse = flash_tower_attention_fwd(q, k, v, pad, seed, rate)
+    grads = flash_tower_attention_bwd(q, k, v, pad, lse, grad, seed, rate)
+    launched = tuple(a - b for a, b in zip(tc_counts(), before))
+    assert launched == ((1, 1) if tc else (0, 0))
+    want_out, want_lse = flash_tower_attention_fwd_reference(
+        q, k, v, pad, seed, rate)
+    want_grads = flash_tower_attention_bwd_reference(
+        q, k, v, pad, want_lse, grad, seed, rate)
+    torch.cuda.synchronize()
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    pairs = {"out": (out, want_out),
+             **dict(zip(("dq", "dk", "dv"), zip(grads, want_grads)))}
+    assert all(torch.isfinite(a).all() for a, _ in pairs.values())
+    scales = flash_term_scales(q, k, v, pad, want_lse, grad, seed, rate)
+    for name, (got, want) in pairs.items():
+        assert bf16_k_needed(got, want, scales[name]) <= BF16_K, name
+
+
+@pytest.mark.cuda
+def test_single_block_masks_are_the_plain_hash():
+    """The dropout masks that kernel 2 and kernel 3's two passes apply, read
+    back bit for bit over three key blocks (145 tokens), equal keep_mask."""
+    _needs_card()
+    want = keep_mask(7, 2, 12, 145, 145, 0.2, device="cuda") != 0
+    for got in single_masks(2, 12, 145, torch.bfloat16, 0.2, 7):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dh", [64, 32])
 @pytest.mark.parametrize("shape", ["vision", "text"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -193,6 +259,7 @@ def test_flash_launch_counters():
         q, k, v, _, pad = _flash_inputs(2, length, torch.bfloat16, True,
                                         heads=16)
         before = [getattr(flash_tower_attention, c) for c in counters]
+        before_tc = tc_counts()
         qg = q.detach().requires_grad_(True)
         flash_tower_attention(qg, k, v, pad, 1, 0.1).float().sum().backward()
         with torch.no_grad():
@@ -200,6 +267,8 @@ def test_flash_launch_counters():
         torch.cuda.synchronize()
         assert tuple(getattr(flash_tower_attention, c) - b
                      for c, b in zip(counters, before)) == want
+        # bf16 at Dh = 64: every single-block launch is a tensor-core one
+        assert tuple(a - b for a, b in zip(tc_counts(), before_tc)) == want[:2]
         assert qg.grad is not None and torch.isfinite(qg.grad).all()
 
 

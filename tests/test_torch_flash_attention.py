@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import FLASH_SHAPES, flash_kernel_of
 from leccr_torch.ops import flash_attention as port
 from leccr_torch.ops.flash_attention import (
     fits_vmem,
@@ -24,6 +25,7 @@ from leccr_torch.ops.flash_attention import (
     flash_tower_attention_fwd,
     flash_tower_attention_fwd_reference,
     keep_mask,
+    single_block_variant,
 )
 from leccr_tpu.ops import flash_attention as jfa
 
@@ -236,3 +238,134 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
                         lambda *a: pytest.fail("plain version taken"))
     with pytest.raises(ValueError, match="no flash_tower_attention kernel"):
         flash_tower_attention(q, k, v, pad, 0, 0.1)
+
+
+def _path_view(b, h, length, d=64, dtype=torch.bfloat16, offset=0):
+    """An empty [B, H, L, D] view of [B, L, H, D] storage (the towers'
+    layout), starting `offset` elements into its buffer."""
+    buf = torch.empty(b * length * h * d + offset, dtype=dtype)
+    return buf[offset:].view(b, length, h, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: s[0])
+def test_path_shapes_take_the_tensor_core_variant(shape):
+    """Every call of kernels 2/3 that the train steps make (chip_smoke's
+    FLASH_SHAPES, in bf16 and the towers' layout) runs on tensor cores."""
+    _, b, h, length, *_ = shape
+    q, k, v, g = (_path_view(b, h, length) for _ in range(4))
+    assert fits_vmem(h, length, length, 64)
+    assert single_block_variant(q, k, v) == "tc"
+    assert single_block_variant(q, k, v, g) == "tc"
+
+
+@pytest.mark.parametrize("case", ["f32", "dh32", "row_stride", "offset"])
+def test_other_calls_take_the_scalar_variant(case):
+    """f32 (TF32 would break its tolerance), head dims other than 64 and
+    rows that are not 16-byte aligned keep the scalar kernels."""
+    kw = {"f32": {"dtype": torch.float32}, "dh32": {"d": 32},
+          "row_stride": {}, "offset": {"offset": 1}}[case]
+    q = _path_view(2, 12, 64, **kw)
+    if case == "row_stride":  # rows 65 elements apart: 130 bytes
+        q = torch.empty(2, 64, 12, 65, dtype=torch.bfloat16)[..., :64]
+        q = q.transpose(1, 2)
+    k = _path_view(2, 12, 64, **{n: x for n, x in kw.items()
+                                 if n != "offset"})
+    assert single_block_variant(q, k, k) == "scalar"
+    assert single_block_variant(k, q, k) == "scalar"
+
+
+@pytest.mark.parametrize("heads", [12, 2])
+def test_longest_single_block_length_takes_a_variant(heads):
+    """The longest self-attention length within fits_vmem takes a variant
+    without raising: 168 at 12 heads, within the tensor-core forward's 192
+    keys and a block's shared memory, the tensor-core one; 469 at 2 heads,
+    past those 192 keys, the scalar one (which raises at launch where its
+    shared memory does not fit, as it did before the tensor-core kernels);
+    so do cross shapes past either kernel's limit."""
+    longest = max(n for n in range(1, 1000) if fits_vmem(heads, n, n, 64))
+    assert not fits_vmem(heads, longest + 1, longest + 1, 64)
+    q = _path_view(1, heads, longest)
+    want = "tc" if longest <= port.TC_MAX_KEYS else "scalar"
+    assert (longest, single_block_variant(q, q, q, q)) == (
+        {12: 168, 2: 469}[heads], want)
+    if want == "tc":
+        assert max(port.tc_smem_bytes(w, longest, longest)
+                   for w in range(3)) <= port.SMEM_PER_BLOCK
+    lk = max(n for n in range(1, 8000) if fits_vmem(1, 1, n, 64))
+    q, k = _path_view(1, 1, 1), _path_view(1, 1, lk)
+    assert single_block_variant(q, k, k) == "scalar"
+    # many queries against few keys: the dk/dv pass stages every query row,
+    # 296 bytes each, so 768 fit a block and 800 do not
+    k = _path_view(1, 1, 64)
+    for lq, want in ((768, "tc"), (800, "scalar")):
+        q = _path_view(1, 1, lq)
+        assert fits_vmem(1, lq, 64, 64)
+        assert single_block_variant(q, k, k) == want
+
+
+def test_bf16_plain_versions_match_interpret_at_flagship_width():
+    """The plain versions the card holds the tensor-core kernels to, in
+    bf16 at the flagship's ragged width (L = 145, Dh = 64) with key padding,
+    a fully padded example and dropout 0.1, against the JAX kernels in
+    interpret mode: forward and gradients within 4 bf16 ulps of the largest
+    output."""
+    rs = np.random.RandomState(21)
+    b, h, length, d = 3, 2, 145, 64
+    q, k, v = (rs.randn(b, h, length, d).astype(np.float32)
+               for _ in range(3))
+    pad = (rs.rand(b, length) < 0.3).astype(np.int32)
+    pad[0] = 1  # a fully padded example: out is the mean of v
+    pad[1] = 0
+    seed, rate = 17, 0.1
+    want_out, _ = _jax_fwd(q, k, v, pad, seed, rate, jnp.bfloat16)
+
+    def loss(q, k, v):
+        out = jfa.flash_tower_attention(q, k, v, jnp.asarray(pad), seed,
+                                        rate, True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.cos(
+            out.astype(jnp.float32)))
+
+    want_grads = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    qt, kt, vt = (_t(x, torch.bfloat16).requires_grad_(True)
+                  for x in (q, k, v))
+    out = flash_tower_attention(qt, kt, vt, _t(pad), seed, rate)
+    (out.float() * torch.cos(out.float())).sum().backward()
+    pairs = [(out, want_out)] + [
+        (g, np.asarray(w.astype(jnp.float32)))
+        for g, w in zip((qt.grad, kt.grad, vt.grad), want_grads)]
+    for got, want in pairs:
+        assert got.dtype == torch.bfloat16
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(got.detach().float().numpy(), want,
+                                   rtol=0, atol=4 * ulp)
+
+
+def test_profiled_kernel_names_map_to_their_kernels():
+    """chip_smoke's profile sums kernels 2/3 by their function names, the
+    scalar variant's (templates) and the tensor-core one's alike, and keeps
+    kernels 4-11 and library kernels apart."""
+    ns = "(anonymous namespace)"
+    names = {
+        f"void {ns}::fwd_kernel<__nv_bfloat16, 64>({ns}::Params)":
+            "single_fwd",
+        f"void {ns}::fwd_tc_kernel({ns}::Params)": "single_fwd",
+        f"void {ns}::bwd_dq_kernel<float, 64>({ns}::Params)": "single_bwd",
+        f"void {ns}::bwd_dkv_kernel<__nv_bfloat16, 32>({ns}::Params)":
+            "single_bwd",
+        f"void {ns}::bwd_dq_tc_kernel({ns}::Params)": "single_bwd",
+        f"void {ns}::bwd_dkv_tc_kernel({ns}::Params)": "single_bwd",
+        f"void {ns}::chunk_fwd_tc_kernel({ns}::Params)": "chunked",
+        f"void {ns}::chunk_bwd_dkv_kernel<float, 64>({ns}::Params)":
+            "chunked",
+        f"void {ns}::tiled_fwd_tc_kernel({ns}::Params)": "tiled_fwd",
+        f"void {ns}::tiled_dq_kernel<float, 64>({ns}::Params)": "tiled_dq",
+        f"void {ns}::tiled_dkv_tc_kernel({ns}::Params)": "tiled_dkv",
+        f"void {ns}::infonce_bwd_kernel<false>({ns}::Args)": "infonce",
+        "void at::native::vectorized_elementwise_kernel<4, "
+        "at::native::FillFunctor<float>>(int, Fn)": None,
+        "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": None,
+        "Memcpy DtoD (Device -> Device)": None,
+    }
+    for name, family in names.items():
+        assert flash_kernel_of(name) == family, name
