@@ -52,10 +52,14 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    group; delta within 1e-5 of max(1, |delta|) of rowsum(g·out) from the
    kernel's own output); the dropout masks each
    kernel applies, read back bit for bit (`tiled_masks`), equal the plain
-   hash.  Each kernel timed per launch at [8,16,2705,64] bf16 beside its
-   bound, its plain version, SDPA (forward; the backward alone for 7 + 8
-   together, on kernel 7's row) and the chunked kernels 4/5 forced onto the
-   same shape (kernel 5 likewise once, for 7 + 8).
+   hash.  Every bf16 shape must run kernels 7/8 on their wgmma variant
+   (`tiled_variant` and the wgmma launch counters, the mask read-backs
+   included), f32 on the scalar one.  Each kernel timed per launch at
+   [8,16,2705,64] bf16 beside its bound, its plain version, SDPA (forward;
+   the backward alone for 7 + 8 together, on kernel 7's row) and the
+   chunked kernels 4/5 forced onto the same shape (kernel 5 likewise once,
+   for 7 + 8: the mma.sync bodies kernels 7/8 ran on before, so kernel 7's
+   row carries ratio_to_old = (7 + 8) / kernel 5).
 5. kernels 9-11 vs plain: the fused InfoNCE statistics, dq and dk
    kernels against their plain versions at E = 256, inv_temp 1/0.07, at
    INFONCE_SHAPES: the large-batch step's [4096] x [4096] (idx = arange),
@@ -104,7 +108,8 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    high-resolution step (hires_config: the slice at 728², bs8, remat; 2
    warm-up and 3 timed steps, then a profiled one with kernels 6-8's share
    of device time): 48, 24 and 24 launches of kernels 6, 7 and 8 and the
-   slice's 72/24 of kernels 2/3 a step, none of 4/5.  (d) The
+   slice's 72/24 of kernels 2/3 a step, none of 4/5, and every launch of
+   7/8 on the wgmma variant.  (d) The
    large-batch step (large_batch_config: the flagship at bs4096 in 16
    GradCache microbatches, fused negatives, 256-row streaming losses): 1
    warm-up and 2 timed steps, then a profiled one; 1152 and 384 launches
@@ -190,6 +195,9 @@ INFONCE_COUNTERS = ("stats_launches", "dq_launches",
 STEP_COUNTERS = COUNTERS + INFONCE_COUNTERS
 TC_COUNTERS = ("tc_fwd_launches", "tc_bwd_launches")  # kernels 2/3 on tensor
 # cores: a subset of fwd_launches / bwd_launches
+WGMMA_COUNTERS = ("tiled_dq_wgmma_launches",
+                  "tiled_dkv_wgmma_launches")  # kernels 7/8 on their wgmma
+# variant: a subset of tiled_dq_launches / tiled_dkv_launches
 # Launches of kernels (2, 3, 4, 5, 6, 7, 8, 9, 10, 11) in one train step.
 # Flagship: 12 ViT-B/32 blocks at 145 tokens (single-block) and 12 mBERT
 # layers at 64 tokens, a forward each for the texts and for the captions, a
@@ -419,6 +427,13 @@ def tc_counts():
     from leccr_torch.ops.flash_attention import flash_tower_attention
 
     return tuple(getattr(flash_tower_attention, c) for c in TC_COUNTERS)
+
+
+def wgmma_counts():
+    """Launches of kernels 7/8 on the wgmma variant so far."""
+    from leccr_torch.ops.flash_attention import flash_tower_attention
+
+    return tuple(getattr(flash_tower_attention, c) for c in WGMMA_COUNTERS)
 
 
 def flash_phase(dh: int = 64, seed: int = 1234):
@@ -814,6 +829,7 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
         head_group,
         regime,
         tile_keep_mask,
+        tiled_variant,
     )
 
     checks = []
@@ -831,11 +847,20 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
         want_dk, want_dv = flash_tiled_attention_dkv_reference(
             q, k, v, pad, want_lse, want_delta, grad, seed, rate)
         out, lse = flash_tiled_attention_fwd(q, k, v, pad, seed, rate)
+        before = wgmma_counts()
         dq, delta = flash_tiled_attention_dq(q, k, v, pad, out, lse, grad,
                                              seed, rate)
         dk, dv = flash_tiled_attention_dkv(q, k, v, pad, lse, delta, grad,
                                            seed, rate)
         torch.cuda.synchronize()
+        # bf16 at Dh = 64 (every shape of the step) takes the wgmma kernels
+        variant = tiled_variant(q, k, v, grad, out)
+        n = int(variant == "wgmma")
+        if (variant != ("wgmma" if dname == "bfloat16" else "scalar")
+                or tuple(a - b for a, b in zip(wgmma_counts(), before))
+                != (n, n)):
+            raise AssertionError(f"kernels 7/8 at {name} took the {variant} "
+                                 f"variant")
         real = torch.isfinite(want_lse)
         if not torch.equal(torch.isfinite(lse), real):
             raise AssertionError(f"lse is -inf on other rows {name}")
@@ -884,12 +909,20 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
         if rate:
             plain = tile_keep_mask(seed, batch, heads, length, length, rate,
                                    device="cuda", hg=head_group(heads)) != 0
+            before = wgmma_counts()
             got = tiled_masks(batch, heads, length, dtype, rate, seed, dh)
             equal = [torch.equal(m, plain) for m in got]
+            # kernels 7/8 read back on the variant this shape takes
+            blocks = -(-length // dh) * (variant == "wgmma")
+            if (tuple(a - b for a, b in zip(wgmma_counts(), before))
+                    != (blocks, blocks)):
+                raise AssertionError(f"kernels 7/8's masks at {name} were "
+                                     f"not read on the {variant} variant")
             chunked = tile_keep_mask(seed, batch, heads, length, length, rate,
                                      device="cuda",
                                      hg=chunk_head_group(heads)) != 0
             mask_check = {"kernels_6_7_8_equal_plain": equal,
+                          "variant_7_8": variant,
                           "kept_share": plain.float().mean().item(),
                           "head_group": head_group(heads),
                           "equals_chunked_mask": torch.equal(plain, chunked)}
@@ -899,7 +932,8 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
             del plain, got, chunked
         checks.append({"shape": name, "dtype": dname, "b": batch,
                        "h": heads, "l": length, "dh": dh, "rate": rate,
-                       "masked": masked, "max_abs_err": errs,
+                       "masked": masked, "variant_7_8": variant,
+                       "max_abs_err": errs,
                        "bf16_ulps": k_needed, "tolerance": tol,
                        "masks": mask_check})
         emit("tiled_vs_plain", **checks[-1])
@@ -913,6 +947,8 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
     out, lse = flash_tiled_attention_fwd(q, k, v, None, seed, 0.0)
     _, delta = flash_tiled_attention_dq(q, k, v, None, out, lse, grad, seed,
                                         0.0)
+    if tiled_variant(q, k, v, grad, out) != "wgmma":
+        raise AssertionError("the timed shape must take the wgmma kernels")
     flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     numel, item = q.numel(), q.element_size()
@@ -976,6 +1012,13 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
                        "shape: the yardstick of kernels 7 + 8 together"),
                 "dkv": "on flash_tiled_attention_dq's row"}[which]}
     timed["dq"]["pair_ms"] = timed["dq"]["ms"] + timed["dkv"]["ms"]
+    # the wgmma pair against kernel 5's mma.sync bodies (the design kernels
+    # 7/8 ran on before) at the same shape, in the same call
+    timed["dq"]["ratio_to_old"] = timed["dq"]["pair_ms"] / chunk_bwd_ms
+    for which in ("dq", "dkv"):
+        timed[which]["variant"] = "wgmma"
+        timed[which]["tflops"] = (timed[which]["flops"] / timed[which]["ms"]
+                                  / 1e9)
     emit("tiled_timed", b=batch, h=heads, l=length, dh=dh, dtype="bfloat16",
          rate=0.0, **timed)
     del q, k, v, grad, out, lse, delta, flush_buf
@@ -1216,7 +1259,7 @@ def reset_counts() -> None:
     from leccr_torch.ops.flash_attention import flash_tower_attention
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
 
-    for c in COUNTERS + TC_COUNTERS:
+    for c in COUNTERS + TC_COUNTERS + WGMMA_COUNTERS:
         setattr(flash_tower_attention, c, 0)
     for c in INFONCE_COUNTERS:
         setattr(infonce, c, 0)
@@ -1402,6 +1445,10 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
     if cfg.model.dtype == "bfloat16" and tc != launches[:2]:
         raise AssertionError(f"kernels 2/3 launched {launches[:2]}, of them "
                              f"{tc} on the tensor-core variant")
+    wgmma = wgmma_counts()  # and kernels 7/8 on their wgmma variant only
+    if cfg.model.dtype == "bfloat16" and wgmma != launches[5:7]:
+        raise AssertionError(f"kernels 7/8 launched {launches[5:7]}, of them "
+                             f"{wgmma} on the wgmma variant")
     if not all(math.isfinite(v) for losses in history
                for v in losses.values()):
         raise AssertionError(f"non-finite losses {history}")
@@ -1419,6 +1466,7 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
          launches=dict(zip(STEP_COUNTERS, launches)),
          launches_per_step=dict(zip(STEP_COUNTERS, per_step)),
          tc_launches=dict(zip(TC_COUNTERS, tc)),
+         wgmma_launches=dict(zip(WGMMA_COUNTERS, wgmma)),
          params=sum(p.numel() for p in model.parameters()),
          losses_first=history[0], losses_last=history[-1])
     del start
@@ -1436,6 +1484,9 @@ SINGLE_BLOCK_KERNELS = {"fwd_kernel": "single_fwd",
                         "bwd_dkv_kernel": "single_bwd",
                         "bwd_dq_tc_kernel": "single_bwd",
                         "bwd_dkv_tc_kernel": "single_bwd"}
+# the __global__ functions of kernels 7/8's wgmma variant
+WGMMA_KERNELS = {"wgmma_dq_kernel": "tiled_dq",
+                 "wgmma_dkv_kernel": "tiled_dkv"}
 _KERNEL_NAME = re.compile(r"(?:^|::|\s)(\w+)[<(]")
 
 
@@ -1444,14 +1495,17 @@ def flash_kernel_of(key: str):
     namespace)::fwd_tc_kernel((anonymous namespace)::Params)"), from its
     function's own name: "single_fwd" (kernel 2) and "single_bwd" (kernel
     3's two passes), in either variant; "chunked" (kernels 4/5,
-    chunk_*); "tiled_fwd", "tiled_dq", "tiled_dkv" (kernels 6, 7, 8);
-    "infonce" (kernels 9-11); None for every other kernel."""
+    chunk_*); "tiled_fwd", "tiled_dq", "tiled_dkv" (kernels 6, 7, 8, 7
+    and 8 in either variant); "infonce" (kernels 9-11); None for every
+    other kernel."""
     match = _KERNEL_NAME.search(key)
     if match is None:
         return None
     fn = match.group(1)
     if fn in SINGLE_BLOCK_KERNELS:
         return SINGLE_BLOCK_KERNELS[fn]
+    if fn in WGMMA_KERNELS:
+        return WGMMA_KERNELS[fn]
     if fn.startswith("chunk_"):
         return "chunked"
     for n in ("fwd", "dq", "dkv"):
@@ -1933,11 +1987,17 @@ def main() -> int:
         per_step_n = HIRES_STEP_LAUNCHES[True][index]
         errs = {"fwd": ("out", "lse"), "dq": ("dq", "delta"),
                 "dkv": ("dk", "dv")}[which]
+        # train_step_phase held every launch of 7/8 to the wgmma variant
+        variant = ({"variant": "tc (mma.sync)"} if which == "fwd" else
+                   {"variant": "wgmma",
+                    "launches_wgmma": hires_launches[index]})
         return {
             "name": name, "route": "cuda",
-            "source": "leccr_torch/csrc/flash_tiled_attention.cu",
+            "source": ("leccr_torch/csrc/flash_tiled_attention.cu"
+                       if which == "fwd" else
+                       "leccr_torch/csrc/flash_bwd_wgmma.cuh"),
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
-            "launches": hires_launches[index],
+            "launches": hires_launches[index], **variant,
             "max_abs_err": max(c["max_abs_err"][e] for c in tiled["checks"]
                                for e in errs),
             "check": "ok",
@@ -1947,6 +2007,7 @@ def main() -> int:
             **{key: None if r.get(key) is None else per_step_n * r[key]
                for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                            "chunked_ms", "pair_ms")},
+            "ratio_to_old": r.get("ratio_to_old"),
             "bound_by": r["bound_by"], "library": r["library"],
             "chunked": r["chunked"], "per_launch": r,
             "shapes": tiled["checks"],

@@ -46,19 +46,25 @@
 // The design: the TPU grid (B, H/hg, Lqp/128, Lkp/128) carries scratch along
 // its sequential last axis; blocks here run in no order, so a block owns one
 // (b, h, 128-row tile) of its side (queries for kernels 6 and 7, keys for
-// kernel 8) and loops over the other side's 128-row tiles itself.  Nothing
-// crosses blocks: no atomics, a deterministic result.  The ragged edge is
-// handled in the kernels (rows past L are never read or written, keys past
+// kernel 8) and loops over the other side's tiles itself (128 rows; 64 in
+// the wgmma passes of kernels 7 and 8).  Nothing crosses blocks: no
+// atomics, a deterministic result.  The ragged edge is handled in the
+// kernels (rows past L are never read or written, keys past
 // Lk count as padding), so nothing is padded in device memory; loads take
-// any outer strides and outputs go to [B, L, H, Dh] storage.  Two variants:
-// - bf16 at Dh = 64 with 16-byte aligned rows (every tower of the path):
-//   the tensor-core bodies of flash_tiles.cuh (mma.sync m16n8k16, a block of
-//   8 warps owning one 128-row tile, cp.async double buffering, ldmatrix);
+// any outer strides and outputs go to [B, L, H, Dh] storage.  Variants:
+// - kernel 6, bf16 at Dh = 64 with 16-byte aligned rows (every tower of the
+//   path): the tensor-core body `tc_fwd` of flash_tiles.cuh (mma.sync
+//   m16n8k16, a block of 8 warps owning one 128-row tile, cp.async double
+//   buffering, ldmatrix), which the chunked kernel 4 wraps too;
+// - kernels 7 and 8, bf16 at Dh = 64 with 16-byte aligned rows and outer
+//   strides (the "wgmma" variant the caller picks, `tiled_variant`):
+//   flash_bwd_wgmma.cuh's warp-specialised passes, one TMA producer warp
+//   and two consumer warpgroups issuing wgmma on 64-row tiles;
 // - every other case: the scalar f32-FMA bodies of flash_tiles.cuh, a block
 //   of 8 warps owning 64 rows (two blocks per 128-row tile).
-// The chunked kernels 4/5 wrap the same bodies with their own head group.
-// Both stay far above the bound (PERF.md): no TMA, no wgmma.
+// Kernel 6 stays far above its bound (PERF.md): no TMA, no wgmma yet.
 
+#include "flash_bwd_wgmma.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -79,45 +85,41 @@ __global__ void __launch_bounds__(kWarps* kWarp) tiled_dkv_kernel(Params p) {
   streamed_dkv<T, DH>(p);
 }
 
-// ------------------------------------------------- tensor-core kernels
+// ------------------------------------------- kernel 6 on tensor cores
 __global__ void __launch_bounds__(kTcWarps* kWarp)
     tiled_fwd_tc_kernel(Params p) {
   tc_fwd(p);
 }
 
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    tiled_dq_tc_kernel(Params p) {
-  tc_dq(p);
-}
-
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    tiled_dkv_tc_kernel(Params p) {
-  tc_dkv(p);
-}
-
 typedef void (*Kernel)(Params);
 
 // Launch `which` (0: kernel 6, 1: kernel 7, 2: kernel 8) on the grid
-// (B * H, blocks of the side it owns).
+// (B * H, blocks of the side it owns): the forward on tensor cores where
+// tensor_cores() holds, the backward passes on the scalar bodies (their
+// wgmma variant is launched by `dispatch`).
 template <typename T, int DH>
 int run(int which, const Params& p, int batch, cudaStream_t s) {
   const int n = which == 2 ? p.lk : p.lq;
-  if (tensor_cores<T, DH>(p)) {
-    const Kernel tc[3] = {tiled_fwd_tc_kernel, tiled_dq_tc_kernel,
-                          tiled_dkv_tc_kernel};
-    return launch(tc[which],
+  if (which == 0 && tensor_cores<T, DH>(p))
+    return launch(tiled_fwd_tc_kernel,
                   dim3(batch * p.heads, (n + kTcRows - 1) / kTcRows),
-                  kTcWarps, tc_smem_bytes(which), s, p);
-  }
+                  kTcWarps, tc_smem_bytes(0), s, p);
   const Kernel scalar[3] = {tiled_fwd_kernel<T, DH>, tiled_dq_kernel<T, DH>,
                             tiled_dkv_kernel<T, DH>};
   return launch(scalar[which], dim3(batch * p.heads, (n + kRows - 1) / kRows),
                 kWarps, smem_bytes(which, DH), s, p);
 }
 
+constexpr int kBadVariant = -2;  // wgmma asked for other than bf16, Dh 64
+
+// wgmma: launch kernel 7 or 8 (which = 1, 2) on its wgmma variant.
 int dispatch(int which, int dtype, int dh, const Params& p, int batch,
-             void* stream) {
+             void* stream, bool wgmma = false) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (which == 0 || dtype != 1 || dh != kTcDim) return kBadVariant;
+    return launch_wgmma_bwd(which, p, batch, s);
+  }
   if (dtype == 1)
     return by_dim(dh, [&](auto d) {
       return run<bf16, decltype(d)::value>(which, p, batch, s);
@@ -137,9 +139,11 @@ int ftl_supported_dim(int dh) {
 }
 
 // Bytes of dynamic shared memory of launch `which` (0: kernel 6, 1: kernel
-// 7, 2: kernel 8) for dtype, head dim dh and vec as the launches take them.
-size_t ftl_smem_bytes(int which, int dtype, int dh, int vec) {
-  return launch_smem_bytes(which, dtype, dh, vec);
+// 7, 2: kernel 8) for dtype, head dim dh, vec and wgmma as the launches
+// take them.
+size_t ftl_smem_bytes(int which, int dtype, int dh, int vec, int wgmma) {
+  if (which == 0) return launch_smem_bytes(0, dtype, dh, vec);
+  return wgmma ? wgmma_smem_bytes() : smem_bytes(which, dh);
 }
 
 // Kernel 6.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).
@@ -168,14 +172,18 @@ int ftl_forward(const void* q, const void* k, const void* v,
 
 // Kernel 7: delta [B, H, Lq] f32 (written) and dq.  o: the forward's output;
 // g: d(out).  strides: 18 element strides, (b, h, l) of q, k, v, o, g, dq.
-// Other arguments as ftl_forward.
+// wgmma: 1 takes the wgmma variant (bf16 at Dh = 64; q, k, v, o, g with
+// 16-byte aligned rows and outer strides), 0 the scalar one (vec: its
+// 16-byte loads).  Returns as ftl_forward, or -2 for wgmma at another dtype
+// or head dim, -10 / -11 when a TMA map could not be encoded.  Other
+// arguments as ftl_forward.
 int ftl_dq(const void* q, const void* k, const void* v,
            const unsigned char* mask, const void* o, const float* lse,
            const void* g, void* dq, float* delta, int dtype, int batch,
            int heads, int lq, int lk, int dh, int hg,
            const long long* strides, float scale, unsigned int seed,
            unsigned int threshold, float keep_scale, int dropout, int vec,
-           void* stream) {
+           int wgmma, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, hg, scale, seed, threshold, keep_scale, dropout,
                          vec);
@@ -189,18 +197,19 @@ int ftl_dq(const void* q, const void* k, const void* v,
   p.so = strides_at(strides, 3);
   p.sg = strides_at(strides, 4);
   p.sout = strides_at(strides, 5);
-  return dispatch(1, dtype, dh, p, batch, stream);
+  return dispatch(1, dtype, dh, p, batch, stream, wgmma);
 }
 
 // Kernel 8: dk and dv from lse and kernel 7's delta.  strides: 18 element
-// strides, (b, h, l) of q, k, v, g, dk, dv.  Other arguments as ftl_dq.
+// strides, (b, h, l) of q, k, v, g, dk, dv.  Other arguments and the
+// returned code as ftl_dq.
 int ftl_dkv(const void* q, const void* k, const void* v,
             const unsigned char* mask, const float* lse, const float* delta,
             const void* g, void* dk, void* dv, int dtype, int batch,
             int heads, int lq, int lk, int dh, int hg,
             const long long* strides, float scale, unsigned int seed,
             unsigned int threshold, float keep_scale, int dropout, int vec,
-            void* stream) {
+            int wgmma, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, hg, scale, seed, threshold, keep_scale, dropout,
                          vec);
@@ -214,7 +223,7 @@ int ftl_dkv(const void* q, const void* k, const void* v,
   p.sg = strides_at(strides, 3);
   p.sdk = strides_at(strides, 4);
   p.sdv = strides_at(strides, 5);
-  return dispatch(2, dtype, dh, p, batch, stream);
+  return dispatch(2, dtype, dh, p, batch, stream, wgmma);
 }
 
 }  // extern "C"

@@ -1,0 +1,280 @@
+// Hopper (sm_90a) building blocks for warp-specialised kernels: wgmma
+// products issued by a warpgroup on operands in shared memory (and A in
+// registers), the shared-memory matrix descriptor of the 128-byte swizzle,
+// mbarriers, TMA tile loads with their host-side tensor maps, setmaxnreg, and
+// the conversion of a wgmma accumulator into a bf16 A operand.  The tiled
+// backward kernels 7/8 (flash_bwd_wgmma.cuh) use them.
+//
+// Tiles are [rows][64] bf16, 128 bytes a row, loaded by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte aligned shared memory: 16-byte
+// chunk c of row r lands at chunk c ^ (r % 8).  wgmma reads such a tile
+// through a descriptor of layout type B128 in two ways:
+// - K-major (the tile's columns are the contracted dim, e.g. B = Kᵀ of
+//   S = Q·Kᵀ): 8-row groups 1024 bytes apart (SBO); the k-step of 16
+//   columns advances the start address by 32 bytes.
+// - MN-major (the tile's rows are contracted, B = K of dQ = dS·K): the
+//   instruction's transpose-B flag; 8-row groups of K 1024 bytes apart
+//   (SBO); the k-step of 16 rows advances the start address by 2048 bytes.
+// Both keep the swizzle's phase since every step stays 1024-byte aligned
+// or within one 128-byte row.
+//
+// wgmma accumulator layout (m64nN, f32): thread t of the warpgroup (warp
+// w = t / 32, g = (t % 32) / 4, q = t % 4) holds, for each 8-column chunk n,
+// d[4n + e] = (row 16 w + g + 8 (e >> 1), column 8 n + 2 q + (e & 1)).  The A
+// operand in registers (m64k16) is mma.sync's A fragment per warp: rows
+// 16 w + g (+8), columns 2 q (+1) and 2 q + 8 (+1).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tensor_core.cuh"
+
+namespace {
+
+constexpr int kWarpgroup = 128;  // threads that issue one wgmma together
+
+// ------------------------------------------------------------ descriptors
+// A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
+// leading and stride byte offsets in 16-byte units, layout type 1 (B128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_byte_addr,
+                                               uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  uint64_t d = (uint64_t)((smem_byte_addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// Descriptors of a [rows][64] bf16 tile at `tile` (1024-byte aligned), at
+// k-step ks of 16: read K-major (contracting over its 64 columns) or
+// MN-major (contracting over its rows, 64 columns wide).
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int ks) {
+  return sw128_desc(tile + 32 * ks, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int ks) {
+  return sw128_desc(tile + 2048 * ks, 8192, 1024);
+}
+
+// ------------------------------------------------------------------ wgmma
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups of this warpgroup pend.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+#define LECCR_WGMMA_D32(d)                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+#define LECCR_WGMMA_D32_LIST                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (+)= A·B, m64n64k16, bf16 operands, f32 accumulators; A and B from
+// shared memory by descriptor; accumulate = 0 overwrites d.  TRANS_B: B is
+// MN-major (the tile's rows are contracted).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      LECCR_WGMMA_D32_LIST ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : LECCR_WGMMA_D32(d)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+}
+
+// d += A·B, m64n64k16, A (64 x 16) from registers as four bf16x2 words
+// (mma.sync's A fragment per warp), B from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      LECCR_WGMMA_D32_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : LECCR_WGMMA_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+        "n"(TRANS_B));
+}
+
+#undef LECCR_WGMMA_D32
+#undef LECCR_WGMMA_D32_LIST
+
+// The A operand of k-step ks (accumulator columns 16 ks .. 16 ks + 15) of a
+// m64n64 accumulator, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(const float (&c)[32], int ks,
+                                         uint32_t (&a)[4]) {
+  const int n = 2 * ks;
+  a[0] = pack(c[4 * n], c[4 * n + 1]);
+  a[1] = pack(c[4 * n + 2], c[4 * n + 3]);
+  a[2] = pack(c[4 * n + 4], c[4 * n + 5]);
+  a[3] = pack(c[4 * n + 6], c[4 * n + 7]);
+}
+
+// -------------------------------------------------------------- mbarriers
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrives and adds `bytes` to the transactions the current phase awaits.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`.  A
+// phase that never completes is a fault of the kernel: after some 2^26
+// suspended polls (seconds) it traps, so the launch fails rather than
+// hangs the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0; !mbar_try_wait(bar, parity); ++n)
+    if (n == (1u << 26)) __trap();
+}
+
+// ------------------------------------------------------------------- TMA
+// A 64 x 64 box of a 4-D tensor map (dims innermost first: Dh, L, H, B) at
+// element coordinates (0, row, h, b) into shared memory `dst`; completion
+// counted on `bar` in bytes.  Rows past the tensor's end are zero-filled.
+__device__ __forceinline__ void tma_load_rows(const CUtensorMap* map,
+                                              uint32_t dst, uint32_t bar,
+                                              int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(h), "r"(b),
+      "r"(bar)
+      : "memory");
+}
+
+// --------------------------------------------------------------- setmaxnreg
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barrier over `threads` threads (a multiple of 32), id 1-15: wait
+// for all of them, or arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// x, which the compiler must take as new wherever this stands: a
+// descriptor built from it in a loop is rebuilt each turn (a few integer
+// operations) rather than hoisted into registers that a loop is short of.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// 2^x (ex2.approx: two ulps; -inf gives +0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------------- host: tensor maps
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
+// entry-point query so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// Error codes of the host side, beside CUDA's (all positive).
+constexpr int kNoEncoder = -10;    // cuTensorMapEncodeTiled not found
+constexpr int kEncodeFailed = -11;  // it refused the map
+
+// A bf16 [B, H, L, 64] head tensor with element strides (sb, sh, sl, 1) as
+// a 4-D TMA map (64, L, H, B), box 64 x 64 rows, 128-byte swizzle, zero
+// fill past L.  Returns 0 or an error code.
+int encode_rows_map(CUtensorMap* map, const void* base, int batch, int heads,
+                    int len, long long sb, long long sh, long long sl) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)len, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};  // bytes, dims 1-3
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(base), dims, strides, box, step,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
+}
+
+}  // namespace

@@ -1,6 +1,6 @@
 // Tensor-core building blocks for Hopper (sm_90a) shared by the flash
-// kernels: the single-block kernels 2/3 (flash_tower_attention.cu) and the
-// streamed bodies of kernels 4-8 (flash_tiles.cuh).  mma.sync m16n8k16 on
+// kernels: the single-block kernels 2/3 (flash_tower_attention.cu), the
+// streamed bodies of kernels 4-8 (flash_tiles.cuh) and hopper.cuh.  mma.sync m16n8k16 on
 // bf16 with f32 accumulators, the fragment conversions between its C and A
 // operands, ldmatrix reads of row-major tiles staged in shared memory (rows
 // of kRowPitch bf16, so the eight rows of one 8x8 matrix start in distinct

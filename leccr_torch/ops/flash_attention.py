@@ -40,8 +40,11 @@ reproduces).
 Kernels 2/3 have two bodies (`single_block_variant`): tensor cores
 (mma.sync) for bf16 at Dh = 64 with 16-byte aligned rows, every call of
 the train steps, and scalar f32 FMA for f32, other head dims and unaligned
-views.  The choice is made from the shapes before the launch; a launch that
-fails raises and is never retried on the other body.
+views.  Kernels 7/8 likewise (`tiled_variant`): warp-specialised wgmma
+passes fed by TMA for bf16 at Dh = 64 with 16-byte aligned rows and outer
+strides, the scalar bodies otherwise.  The choice is made from the shapes
+before the launch; a launch that fails raises and is never retried on the
+other body.
 
 For CUDA tensors the wrappers launch the kernels (or raise); for CPU
 tensors they run the plain PyTorch versions (`*_reference`), which do the
@@ -511,6 +514,34 @@ def single_block_variant(q: torch.Tensor, k: torch.Tensor,
     return "tc"
 
 
+_TMA_MAX_STRIDE = 2 ** 40  # bytes: a TMA map's outer strides stay below
+
+
+def tma_eligible(t: torch.Tensor) -> bool:
+    """Whether a [B, H, L, Dh] tensor's rows can be a TMA map's boxes:
+    a 16-byte aligned base, a unit feature stride, Dh spanning whole
+    16-byte words, and positive outer strides that are 16-byte multiples
+    below 2⁴⁰ bytes."""
+    item = t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and t.shape[-1] * item % 16 == 0
+            and all(0 < st * item < _TMA_MAX_STRIDE and st * item % 16 == 0
+                    for st in t.stride()[:3]))
+
+
+def tiled_variant(q: torch.Tensor, k: torch.Tensor,
+                  *others: torch.Tensor) -> str:
+    """Which body kernels 7/8 run a call on, from the shapes alone:
+    "wgmma" for bf16 at Dh = 64 when q, k and `others` (v, g; out for
+    kernel 7, whose delta reads it with 16-byte loads) are all
+    `tma_eligible` (every call of the high-resolution step), "scalar"
+    otherwise (f32, other head dims, unaligned views)."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
+        return "scalar"
+    return ("wgmma" if all(tma_eligible(t) for t in (q, k, *others))
+            else "scalar")
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if lib.fta_forward.argtypes is None:
@@ -853,32 +884,43 @@ def _tiled_lib() -> ctypes.CDLL:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, ptr]
         lib.ftl_forward.argtypes = [ptr] * 6 + [i32] * 7 + tail
-        lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + tail
-        lib.ftl_dkv.argtypes = [ptr] * 9 + [i32] * 7 + tail
+        bwd_tail = tail[:-1] + [i32, ptr]  # ..., vec, wgmma, stream
+        lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + bwd_tail
+        lib.ftl_dkv.argtypes = [ptr] * 9 + [i32] * 7 + bwd_tail
         lib.ftl_forward.restype = lib.ftl_dq.restype = i32
         lib.ftl_dkv.restype = i32
-        lib.ftl_smem_bytes.argtypes = [i32] * 4
+        lib.ftl_smem_bytes.argtypes = [i32] * 5
         lib.ftl_smem_bytes.restype = ctypes.c_size_t
         lib.ftl_supported_dim.argtypes = [i32]
         lib.ftl_supported_dim.restype = i32
     return lib
 
 
-def _tiled_prepare(q, seed, rate, which, vec):
+def _tiled_prepare(q, seed, rate, which, vec, wgmma=False):
     """The loaded library, the score scale and the dropout arguments of one
     tiled launch (0: kernel 6, 1: kernel 7, 2: kernel 8), after checking the
-    head dim and the launch's shared memory (`vec`: rows 16-byte aligned)."""
+    head dim and the launch's shared memory (`vec`: rows 16-byte aligned;
+    `wgmma`: kernel 7 or 8 on its wgmma variant)."""
     lib = _tiled_lib()
     dh = q.shape[-1]
     if not lib.ftl_supported_dim(dh):
         raise ValueError(f"flash_tiled_attention kernels are compiled for "
                          f"Dh in (16, 32, 64, 128), not {dh}")
-    smem = lib.ftl_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec))
+    smem = lib.ftl_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec),
+                              int(wgmma))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"flash_tiled_attention launch {which} at Dh={dh} "
                          f"needs {smem} bytes of shared memory, more than "
                          f"the {SMEM_PER_BLOCK} a block may use")
     return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
+
+
+# the library's own (negative) return codes
+_TILED_ERRORS = {
+    -1: "head dim not compiled",
+    -2: "the wgmma variant takes bf16 at Dh = 64 only",
+    -10: "cuTensorMapEncodeTiled not found in libcuda",
+    -11: "cuTensorMapEncodeTiled refused a TMA map (strides or alignment)"}
 
 
 def _tiled_call(fn, name, *args):
@@ -889,8 +931,9 @@ def _tiled_call(fn, name, *args):
         rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args), stream)
     if rc != 0:
+        why = _TILED_ERRORS.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"flash_tiled_attention {name} kernel launch "
-                           f"failed: CUDA error {rc}")
+                           f"failed: {why}")
 
 
 def _launch_tiled_fwd(q, k, v, mask, seed, rate):
@@ -913,7 +956,8 @@ def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 1, vec)
+    wgmma = tiled_variant(q, k, v, g, out) == "wgmma"
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 1, vec, wgmma)
     dq = _heads_last(b, lq, h, dh, q)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 18)(
@@ -921,8 +965,10 @@ def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
         *g.stride()[:3], *dq.stride()[:3])
     _tiled_call(lib.ftl_dq, "dq", q, k, v, mask, out, lse, g, dq, delta,
                 _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
-                scale, *drop, int(vec))
+                scale, *drop, int(vec), int(wgmma))
     flash_tower_attention.tiled_dq_launches += 1
+    if wgmma:
+        flash_tower_attention.tiled_dq_wgmma_launches += 1
     return dq, delta
 
 
@@ -930,7 +976,8 @@ def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 2, vec)
+    wgmma = tiled_variant(q, k, v, g) == "wgmma"
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 2, vec, wgmma)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
     strides = (ctypes.c_longlong * 18)(
@@ -938,8 +985,10 @@ def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
         *dk.stride()[:3], *dv.stride()[:3])
     _tiled_call(lib.ftl_dkv, "dk/dv", q, k, v, mask, lse, delta, g, dk, dv,
                 _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
-                scale, *drop, int(vec))
+                scale, *drop, int(vec), int(wgmma))
     flash_tower_attention.tiled_dkv_launches += 1
+    if wgmma:
+        flash_tower_attention.tiled_dkv_wgmma_launches += 1
     return dk, dv
 
 
@@ -1087,7 +1136,8 @@ def flash_tower_attention(
     `.chunk_bwd_launches` those of kernels 4/5 (a backward's two launches
     count once), and
     `.tiled_fwd_launches` / `.tiled_dq_launches` / `.tiled_dkv_launches`
-    those of kernels 6, 7 and 8."""
+    those of kernels 6, 7 and 8 (`.tiled_dq_wgmma_launches` /
+    `.tiled_dkv_wgmma_launches` those of 7 and 8 on the wgmma variant)."""
     _check(q, k, v, padding_mask, dropout_rate)
     mask = _mask_bytes(padding_mask)
     seed, rate = int(seed), float(dropout_rate)
@@ -1106,3 +1156,5 @@ flash_tower_attention.chunk_bwd_launches = 0
 flash_tower_attention.tiled_fwd_launches = 0
 flash_tower_attention.tiled_dq_launches = 0
 flash_tower_attention.tiled_dkv_launches = 0
+flash_tower_attention.tiled_dq_wgmma_launches = 0
+flash_tower_attention.tiled_dkv_wgmma_launches = 0

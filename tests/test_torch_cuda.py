@@ -2,9 +2,9 @@
 
 The fused cross-attention kernel (eval), the single-block flash
 tower-attention kernels 2/3, the chunked kernels 4/5 and the tiled kernels
-6/7/8 (training, forward and backward), and the fused InfoNCE kernels 9-11
-against their plain versions on the card, and the launch counters that show
-a path went through them.
+6/7/8 (training, forward and backward; 7/8 on their wgmma variant in
+bf16), and the fused InfoNCE kernels 9-11 against their plain versions on
+the card, and the launch counters that show a path went through them.
 
 They import neither JAX nor the JAX package, so they also run where JAX is
 not installed:
@@ -25,6 +25,7 @@ from chip_smoke import (
     single_masks,
     tc_counts,
     tiled_masks,
+    wgmma_counts,
 )
 from leccr_torch.ops import infonce
 from leccr_torch.ops.flash_attention import (
@@ -45,6 +46,7 @@ from leccr_torch.ops.flash_attention import (
     keep_mask,
     single_block_variant,
     tile_keep_mask,
+    tiled_variant,
 )
 from leccr_torch.ops.fused_cross_attention import (
     fused_cross_attention,
@@ -89,12 +91,16 @@ def _needs_card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
-def _flash_inputs(batch, length, dtype, masked, seed=0, heads=12, dh=64):
+def _flash_inputs(batch, length, dtype, masked, seed=0, heads=12, dh=64,
+                  packed=False):
     g = torch.Generator(device="cuda").manual_seed(seed)
     # the path's layout: [B, L, H, Dh] storage seen as [B, H, L, Dh]
     q, k, v, grad = (torch.randn(batch, length, heads, dh, device="cuda",
                                  generator=g).to(dtype).transpose(1, 2)
                      for _ in range(4))
+    if packed:  # q, k, v as strided views of one [B, L, 3, H, Dh] projection
+        qkv = torch.stack([t.transpose(1, 2) for t in (q, k, v)], dim=2)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
     pad = None
     if masked:
         pad = torch.rand(batch, length, device="cuda", generator=g) < 0.3
@@ -259,7 +265,7 @@ def test_flash_launch_counters():
         q, k, v, _, pad = _flash_inputs(2, length, torch.bfloat16, True,
                                         heads=16)
         before = [getattr(flash_tower_attention, c) for c in counters]
-        before_tc = tc_counts()
+        before_tc, before_wgmma = tc_counts(), wgmma_counts()
         qg = q.detach().requires_grad_(True)
         flash_tower_attention(qg, k, v, pad, 1, 0.1).float().sum().backward()
         with torch.no_grad():
@@ -267,28 +273,42 @@ def test_flash_launch_counters():
         torch.cuda.synchronize()
         assert tuple(getattr(flash_tower_attention, c) - b
                      for c, b in zip(counters, before)) == want
-        # bf16 at Dh = 64: every single-block launch is a tensor-core one
+        # bf16 at Dh = 64: every single-block launch is a tensor-core one,
+        # every tiled backward launch a wgmma one
         assert tuple(a - b for a, b in zip(tc_counts(), before_tc)) == want[:2]
+        assert (tuple(a - b for a, b in zip(wgmma_counts(), before_wgmma))
+                == want[5:])
         assert qg.grad is not None and torch.isfinite(qg.grad).all()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("length,packed", [(2705, False), (2561, True)])
 @pytest.mark.parametrize("dh", [64, 32])
 @pytest.mark.parametrize("heads", [16, 12])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_tiled_kernels_match_plain_versions(dtype, heads, dh):
+def test_tiled_kernels_match_plain_versions(dtype, heads, dh, length,
+                                            packed):
     """Kernels 6, 7 and 8 against their plain versions at 2705 tokens (ViT-L
-    /14 @728) with key padding, a fully padded row and dropout 0.1, batch
-    2, 16 heads (head group 8) and 12 (head group 6); bf16 at Dh=64 takes
-    the tensor-core kernels, every other case the scalar ones.  Tolerances
-    as kernels 4/5's, with the tiled head group in the term sums."""
+    /14 @728, not a multiple of 64) and at 2561, just past fits_chunked,
+    with q, k and v strided views of one packed [B, L, 3, H, Dh]
+    projection; key padding, a fully padded row and dropout 0.1, batch 2,
+    16 heads (head group 8) and 12 (head group 6).  bf16 at Dh=64 takes the
+    tensor-core forward and the wgmma kernels 7/8, every other case the
+    scalar ones.  Tolerances as kernels 4/5's, with the tiled head group in
+    the term sums."""
     _needs_card()
-    q, k, v, grad, pad = _flash_inputs(2, 2705, dtype, True, heads=heads,
-                                       dh=dh)
+    q, k, v, grad, pad = _flash_inputs(2, length, dtype, True, heads=heads,
+                                       dh=dh, packed=packed)
     seed, rate = 99, 0.1
     out, lse = flash_tiled_attention_fwd(q, k, v, pad, seed, rate)
+    want_variant = ("wgmma" if dtype == torch.bfloat16 and dh == 64
+                    else "scalar")
+    assert tiled_variant(q, k, v, grad, out) == want_variant
+    before = wgmma_counts()
     grads = flash_tiled_attention_bwd(q, k, v, pad, out, lse, grad, seed,
                                       rate)
+    n = int(want_variant == "wgmma")
+    assert tuple(a - b for a, b in zip(wgmma_counts(), before)) == (n, n)
     want_out, want_lse = flash_tiled_attention_fwd_reference(
         q, k, v, pad, seed, rate)
     want_grads = flash_tiled_attention_bwd_reference(
@@ -316,12 +336,17 @@ def test_tiled_kernels_match_plain_versions(dtype, heads, dh):
 @pytest.mark.parametrize("heads", [16, 12, 3])
 def test_tiled_masks_are_the_plain_hash(heads):
     """The dropout masks kernels 6, 7 and 8 apply, read back bit for bit,
-    equal the plain tile hash at head_group(H)."""
+    equal the plain tile hash at head_group(H); in bf16 every launch of
+    kernels 7 and 8 that reads them back is a wgmma one."""
     _needs_card()
     want = tile_keep_mask(7, 2, heads, 300, 300, 0.2, device="cuda",
                           hg=head_group(heads)) != 0
+    before = wgmma_counts()
     for got in tiled_masks(2, heads, 300, torch.bfloat16, 0.2, 7):
         assert torch.equal(got, want)
+    blocks = -(-300 // 64)  # one launch of each per 64-key block
+    assert tuple(a - b for a, b in zip(wgmma_counts(), before)) == (blocks,
+                                                                     blocks)
 
 
 @pytest.mark.cuda

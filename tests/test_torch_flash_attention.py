@@ -343,8 +343,9 @@ def test_bf16_plain_versions_match_interpret_at_flagship_width():
 
 def test_profiled_kernel_names_map_to_their_kernels():
     """chip_smoke's profile sums kernels 2/3 by their function names, the
-    scalar variant's (templates) and the tensor-core one's alike, and keeps
-    kernels 4-11 and library kernels apart."""
+    scalar variant's (templates) and the tensor-core one's alike, kernels
+    7/8 in their scalar and wgmma variants, and keeps kernels 4-11 and
+    library kernels apart."""
     ns = "(anonymous namespace)"
     names = {
         f"void {ns}::fwd_kernel<__nv_bfloat16, 64>({ns}::Params)":
@@ -360,7 +361,12 @@ def test_profiled_kernel_names_map_to_their_kernels():
             "chunked",
         f"void {ns}::tiled_fwd_tc_kernel({ns}::Params)": "tiled_fwd",
         f"void {ns}::tiled_dq_kernel<float, 64>({ns}::Params)": "tiled_dq",
-        f"void {ns}::tiled_dkv_tc_kernel({ns}::Params)": "tiled_dkv",
+        f"void {ns}::tiled_dkv_kernel<__nv_bfloat16, 32>({ns}::Params)":
+            "tiled_dkv",
+        f"void {ns}::wgmma_dq_kernel({ns}::WgMaps, {ns}::Params)":
+            "tiled_dq",
+        f"void {ns}::wgmma_dkv_kernel({ns}::WgMaps, {ns}::Params)":
+            "tiled_dkv",
         f"void {ns}::infonce_bwd_kernel<false>({ns}::Args)": "infonce",
         "void at::native::vectorized_elementwise_kernel<4, "
         "at::native::FillFunctor<float>>(int, Fn)": None,
