@@ -7,7 +7,8 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
 
 1. device + build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels built from `leccr_torch/csrc/` with nvcc, one process per
-   source, side by side (seconds, ptxas report).
+   source, side by side (seconds, ptxas report; the wgmma kernels of 4 and
+   6-8 must show 0 spill bytes).
 2. kernel 1 vs plain: the fused cross-attention kernel against its plain
    PyTorch version at the three embed_images shapes (B=64, H=8, Dh=64;
    (Lq, Lk) = (4,200), (145,4), (4,145)) in bf16 and f32, with random key
@@ -41,7 +42,10 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    padding) and a 200-token text batch [64,16,200,64] (key padding, a
    fully padded row: out 0, lse -inf, zero gradients; dropout 0.1), bf16
    and f32, with phase 3's tolerances (the term sums under the chunked
-   rules) and timing.
+   rules) and timing.  Every bf16 forward must run kernel 4's wgmma
+   variant, f32 the scalar one (`tiled_variant` and the wgmma launch
+   counters), and with dropout kernel 4's mask, read back bit for bit on
+   that variant, must equal the plain hash at head group 2.
 4b. kernels 6/7/8 vs plain (`tiled_phase`): the tiled flash forward, dq
    and dk/dv kernels against their plain versions at TILED_SHAPES: the
    high-resolution step's ViT-L/14 @728 as the step calls them,
@@ -52,14 +56,15 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    group; delta within 1e-5 of max(1, |delta|) of rowsum(g·out) from the
    kernel's own output); the dropout masks each
    kernel applies, read back bit for bit (`tiled_masks`), equal the plain
-   hash.  Every bf16 shape must run kernels 7/8 on their wgmma variant
+   hash.  Every bf16 shape must run kernels 6-8 on their wgmma variant
    (`tiled_variant` and the wgmma launch counters, the mask read-backs
    included), f32 on the scalar one.  Each kernel timed per launch at
    [8,16,2705,64] bf16 beside its bound, its plain version, SDPA (forward;
    the backward alone for 7 + 8 together, on kernel 7's row) and the
-   chunked kernels 4/5 forced onto the same shape (kernel 5 likewise once,
-   for 7 + 8: the mma.sync bodies kernels 7/8 ran on before, so kernel 7's
-   row carries ratio_to_old = (7 + 8) / kernel 5).
+   chunked kernels 4/5 forced onto the same shape (kernel 4 the same wgmma
+   body at head group 2; kernel 5 once, for 7 + 8: the mma.sync bodies
+   kernels 7/8 ran on before, so kernel 7's row carries ratio_to_old =
+   (7 + 8) / kernel 5).
 5. kernels 9-11 vs plain: the fused InfoNCE statistics, dq and dk
    kernels against their plain versions at E = 256, inv_temp 1/0.07, at
    INFONCE_SHAPES: the large-batch step's [4096] x [4096] (idx = arange),
@@ -100,7 +105,8 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    towers, one card, remat): 48 launches of kernel 4 and 24 of kernel 5,
    72 of kernel 2 and 24 of kernel 3 a step.  Each: 3 warm-up and 5 timed
    steps; finite losses, every parameter moved; in bf16 every launch of
-   kernels 2/3 on the tensor-core variant; ms/step, pairs/s, peak
+   kernels 2/3 on the tensor-core variant and every launch of kernels 4
+   and 6-8 on the wgmma variant; ms/step, pairs/s, peak
    memory; then one step under torch.profiler (device time by kernel,
    busy share, kernels 2 and 3 alone).  (c) The slice step again with
    remat off (2 warm-up and 3 timed steps, then a profiled one): what
@@ -109,7 +115,7 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    warm-up and 3 timed steps, then a profiled one with kernels 6-8's share
    of device time): 48, 24 and 24 launches of kernels 6, 7 and 8 and the
    slice's 72/24 of kernels 2/3 a step, none of 4/5, and every launch of
-   7/8 on the wgmma variant.  (d) The
+   6-8 on the wgmma variant.  (d) The
    large-batch step (large_batch_config: the flagship at bs4096 in 16
    GradCache microbatches, fused negatives, 256-row streaming losses): 1
    warm-up and 2 timed steps, then a profiled one; 1152 and 384 launches
@@ -195,9 +201,11 @@ INFONCE_COUNTERS = ("stats_launches", "dq_launches",
 STEP_COUNTERS = COUNTERS + INFONCE_COUNTERS
 TC_COUNTERS = ("tc_fwd_launches", "tc_bwd_launches")  # kernels 2/3 on tensor
 # cores: a subset of fwd_launches / bwd_launches
-WGMMA_COUNTERS = ("tiled_dq_wgmma_launches",
-                  "tiled_dkv_wgmma_launches")  # kernels 7/8 on their wgmma
-# variant: a subset of tiled_dq_launches / tiled_dkv_launches
+# kernels 4, 6, 7 and 8 on their wgmma variant: subsets of the COUNTERS at
+# WGMMA_OF
+WGMMA_COUNTERS = ("chunk_fwd_wgmma_launches", "tiled_fwd_wgmma_launches",
+                  "tiled_dq_wgmma_launches", "tiled_dkv_wgmma_launches")
+WGMMA_OF = (2, 4, 5, 6)
 # Launches of kernels (2, 3, 4, 5, 6, 7, 8, 9, 10, 11) in one train step.
 # Flagship: 12 ViT-B/32 blocks at 145 tokens (single-block) and 12 mBERT
 # layers at 64 tokens, a forward each for the texts and for the captions, a
@@ -430,7 +438,7 @@ def tc_counts():
 
 
 def wgmma_counts():
-    """Launches of kernels 7/8 on the wgmma variant so far."""
+    """Launches of kernels 4, 6, 7 and 8 on the wgmma variant so far."""
     from leccr_torch.ops.flash_attention import flash_tower_attention
 
     return tuple(getattr(flash_tower_attention, c) for c in WGMMA_COUNTERS)
@@ -628,15 +636,21 @@ def single_masks(batch, heads, length, dtype, rate, seed, dh=64):
 
 def chunked_phase(dh: int = 64, seed: int = 1234):
     """Kernels 4 and 5 against their plain versions at CHUNKED_SHAPES, bf16
-    and f32, timed beside their bound, the plain version and SDPA."""
+    and f32, timed beside their bound, the plain version and SDPA.  Every
+    bf16 forward must run kernel 4's wgmma variant, f32 the scalar one, and
+    with dropout kernel 4's mask, read back bit for bit on that variant,
+    must equal the plain hash at the chunked head group."""
     import torch
     import torch.nn.functional as F
 
     from leccr_torch.ops.flash_attention import (
+        chunk_head_group,
         flash_chunked_attention_bwd,
         flash_chunked_attention_bwd_reference,
         flash_chunked_attention_fwd,
         flash_chunked_attention_fwd_reference,
+        tile_keep_mask,
+        tiled_variant,
     )
 
     flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
@@ -659,10 +673,18 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                 q, k, v, pad, seed, rate)
             want_grads = flash_chunked_attention_bwd_reference(
                 q, k, v, pad, want_out, want_lse, grad, seed, rate)
+            before = wgmma_counts()
             out, lse = flash_chunked_attention_fwd(q, k, v, pad, seed, rate)
             grads = flash_chunked_attention_bwd(q, k, v, pad, out, lse, grad,
                                                 seed, rate)
             torch.cuda.synchronize()
+            # bf16 at Dh = 64 (every call of the step) takes the wgmma body
+            variant = tiled_variant(q, k, v)
+            bf16 = dtype == torch.bfloat16
+            if (variant != ("wgmma" if bf16 else "scalar")
+                    or not wgmma_launched(before, chunk_fwd=int(bf16))):
+                raise AssertionError(f"kernel 4 at {name} {dtype} took the "
+                                     f"{variant} variant")
             real = torch.isfinite(want_lse)
             if not torch.equal(torch.isfinite(lse), real):
                 raise AssertionError(f"lse is -inf on other rows {name}")
@@ -699,6 +721,25 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                     f"chunked kernels disagree with their plain versions at "
                     f"{name} {dtype}: {errs} ulps {k_needed}")
             del grads, pairs
+            mask_check = None
+            if rate and bf16:  # kernel 4's mask on its wgmma variant
+                plain = tile_keep_mask(seed, batch, heads, length, length,
+                                       rate, device="cuda",
+                                       hg=chunk_head_group(heads)) != 0
+                before = wgmma_counts()
+                got = fwd_masks(flash_chunked_attention_fwd, batch, heads,
+                                length, dtype, rate, seed, dh)
+                mask_check = {"kernel_4_equals_plain": torch.equal(got, plain),
+                              "variant": variant,
+                              "head_group": chunk_head_group(heads),
+                              "kept_share": plain.float().mean().item()}
+                if not mask_check["kernel_4_equals_plain"]:
+                    raise AssertionError(f"kernel 4's dropout mask differs "
+                                         f"from the plain hash at {name}")
+                if not wgmma_launched(before, chunk_fwd=-(-length // dh)):
+                    raise AssertionError(f"kernel 4's mask at {name} was not "
+                                         f"read on the wgmma variant")
+                del plain, got
             item = q.element_size()
             numel = q.numel()
             lse_bytes = 4 * batch * heads * length
@@ -730,7 +771,11 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                 results.append({
                     "shape": name, "direction": direction, "dtype": dname,
                     "b": batch, "h": heads, "l": length, "dh": dh,
-                    "rate": rate, "masked": masked, "max_abs_err": errs,
+                    "rate": rate, "masked": masked,
+                    "variant": (variant if direction == "fwd" else
+                                "tc (mma.sync)" if bf16 else "scalar"),
+                    "masks": mask_check if direction == "fwd" else None,
+                    "max_abs_err": errs,
                     "bf16_ulps": k_needed, "tolerance": tol,
                     "ms": cuda_ms(kernel, flush, FLASH_ITERS),
                     "plain_ms": cuda_ms(plain, flush, FLASH_ITERS),
@@ -765,14 +810,45 @@ def tiled_inputs(batch, heads, length, dtype, masked, seed, dh=64):
     return q, k, v, grad, pad
 
 
+def identity_blocks(batch, heads, length, dtype, dh=64):
+    """(c, n, block) for each block [c, c + n) of 64 rows: a [B, H, L, Dh]
+    tensor in the path's layout, the identity on those rows, 0 elsewhere."""
+    import torch
+
+    eye = torch.eye(dh, dtype=dtype, device="cuda")
+    for c in range(0, length, dh):
+        n = min(dh, length - c)
+        block = torch.zeros((batch, length, heads, dh), dtype=dtype,
+                            device="cuda")
+        block[:, c:c + n] = eye[:n][None, :, None, :]
+        yield c, n, path_layout(block)
+
+
+def fwd_masks(fwd, batch, heads, length, dtype, rate, seed, dh=64):
+    """The dropout mask that a streamed forward (`fwd`: kernel 4's or 6's
+    wrapper) applies, read back bit for bit ([B, H, Lq, Lk] bool, True =
+    kept), one 64-key block per launch.  With q = k = 0 every score is 0
+    and p = 1/L, so with v the identity on block [c, c + 64) out[i, d] is
+    nonzero exactly where (i, c + d) is kept."""
+    import torch
+
+    zeros = path_layout(torch.zeros((batch, length, heads, dh), dtype=dtype,
+                                    device="cuda"))
+    mask = torch.empty((batch, heads, length, length), dtype=torch.bool,
+                       device="cuda")
+    for c, n, block in identity_blocks(batch, heads, length, dtype, dh):
+        out, _ = fwd(zeros, zeros, block, None, seed, rate)
+        mask[..., c:c + n] = out[..., :n] != 0
+    return mask
+
+
 def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
     """The dropout masks that kernels 6, 7 and 8 apply, read back bit for
     bit ([B, H, Lq, Lk] bool, True = kept), one 64-key (or 64-query) block
-    per launch.  With q = k = 0 every score is 0 and p = 1/L, so with v the
-    identity on block [c, c + 64) kernel 6's out[i, d] is nonzero exactly
-    where (i, c + d) is kept; kernel 7 with k = v = that identity, g = 1
-    and out = 0 (delta 0) gives dq[i, d] = ds[i, c + d], and kernel 8 with
-    g the identity on query block c gives dv[j, d] = pd[c + d, j]."""
+    per launch: kernel 6's by `fwd_masks`; kernel 7 with q = 0, k = v =
+    the identity on block [c, c + 64), g = 1 and out = 0 (delta 0) gives
+    dq[i, d] = ds[i, c + d], and kernel 8 with g the identity on query
+    block c gives dv[j, d] = pd[c + d, j]."""
     import torch
 
     from leccr_torch.ops.flash_attention import (
@@ -786,17 +862,11 @@ def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
     ones = path_layout(torch.ones(shape, dtype=dtype, device="cuda"))
     _, lse = flash_tiled_attention_fwd(zeros, zeros, zeros, None, seed, rate)
     delta = torch.zeros_like(lse)
-    masks = [torch.empty((batch, heads, length, length), dtype=torch.bool,
-                         device="cuda") for _ in range(3)]
-    eye = torch.eye(dh, dtype=dtype, device="cuda")
-    for c in range(0, length, dh):
-        n = min(dh, length - c)
-        block = torch.zeros(shape, dtype=dtype, device="cuda")
-        block[:, c:c + n] = eye[:n][None, :, None, :]
-        block = path_layout(block)
-        out, _ = flash_tiled_attention_fwd(zeros, zeros, block, None, seed,
-                                           rate)
-        masks[0][..., c:c + n] = out[..., :n] != 0
+    masks = [fwd_masks(flash_tiled_attention_fwd, batch, heads, length,
+                       dtype, rate, seed, dh)]
+    masks += [torch.empty((batch, heads, length, length), dtype=torch.bool,
+                          device="cuda") for _ in range(2)]
+    for c, n, block in identity_blocks(batch, heads, length, dtype, dh):
         dq, _ = flash_tiled_attention_dq(zeros, block, block, None, zeros,
                                          lse, ones, seed, rate)
         masks[1][..., c:c + n] = dq[..., :n] != 0
@@ -806,13 +876,20 @@ def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
     return masks
 
 
+def wgmma_launched(before, chunk_fwd=0, tiled_fwd=0, dq=0, dkv=0) -> bool:
+    """Whether the wgmma counters moved by exactly these launches (kernels
+    4, 6, 7, 8) since `before` (a wgmma_counts())."""
+    return (tuple(a - b for a, b in zip(wgmma_counts(), before))
+            == (chunk_fwd, tiled_fwd, dq, dkv))
+
+
 def tiled_phase(dh: int = 64, seed: int = 1234):
     """Kernels 6, 7 and 8 against their plain versions at TILED_SHAPES (out,
     lse, dq, delta, dk, dv; the masks each kernel applies bit for bit
-    against the plain hash at head_group(H)), then each timed per launch at
-    the high-resolution step's [8, 16, 2705, 64] bf16 beside its bound, its
-    plain version, SDPA and the chunked kernels 4/5 forced onto the same
-    shape."""
+    against the plain hash at head_group(H); every bf16 launch on the wgmma
+    variant), then each timed per launch at the high-resolution step's
+    [8, 16, 2705, 64] bf16 beside its bound, its plain version, SDPA and the
+    chunked kernels 4/5 forced onto the same shape."""
     import torch
     import torch.nn.functional as F
 
@@ -846,8 +923,8 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
             q, k, v, pad, want_out, want_lse, grad, seed, rate)
         want_dk, want_dv = flash_tiled_attention_dkv_reference(
             q, k, v, pad, want_lse, want_delta, grad, seed, rate)
-        out, lse = flash_tiled_attention_fwd(q, k, v, pad, seed, rate)
         before = wgmma_counts()
+        out, lse = flash_tiled_attention_fwd(q, k, v, pad, seed, rate)
         dq, delta = flash_tiled_attention_dq(q, k, v, pad, out, lse, grad,
                                              seed, rate)
         dk, dv = flash_tiled_attention_dkv(q, k, v, pad, lse, delta, grad,
@@ -857,9 +934,8 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
         variant = tiled_variant(q, k, v, grad, out)
         n = int(variant == "wgmma")
         if (variant != ("wgmma" if dname == "bfloat16" else "scalar")
-                or tuple(a - b for a, b in zip(wgmma_counts(), before))
-                != (n, n)):
-            raise AssertionError(f"kernels 7/8 at {name} took the {variant} "
+                or not wgmma_launched(before, 0, n, n, n)):
+            raise AssertionError(f"kernels 6-8 at {name} took the {variant} "
                                  f"variant")
         real = torch.isfinite(want_lse)
         if not torch.equal(torch.isfinite(lse), real):
@@ -912,17 +988,17 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
             before = wgmma_counts()
             got = tiled_masks(batch, heads, length, dtype, rate, seed, dh)
             equal = [torch.equal(m, plain) for m in got]
-            # kernels 7/8 read back on the variant this shape takes
+            # kernels 6-8 read back on the variant this shape takes (6 once
+            # more, for the lse that 7 and 8 take)
             blocks = -(-length // dh) * (variant == "wgmma")
-            if (tuple(a - b for a, b in zip(wgmma_counts(), before))
-                    != (blocks, blocks)):
-                raise AssertionError(f"kernels 7/8's masks at {name} were "
+            if not wgmma_launched(before, 0, blocks + n, blocks, blocks):
+                raise AssertionError(f"kernels 6-8's masks at {name} were "
                                      f"not read on the {variant} variant")
             chunked = tile_keep_mask(seed, batch, heads, length, length, rate,
                                      device="cuda",
                                      hg=chunk_head_group(heads)) != 0
             mask_check = {"kernels_6_7_8_equal_plain": equal,
-                          "variant_7_8": variant,
+                          "variant_6_7_8": variant,
                           "kept_share": plain.float().mean().item(),
                           "head_group": head_group(heads),
                           "equals_chunked_mask": torch.equal(plain, chunked)}
@@ -932,7 +1008,7 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
             del plain, got, chunked
         checks.append({"shape": name, "dtype": dname, "b": batch,
                        "h": heads, "l": length, "dh": dh, "rate": rate,
-                       "masked": masked, "variant_7_8": variant,
+                       "masked": masked, "variant_6_7_8": variant,
                        "max_abs_err": errs,
                        "bf16_ulps": k_needed, "tolerance": tol,
                        "masks": mask_check})
@@ -944,10 +1020,12 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
     batch, heads, length = TILED_TIMED
     q, k, v, grad, _ = tiled_inputs(batch, heads, length, torch.bfloat16,
                                     False, seed)
+    before = wgmma_counts()
     out, lse = flash_tiled_attention_fwd(q, k, v, None, seed, 0.0)
     _, delta = flash_tiled_attention_dq(q, k, v, None, out, lse, grad, seed,
                                         0.0)
-    if tiled_variant(q, k, v, grad, out) != "wgmma":
+    if (tiled_variant(q, k, v, grad, out) != "wgmma"
+            or not wgmma_launched(before, 0, 1, 1, 0)):
         raise AssertionError("the timed shape must take the wgmma kernels")
     flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
@@ -1007,7 +1085,8 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
             "chunked_ms": {"fwd": chunk_fwd_ms, "dq": chunk_bwd_ms,
                            "dkv": None}[which],
             "chunked": {
-                "fwd": "kernel 4 at the same shape",
+                "fwd": ("kernel 4 at the same shape: the same wgmma body at "
+                        "head group 2"),
                 "dq": ("kernel 5 (its dq and dk/dv launches) at the same "
                        "shape: the yardstick of kernels 7 + 8 together"),
                 "dkv": "on flash_tiled_attention_dq's row"}[which]}
@@ -1015,7 +1094,7 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
     # the wgmma pair against kernel 5's mma.sync bodies (the design kernels
     # 7/8 ran on before) at the same shape, in the same call
     timed["dq"]["ratio_to_old"] = timed["dq"]["pair_ms"] / chunk_bwd_ms
-    for which in ("dq", "dkv"):
+    for which in ("fwd", "dq", "dkv"):
         timed[which]["variant"] = "wgmma"
         timed[which]["tflops"] = (timed[which]["flops"] / timed[which]["ms"]
                                   / 1e9)
@@ -1445,10 +1524,11 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
     if cfg.model.dtype == "bfloat16" and tc != launches[:2]:
         raise AssertionError(f"kernels 2/3 launched {launches[:2]}, of them "
                              f"{tc} on the tensor-core variant")
-    wgmma = wgmma_counts()  # and kernels 7/8 on their wgmma variant only
-    if cfg.model.dtype == "bfloat16" and wgmma != launches[5:7]:
-        raise AssertionError(f"kernels 7/8 launched {launches[5:7]}, of them "
-                             f"{wgmma} on the wgmma variant")
+    # and kernels 4, 6, 7, 8 on their wgmma variant only
+    wgmma, streamed = wgmma_counts(), tuple(launches[i] for i in WGMMA_OF)
+    if cfg.model.dtype == "bfloat16" and wgmma != streamed:
+        raise AssertionError(f"kernels 4, 6, 7, 8 launched {streamed}, of "
+                             f"them {wgmma} on the wgmma variant")
     if not all(math.isfinite(v) for losses in history
                for v in losses.values()):
         raise AssertionError(f"non-finite losses {history}")
@@ -1484,10 +1564,37 @@ SINGLE_BLOCK_KERNELS = {"fwd_kernel": "single_fwd",
                         "bwd_dkv_kernel": "single_bwd",
                         "bwd_dq_tc_kernel": "single_bwd",
                         "bwd_dkv_tc_kernel": "single_bwd"}
-# the __global__ functions of kernels 7/8's wgmma variant
-WGMMA_KERNELS = {"wgmma_dq_kernel": "tiled_dq",
+# the __global__ functions of kernels 4, 6, 7 and 8's wgmma variant
+WGMMA_KERNELS = {"chunk_fwd_wgmma_kernel": "chunked",
+                 "tiled_fwd_wgmma_kernel": "tiled_fwd",
+                 "wgmma_dq_kernel": "tiled_dq",
                  "wgmma_dkv_kernel": "tiled_dkv"}
 _KERNEL_NAME = re.compile(r"(?:^|::|\s)(\w+)[<(]")
+_PTXAS_FN = re.compile(r"(?:Compiling entry function '|Function properties "
+                       r"for )([\w$]+)")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str, names) -> dict:
+    """Registers and spill bytes that ptxas -v reports in `log` for each
+    kernel of `names` (found by its name inside the mangled one): {name:
+    {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}, None
+    for a kernel the log does not show."""
+    found, current = {}, None
+    for line in log.splitlines():
+        match = _PTXAS_FN.search(line)
+        if match:
+            current = found.setdefault(match.group(1), {})
+            continue
+        spill, regs = _PTXAS_SPILL.search(line), _PTXAS_REGS.search(line)
+        if current is not None and spill:
+            current["spill_stores"] = int(spill.group(1))
+            current["spill_loads"] = int(spill.group(2))
+        if current is not None and regs:
+            current["registers"] = int(regs.group(1))
+    return {name: next((v for k, v in found.items() if name in k), None)
+            for name in names}
 
 
 def flash_kernel_of(key: str):
@@ -1495,9 +1602,9 @@ def flash_kernel_of(key: str):
     namespace)::fwd_tc_kernel((anonymous namespace)::Params)"), from its
     function's own name: "single_fwd" (kernel 2) and "single_bwd" (kernel
     3's two passes), in either variant; "chunked" (kernels 4/5,
-    chunk_*); "tiled_fwd", "tiled_dq", "tiled_dkv" (kernels 6, 7, 8, 7
-    and 8 in either variant); "infonce" (kernels 9-11); None for every
-    other kernel."""
+    chunk_*); "tiled_fwd", "tiled_dq", "tiled_dkv" (kernels 6, 7, 8, each
+    in either variant); "infonce" (kernels 9-11); None for every other
+    kernel."""
     match = _KERNEL_NAME.search(key)
     if match is None:
         return None
@@ -1859,13 +1966,25 @@ def main() -> int:
          count=torch.cuda.device_count())
     t0 = time.perf_counter()
     _build.build(*KERNEL_LIBS)  # one nvcc per source, side by side
+    # the wgmma kernels (4, 6, 7, 8) in this run's ptxas report: none may
+    # spill (a library found on disk was not compiled, and has no report)
+    streamed = [n for n in ("flash_chunked_attention", "flash_tiled_attention")
+                if _build.build_info[n][1]]
+    wgmma_ptxas = ptxas_report(
+        "\n".join(_build.build_info[n][1] for n in streamed), WGMMA_KERNELS)
     emit("build", kernels=list(KERNEL_LIBS),
          wall_s=time.perf_counter() - t0,
          nvcc_s={n: _build.build_info[n][0] for n in KERNEL_LIBS},
          ptxas={n: sorted({ln.split(":", 1)[1].strip() for ln in
                            _build.build_info[n][1].splitlines()
                            if "ptxas info    : Used" in ln})
-                for n in KERNEL_LIBS})
+                for n in KERNEL_LIBS},
+         wgmma_ptxas=wgmma_ptxas)
+    if len(streamed) == 2 and not all(
+            r is not None and r["spill_stores"] == r["spill_loads"] == 0
+            for r in wgmma_ptxas.values()):
+        raise AssertionError(f"a wgmma kernel spills or is missing from "
+                             f"ptxas' report: {wgmma_ptxas}")
 
     shapes = kernel_phase()
     flash = flash_phase()
@@ -1964,11 +2083,16 @@ def main() -> int:
     def chunk_entry(name, line, direction, launches, per_step_n, errs):
         r = next(r for r in chunked if r["direction"] == direction
                  and r["dtype"] == "bfloat16" and r["shape"] == "vit-l")
+        # train_step_phase held every bf16 launch of kernel 4 to the wgmma
+        # variant; kernel 5 runs the mma.sync passes
+        fwd = direction == "fwd"
         return {
             "name": name, "route": "cuda",
-            "source": "leccr_torch/csrc/flash_chunked_attention.cu",
+            "source": ("leccr_torch/csrc/flash_fwd_wgmma.cuh" if fwd else
+                       "leccr_torch/csrc/flash_chunked_attention.cu"),
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
-            "launches": launches,
+            "launches": launches, "variant": r["variant"],
+            **({"launches_wgmma": launches} if fwd else {}),
             "max_abs_err": max(x["max_abs_err"][e] for x in chunked
                                if x["direction"] == direction for e in errs),
             "check": "ok",
@@ -1987,13 +2111,11 @@ def main() -> int:
         per_step_n = HIRES_STEP_LAUNCHES[True][index]
         errs = {"fwd": ("out", "lse"), "dq": ("dq", "delta"),
                 "dkv": ("dk", "dv")}[which]
-        # train_step_phase held every launch of 7/8 to the wgmma variant
-        variant = ({"variant": "tc (mma.sync)"} if which == "fwd" else
-                   {"variant": "wgmma",
-                    "launches_wgmma": hires_launches[index]})
+        # train_step_phase held every launch of 6-8 to the wgmma variant
+        variant = {"variant": "wgmma", "launches_wgmma": hires_launches[index]}
         return {
             "name": name, "route": "cuda",
-            "source": ("leccr_torch/csrc/flash_tiled_attention.cu"
+            "source": ("leccr_torch/csrc/flash_fwd_wgmma.cuh"
                        if which == "fwd" else
                        "leccr_torch/csrc/flash_bwd_wgmma.cuh"),
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",

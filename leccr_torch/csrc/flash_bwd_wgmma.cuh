@@ -28,8 +28,9 @@
 //   The dq pass issues a tile's dQ product together with the next tile's S
 //   and dP; the dk/dv pass drains its dK/dV products first, since 168
 //   registers do not hold both tiles' operands.  The two consumers take
-//   turns at issuing (named barriers), so one computes its exponentials
-//   while the other's products run.  The dropout test is one branch a tile.
+//   turns at issuing (hopper.cuh's wg_walk), so one computes its
+//   exponentials while the other's products run.  The dropout test is one
+//   branch a tile.
 // - the dq pass first computes delta = rowsum(g·out) (f32, 16-byte loads of
 //   the kernel's own rounded output) for its rows and writes it for the
 //   dk/dv pass.
@@ -56,15 +57,8 @@
 
 namespace {
 
-constexpr int kWgRows = 64;                            // rows of a tile
-constexpr int kWgConsumers = 2;                        // consumer warpgroups
-constexpr int kWgBlockRows = kWgRows * kWgConsumers;   // rows a block owns
-constexpr int kWgThreads = (kWgConsumers + 1) * kWarpgroup;
-constexpr int kWgStages = 4;                           // streamed tiles' ring
-constexpr int kWgTileBytes = kWgRows * kTcDim * 2;     // one [64][64] bf16
-constexpr int kWgSideBytes = 2 * kWgRows * 4;          // lse2 + delta rows
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWgStages = 4;                   // streamed tiles' ring
+constexpr int kWgSideBytes = 2 * kWgRows * 4;  // lse2 + delta rows
 
 // The tensor maps of a pass: the block's own rows (two operands) and the
 // streamed ones.  Dq pass: Q, G own, K, V streamed; dk/dv: K, V own, Q, G.
@@ -100,39 +94,22 @@ struct WgSmem {
     return reinterpret_cast<float*>(ptr + kDeltaOff);
   }
   __device__ uint32_t own_bar() const { return base + kBarOff; }
-  __device__ uint32_t full(int s) const { return base + kBarOff + 8 + 8 * s; }
-  __device__ uint32_t empty(int s) const {
-    return base + kBarOff + 8 + 8 * (kWgStages + s);
+  __device__ Ring<kWgStages> ring() const {
+    return {base + kBarOff + 8, base + kBarOff + 8 + 8 * kWgStages};
   }
+  __device__ uint32_t full(int s) const { return ring().full(s); }
+  __device__ uint32_t empty(int s) const { return ring().empty(s); }
 };
 
 __device__ __forceinline__ WgSmem wg_smem() {
-  extern __shared__ __align__(16) uint8_t wg_smem_raw[];
-  const uint32_t raw = smem_addr(wg_smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  return {base, wg_smem_raw + (base - raw)};
+  const SmemBase sm = smem_base();
+  return {sm.base, sm.ptr};
 }
 
-// Keeps the compiler from moving reads or writes of a wgmma accumulator
-// across the asynchronous product (CUTLASS's warpgroup_fence_operand).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int e = 0; e < 32; ++e) asm volatile("" : "+f"(d[e])::"memory");
-}
-
-// Barrier set-up by thread 0; the empty barriers take one arrival per
-// consumer warp, the full ones `full_count` (the producer's lanes that
-// write the side row).
+// Barrier set-up: the empty barriers take one arrival per consumer warp,
+// the full ones `full_count` (the producer's lanes that write the side row).
 __device__ __forceinline__ void wg_init(const WgSmem& sm, int full_count) {
-  if (threadIdx.x == 0) {
-    mbar_init(sm.own_bar(), 1);
-    for (int s = 0; s < kWgStages; ++s) {
-      mbar_init(sm.full(s), full_count);
-      mbar_init(sm.empty(s), kWgConsumers * kWarpgroup / kWarp);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
+  ring_init(sm.own_bar(), sm.ring(), full_count);
 }
 
 // The producer warp's own-row loads: two operands for each consumer
@@ -145,133 +122,6 @@ __device__ __forceinline__ void load_own(const WgMaps& maps, const WgSmem& sm,
                   h, b);
     tma_load_rows(&maps.own1, sm.own(1, w), sm.own_bar(), row0 + w * kWgRows,
                   h, b);
-  }
-}
-
-// The accumulator's element e of 8-column chunk n lies in row
-// 16 warp + g + 8 (e >> 1), column 8 n + 2 q + (e & 1) of the warpgroup's
-// 64 x 64 tile.
-struct Frag {
-  int warp, g, q;
-  __device__ int row(int e) const { return 16 * warp + g + 8 * (e >> 1); }
-  __device__ int col(int n, int e) const { return 8 * n + 2 * q + (e & 1); }
-};
-
-// The two consumer warpgroups take turns at issuing their products, so
-// that one computes its exponentials while the other's products run (named
-// barriers 3 and 4, each shared by both warpgroups' 256 threads).  Warpgroup
-// 0 goes first; each phase's `take` waits for the other warpgroup's `pass`
-// of its previous phase.  Both run the same phases, and warpgroup 1 skips
-// its last pass, so every barrier completes exactly.
-struct WgTurns {
-  int wg;
-  __device__ explicit WgTurns(int w) : wg(w) {
-    if (wg == 1) named_arrive(3, 2 * kWarpgroup);
-  }
-  __device__ void take() const { named_sync(3 + wg, 2 * kWarpgroup); }
-  // predicated rather than branched: it sits between a product's issue and
-  // its wait
-  __device__ void pass(bool last) const {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p bar.arrive %0, %1;\n}\n"
-        ::"r"(4 - wg), "r"(2 * kWarpgroup), "r"((int)!(last && wg == 1))
-        : "memory");
-  }
-};
-
-// A register A operand stays live (and unmoved) until the wait that ends
-// the product reading it.
-__device__ __forceinline__ void fence_a(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[k][x])::"memory");
-}
-
-// A consumer warpgroup's walk over the n streamed tiles, in n + 1 turns:
-// turn t issues prev(stage of tile t - 1) (the products that contract over
-// that tile's rows, from the operands compute() left in registers) and
-// next(stage of tile t) (the two products over Dh), waits for both
-// (settle), releases tile t - 1's stage and runs compute(stage, t) on tile
-// t's products.  The first and last turns are peeled, so that no product is
-// issued or awaited under a condition (ptxas serialises wgmma on divergent
-// paths): a warpgroup whose rows all lie past L computes on TMA's zero fill
-// and stores nothing.
-template <class Prev, class Next, class Settle, class Compute>
-__device__ __forceinline__ void wg_walk(const WgSmem& sm, int n, int wg,
-                                        Prev prev, Next next, Settle settle,
-                                        Compute compute) {
-  const WgTurns turns(wg);
-  const bool signal = threadIdx.x % kWarp == 0;
-  mbar_wait(sm.full(0), 0);
-  turns.take();
-  wgmma_fence();
-  next(0);
-  wgmma_commit();
-  turns.pass(false);
-  settle();
-  compute(0, 0);
-  for (int t = 1; t < n; ++t) {
-    const int s = t % kWgStages, sp = (t - 1) % kWgStages;
-    mbar_wait(sm.full(s), (t / kWgStages) & 1);
-    turns.take();
-    wgmma_fence();
-    prev(sp);
-    next(s);
-    wgmma_commit();
-    turns.pass(false);
-    settle();
-    __syncwarp();
-    if (signal) mbar_arrive(sm.empty(sp));
-    compute(s, t);
-  }
-  const int sp = (n - 1) % kWgStages;
-  turns.take();
-  wgmma_fence();
-  prev(sp);
-  wgmma_commit();
-  turns.pass(true);
-  settle();
-  __syncwarp();
-  if (signal) mbar_arrive(sm.empty(sp));
-}
-
-// flash_tiles.cuh's tile_keep for one (b, h), with the terms that do not
-// depend on (i, j) summed once (uint32 sums wrap, so the order is free).
-struct TileHash {
-  unsigned int base, threshold;
-  float scale;
-  __device__ TileHash(const Dropout& d, int b, int h, int hg)
-      : threshold(d.threshold), scale(d.scale) {
-    const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
-    base = (unsigned int)(h % hg) * (kTile * kTile) + seed_b * 0x9E3779B9u +
-           (unsigned int)(h / hg) * 0x27D4EB2Fu;
-  }
-  __device__ float keep(int i, int j) const {  // i, j >= 0
-    unsigned int x = base + (unsigned int)(i % kTile) * kTile +
-                     (unsigned int)(j % kTile) +
-                     (unsigned int)(i / kTile) * 0x85EBCA77u +
-                     (unsigned int)(j / kTile) * 0xC2B2AE3Du;
-    x = (x ^ (x >> 16)) * 0x85EBCA6Bu;  // murmur3 finalizer
-    x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-    x ^= x >> 16;
-    return x >= threshold ? scale : 0.f;
-  }
-};
-
-// Stores a warpgroup's 64 x 64 f32 sum, rounded to bf16, to rows
-// [row0, min(row0 + 64, n)) of `dst` (row stride `stride`).
-__device__ __forceinline__ void store_rows(const float (&d)[32], bf16* dst,
-                                           long long stride, int row0, int n,
-                                           const Frag& f) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + f.row(2 * r);
-    if (i < n)
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-        *reinterpret_cast<uint32_t*>(dst + i * stride + f.col(c, 0)) =
-            pack(d[4 * c + 2 * r], d[4 * c + 2 * r + 1]);
   }
 }
 
@@ -388,7 +238,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   };
   mbar_wait(sm.own_bar(), 0);
   wg_walk(
-      sm, n_tiles, wg,
+      sm.ring(), n_tiles, wg,
       [&](int sp) {  // dQ += dS·K over the previous tile's keys
         fence_acc(dq);
 #pragma unroll
@@ -515,7 +365,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   };
   mbar_wait(sm.own_bar(), 0);
   wg_walk(
-      sm, n_tiles, wg,
+      sm.ring(), n_tiles, wg,
       [&](int sp) {  // dV += Pdᵀ·G, dK += dSᵀ·Q over the previous queries,
                      // drained before Sᵀ and dPᵀ take registers: 168 do not
                      // hold dK, dV, Sᵀ, dPᵀ and the two A operands at once

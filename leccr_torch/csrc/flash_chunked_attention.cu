@@ -48,17 +48,22 @@
 // read or written, keys past Lk count as padding, and nothing is padded in
 // device memory.  Loads take the innermost stride 1 and any outer strides
 // (head-split views, CLIP's packed in_proj chunks), and outputs go to
-// [B, L, H, Dh] storage, so no transpose copies are needed.  Two variants:
-// - bf16 at Dh = 64 with 16-byte aligned rows (the path: every tower has
-//   64-wide heads) does its products on tensor cores: the tensor-core bodies
-//   of flash_tiles.cuh (mma.sync m16n8k16, a block of 8 warps owning one
-//   128-row tile, cp.async double buffering, ldmatrix), which the tiled
-//   kernels 6-8 wrap too;
+// [B, L, H, Dh] storage, so no transpose copies are needed.  Variants:
+// - the forward in bf16 at Dh = 64 with 16-byte aligned rows and outer
+//   strides (the "wgmma" variant the caller picks, `tiled_variant`: every
+//   launch of the long-sequence step) runs flash_fwd_wgmma.cuh, the
+//   warp-specialised wgmma + TMA body that the tiled kernel 6 wraps too (one
+//   TMA producer warp, two consumer warpgroups, 128-key tiles); it is bound
+//   by the tensor cores and the SFU alike (an exp2 per score);
+// - the backward in bf16 at Dh = 64 with 16-byte aligned rows runs the
+//   mma.sync passes of flash_tiles.cuh (a block of 8 warps owning one
+//   128-row tile, cp.async double buffering, ldmatrix), far above its bound
+//   (PERF.md);
 // - every other case runs the scalar f32-FMA bodies of flash_tiles.cuh, a
 //   block of 8 warps owning 64 rows.
-// Both stay far above the bound (see PERF.md): no TMA, no wgmma.  The two
-// families differ only in the mask's head group (hg, an argument).
+// The two families differ only in the mask's head group (hg, an argument).
 
+#include "flash_fwd_wgmma.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -81,12 +86,14 @@ __global__ void __launch_bounds__(kWarps* kWarp)
   streamed_dkv<T, DH>(p);
 }
 
-// ------------------------------------------------- tensor-core kernels
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    chunk_fwd_tc_kernel(Params p) {
-  tc_fwd(p);
+// ----------------------------------------------- the forward on wgmma
+__global__ void __launch_bounds__(kWgThreads, 1)
+    chunk_fwd_wgmma_kernel(__grid_constant__ const FwdMaps maps,
+                           const Params p) {
+  wgmma_fwd(maps, p);
 }
 
+// ------------------------------------------ the backward on tensor cores
 __global__ void __launch_bounds__(kTcWarps* kWarp)
     chunk_bwd_dq_tc_kernel(Params p) {
   tc_dq(p);
@@ -103,9 +110,6 @@ dim3 grid_of(const Params& p, int batch, int n, int rows) {
 
 template <typename T, int DH>
 int forward(const Params& p, int batch, cudaStream_t s) {
-  if (tensor_cores<T, DH>(p))
-    return launch(chunk_fwd_tc_kernel, grid_of(p, batch, p.lq, kTcRows),
-                  kTcWarps, tc_smem_bytes(0), s, p);
   return launch(chunk_fwd_kernel<T, DH>, grid_of(p, batch, p.lq, kRows),
                 kWarps, smem_bytes(0, DH), s, p);
 }
@@ -137,9 +141,11 @@ int fca_chunk_supported_dim(int dh) {
 }
 
 // Bytes of dynamic shared memory of each launch (0: forward, 1: backward dq
-// pass, 2: backward dk/dv pass) for dtype, head dim dh and vec as the
-// launches take them.
-size_t fca_chunk_smem_bytes(int which, int dtype, int dh, int vec) {
+// pass, 2: backward dk/dv pass) for dtype, head dim dh, vec and wgmma (the
+// forward's variant) as the launches take them.
+size_t fca_chunk_smem_bytes(int which, int dtype, int dh, int vec,
+                            int wgmma) {
+  if (which == 0 && wgmma) return fwd_wgmma_smem_bytes();
   return launch_smem_bytes(which, dtype, dh, vec);
 }
 
@@ -147,15 +153,18 @@ size_t fca_chunk_smem_bytes(int which, int dtype, int dh, int vec) {
 // element strides, (b, h, l) of q, k, v, out.  lse: [B, H, Lq] f32 out.  hg:
 // heads per dropout head group.  seed/threshold/keep_scale/dropout: the
 // dropout mask (see the head of this file).  vec: 1 when every q/k/v row
-// starts 16-byte aligned and Dh spans whole 16-byte words (bf16 at Dh = 64
-// with vec takes the tensor-core kernels).  Returns cudaGetLastError() after
-// the launch (0 = success), -1 for an unsupported head dim.
+// starts 16-byte aligned and Dh spans whole 16-byte words (the scalar
+// body's 16-byte loads).  wgmma: 1 takes the wgmma variant (bf16 at Dh = 64;
+// q, k, v with 16-byte aligned rows and outer strides).  Returns
+// cudaGetLastError() after the launch (0 = success), -1 for an unsupported
+// head dim, -2 for wgmma at another dtype or head dim, -10 / -11 when a TMA
+// map could not be encoded.
 int fca_chunk_forward(const void* q, const void* k, const void* v,
                       const unsigned char* mask, void* out, float* lse,
                       int dtype, int batch, int heads, int lq, int lk, int dh,
                       int hg, const long long* strides, float scale,
                       unsigned int seed, unsigned int threshold,
-                      float keep_scale, int dropout, int vec,
+                      float keep_scale, int dropout, int vec, int wgmma,
                       void* stream) {
   Params p = make_params(q, k, v, mask, lse, heads, lq, lk, hg, scale, seed,
                          threshold, keep_scale, dropout, vec);
@@ -165,6 +174,10 @@ int fca_chunk_forward(const void* q, const void* k, const void* v,
   p.sv = strides_at(strides, 2);
   p.sout = strides_at(strides, 3);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (dtype != 1 || dh != kTcDim) return kBadVariant;
+    return launch_wgmma_fwd(chunk_fwd_wgmma_kernel, p, batch, s);
+  }
   if (dtype == 1)
     return by_dim(dh, [&](auto d) {
       return forward<__nv_bfloat16, decltype(d)::value>(p, batch, s);

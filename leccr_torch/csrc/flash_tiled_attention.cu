@@ -52,19 +52,20 @@
 // kernels (rows past L are never read or written, keys past
 // Lk count as padding), so nothing is padded in device memory; loads take
 // any outer strides and outputs go to [B, L, H, Dh] storage.  Variants:
-// - kernel 6, bf16 at Dh = 64 with 16-byte aligned rows (every tower of the
-//   path): the tensor-core body `tc_fwd` of flash_tiles.cuh (mma.sync
-//   m16n8k16, a block of 8 warps owning one 128-row tile, cp.async double
-//   buffering, ldmatrix), which the chunked kernel 4 wraps too;
-// - kernels 7 and 8, bf16 at Dh = 64 with 16-byte aligned rows and outer
-//   strides (the "wgmma" variant the caller picks, `tiled_variant`):
-//   flash_bwd_wgmma.cuh's warp-specialised passes, one TMA producer warp
-//   and two consumer warpgroups issuing wgmma on 64-row tiles;
+// - bf16 at Dh = 64 with 16-byte aligned rows and outer strides (the
+//   "wgmma" variant the caller picks, `tiled_variant`: every launch of the
+//   high-resolution step): warp-specialised bodies, one TMA producer warp
+//   and two consumer warpgroups issuing wgmma.  Kernel 6 runs
+//   flash_fwd_wgmma.cuh (128-key tiles; the chunked kernel 4 wraps the same
+//   body), kernels 7 and 8 flash_bwd_wgmma.cuh (64-row tiles);
 // - every other case: the scalar f32-FMA bodies of flash_tiles.cuh, a block
 //   of 8 warps owning 64 rows (two blocks per 128-row tile).
-// Kernel 6 stays far above its bound (PERF.md): no TMA, no wgmma yet.
+// Kernel 6 is bound by the tensor cores and the SFU alike (an exp2 per
+// score beside 4 Dh flops of products, flash_fwd_wgmma.cuh); its time, and
+// 7 and 8's, stand in PERF.md beside their bounds.
 
 #include "flash_bwd_wgmma.cuh"
+#include "flash_fwd_wgmma.cuh"
 #include "flash_tiles.cuh"
 
 namespace {
@@ -85,39 +86,35 @@ __global__ void __launch_bounds__(kWarps* kWarp) tiled_dkv_kernel(Params p) {
   streamed_dkv<T, DH>(p);
 }
 
-// ------------------------------------------- kernel 6 on tensor cores
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    tiled_fwd_tc_kernel(Params p) {
-  tc_fwd(p);
+// ------------------------------------------------- kernel 6 on wgmma
+__global__ void __launch_bounds__(kWgThreads, 1)
+    tiled_fwd_wgmma_kernel(__grid_constant__ const FwdMaps maps,
+                           const Params p) {
+  wgmma_fwd(maps, p);
 }
 
 typedef void (*Kernel)(Params);
 
-// Launch `which` (0: kernel 6, 1: kernel 7, 2: kernel 8) on the grid
-// (B * H, blocks of the side it owns): the forward on tensor cores where
-// tensor_cores() holds, the backward passes on the scalar bodies (their
-// wgmma variant is launched by `dispatch`).
+// Launch `which` (0: kernel 6, 1: kernel 7, 2: kernel 8) on the scalar
+// bodies, grid (B * H, blocks of the side it owns).
 template <typename T, int DH>
 int run(int which, const Params& p, int batch, cudaStream_t s) {
   const int n = which == 2 ? p.lk : p.lq;
-  if (which == 0 && tensor_cores<T, DH>(p))
-    return launch(tiled_fwd_tc_kernel,
-                  dim3(batch * p.heads, (n + kTcRows - 1) / kTcRows),
-                  kTcWarps, tc_smem_bytes(0), s, p);
   const Kernel scalar[3] = {tiled_fwd_kernel<T, DH>, tiled_dq_kernel<T, DH>,
                             tiled_dkv_kernel<T, DH>};
   return launch(scalar[which], dim3(batch * p.heads, (n + kRows - 1) / kRows),
                 kWarps, smem_bytes(which, DH), s, p);
 }
 
-constexpr int kBadVariant = -2;  // wgmma asked for other than bf16, Dh 64
-
-// wgmma: launch kernel 7 or 8 (which = 1, 2) on its wgmma variant.
+// Launch `which` on its wgmma variant (wgmma: bf16 at Dh = 64 only) or on
+// the scalar bodies.
 int dispatch(int which, int dtype, int dh, const Params& p, int batch,
-             void* stream, bool wgmma = false) {
+             void* stream, bool wgmma) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wgmma) {
-    if (which == 0 || dtype != 1 || dh != kTcDim) return kBadVariant;
+    if (dtype != 1 || dh != kTcDim) return kBadVariant;
+    if (which == 0)
+      return launch_wgmma_fwd(tiled_fwd_wgmma_kernel, p, batch, s);
     return launch_wgmma_bwd(which, p, batch, s);
   }
   if (dtype == 1)
@@ -139,27 +136,28 @@ int ftl_supported_dim(int dh) {
 }
 
 // Bytes of dynamic shared memory of launch `which` (0: kernel 6, 1: kernel
-// 7, 2: kernel 8) for dtype, head dim dh, vec and wgmma as the launches
-// take them.
-size_t ftl_smem_bytes(int which, int dtype, int dh, int vec, int wgmma) {
-  if (which == 0) return launch_smem_bytes(0, dtype, dh, vec);
-  return wgmma ? wgmma_smem_bytes() : smem_bytes(which, dh);
+// 7, 2: kernel 8) for head dim dh and wgmma as the launches take them.
+size_t ftl_smem_bytes(int which, int dh, int wgmma) {
+  if (!wgmma) return smem_bytes(which, dh);
+  return which == 0 ? fwd_wgmma_smem_bytes() : wgmma_smem_bytes();
 }
 
 // Kernel 6.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).
 // strides: 12 element strides, (b, h, l) of q, k, v, out.  lse: [B, H, Lq]
 // f32 out.  hg: heads per dropout head group.  seed/threshold/keep_scale/
 // dropout: the dropout mask (see the head of this file).  vec: 1 when every
-// staged row starts 16-byte aligned and Dh spans whole 16-byte words (bf16
-// at Dh = 64 with vec takes the tensor-core kernels).  Returns
+// staged row starts 16-byte aligned and Dh spans whole 16-byte words (the
+// scalar body's 16-byte loads).  wgmma: 1 takes the wgmma variant (bf16 at
+// Dh = 64; q, k, v with 16-byte aligned rows and outer strides).  Returns
 // cudaGetLastError() after the launch (0 = success), -1 for an unsupported
-// head dim.
+// head dim, -2 for wgmma at another dtype or head dim, -10 / -11 when a TMA
+// map could not be encoded.
 int ftl_forward(const void* q, const void* k, const void* v,
                 const unsigned char* mask, void* out, float* lse, int dtype,
                 int batch, int heads, int lq, int lk, int dh, int hg,
                 const long long* strides, float scale, unsigned int seed,
                 unsigned int threshold, float keep_scale, int dropout,
-                int vec, void* stream) {
+                int vec, int wgmma, void* stream) {
   Params p = make_params(q, k, v, mask, lse, heads, lq, lk, hg, scale, seed,
                          threshold, keep_scale, dropout, vec);
   p.out = out;
@@ -167,16 +165,14 @@ int ftl_forward(const void* q, const void* k, const void* v,
   p.sk = strides_at(strides, 1);
   p.sv = strides_at(strides, 2);
   p.sout = strides_at(strides, 3);
-  return dispatch(0, dtype, dh, p, batch, stream);
+  return dispatch(0, dtype, dh, p, batch, stream, wgmma);
 }
 
 // Kernel 7: delta [B, H, Lq] f32 (written) and dq.  o: the forward's output;
 // g: d(out).  strides: 18 element strides, (b, h, l) of q, k, v, o, g, dq.
 // wgmma: 1 takes the wgmma variant (bf16 at Dh = 64; q, k, v, o, g with
 // 16-byte aligned rows and outer strides), 0 the scalar one (vec: its
-// 16-byte loads).  Returns as ftl_forward, or -2 for wgmma at another dtype
-// or head dim, -10 / -11 when a TMA map could not be encoded.  Other
-// arguments as ftl_forward.
+// 16-byte loads).  Other arguments and the returned code as ftl_forward.
 int ftl_dq(const void* q, const void* k, const void* v,
            const unsigned char* mask, const void* o, const float* lse,
            const void* g, void* dq, float* delta, int dtype, int batch,

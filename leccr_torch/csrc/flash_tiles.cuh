@@ -3,10 +3,14 @@
 // 6-8 (flash_tiled_attention.cu).  Both families stream 128-row tiles of the
 // other side through shared memory with running state in registers; they
 // differ only in the dropout mask's head group (Params.hg).  This header
-// holds their launch parameters, the interpret-mode tile hash, the element
-// helpers and the kernel bodies, scalar (f32 FMA, any dtype and head dim)
-// and tensor-core (bf16 at Dh = 64, on tensor_core.cuh's mma.sync m16n8k16
-// fragment helpers), which each file wraps in its own __global__ functions.
+// holds their launch parameters, the interpret-mode tile hash (per element,
+// and per (b, h) for the wgmma kernels), the element helpers and the kernel
+// bodies that each file wraps in its own __global__ functions: scalar (f32
+// FMA, any dtype and head dim) for kernels 4-8, and kernel 5's backward
+// passes on tensor cores (bf16 at Dh = 64, tensor_core.cuh's mma.sync
+// m16n8k16 fragment helpers).  The bf16 forward of kernels 4 and 6 runs
+// flash_fwd_wgmma.cuh, the bf16 backward of kernels 7 and 8
+// flash_bwd_wgmma.cuh (wgmma and TMA, for TMA-eligible views).
 //
 // The scalar bodies, per (batch b, head h) and a block of kRows rows (8
 // warps of 8 rows, each warp carrying its rows' state across tiles in
@@ -124,6 +128,30 @@ __device__ __forceinline__ float tile_keep(const Dropout& d, int b, int h,
   x ^= x >> 16;
   return x >= d.threshold ? d.scale : 0.f;
 }
+
+// tile_keep for one (b, h), with the terms that do not depend on (i, j)
+// summed once (uint32 sums wrap, so the order is free): the wgmma kernels
+// test it once per accumulator element, with absolute indices.
+struct TileHash {
+  unsigned int base, threshold;
+  float scale;
+  __device__ TileHash(const Dropout& d, int b, int h, int hg)
+      : threshold(d.threshold), scale(d.scale) {
+    const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
+    base = (unsigned int)(h % hg) * (kTile * kTile) + seed_b * 0x9E3779B9u +
+           (unsigned int)(h / hg) * 0x27D4EB2Fu;
+  }
+  __device__ float keep(int i, int j) const {  // i, j >= 0
+    unsigned int x = base + (unsigned int)(i % kTile) * kTile +
+                     (unsigned int)(j % kTile) +
+                     (unsigned int)(i / kTile) * 0x85EBCA77u +
+                     (unsigned int)(j / kTile) * 0xC2B2AE3Du;
+    x = (x ^ (x >> 16)) * 0x85EBCA6Bu;  // murmur3 finalizer
+    x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+    x ^= x >> 16;
+    return x >= threshold ? scale : 0.f;
+  }
+};
 
 // All of the block's threads copy rows [0, n) of a [n, DH] head matrix (row
 // stride `stride` elements) into shared memory as f32, row pitch `ld`.
@@ -558,21 +586,20 @@ Strides strides_at(const long long* s, int t) {
 }
 
 // ------------------------------------------- tensor-core kernel bodies
-// bf16 at Dh = 64 with 16-byte aligned rows (every tower of the path): the
-// forward, dq and dk/dv passes with their products on tensor cores
+// Kernel 5 in bf16 at Dh = 64 with 16-byte aligned rows (the long-sequence
+// step's ViT-L): the dq and dk/dv passes with their products on tensor cores
 // (mma.sync m16n8k16, f32 accumulators).  A product of two bf16 values is
 // exact in f32, so only the order of the f32 sums differs from the scalar
-// bodies; the roundings to bf16 (p, pd, ds, the outputs) sit at the same
+// bodies; the roundings to bf16 (pd, ds, the outputs) sit at the same
 // points.  A block is 8 warps of 16 rows, each warp holding its rows as A
 // fragments and its sums as C fragments in registers.  The streamed tiles
 // are staged row-major in shared memory by cp.async into two buffers, so
 // the copy of tile j+1 runs under the products of tile j; B fragments are
 // read with ldmatrix, transposed in the load (.trans) where a product
-// contracts over the tile's rows, so no tile is stored twice.  The backward
-// passes take a tile in two halves of 64 to bound the registers (the mask
-// hashes absolute indices, so the halves change nothing).  The head group
-// of the mask is Params.hg, so the chunked and the tiled kernels wrap the
-// same bodies.
+// contracts over the tile's rows, so no tile is stored twice.  The passes
+// take a tile in two halves of 64 to bound the registers (the mask hashes
+// absolute indices, so the halves change nothing).  They stay far above
+// their bound (PERF.md).
 constexpr int kTcWarps = 8;                    // warps of a block
 constexpr int kTcRows = kTcWarps * 16;         // rows a block owns (= kTile)
 constexpr int kTileElems = kTile * kRowPitch;  // bf16 of one staged tile
@@ -616,110 +643,8 @@ __device__ __forceinline__ void await_tile(bool next_in_flight) {
   __syncthreads();
 }
 
-// The forward (kernels 4 and 6).  Each thread owns rows g and g + 8 of its
-// warp's 16: element e of an n-tile's C fragment lies in row g + 8 (e >> 1),
-// column 8 nt + 2t + (e & 1).
-__device__ __forceinline__ void tc_fwd(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NT = kTile / 8;
-  bf16* tiles = reinterpret_cast<bf16*>(smem_tc);
-  unsigned char* pads = smem_tc + 4 * kTileElems * sizeof(bf16);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
-  const int row0 = blockIdx.y * kTcRows + warp * 16;
-  const bool active = row0 < p.lq;  // warp-uniform
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
-
-  uint32_t qa[KS][4];
-  load_a(static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.l,
-         row0, p.lq, qa);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[NF][4];
-#pragma unroll
-  for (int nf = 0; nf < NF; ++nf)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nf][e] = 0.f;
-
-  const int n_tiles = (p.lk + kTile - 1) / kTile;
-  stage_keys(p, b, kg, vg, 0, 0, tiles, pads);
-  for (int kj = 0; kj < n_tiles; ++kj) {
-    const int buf = kj & 1, j0 = kj * kTile;
-    const bool next = kj + 1 < n_tiles;
-    if (next) stage_keys(p, b, kg, vg, kj + 1, buf ^ 1, tiles, pads);
-    await_tile(next);
-    const bf16* ks = tiles + 2 * buf * kTileElems;
-    const bf16* vs = ks + kTileElems;
-    const unsigned char* pad = pads + buf * kTile;
-    if (active) {
-      float s[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      mma_nt<NT, KS>(s, qa, ks);
-      float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = pad[8 * nt + 2 * t + (e & 1)]
-                              ? -INFINITY : s[nt][e] * p.scale;
-          s[nt][e] = v;
-          tmax[e >> 1] = fmaxf(tmax[e >> 1], v);
-        }
-      float safe_m[2], alpha[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], quad_max(tmax[r]));
-        safe_m[r] = finite(m_new) ? m_new : 0.f;
-        alpha[r] = finite(m[r]) ? expf(m[r] - safe_m[r]) : 0.f;
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          float pj = finite(s[nt][e]) ? expf(s[nt][e] - safe_m[r]) : 0.f;
-          psum[r] += pj;
-          if (p.drop.on)
-            pj *= tile_keep(p.drop, b, h, p.hg, row0 + g + 8 * r,
-                            j0 + 8 * nt + 2 * t + (e & 1));
-          s[nt][e] = pj;
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(psum[r]);
-#pragma unroll
-      for (int nf = 0; nf < NF; ++nf)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nf][e] *= alpha[e >> 1];
-      uint32_t pa[NT / 2][4];  // round(p) as A fragments over the tile's keys
-      c_to_a<NT / 2>(s, pa);
-      mma_nn<NF, NT / 2>(o, pa, vs);
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-
-  bf16* og = static_cast<bf16*>(p.out) + b * p.sout.b + h * p.sout.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + g + 8 * r;
-    if (i < p.lq) {
-      const float safe = l[r] > 0.f ? l[r] : 1.f;
-#pragma unroll
-      for (int nf = 0; nf < NF; ++nf)
-        *reinterpret_cast<uint32_t*>(og + i * p.sout.l + 8 * nf + 2 * t) =
-            pack(o[nf][2 * r] / safe, o[nf][2 * r + 1] / safe);
-      if (t == 0)
-        p.lse[((long long)b * p.heads + h) * p.lq + i] =
-            l[r] > 0.f ? m[r] + logf(safe) : -INFINITY;
-    }
-  }
-}
-
-// The dq pass (delta and dq; kernel 5's first launch, kernel 7).  Shared
-// memory as the forward's.
+// The dq pass (delta and dq; kernel 5's first launch).  Shared memory: two
+// buffers of the K and V tiles, then two of the padding bytes.
 __device__ __forceinline__ void tc_dq(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem_tc[];
   constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NH = 8;  // NH: n-tiles
@@ -840,7 +765,7 @@ __device__ __forceinline__ void stage_queries(const Params& p,
   }
 }
 
-// The dk/dv pass (kernel 5's second launch, kernel 8), rows = keys.
+// The dk/dv pass (kernel 5's second launch), rows = keys.
 __device__ __forceinline__ void tc_dkv(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem_tc[];
   constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NH = 8;
@@ -946,16 +871,17 @@ __device__ __forceinline__ void tc_dkv(const Params& p) {
   }
 }
 
-// Shared-memory bytes of the tensor-core launches (0: forward, 1: dq pass,
-// 2: dk/dv pass): two buffers of two staged tiles, then the padding bytes or
-// the lse and delta rows.
+// Shared-memory bytes of the tensor-core launches (1: dq pass, 2: dk/dv
+// pass): two buffers of two staged tiles, then the padding bytes or the lse
+// and delta rows.
 size_t tc_smem_bytes(int which) {
   const size_t tiles = 4 * (size_t)kTileElems * sizeof(bf16);
   if (which == 2) return tiles + 4 * kTile * sizeof(float);
   return tiles + 2 * kTile;
 }
 
-// bf16 at Dh = 64 with 16-byte aligned rows takes the tensor-core kernels.
+// bf16 at Dh = 64 with 16-byte aligned rows takes kernel 5's tensor-core
+// passes.
 bool tensor_cores(int dtype, int dh, int vec) {
   return dtype == 1 && dh == kTcDim && vec;
 }
@@ -967,10 +893,10 @@ bool tensor_cores(const Params& p) {
 
 // Shared-memory bytes of launch `which` (0: forward, 1: dq pass, 2: dk/dv
 // pass) for dtype (0: float32, 1: bfloat16), head dim dh and vec, as the
-// kernels take them.
+// kernels other than the wgmma ones take them.
 size_t launch_smem_bytes(int which, int dtype, int dh, int vec) {
-  return tensor_cores(dtype, dh, vec) ? tc_smem_bytes(which)
-                                      : smem_bytes(which, dh);
+  return which != 0 && tensor_cores(dtype, dh, vec) ? tc_smem_bytes(which)
+                                                    : smem_bytes(which, dh);
 }
 
 }  // namespace

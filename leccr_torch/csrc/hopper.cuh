@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for warp-specialised kernels: wgmma
 // products issued by a warpgroup on operands in shared memory (and A in
 // registers), the shared-memory matrix descriptor of the 128-byte swizzle,
-// mbarriers, TMA tile loads with their host-side tensor maps, setmaxnreg, and
-// the conversion of a wgmma accumulator into a bf16 A operand.  The tiled
-// backward kernels 7/8 (flash_bwd_wgmma.cuh) use them.
+// mbarriers, TMA tile loads with their host-side tensor maps, setmaxnreg,
+// the conversion of a wgmma accumulator into a bf16 A operand, and the walk
+// that two consumer warpgroups take over a ring of streamed tiles.  The
+// streamed flash forward (kernels 4 and 6, flash_fwd_wgmma.cuh) and the
+// tiled backward (kernels 7 and 8, flash_bwd_wgmma.cuh) are built from them.
 //
 // Tiles are [rows][64] bf16, 128 bytes a row, loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte aligned shared memory: 16-byte
@@ -18,9 +20,10 @@
 // Both keep the swizzle's phase since every step stays 1024-byte aligned
 // or within one 128-byte row.
 //
-// wgmma accumulator layout (m64nN, f32): thread t of the warpgroup (warp
-// w = t / 32, g = (t % 32) / 4, q = t % 4) holds, for each 8-column chunk n,
-// d[4n + e] = (row 16 w + g + 8 (e >> 1), column 8 n + 2 q + (e & 1)).  The A
+// wgmma accumulator layout (m64nN, f32, N / 2 registers): thread t of the
+// warpgroup (warp w = t / 32, g = (t % 32) / 4, q = t % 4) holds, for each
+// 8-column chunk n, d[4n + e] = (row 16 w + g + 8 (e >> 1), column
+// 8 n + 2 q + (e & 1)).  The A
 // operand in registers (m64k16) is mma.sync's A fragment per warp: rows
 // 16 w + g (+8), columns 2 q (+1) and 2 q + 8 (+1).
 
@@ -35,6 +38,16 @@
 namespace {
 
 constexpr int kWarpgroup = 128;  // threads that issue one wgmma together
+
+// The warp-specialised flash kernels' blocks: one producer warpgroup and
+// two consumer warpgroups of 64 rows each, one block per SM.
+constexpr int kWgRows = 64;                            // rows of a consumer
+constexpr int kWgConsumers = 2;                        // consumer warpgroups
+constexpr int kWgBlockRows = kWgRows * kWgConsumers;   // rows a block owns
+constexpr int kWgThreads = (kWgConsumers + 1) * kWarpgroup;
+constexpr int kWgTileBytes = kWgRows * 64 * 2;         // one 64 x 64 bf16 box
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------ descriptors
 // A wgmma shared-memory descriptor of the 128-byte swizzle: start address,
@@ -114,12 +127,43 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "n"(TRANS_B));
 }
 
+#define LECCR_WGMMA_D64(d)                                                  \
+  LECCR_WGMMA_D32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),   \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define LECCR_WGMMA_D64_LIST                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (+)= A·Bᵀ, m64n128k16: as wgmma_ss with a 128-row K-major B (e.g. the
+// scores of 64 queries against a 128-key tile).
+__device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      LECCR_WGMMA_D64_LIST ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : LECCR_WGMMA_D64(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 #undef LECCR_WGMMA_D32
 #undef LECCR_WGMMA_D32_LIST
+#undef LECCR_WGMMA_D64
+#undef LECCR_WGMMA_D64_LIST
 
 // The A operand of k-step ks (accumulator columns 16 ks .. 16 ks + 15) of a
-// m64n64 accumulator, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(const float (&c)[32], int ks,
+// m64nN accumulator, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void acc_to_a(const float (&c)[N], int ks,
                                          uint32_t (&a)[4]) {
   const int n = 2 * ks;
   a[0] = pack(c[4 * n], c[4 * n + 1]);
@@ -224,6 +268,162 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// ------------------------------------- warp-specialised walk over a ring
+// Dynamic shared memory aligned to 1024 bytes (the 128-byte swizzle's
+// period): its shared address and its generic address.
+struct SmemBase {
+  uint32_t base;
+  uint8_t* ptr;
+};
+
+__device__ __forceinline__ SmemBase smem_base() {
+  extern __shared__ __align__(16) uint8_t wg_smem_raw[];
+  const uint32_t raw = smem_addr(wg_smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  return {base, wg_smem_raw + (base - raw)};
+}
+
+// A ring of STAGES streamed tiles: its full and empty mbarriers, each
+// array 8 bytes a barrier.  Tile t sits in stage t % STAGES; the barriers'
+// phase parity for it is (t / STAGES) & 1.
+template <int STAGES>
+struct Ring {
+  uint32_t full0, empty0;
+  __device__ uint32_t full(int s) const { return full0 + 8 * s; }
+  __device__ uint32_t empty(int s) const { return empty0 + 8 * s; }
+};
+
+// Barrier set-up by thread 0: `own` (the block's own rows, one arrival),
+// the ring's full barriers (`full_count` arrivals of the producer) and
+// empty ones (one arrival per consumer warp).
+template <int STAGES>
+__device__ __forceinline__ void ring_init(uint32_t own,
+                                          const Ring<STAGES>& ring,
+                                          int full_count) {
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ring.full(s), full_count);
+      mbar_init(ring.empty(s), kWgConsumers * kWarpgroup / kWarp);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// Keeps the compiler from moving reads or writes of a wgmma accumulator
+// across the asynchronous product (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) asm volatile("" : "+f"(d[e])::"memory");
+}
+
+// A register A operand stays live (and unmoved) until the wait that ends
+// the product reading it.
+template <int K>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[k][x])::"memory");
+}
+
+// The accumulator's element e of 8-column chunk n lies in row
+// 16 warp + g + 8 (e >> 1), column 8 n + 2 q + (e & 1) of the warpgroup's
+// 64-row tile.
+struct Frag {
+  int warp, g, q;
+  __device__ int row(int e) const { return 16 * warp + g + 8 * (e >> 1); }
+  __device__ int col(int n, int e) const { return 8 * n + 2 * q + (e & 1); }
+};
+
+// The two consumer warpgroups take turns at issuing their products, so
+// that one computes its exponentials while the other's products run (named
+// barriers 3 and 4, each shared by both warpgroups' 256 threads).  Warpgroup
+// 0 goes first; each phase's `take` waits for the other warpgroup's `pass`
+// of its previous phase.  Both run the same phases, and warpgroup 1 skips
+// its last pass, so every barrier completes exactly.
+struct WgTurns {
+  int wg;
+  __device__ explicit WgTurns(int w) : wg(w) {
+    if (wg == 1) named_arrive(3, 2 * kWarpgroup);
+  }
+  __device__ void take() const { named_sync(3 + wg, 2 * kWarpgroup); }
+  // predicated rather than branched: it sits between a product's issue and
+  // its wait
+  __device__ void pass(bool last) const {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p bar.arrive %0, %1;\n}\n"
+        ::"r"(4 - wg), "r"(2 * kWarpgroup), "r"((int)!(last && wg == 1))
+        : "memory");
+  }
+};
+
+// A consumer warpgroup's walk over the n streamed tiles of `ring`, in n + 1
+// turns: turn t issues prev(stage of tile t - 1) (the products that
+// contract over that tile's rows, from the operands compute() left in
+// registers) and next(stage of tile t) (the products over Dh), waits for
+// both (settle), releases tile t - 1's stage and runs compute(stage, t) on
+// tile t's products.  The first and last turns are peeled, so that no
+// product is issued or awaited under a condition (ptxas serialises wgmma on
+// divergent paths): a warpgroup whose rows all lie past L computes on TMA's
+// zero fill and stores nothing.
+template <int STAGES, class Prev, class Next, class Settle, class Compute>
+__device__ __forceinline__ void wg_walk(const Ring<STAGES>& ring, int n,
+                                        int wg, Prev prev, Next next,
+                                        Settle settle, Compute compute) {
+  const WgTurns turns(wg);
+  const bool signal = threadIdx.x % kWarp == 0;
+  mbar_wait(ring.full(0), 0);
+  turns.take();
+  wgmma_fence();
+  next(0);
+  wgmma_commit();
+  turns.pass(false);
+  settle();
+  compute(0, 0);
+  for (int t = 1; t < n; ++t) {
+    const int s = t % STAGES, sp = (t - 1) % STAGES;
+    mbar_wait(ring.full(s), (t / STAGES) & 1);
+    turns.take();
+    wgmma_fence();
+    prev(sp);
+    next(s);
+    wgmma_commit();
+    turns.pass(false);
+    settle();
+    __syncwarp();
+    if (signal) mbar_arrive(ring.empty(sp));
+    compute(s, t);
+  }
+  const int sp = (n - 1) % STAGES;
+  turns.take();
+  wgmma_fence();
+  prev(sp);
+  wgmma_commit();
+  turns.pass(true);
+  settle();
+  __syncwarp();
+  if (signal) mbar_arrive(ring.empty(sp));
+}
+
+// Stores a warpgroup's 64 x 64 f32 result, rounded to bf16, to rows
+// [row0, min(row0 + 64, n)) of `dst` (row stride `stride`).
+__device__ __forceinline__ void store_rows(const float (&d)[32], bf16* dst,
+                                           long long stride, int row0, int n,
+                                           const Frag& f) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row0 + f.row(2 * r);
+    if (i < n)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<uint32_t*>(dst + i * stride + f.col(c, 0)) =
+            pack(d[4 * c + 2 * r], d[4 * c + 2 * r + 1]);
+  }
+}
+
 // ------------------------------------------------------- host: tensor maps
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime's
 // entry-point query so that the library needs no -lcuda.
@@ -253,6 +453,7 @@ EncodeTiledFn encode_tiled_fn() {
 }
 
 // Error codes of the host side, beside CUDA's (all positive).
+constexpr int kBadVariant = -2;    // wgmma asked for other than bf16, Dh 64
 constexpr int kNoEncoder = -10;    // cuTensorMapEncodeTiled not found
 constexpr int kEncodeFailed = -11;  // it refused the map
 

@@ -40,11 +40,12 @@ reproduces).
 Kernels 2/3 have two bodies (`single_block_variant`): tensor cores
 (mma.sync) for bf16 at Dh = 64 with 16-byte aligned rows, every call of
 the train steps, and scalar f32 FMA for f32, other head dims and unaligned
-views.  Kernels 7/8 likewise (`tiled_variant`): warp-specialised wgmma
-passes fed by TMA for bf16 at Dh = 64 with 16-byte aligned rows and outer
-strides, the scalar bodies otherwise.  The choice is made from the shapes
-before the launch; a launch that fails raises and is never retried on the
-other body.
+views.  The streamed forwards (kernels 4 and 6) and the tiled backward
+(kernels 7/8) likewise (`tiled_variant`): warp-specialised wgmma bodies fed
+by TMA for bf16 at Dh = 64 with 16-byte aligned rows and outer strides,
+the scalar bodies otherwise (kernel 5 keeps its mma.sync passes for bf16
+at Dh = 64).  The choice is made from the shapes before the launch; a
+launch that fails raises and is never retried on the other body.
 
 For CUDA tensors the wrappers launch the kernels (or raise); for CPU
 tensors they run the plain PyTorch versions (`*_reference`), which do the
@@ -531,11 +532,13 @@ def tma_eligible(t: torch.Tensor) -> bool:
 
 def tiled_variant(q: torch.Tensor, k: torch.Tensor,
                   *others: torch.Tensor) -> str:
-    """Which body kernels 7/8 run a call on, from the shapes alone:
-    "wgmma" for bf16 at Dh = 64 when q, k and `others` (v, g; out for
-    kernel 7, whose delta reads it with 16-byte loads) are all
-    `tma_eligible` (every call of the high-resolution step), "scalar"
-    otherwise (f32, other head dims, unaligned views)."""
+    """Which body the streamed forwards (kernels 4 and 6) and the tiled
+    backward (kernels 7/8) run a call on, from the shapes alone: "wgmma"
+    for bf16 at Dh = 64 when q, k and `others` (v for a forward; v, g and
+    out for kernel 7, whose delta reads it with 16-byte loads; v, g for
+    kernel 8) are all `tma_eligible` (every call of the long-sequence and
+    high-resolution steps), "scalar" otherwise (f32, other head dims,
+    unaligned views)."""
     if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
         return "scalar"
     return ("wgmma" if all(tma_eligible(t) for t in (q, k, *others))
@@ -760,27 +763,30 @@ def _chunk_lib() -> ctypes.CDLL:
     if lib.fca_chunk_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, ptr]
-        lib.fca_chunk_forward.argtypes = [ptr] * 6 + [i32] * 7 + tail
+        lib.fca_chunk_forward.argtypes = ([ptr] * 6 + [i32] * 7 + tail[:-1]
+                                          + [i32, ptr])  # ..., vec, wgmma
         lib.fca_chunk_backward.argtypes = [ptr] * 11 + [i32] * 7 + tail
         lib.fca_chunk_forward.restype = i32
         lib.fca_chunk_backward.restype = i32
-        lib.fca_chunk_smem_bytes.argtypes = [i32] * 4
+        lib.fca_chunk_smem_bytes.argtypes = [i32] * 5
         lib.fca_chunk_smem_bytes.restype = ctypes.c_size_t
         lib.fca_chunk_supported_dim.argtypes = [i32]
         lib.fca_chunk_supported_dim.restype = i32
     return lib
 
 
-def _chunk_prepare(q, seed, rate, launches, vec):
+def _chunk_prepare(q, seed, rate, launches, vec, wgmma=False):
     """As `_prepare`, for the chunked kernels, whose shared memory depends
-    on the dtype, the head dim and `vec` (rows 16-byte aligned)."""
+    on the dtype, the head dim, `vec` (rows 16-byte aligned) and `wgmma`
+    (the forward on its wgmma variant)."""
     lib = _chunk_lib()
     dh = q.shape[-1]
     if not lib.fca_chunk_supported_dim(dh):
         raise ValueError(f"flash_chunked_attention kernels are compiled for "
                          f"Dh in (16, 32, 64, 128), not {dh}")
     for which in launches:
-        smem = lib.fca_chunk_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec))
+        smem = lib.fca_chunk_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec),
+                                        int(wgmma))
         if smem > SMEM_PER_BLOCK:
             raise ValueError(f"flash_chunked_attention launch {which} at "
                              f"Dh={dh} needs {smem} bytes of shared memory, "
@@ -792,22 +798,19 @@ def _launch_chunk_fwd(q, k, v, mask, seed, rate):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v), q.element_size())
-    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,), vec)
+    wgmma = tiled_variant(q, k, v) == "wgmma"
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,), vec, wgmma)
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fca_chunk_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk, dh,
-            chunk_head_group(h), strides, scale, *drop, int(vec), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_chunked_attention forward kernel launch "
-                           f"failed: CUDA error {rc}")
+    _kernel_call(lib.fca_chunk_forward, "flash_chunked_attention forward", q,
+                 k, v, mask, out, lse, _DTYPES[q.dtype], b, h, lq, lk, dh,
+                 chunk_head_group(h), strides, scale, *drop, int(vec),
+                 int(wgmma))
     flash_tower_attention.chunk_fwd_launches += 1
+    if wgmma:
+        flash_tower_attention.chunk_fwd_wgmma_launches += 1
     return out, lse
 
 
@@ -825,17 +828,10 @@ def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
     strides = (ctypes.c_longlong * 24)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.fca_chunk_backward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), _DTYPES[q.dtype], b, h, lq, lk,
-            dh, chunk_head_group(h), strides, scale, *drop, int(vec), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_chunked_attention backward kernel launch "
-                           f"failed: CUDA error {rc}")
+    _kernel_call(lib.fca_chunk_backward, "flash_chunked_attention backward",
+                 q, k, v, mask, out, lse, g, dq, dk, dv, delta,
+                 _DTYPES[q.dtype], b, h, lq, lk, dh, chunk_head_group(h),
+                 strides, scale, *drop, int(vec))
     flash_tower_attention.chunk_bwd_launches += 1
     return dq, dk, dv
 
@@ -882,32 +878,32 @@ def _tiled_lib() -> ctypes.CDLL:
     lib = _build.load(_TILED_LIB)
     if lib.ftl_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, ptr]
+        # ..., vec, wgmma, stream
+        tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, i32,
+                ptr]
         lib.ftl_forward.argtypes = [ptr] * 6 + [i32] * 7 + tail
-        bwd_tail = tail[:-1] + [i32, ptr]  # ..., vec, wgmma, stream
-        lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + bwd_tail
-        lib.ftl_dkv.argtypes = [ptr] * 9 + [i32] * 7 + bwd_tail
+        lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + tail
+        lib.ftl_dkv.argtypes = [ptr] * 9 + [i32] * 7 + tail
         lib.ftl_forward.restype = lib.ftl_dq.restype = i32
         lib.ftl_dkv.restype = i32
-        lib.ftl_smem_bytes.argtypes = [i32] * 5
+        lib.ftl_smem_bytes.argtypes = [i32] * 3
         lib.ftl_smem_bytes.restype = ctypes.c_size_t
         lib.ftl_supported_dim.argtypes = [i32]
         lib.ftl_supported_dim.restype = i32
     return lib
 
 
-def _tiled_prepare(q, seed, rate, which, vec, wgmma=False):
+def _tiled_prepare(q, seed, rate, which, wgmma):
     """The loaded library, the score scale and the dropout arguments of one
     tiled launch (0: kernel 6, 1: kernel 7, 2: kernel 8), after checking the
-    head dim and the launch's shared memory (`vec`: rows 16-byte aligned;
-    `wgmma`: kernel 7 or 8 on its wgmma variant)."""
+    head dim and the launch's shared memory (`wgmma`: on its wgmma
+    variant)."""
     lib = _tiled_lib()
     dh = q.shape[-1]
     if not lib.ftl_supported_dim(dh):
         raise ValueError(f"flash_tiled_attention kernels are compiled for "
                          f"Dh in (16, 32, 64, 128), not {dh}")
-    smem = lib.ftl_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec),
-                              int(wgmma))
+    smem = lib.ftl_smem_bytes(which, dh, int(wgmma))
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"flash_tiled_attention launch {which} at Dh={dh} "
                          f"needs {smem} bytes of shared memory, more than "
@@ -915,40 +911,43 @@ def _tiled_prepare(q, seed, rate, which, vec, wgmma=False):
     return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
 
 
-# the library's own (negative) return codes
-_TILED_ERRORS = {
+# the streamed libraries' own (negative) return codes
+_STREAMED_ERRORS = {
     -1: "head dim not compiled",
     -2: "the wgmma variant takes bf16 at Dh = 64 only",
     -10: "cuTensorMapEncodeTiled not found in libcuda",
     -11: "cuTensorMapEncodeTiled refused a TMA map (strides or alignment)"}
 
 
-def _tiled_call(fn, name, *args):
+def _kernel_call(fn, what, *args):
     """fn(*args, stream) on the current stream of args[0]'s device, each
-    tensor passed as its data pointer; raises on a nonzero CUDA error."""
+    tensor passed as its data pointer (None as a null one); raises on a
+    nonzero return code."""
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args), stream)
     if rc != 0:
-        why = _TILED_ERRORS.get(rc, f"CUDA error {rc}")
-        raise RuntimeError(f"flash_tiled_attention {name} kernel launch "
-                           f"failed: {why}")
+        why = _STREAMED_ERRORS.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"{what} kernel launch failed: {why}")
 
 
 def _launch_tiled_fwd(q, k, v, mask, seed, rate):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v), q.element_size())
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 0, vec)
+    wgmma = tiled_variant(q, k, v) == "wgmma"
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 0, wgmma)
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    _tiled_call(lib.ftl_forward, "forward", q, k, v, mask, out, lse,
-                _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
-                scale, *drop, int(vec))
+    _kernel_call(lib.ftl_forward, "flash_tiled_attention forward", q, k, v,
+                 mask, out, lse, _DTYPES[q.dtype], b, h, lq, lk, dh,
+                 head_group(h), strides, scale, *drop, int(vec), int(wgmma))
     flash_tower_attention.tiled_fwd_launches += 1
+    if wgmma:
+        flash_tower_attention.tiled_fwd_wgmma_launches += 1
     return out, lse
 
 
@@ -957,15 +956,15 @@ def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
     wgmma = tiled_variant(q, k, v, g, out) == "wgmma"
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 1, vec, wgmma)
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 1, wgmma)
     dq = _heads_last(b, lq, h, dh, q)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         *g.stride()[:3], *dq.stride()[:3])
-    _tiled_call(lib.ftl_dq, "dq", q, k, v, mask, out, lse, g, dq, delta,
-                _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
-                scale, *drop, int(vec), int(wgmma))
+    _kernel_call(lib.ftl_dq, "flash_tiled_attention dq", q, k, v, mask, out,
+                 lse, g, dq, delta, _DTYPES[q.dtype], b, h, lq, lk, dh,
+                 head_group(h), strides, scale, *drop, int(vec), int(wgmma))
     flash_tower_attention.tiled_dq_launches += 1
     if wgmma:
         flash_tower_attention.tiled_dq_wgmma_launches += 1
@@ -977,15 +976,15 @@ def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
     wgmma = tiled_variant(q, k, v, g) == "wgmma"
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 2, vec, wgmma)
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 2, wgmma)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         *dk.stride()[:3], *dv.stride()[:3])
-    _tiled_call(lib.ftl_dkv, "dk/dv", q, k, v, mask, lse, delta, g, dk, dv,
-                _DTYPES[q.dtype], b, h, lq, lk, dh, head_group(h), strides,
-                scale, *drop, int(vec), int(wgmma))
+    _kernel_call(lib.ftl_dkv, "flash_tiled_attention dk/dv", q, k, v, mask,
+                 lse, delta, g, dk, dv, _DTYPES[q.dtype], b, h, lq, lk, dh,
+                 head_group(h), strides, scale, *drop, int(vec), int(wgmma))
     flash_tower_attention.tiled_dkv_launches += 1
     if wgmma:
         flash_tower_attention.tiled_dkv_wgmma_launches += 1
@@ -1134,10 +1133,11 @@ def flash_tower_attention(
     launches of kernels 2/3 (`.tc_fwd_launches` / `.tc_bwd_launches` those
     of them on the tensor-core variant), `.chunk_fwd_launches` /
     `.chunk_bwd_launches` those of kernels 4/5 (a backward's two launches
-    count once), and
-    `.tiled_fwd_launches` / `.tiled_dq_launches` / `.tiled_dkv_launches`
-    those of kernels 6, 7 and 8 (`.tiled_dq_wgmma_launches` /
-    `.tiled_dkv_wgmma_launches` those of 7 and 8 on the wgmma variant)."""
+    count once; `.chunk_fwd_wgmma_launches` those of kernel 4 on the wgmma
+    variant), and `.tiled_fwd_launches` / `.tiled_dq_launches` /
+    `.tiled_dkv_launches` those of kernels 6, 7 and 8
+    (`.tiled_fwd_wgmma_launches` / `.tiled_dq_wgmma_launches` /
+    `.tiled_dkv_wgmma_launches` those of them on the wgmma variant)."""
     _check(q, k, v, padding_mask, dropout_rate)
     mask = _mask_bytes(padding_mask)
     seed, rate = int(seed), float(dropout_rate)
@@ -1156,5 +1156,7 @@ flash_tower_attention.chunk_bwd_launches = 0
 flash_tower_attention.tiled_fwd_launches = 0
 flash_tower_attention.tiled_dq_launches = 0
 flash_tower_attention.tiled_dkv_launches = 0
+flash_tower_attention.chunk_fwd_wgmma_launches = 0
+flash_tower_attention.tiled_fwd_wgmma_launches = 0
 flash_tower_attention.tiled_dq_wgmma_launches = 0
 flash_tower_attention.tiled_dkv_wgmma_launches = 0

@@ -2,9 +2,10 @@
 
 The fused cross-attention kernel (eval), the single-block flash
 tower-attention kernels 2/3, the chunked kernels 4/5 and the tiled kernels
-6/7/8 (training, forward and backward; 7/8 on their wgmma variant in
-bf16), and the fused InfoNCE kernels 9-11 against their plain versions on
-the card, and the launch counters that show a path went through them.
+6/7/8 (training, forward and backward; 4, 6, 7 and 8 on their wgmma
+variant in bf16), and the fused InfoNCE kernels 9-11 against their plain
+versions on the card, and the launch counters that show a path went
+through them.
 
 They import neither JAX nor the JAX package, so they also run where JAX is
 not installed:
@@ -17,8 +18,10 @@ import torch
 
 from chip_smoke import (
     BF16_K,
+    WGMMA_OF,
     bf16_k_needed,
     flash_term_scales,
+    fwd_masks,
     infonce_errors,
     infonce_ids,
     path_layout,
@@ -26,9 +29,11 @@ from chip_smoke import (
     tc_counts,
     tiled_masks,
     wgmma_counts,
+    wgmma_launched,
 )
 from leccr_torch.ops import infonce
 from leccr_torch.ops.flash_attention import (
+    chunk_head_group,
     flash_chunked_attention_bwd,
     flash_chunked_attention_bwd_reference,
     flash_chunked_attention_fwd,
@@ -274,10 +279,9 @@ def test_flash_launch_counters():
         assert tuple(getattr(flash_tower_attention, c) - b
                      for c, b in zip(counters, before)) == want
         # bf16 at Dh = 64: every single-block launch is a tensor-core one,
-        # every tiled backward launch a wgmma one
+        # every launch of kernels 4, 6, 7, 8 a wgmma one
         assert tuple(a - b for a, b in zip(tc_counts(), before_tc)) == want[:2]
-        assert (tuple(a - b for a, b in zip(wgmma_counts(), before_wgmma))
-                == want[5:])
+        assert wgmma_launched(before_wgmma, *(want[i] for i in WGMMA_OF))
         assert qg.grad is not None and torch.isfinite(qg.grad).all()
 
 
@@ -293,22 +297,21 @@ def test_tiled_kernels_match_plain_versions(dtype, heads, dh, length,
     with q, k and v strided views of one packed [B, L, 3, H, Dh]
     projection; key padding, a fully padded row and dropout 0.1, batch 2,
     16 heads (head group 8) and 12 (head group 6).  bf16 at Dh=64 takes the
-    tensor-core forward and the wgmma kernels 7/8, every other case the
-    scalar ones.  Tolerances as kernels 4/5's, with the tiled head group in
-    the term sums."""
+    wgmma kernels 6-8, every other case the scalar ones.  Tolerances as
+    kernels 4/5's, with the tiled head group in the term sums."""
     _needs_card()
     q, k, v, grad, pad = _flash_inputs(2, length, dtype, True, heads=heads,
                                        dh=dh, packed=packed)
     seed, rate = 99, 0.1
+    before = wgmma_counts()
     out, lse = flash_tiled_attention_fwd(q, k, v, pad, seed, rate)
     want_variant = ("wgmma" if dtype == torch.bfloat16 and dh == 64
                     else "scalar")
     assert tiled_variant(q, k, v, grad, out) == want_variant
-    before = wgmma_counts()
     grads = flash_tiled_attention_bwd(q, k, v, pad, out, lse, grad, seed,
                                       rate)
     n = int(want_variant == "wgmma")
-    assert tuple(a - b for a, b in zip(wgmma_counts(), before)) == (n, n)
+    assert wgmma_launched(before, 0, n, n, n)
     want_out, want_lse = flash_tiled_attention_fwd_reference(
         q, k, v, pad, seed, rate)
     want_grads = flash_tiled_attention_bwd_reference(
@@ -337,7 +340,7 @@ def test_tiled_kernels_match_plain_versions(dtype, heads, dh, length,
 def test_tiled_masks_are_the_plain_hash(heads):
     """The dropout masks kernels 6, 7 and 8 apply, read back bit for bit,
     equal the plain tile hash at head_group(H); in bf16 every launch of
-    kernels 7 and 8 that reads them back is a wgmma one."""
+    kernels 6, 7 and 8 that reads them back is a wgmma one."""
     _needs_card()
     want = tile_keep_mask(7, 2, heads, 300, 300, 0.2, device="cuda",
                           hg=head_group(heads)) != 0
@@ -345,8 +348,74 @@ def test_tiled_masks_are_the_plain_hash(heads):
     for got in tiled_masks(2, heads, 300, torch.bfloat16, 0.2, 7):
         assert torch.equal(got, want)
     blocks = -(-300 // 64)  # one launch of each per 64-key block
-    assert tuple(a - b for a, b in zip(wgmma_counts(), before)) == (blocks,
-                                                                     blocks)
+    assert wgmma_launched(before, 0, blocks + 1, blocks, blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [16, 12])
+def test_chunked_forward_mask_is_the_plain_hash(heads):
+    """The dropout mask kernel 4 applies on its wgmma variant, read back bit
+    for bit, equals the plain tile hash at the chunked head group (2)."""
+    _needs_card()
+    want = tile_keep_mask(7, 2, heads, 300, 300, 0.2, device="cuda",
+                          hg=chunk_head_group(heads)) != 0
+    before = wgmma_counts()
+    got = fwd_masks(flash_chunked_attention_fwd, 2, heads, 300,
+                    torch.bfloat16, 0.2, 7)
+    assert torch.equal(got, want)
+    assert wgmma_launched(before, chunk_fwd=-(-300 // 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["chunked", "tiled"])
+@pytest.mark.parametrize("heads", [16, 12])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("lq,lk,masked", [
+    (577, 577, False), (2705, 2705, False), (200, 200, True),
+    (129, 129, False), (100, 700, True), (33, 1, False)])
+def test_wgmma_forward_matches_plain_version(lq, lk, masked, rate, heads,
+                                             kernel):
+    """The wgmma forward body as kernel 4 (head group 2) and kernel 6
+    (head_group(H)) against its plain version, bf16 at Dh = 64 in the
+    path's layout, batch 2: ViT-L/14 @336 (577 tokens) and @728 (2705),
+    200 tokens with key padding and a fully padded row (out 0, lse -inf),
+    129 (one key past a 128-key tile), 100 queries against 700 padded
+    keys, and 33 queries against one key.  lse atol 1e-5; out within
+    1e-5 + BF16_K bf16 ulps of its term sums."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(lq + lk)
+    q, k, v, grad = (path_layout(torch.randn(
+        2, n, heads, 64, device="cuda", generator=g).to(torch.bfloat16))
+        for n in (lq, lk, lk, lq))
+    pad = None
+    if masked:
+        pad = torch.rand(2, lk, device="cuda", generator=g) < 0.3
+        pad[0] = True  # a fully padded row: out 0, lse -inf
+        pad[1] = False
+    seed = 31
+    fwd, ref, hg = {
+        "chunked": (flash_chunked_attention_fwd,
+                    flash_chunked_attention_fwd_reference,
+                    chunk_head_group(heads)),
+        "tiled": (flash_tiled_attention_fwd,
+                  flash_tiled_attention_fwd_reference, head_group(heads)),
+    }[kernel]
+    assert tiled_variant(q, k, v) == "wgmma"
+    before = wgmma_counts()
+    out, lse = fwd(q, k, v, pad, seed, rate)
+    assert wgmma_launched(before, int(kernel == "chunked"),
+                          int(kernel == "tiled"))
+    want_out, want_lse = ref(q, k, v, pad, seed, rate)
+    torch.cuda.synchronize()
+    real = torch.isfinite(want_lse)
+    assert torch.equal(torch.isfinite(lse), real)
+    assert (lse[real] - want_lse[real]).abs().max().item() <= 1e-5
+    if masked:
+        assert (out[0] == 0).all() and not real[0].any()
+    assert torch.isfinite(out).all()
+    scales = flash_term_scales(q, k, v, pad, want_lse, grad, seed, rate,
+                               out=want_out, hg=hg)
+    assert bf16_k_needed(out, want_out, scales["out"]) <= BF16_K
 
 
 @pytest.mark.cuda

@@ -344,8 +344,8 @@ def test_bf16_plain_versions_match_interpret_at_flagship_width():
 def test_profiled_kernel_names_map_to_their_kernels():
     """chip_smoke's profile sums kernels 2/3 by their function names, the
     scalar variant's (templates) and the tensor-core one's alike, kernels
-    7/8 in their scalar and wgmma variants, and keeps kernels 4-11 and
-    library kernels apart."""
+    4 and 6-8 in their scalar and wgmma variants, and keeps kernels 4-11
+    and library kernels apart."""
     ns = "(anonymous namespace)"
     names = {
         f"void {ns}::fwd_kernel<__nv_bfloat16, 64>({ns}::Params)":
@@ -356,10 +356,14 @@ def test_profiled_kernel_names_map_to_their_kernels():
             "single_bwd",
         f"void {ns}::bwd_dq_tc_kernel({ns}::Params)": "single_bwd",
         f"void {ns}::bwd_dkv_tc_kernel({ns}::Params)": "single_bwd",
-        f"void {ns}::chunk_fwd_tc_kernel({ns}::Params)": "chunked",
+        f"void {ns}::chunk_fwd_wgmma_kernel({ns}::FwdMaps, {ns}::Params)":
+            "chunked",
+        f"void {ns}::chunk_bwd_dq_tc_kernel({ns}::Params)": "chunked",
         f"void {ns}::chunk_bwd_dkv_kernel<float, 64>({ns}::Params)":
             "chunked",
-        f"void {ns}::tiled_fwd_tc_kernel({ns}::Params)": "tiled_fwd",
+        f"void {ns}::tiled_fwd_wgmma_kernel({ns}::FwdMaps, {ns}::Params)":
+            "tiled_fwd",
+        f"void {ns}::tiled_fwd_kernel<float, 64>({ns}::Params)": "tiled_fwd",
         f"void {ns}::tiled_dq_kernel<float, 64>({ns}::Params)": "tiled_dq",
         f"void {ns}::tiled_dkv_kernel<__nv_bfloat16, 32>({ns}::Params)":
             "tiled_dkv",
