@@ -7,12 +7,15 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
 
 1. device + build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels built from `leccr_torch/csrc/` with nvcc, one process per
-   source, side by side (seconds, ptxas report; the wgmma kernels of 4 and
-   6-8 must show 0 spill bytes).
+   source, side by side (seconds, ptxas report; the wgmma kernels of 4-8,
+   both files' wrappers, must show 0 spill bytes).
 2. kernel 1 vs plain: the fused cross-attention kernel against its plain
    PyTorch version at the three embed_images shapes (B=64, H=8, Dh=64;
    (Lq, Lk) = (4,200), (145,4), (4,145)) in bf16 and f32, with random key
-   padding and one fully padded row.  Tolerance: f32 max abs err <= 1e-5;
+   padding and one fully padded row, each on the body `fused_body` picks
+   (few queries, few keys: the per-body counters), and checked only at the
+   edge shapes (1,200), (145,1), (145,16), (145,17) (the general body).
+   Tolerance: f32 max abs err <= 1e-5;
    bf16 every element within 1e-5 plus 1 bf16 ulp of the plain result
    (both round an f32 result to bf16 once, so f32 noise can move it one
    ulp).  Times the kernel, the plain version and
@@ -42,10 +45,13 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    padding) and a 200-token text batch [64,16,200,64] (key padding, a
    fully padded row: out 0, lse -inf, zero gradients; dropout 0.1), bf16
    and f32, with phase 3's tolerances (the term sums under the chunked
-   rules) and timing.  Every bf16 forward must run kernel 4's wgmma
-   variant, f32 the scalar one (`tiled_variant` and the wgmma launch
-   counters), and with dropout kernel 4's mask, read back bit for bit on
-   that variant, must equal the plain hash at head group 2.
+   rules) and timing.  Every bf16 forward and backward must run kernels 4
+   and 5's wgmma variant, f32 the scalar one (`tiled_variant` and the wgmma
+   launch counters), and with dropout kernel 4's mask, read back bit for
+   bit on that variant, must equal the plain hash at head group 2.  Then
+   ragged lengths 1, 63, 64, 65, 129 at 16 heads (head group 2) and 3
+   (head group 1) in bf16 with padding and dropout 0.1 (CHUNKED_RAGGED),
+   kernel 5's dq-pass and dk/dv-pass masks read back bit for bit.
 4b. kernels 6/7/8 vs plain (`tiled_phase`): the tiled flash forward, dq
    and dk/dv kernels against their plain versions at TILED_SHAPES: the
    high-resolution step's ViT-L/14 @728 as the step calls them,
@@ -61,10 +67,9 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    included), f32 on the scalar one.  Each kernel timed per launch at
    [8,16,2705,64] bf16 beside its bound, its plain version, SDPA (forward;
    the backward alone for 7 + 8 together, on kernel 7's row) and the
-   chunked kernels 4/5 forced onto the same shape (kernel 4 the same wgmma
-   body at head group 2; kernel 5 once, for 7 + 8: the mma.sync bodies
-   kernels 7/8 ran on before, so kernel 7's row carries ratio_to_old =
-   (7 + 8) / kernel 5).
+   chunked kernels 4/5 forced onto the same shape (the same wgmma bodies
+   at head group 2); kernels 7 and 8 also on both grids of their passes,
+   one block per item and persistent, in turns (`schedules_ms`).
 5. kernels 9-11 vs plain: the fused InfoNCE statistics, dq and dk
    kernels against their plain versions at E = 256, inv_temp 1/0.07, at
    INFONCE_SHAPES: the large-batch step's [4096] x [4096] (idx = arange),
@@ -105,8 +110,8 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    towers, one card, remat): 48 launches of kernel 4 and 24 of kernel 5,
    72 of kernel 2 and 24 of kernel 3 a step.  Each: 3 warm-up and 5 timed
    steps; finite losses, every parameter moved; in bf16 every launch of
-   kernels 2/3 on the tensor-core variant and every launch of kernels 4
-   and 6-8 on the wgmma variant; ms/step, pairs/s, peak
+   kernels 2/3 on the tensor-core variant and every launch of kernels 4-8
+   on the wgmma variant; ms/step, pairs/s, peak
    memory; then one step under torch.profiler (device time by kernel,
    busy share, kernels 2 and 3 alone).  (c) The slice step again with
    remat off (2 warm-up and 3 timed steps, then a profiled one): what
@@ -124,11 +129,12 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    (ViT-B/32 @384², mBERT-base, 3/2/2 caption-interaction layers, bf16)
    with seeded random weights indexes 256 synthetic images with captions at
    200 tokens and answers search_texts (none, minmax) and search_images
-   requests; kernel 1's launch count must be 7 per image batch.
+   requests; kernel 1's launch count must be 7 per image batch, on its
+   few-queries and few-keys bodies only.
 10. eval: Multi30K scale (1 000 images × 5 000 texts at 200 tokens, image
    batch 50, text batch 256): embed + streaming ranks + Recall@K; the ranks
-   must equal a dense count over the same block products; wall time and
-   pairs/s.
+   must equal a dense count over the same block products; kernel 1 on its
+   few-queries and few-keys bodies only; wall time and pairs/s.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -150,6 +156,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SHAPES = [(4, 200), (145, 4), (4, 145)]  # (Lq, Lk) of the interaction stacks
 PATH_LAUNCHES = {(4, 200): 3, (145, 4): 2, (4, 145): 2}  # per embed_images
+# kernel 1's edge shapes, checked (not timed) on each body: one query, one
+# key, the few-keys body's last Lk and the first past it
+EDGE_SHAPES = [(1, 200), (145, 1), (145, 16), (145, 17)]
 # (name, B, H, L, dropout rate, key padding, backward) of the towers'
 # calls of kernels 2/3 in one train step: in the flagship's (bs128) the ViT
 # at 145 tokens, the text tower on source + target texts at the 64-token
@@ -169,6 +178,12 @@ SCALAR_FLASH_SHAPE = ("text-unaligned", 256, 12, 64, 0.1, True, True)
 # batch at the 200-token bucket (past fits_vmem at 16 heads)
 CHUNKED_SHAPES = [("vit-l", 32, 16, 577, 0.0, False),
                   ("text200", 64, 16, 200, 0.1, True)]
+# kernels 4/5's ragged edges in bf16 (batch 2, key padding with a fully
+# padded row, dropout 0.1): lengths around the 64-row tiles and 128-row
+# items, at 16 heads (dropout head group 2) and 3 (head group 1); kernel 5's
+# dropout masks are read back at each
+CHUNKED_RAGGED = [(length, heads) for heads in (16, 3)
+                  for length in (1, 63, 64, 65, 129)]
 # (name, B, H, L, dtype, dropout rate, key padding) of kernels 6-8's
 # checks: the high-resolution step's ViT-L/14 @728 (2705 tokens, past
 # fits_chunked in bf16) exactly as the step calls them (bs8, no dropout: the
@@ -201,11 +216,12 @@ INFONCE_COUNTERS = ("stats_launches", "dq_launches",
 STEP_COUNTERS = COUNTERS + INFONCE_COUNTERS
 TC_COUNTERS = ("tc_fwd_launches", "tc_bwd_launches")  # kernels 2/3 on tensor
 # cores: a subset of fwd_launches / bwd_launches
-# kernels 4, 6, 7 and 8 on their wgmma variant: subsets of the COUNTERS at
-# WGMMA_OF
+# kernels 4, 6, 7, 8 and 5 on their wgmma variant: subsets of the COUNTERS
+# at WGMMA_OF
 WGMMA_COUNTERS = ("chunk_fwd_wgmma_launches", "tiled_fwd_wgmma_launches",
-                  "tiled_dq_wgmma_launches", "tiled_dkv_wgmma_launches")
-WGMMA_OF = (2, 4, 5, 6)
+                  "tiled_dq_wgmma_launches", "tiled_dkv_wgmma_launches",
+                  "chunk_bwd_wgmma_launches")
+WGMMA_OF = (2, 4, 5, 6, 3)
 # Launches of kernels (2, 3, 4, 5, 6, 7, 8, 9, 10, 11) in one train step.
 # Flagship: 12 ViT-B/32 blocks at 145 tokens (single-block) and 12 mBERT
 # layers at 64 tokens, a forward each for the texts and for the captions, a
@@ -290,10 +306,15 @@ def bf16_ulp(x):
 
 
 def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
+    """Kernel 1 against its plain version at SHAPES (timed, beside its
+    bound, the plain version and SDPA) and EDGE_SHAPES (checked only), in
+    bf16 (the path's dtype) and f32, each launch on the body `fused_body`
+    picks (read from the per-body counters)."""
     import torch
     import torch.nn.functional as F
 
     from leccr_torch.ops.fused_cross_attention import (
+        fused_body,
         fused_cross_attention,
         fused_cross_attention_reference,
     )
@@ -301,7 +322,8 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
     flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     results = []
-    for lq, lk in SHAPES:
+    for lq, lk in SHAPES + EDGE_SHAPES:
+        timed = (lq, lk) in SHAPES
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device="cuda").manual_seed(lq * 1000 + lk)
             # the path's layout: [B, L, H, Dh] storage seen as [B, H, L, Dh]
@@ -311,7 +333,15 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
             pad = torch.rand(batch, lk, device="cuda", generator=g) < 0.3
             pad[0] = True  # fully padded row: the mean of v
             pad[1] = False
+            body = fused_body(lq, lk, dh, q.element_size(), True)
+            before = dict(fused_cross_attention.launches_by_body)
             got = fused_cross_attention(q, k, v, pad)
+            moved = {n: c - before[n] for n, c in
+                     fused_cross_attention.launches_by_body.items() if c
+                     != before[n]}
+            if moved != {body: 1}:
+                raise AssertionError(f"kernel 1 at {lq}x{lk} launched "
+                                     f"{moved}, want the {body} body once")
             want = fused_cross_attention_reference(q, k, v, pad)
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
@@ -319,7 +349,8 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
             if not torch.isfinite(got).all():
                 raise AssertionError(f"non-finite kernel output {lq}x{lk}")
             mean_v = v[0].float().mean(dim=1, keepdim=True).expand(-1, lq, -1)
-            if (got[0].float() - mean_v).abs().max().item() > 1e-2:
+            mean_err = (got[0].float() - mean_v).abs().max().item()
+            if mean_err > 1e-2:
                 raise AssertionError("fully padded row is not the mean of v")
             if dtype == torch.float32:
                 ok, tol = err <= 1e-5, "max abs err <= 1e-5"
@@ -329,6 +360,13 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
             if not ok:
                 raise AssertionError(f"kernel disagrees with its plain "
                                      f"version at {lq}x{lk} {dtype}: {err}")
+            name = str(dtype).split(".")[-1]
+            row = {"lq": lq, "lk": lk, "dtype": name, "body": body,
+                   "max_abs_err": err, "padded_row_vs_mean_v": mean_err,
+                   "tolerance": tol}
+            if not timed:
+                emit("kernel_edge_vs_plain", **row)
+                continue
             attend = ~pad[:, None, None, :]
             ms = cuda_ms(lambda: fused_cross_attention(q, k, v, pad), flush)
             plain_ms = cuda_ms(
@@ -340,12 +378,10 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
             n_bytes = (item * (2 * q.numel() + k.numel() + v.numel())
                        + pad.numel())  # q, k, v, out + the bool mask
             flops = 4 * batch * heads * lq * lk * dh
-            name = str(dtype).split(".")[-1]
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[name] * 1e3
             results.append({
-                "lq": lq, "lk": lk, "dtype": name, "max_abs_err": err,
-                "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                **row, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bytes": n_bytes, "flops": flops,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
@@ -430,6 +466,21 @@ def path_layout(x, aligned: bool = True):
     return x.transpose(1, 2)
 
 
+def kernel1_counts(what: str) -> dict:
+    """Kernel 1's launches since reset_counts(), all and by body; `what`
+    (a path) must have launched both the few-queries and the few-keys body
+    and the general one never (the embed_images shapes)."""
+    from leccr_torch.ops.fused_cross_attention import fused_cross_attention
+
+    counts = {"all": fused_cross_attention.launches,
+              **fused_cross_attention.launches_by_body}
+    if (counts["few_queries"] == 0 or counts["few_keys"] == 0
+            or counts["general"] != 0 or counts["all"] != sum(
+                fused_cross_attention.launches_by_body.values())):
+        raise AssertionError(f"{what} launched kernel 1's bodies {counts}")
+    return counts
+
+
 def tc_counts():
     """Launches of kernels 2/3 on the tensor-core variant so far."""
     from leccr_torch.ops.flash_attention import flash_tower_attention
@@ -438,7 +489,7 @@ def tc_counts():
 
 
 def wgmma_counts():
-    """Launches of kernels 4, 6, 7 and 8 on the wgmma variant so far."""
+    """Launches of kernels 4, 6, 7, 8 and 5 on the wgmma variant so far."""
     from leccr_torch.ops.flash_attention import flash_tower_attention
 
     return tuple(getattr(flash_tower_attention, c) for c in WGMMA_COUNTERS)
@@ -678,13 +729,16 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
             grads = flash_chunked_attention_bwd(q, k, v, pad, out, lse, grad,
                                                 seed, rate)
             torch.cuda.synchronize()
-            # bf16 at Dh = 64 (every call of the step) takes the wgmma body
+            # bf16 at Dh = 64 (every call of the step) takes the wgmma bodies
             variant = tiled_variant(q, k, v)
+            bwd_variant = tiled_variant(q, k, v, grad, out)
             bf16 = dtype == torch.bfloat16
-            if (variant != ("wgmma" if bf16 else "scalar")
-                    or not wgmma_launched(before, chunk_fwd=int(bf16))):
-                raise AssertionError(f"kernel 4 at {name} {dtype} took the "
-                                     f"{variant} variant")
+            want = "wgmma" if bf16 else "scalar"
+            if (variant != want or bwd_variant != want
+                    or not wgmma_launched(before, chunk_fwd=int(bf16),
+                                          chunk_bwd=int(bf16))):
+                raise AssertionError(f"kernels 4/5 at {name} {dtype} took "
+                                     f"the {variant}/{bwd_variant} variants")
             real = torch.isfinite(want_lse)
             if not torch.equal(torch.isfinite(lse), real):
                 raise AssertionError(f"lse is -inf on other rows {name}")
@@ -772,8 +826,7 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                     "shape": name, "direction": direction, "dtype": dname,
                     "b": batch, "h": heads, "l": length, "dh": dh,
                     "rate": rate, "masked": masked,
-                    "variant": (variant if direction == "fwd" else
-                                "tc (mma.sync)" if bf16 else "scalar"),
+                    "variant": variant if direction == "fwd" else bwd_variant,
                     "masks": mask_check if direction == "fwd" else None,
                     "max_abs_err": errs,
                     "bf16_ulps": k_needed, "tolerance": tol,
@@ -789,6 +842,115 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
                 emit("chunked_vs_plain", **results[-1])
             del q, k, v, grad, times, out, lse, want_out, want_grads
             torch.cuda.empty_cache()
+    results += chunked_ragged_checks(dh, seed)
+    return results
+
+
+def chunk_bwd_masks(batch, heads, length, dtype, rate, seed, dh=64):
+    """The dropout masks that kernel 5's dq and dk/dv passes apply, read back
+    bit for bit ([B, H, Lq, Lk] bool, True = kept), two launch pairs per
+    64-row block: with q = 0, k = v = the identity on key block [c, c + 64),
+    g = 1 and out = 0 (delta 0), dq[i, d] = ds[i, c + d]; with q = k = v = 0
+    and g the identity on query block c, dv[j, d] = pd[c + d, j]."""
+    import torch
+
+    from leccr_torch.ops.flash_attention import (
+        flash_chunked_attention_bwd,
+        flash_chunked_attention_fwd,
+    )
+
+    shape = (batch, length, heads, dh)
+    zeros = path_layout(torch.zeros(shape, dtype=dtype, device="cuda"))
+    ones = path_layout(torch.ones(shape, dtype=dtype, device="cuda"))
+    _, lse = flash_chunked_attention_fwd(zeros, zeros, zeros, None, seed,
+                                         rate)
+    masks = [torch.empty((batch, heads, length, length), dtype=torch.bool,
+                         device="cuda") for _ in range(2)]
+    for c, n, block in identity_blocks(batch, heads, length, dtype, dh):
+        dq, _, _ = flash_chunked_attention_bwd(zeros, block, block, None,
+                                               zeros, lse, ones, seed, rate)
+        masks[0][..., c:c + n] = dq[..., :n] != 0
+        _, _, dv = flash_chunked_attention_bwd(zeros, zeros, zeros, None,
+                                               zeros, lse, block, seed, rate)
+        masks[1][:, :, c:c + n, :] = (dv[..., :n] != 0).transpose(-1, -2)
+    return masks
+
+
+def chunked_ragged_checks(dh: int, seed: int):
+    """Kernels 4 and 5 in bf16 at CHUNKED_RAGGED against their plain
+    versions (the chunked bf16 tolerances), every launch on the wgmma
+    variant, and kernel 5's dq-pass and dk/dv-pass dropout masks, read back
+    bit for bit, equal to the plain hash at the chunked head group."""
+    import torch
+
+    from leccr_torch.ops.flash_attention import (
+        chunk_head_group,
+        flash_chunked_attention_bwd,
+        flash_chunked_attention_bwd_reference,
+        flash_chunked_attention_fwd,
+        flash_chunked_attention_fwd_reference,
+        tile_keep_mask,
+    )
+
+    results, rate = [], 0.1
+    for length, heads in CHUNKED_RAGGED:
+        q, k, v, grad, pad = tiled_inputs(2, heads, length, torch.bfloat16,
+                                          True, seed + length + heads)
+        before = wgmma_counts()
+        out, lse = flash_chunked_attention_fwd(q, k, v, pad, seed, rate)
+        grads = flash_chunked_attention_bwd(q, k, v, pad, out, lse, grad,
+                                            seed, rate)
+        if not wgmma_launched(before, chunk_fwd=1, chunk_bwd=1):
+            raise AssertionError(f"kernels 4/5 at L={length}, H={heads} did "
+                                 f"not take the wgmma variant")
+        want_out, want_lse = flash_chunked_attention_fwd_reference(
+            q, k, v, pad, seed, rate)
+        want_grads = flash_chunked_attention_bwd_reference(
+            q, k, v, pad, want_out, want_lse, grad, seed, rate)
+        torch.cuda.synchronize()
+        real = torch.isfinite(want_lse)
+        if not torch.equal(torch.isfinite(lse), real):
+            raise AssertionError(f"lse is -inf on other rows at L={length}")
+        if not ((out[0] == 0).all() and all((d[0] == 0).all()
+                                            for d in grads)):
+            raise AssertionError("a fully padded row must give out 0 and "
+                                 "zero gradients")
+        pairs = {"out": (out, want_out),
+                 **dict(zip(("dq", "dk", "dv"), zip(grads, want_grads)))}
+        lse_err = ((lse[real] - want_lse[real]).abs().max().item()
+                   if real.any() else 0.0)
+        scales = flash_term_scales(q, k, v, pad, want_lse, grad, seed, rate,
+                                   out=want_out)
+        k_needed = {n: bf16_k_needed(*pairs[n], scales[n]) for n in scales}
+        if lse_err > 1e-5 or max(k_needed.values()) > BF16_K:
+            raise AssertionError(f"kernels 4/5 disagree with their plain "
+                                 f"versions at L={length}, H={heads}: lse "
+                                 f"{lse_err}, ulps {k_needed}")
+        hg = chunk_head_group(heads)
+        plain = tile_keep_mask(seed, 2, heads, length, length, rate,
+                               device="cuda", hg=hg) != 0
+        before = wgmma_counts()
+        got = chunk_bwd_masks(2, heads, length, torch.bfloat16, rate, seed,
+                              dh)
+        blocks = -(-length // dh)
+        equal = [torch.equal(m, plain) for m in got]
+        if not all(equal):
+            raise AssertionError(f"kernel 5's dropout masks differ from the "
+                                 f"plain hash at L={length}, H={heads}")
+        if not wgmma_launched(before, chunk_fwd=1, chunk_bwd=2 * blocks):
+            raise AssertionError(f"kernel 5's masks at L={length} were not "
+                                 f"read on the wgmma variant")
+        results.append({"shape": f"ragged-{length}-h{heads}",
+                        "direction": "fwd+bwd", "dtype": "bfloat16",
+                        "b": 2, "h": heads, "l": length, "dh": dh,
+                        "rate": rate, "masked": True, "variant": "wgmma",
+                        "head_group": hg,
+                        "max_abs_err": {"lse": lse_err, **{
+                            n: (a.float() - w.float()).abs().max().item()
+                            for n, (a, w) in pairs.items()}},
+                        "bf16_ulps": k_needed,
+                        "masks_5_dq_dkv_equal_plain": equal})
+        emit("chunked_ragged_vs_plain", **results[-1])
     return results
 
 
@@ -876,11 +1038,12 @@ def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
     return masks
 
 
-def wgmma_launched(before, chunk_fwd=0, tiled_fwd=0, dq=0, dkv=0) -> bool:
+def wgmma_launched(before, chunk_fwd=0, tiled_fwd=0, dq=0, dkv=0,
+                   chunk_bwd=0) -> bool:
     """Whether the wgmma counters moved by exactly these launches (kernels
-    4, 6, 7, 8) since `before` (a wgmma_counts())."""
+    4, 6, 7, 8 and 5) since `before` (a wgmma_counts())."""
     return (tuple(a - b for a, b in zip(wgmma_counts(), before))
-            == (chunk_fwd, tiled_fwd, dq, dkv))
+            == (chunk_fwd, tiled_fwd, dq, dkv, chunk_bwd))
 
 
 def tiled_phase(dh: int = 64, seed: int = 1234):
@@ -894,6 +1057,9 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
     import torch.nn.functional as F
 
     from leccr_torch.ops.flash_attention import (
+        TILED_BWD_PERSISTENT,
+        _launch_tiled_dkv,
+        _launch_tiled_dq,
         chunk_head_group,
         flash_chunked_attention_bwd,
         flash_chunked_attention_fwd,
@@ -1046,6 +1212,18 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
         q, k, v, None, seed, 0.0), flush, FLASH_ITERS)
     chunk_bwd_ms = cuda_ms(lambda: flash_chunked_attention_bwd(
         q, k, v, None, out, lse, grad, seed, 0.0), flush, FLASH_ITERS)
+    # kernels 7/8's two grids, in turns (one-tile, persistent, persistent,
+    # one-tile): the schedule TILED_BWD_PERSISTENT fixes is the faster one
+    passes = {"dq": lambda persistent: _launch_tiled_dq(
+                  q, k, v, None, out, lse, grad, seed, 0.0, persistent),
+              "dkv": lambda persistent: _launch_tiled_dkv(
+                  q, k, v, None, lse, delta, grad, seed, 0.0, persistent)}
+    schedules = {n: {"one_tile": [], "persistent": []} for n in passes}
+    for persistent in (False, True, True, False):
+        key = "persistent" if persistent else "one_tile"
+        for n, run in passes.items():
+            schedules[n][key].append(cuda_ms(lambda: run(persistent), flush,
+                                             FLASH_ITERS))
     runs = {
         "fwd": (lambda: flash_tiled_attention_fwd(q, k, v, None, seed, 0.0),
                 lambda: flash_tiled_attention_fwd_reference(
@@ -1088,12 +1266,16 @@ def tiled_phase(dh: int = 64, seed: int = 1234):
                 "fwd": ("kernel 4 at the same shape: the same wgmma body at "
                         "head group 2"),
                 "dq": ("kernel 5 (its dq and dk/dv launches) at the same "
-                       "shape: the yardstick of kernels 7 + 8 together"),
+                       "shape: the same wgmma passes at head group 2, "
+                       "persistent"),
                 "dkv": "on flash_tiled_attention_dq's row"}[which]}
+        if which in schedules:
+            timed[which]["schedule"] = ("persistent" if TILED_BWD_PERSISTENT
+                                        else "one_tile")
+            timed[which]["schedules_ms"] = {
+                k: sum(v) / len(v) for k, v in schedules[which].items()}
+            timed[which]["schedules_runs_ms"] = schedules[which]
     timed["dq"]["pair_ms"] = timed["dq"]["ms"] + timed["dkv"]["ms"]
-    # the wgmma pair against kernel 5's mma.sync bodies (the design kernels
-    # 7/8 ran on before) at the same shape, in the same call
-    timed["dq"]["ratio_to_old"] = timed["dq"]["pair_ms"] / chunk_bwd_ms
     for which in ("fwd", "dq", "dkv"):
         timed[which]["variant"] = "wgmma"
         timed[which]["tflops"] = (timed[which]["flops"] / timed[which]["ms"]
@@ -1343,6 +1525,8 @@ def reset_counts() -> None:
     for c in INFONCE_COUNTERS:
         setattr(infonce, c, 0)
     fused_cross_attention.launches = 0
+    for body in fused_cross_attention.launches_by_body:
+        fused_cross_attention.launches_by_body[body] = 0
 
 
 def train_batch(cfg, batch: int, width: int, seed: int):
@@ -1524,10 +1708,10 @@ def train_step_phase(cfg, card_line: str, per_step, phase: str = "train_step",
     if cfg.model.dtype == "bfloat16" and tc != launches[:2]:
         raise AssertionError(f"kernels 2/3 launched {launches[:2]}, of them "
                              f"{tc} on the tensor-core variant")
-    # and kernels 4, 6, 7, 8 on their wgmma variant only
+    # and kernels 4, 6, 7, 8 and 5 on their wgmma variant only
     wgmma, streamed = wgmma_counts(), tuple(launches[i] for i in WGMMA_OF)
     if cfg.model.dtype == "bfloat16" and wgmma != streamed:
-        raise AssertionError(f"kernels 4, 6, 7, 8 launched {streamed}, of "
+        raise AssertionError(f"kernels 4, 6, 7, 8, 5 launched {streamed}, of "
                              f"them {wgmma} on the wgmma variant")
     if not all(math.isfinite(v) for losses in history
                for v in losses.values()):
@@ -1564,11 +1748,13 @@ SINGLE_BLOCK_KERNELS = {"fwd_kernel": "single_fwd",
                         "bwd_dkv_kernel": "single_bwd",
                         "bwd_dq_tc_kernel": "single_bwd",
                         "bwd_dkv_tc_kernel": "single_bwd"}
-# the __global__ functions of kernels 4, 6, 7 and 8's wgmma variant
+# the __global__ functions of kernels 4, 5, 6, 7 and 8's wgmma variant
 WGMMA_KERNELS = {"chunk_fwd_wgmma_kernel": "chunked",
+                 "chunk_bwd_dq_wgmma_kernel": "chunked",
+                 "chunk_bwd_dkv_wgmma_kernel": "chunked",
                  "tiled_fwd_wgmma_kernel": "tiled_fwd",
-                 "wgmma_dq_kernel": "tiled_dq",
-                 "wgmma_dkv_kernel": "tiled_dkv"}
+                 "tiled_dq_wgmma_kernel": "tiled_dq",
+                 "tiled_dkv_wgmma_kernel": "tiled_dkv"}
 _KERNEL_NAME = re.compile(r"(?:^|::|\s)(\w+)[<(]")
 _PTXAS_FN = re.compile(r"(?:Compiling entry function '|Function properties "
                        r"for )([\w$]+)")
@@ -1812,6 +1998,7 @@ def serve_phase(cfg, n_images: int = 256, seed: int = 0):
     hits_img = emb.search_images(index, corpus, k=5)
     search_s = time.perf_counter() - t0
     launches = fused_cross_attention.launches
+    by_body = kernel1_counts("serving")
     if any(step_counts()):
         raise AssertionError("serving launched the training kernels")
 
@@ -1846,9 +2033,10 @@ def serve_phase(cfg, n_images: int = 256, seed: int = 0):
     emit("serve", params=n_params, init_s=init_s, images=n_images,
          image_batches=n_batches, index_s=index_s,
          search_requests=3, search_s=search_s, kernel_launches=launches,
+         kernel_launches_by_body=by_body,
          max_unit_norm_err=norm_err, top_hit=hits[0][0],
          top_hit_minmax=hits_mm[0][0])
-    return emb, launches
+    return emb, by_body
 
 
 def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
@@ -1909,6 +2097,7 @@ def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
     img, txt, (i2t, t2i), times = run()
     wall = time.perf_counter() - t0
     launches = fused_cross_attention.launches
+    by_body = kernel1_counts("the eval")
     if any(step_counts()):
         raise AssertionError("the eval launched the training kernels")
     if launches != launches_per_batch(cfg) * math.ceil(n_img / img_bs):
@@ -1939,10 +2128,10 @@ def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
     emit("eval", card=card_line, images=n_img, texts=n_txt, tokens=length,
          image_batch=img_bs, text_batch=txt_bs, wall_s=wall,
          pairs_per_s=n_img * n_txt / wall, warmup_s=warm_s, **times,
-         kernel_launches=launches,
+         kernel_launches=launches, kernel_launches_by_body=by_body,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
          metrics=metrics)
-    return launches
+    return by_body
 
 
 def main() -> int:
@@ -2083,16 +2272,17 @@ def main() -> int:
     def chunk_entry(name, line, direction, launches, per_step_n, errs):
         r = next(r for r in chunked if r["direction"] == direction
                  and r["dtype"] == "bfloat16" and r["shape"] == "vit-l")
-        # train_step_phase held every bf16 launch of kernel 4 to the wgmma
-        # variant; kernel 5 runs the mma.sync passes
+        # train_step_phase held every bf16 launch of kernels 4 and 5 to the
+        # wgmma variant
         fwd = direction == "fwd"
         return {
             "name": name, "route": "cuda",
             "source": ("leccr_torch/csrc/flash_fwd_wgmma.cuh" if fwd else
-                       "leccr_torch/csrc/flash_chunked_attention.cu"),
+                       "leccr_torch/csrc/flash_bwd_wgmma.cuh"),
             "replaces": f"leccr_tpu/ops/flash_attention.py:{line}",
             "launches": launches, "variant": r["variant"],
-            **({"launches_wgmma": launches} if fwd else {}),
+            "launches_wgmma": launches,
+            **({} if fwd else {"schedule": "persistent"}),
             "max_abs_err": max(x["max_abs_err"][e] for x in chunked
                                if x["direction"] == direction for e in errs),
             "check": "ok",
@@ -2102,7 +2292,8 @@ def main() -> int:
             **{key: per_step_n * r[key] for key in (
                 "ms", "plain_ms", "bound_ms", "library_ms")},
             "bound_by": r["bound_by"], "library": r["library"],
-            "shapes": [x for x in chunked if x["direction"] == direction],
+            "shapes": [x for x in chunked if x["direction"] == direction
+                       or (not fwd and x["direction"] == "fwd+bwd")],
         }
 
     def tiled_entry(name, line, which, counter):
@@ -2129,7 +2320,8 @@ def main() -> int:
             **{key: None if r.get(key) is None else per_step_n * r[key]
                for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                            "chunked_ms", "pair_ms")},
-            "ratio_to_old": r.get("ratio_to_old"),
+            "schedule": r.get("schedule"),
+            "schedules_ms": r.get("schedules_ms"),
             "bound_by": r["bound_by"], "library": r["library"],
             "chunked": r["chunked"], "per_launch": r,
             "shapes": tiled["checks"],
@@ -2167,9 +2359,10 @@ def main() -> int:
         "route": "cuda",
         "source": "leccr_torch/csrc/fused_cross_attention.cu",
         "replaces": "leccr_tpu/ops/pallas_attention.py:26",
-        "launches": serve_launches + eval_launches,
+        "launches": serve_launches["all"] + eval_launches["all"],
         "launches_serve": serve_launches,
         "launches_eval": eval_launches,
+        "bodies": sorted({r["body"] for r in bf16}),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "check": "ok",
         "timed_as": "bf16, B=64: 3x(4,200) + 2x(145,4) + 2x(4,145), "

@@ -55,14 +55,20 @@
 //   warp-specialised wgmma + TMA body that the tiled kernel 6 wraps too (one
 //   TMA producer warp, two consumer warpgroups, 128-key tiles); it is bound
 //   by the tensor cores and the SFU alike (an exp2 per score);
-// - the backward in bf16 at Dh = 64 with 16-byte aligned rows runs the
-//   mma.sync passes of flash_tiles.cuh (a block of 8 warps owning one
-//   128-row tile, cp.async double buffering, ldmatrix), far above its bound
-//   (PERF.md);
+// - the backward in bf16 at Dh = 64 with 16-byte aligned rows and outer
+//   strides (the "wgmma" variant, `tiled_variant` of q, k, v, g and out:
+//   every launch of the long-sequence step) runs flash_bwd_wgmma.cuh, the
+//   warp-specialised wgmma + TMA dq and dk/dv passes that the tiled kernels
+//   7 and 8 wrap too, on their persistent schedule (one block per SM
+//   walking 128-row work items, the next item's own rows and first tiles
+//   loaded under the current item's last tiles and epilogue): at 577
+//   tokens a block streams only ten 64-row tiles an item, so a block's
+//   fixed cost weighs about four times what it does at 2705;
 // - every other case runs the scalar f32-FMA bodies of flash_tiles.cuh, a
 //   block of 8 warps owning 64 rows.
 // The two families differ only in the mask's head group (hg, an argument).
 
+#include "flash_bwd_wgmma.cuh"
 #include "flash_fwd_wgmma.cuh"
 #include "flash_tiles.cuh"
 
@@ -93,15 +99,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   wgmma_fwd(maps, p);
 }
 
-// ------------------------------------------ the backward on tensor cores
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    chunk_bwd_dq_tc_kernel(Params p) {
-  tc_dq(p);
+// ----------------------------------------------- the backward on wgmma
+__global__ void __launch_bounds__(kWgThreads, 1)
+    chunk_bwd_dq_wgmma_kernel(__grid_constant__ const WgMaps maps,
+                              const Params p) {
+  wgmma_dq(maps, p);
 }
 
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    chunk_bwd_dkv_tc_kernel(Params p) {
-  tc_dkv(p);
+__global__ void __launch_bounds__(kWgThreads, 1)
+    chunk_bwd_dkv_wgmma_kernel(__grid_constant__ const WgMaps maps,
+                               const Params p) {
+  wgmma_dkv(maps, p);
 }
 
 dim3 grid_of(const Params& p, int batch, int n, int rows) {
@@ -116,16 +124,9 @@ int forward(const Params& p, int batch, cudaStream_t s) {
 
 template <typename T, int DH>
 int backward(const Params& p, int batch, cudaStream_t s) {
-  int rc;
-  if (tensor_cores<T, DH>(p)) {
-    rc = launch(chunk_bwd_dq_tc_kernel, grid_of(p, batch, p.lq, kTcRows),
-                kTcWarps, tc_smem_bytes(1), s, p);
-    if (rc != 0) return rc;
-    return launch(chunk_bwd_dkv_tc_kernel, grid_of(p, batch, p.lk, kTcRows),
-                  kTcWarps, tc_smem_bytes(2), s, p);
-  }
-  rc = launch(chunk_bwd_dq_kernel<T, DH>, grid_of(p, batch, p.lq, kRows),
-              kWarps, smem_bytes(1, DH), s, p);
+  const int rc = launch(chunk_bwd_dq_kernel<T, DH>,
+                        grid_of(p, batch, p.lq, kRows), kWarps,
+                        smem_bytes(1, DH), s, p);
   if (rc != 0) return rc;
   return launch(chunk_bwd_dkv_kernel<T, DH>, grid_of(p, batch, p.lk, kRows),
                 kWarps, smem_bytes(2, DH), s, p);
@@ -141,12 +142,11 @@ int fca_chunk_supported_dim(int dh) {
 }
 
 // Bytes of dynamic shared memory of each launch (0: forward, 1: backward dq
-// pass, 2: backward dk/dv pass) for dtype, head dim dh, vec and wgmma (the
-// forward's variant) as the launches take them.
-size_t fca_chunk_smem_bytes(int which, int dtype, int dh, int vec,
-                            int wgmma) {
-  if (which == 0 && wgmma) return fwd_wgmma_smem_bytes();
-  return launch_smem_bytes(which, dtype, dh, vec);
+// pass, 2: backward dk/dv pass) for head dim dh and wgmma (the launch's
+// variant) as the launches take them.
+size_t fca_chunk_smem_bytes(int which, int dh, int wgmma) {
+  if (!wgmma) return smem_bytes(which, dh);
+  return which == 0 ? fwd_wgmma_smem_bytes() : wgmma_smem_bytes(which);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).  strides: 12
@@ -190,8 +190,10 @@ int fca_chunk_forward(const void* q, const void* k, const void* v,
 // Backward: two launches on `stream` (delta and dq, then dk and dv).
 // strides: 24 element strides, (b, h, l) of q, k, v, o, g, dq, dk, dv.  o:
 // the forward's output; delta: [B, H, Lq] f32 scratch the first launch
-// writes and the second reads.  vec covers q, k, v and g.  Other arguments
-// as fca_chunk_forward.
+// writes and the second reads.  vec covers q, k, v and g.  wgmma: 1 takes
+// the wgmma passes on their persistent schedule (bf16 at Dh = 64; q, k, v,
+// o and g with 16-byte aligned rows and outer strides).  Other arguments
+// and the returned code as fca_chunk_forward.
 int fca_chunk_backward(const void* q, const void* k, const void* v,
                        const unsigned char* mask, const void* o,
                        const float* lse, const void* g, void* dq, void* dk,
@@ -199,7 +201,7 @@ int fca_chunk_backward(const void* q, const void* k, const void* v,
                        int heads, int lq, int lk, int dh, int hg,
                        const long long* strides, float scale,
                        unsigned int seed, unsigned int threshold,
-                       float keep_scale, int dropout, int vec,
+                       float keep_scale, int dropout, int vec, int wgmma,
                        void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, hg, scale, seed, threshold, keep_scale, dropout,
@@ -219,6 +221,14 @@ int fca_chunk_backward(const void* q, const void* k, const void* v,
   p.sdk = strides_at(strides, 6);
   p.sdv = strides_at(strides, 7);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wgmma) {
+    if (dtype != 1 || dh != kTcDim) return kBadVariant;
+    const int rc = launch_wgmma_bwd(chunk_bwd_dq_wgmma_kernel, 1, p, batch,
+                                    true, s);
+    if (rc != 0) return rc;
+    return launch_wgmma_bwd(chunk_bwd_dkv_wgmma_kernel, 2, p, batch, true,
+                            s);
+  }
   if (dtype == 1)
     return by_dim(dh, [&](auto d) {
       return backward<__nv_bfloat16, decltype(d)::value>(p, batch, s);

@@ -57,7 +57,12 @@
 //   high-resolution step): warp-specialised bodies, one TMA producer warp
 //   and two consumer warpgroups issuing wgmma.  Kernel 6 runs
 //   flash_fwd_wgmma.cuh (128-key tiles; the chunked kernel 4 wraps the same
-//   body), kernels 7 and 8 flash_bwd_wgmma.cuh (64-row tiles);
+//   body), kernels 7 and 8 flash_bwd_wgmma.cuh (64-row tiles; the chunked
+//   kernel 5 wraps the same passes).  The passes take a grid of one block
+//   per 128-row item or a persistent one (a block per SM walking the
+//   items): `persistent`, a launch parameter that the caller fixes
+//   (ops/flash_attention.py, TILED_BWD_PERSISTENT) from both schedules'
+//   times at the high-resolution step's shape (PERF.md);
 // - every other case: the scalar f32-FMA bodies of flash_tiles.cuh, a block
 //   of 8 warps owning 64 rows (two blocks per 128-row tile).
 // Kernel 6 is bound by the tensor cores and the SFU alike (an exp2 per
@@ -93,6 +98,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   wgmma_fwd(maps, p);
 }
 
+// ------------------------------------------- kernels 7 and 8 on wgmma
+__global__ void __launch_bounds__(kWgThreads, 1)
+    tiled_dq_wgmma_kernel(__grid_constant__ const WgMaps maps,
+                          const Params p) {
+  wgmma_dq(maps, p);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    tiled_dkv_wgmma_kernel(__grid_constant__ const WgMaps maps,
+                           const Params p) {
+  wgmma_dkv(maps, p);
+}
+
 typedef void (*Kernel)(Params);
 
 // Launch `which` (0: kernel 6, 1: kernel 7, 2: kernel 8) on the scalar
@@ -106,16 +124,21 @@ int run(int which, const Params& p, int batch, cudaStream_t s) {
                 kWarps, smem_bytes(which, DH), s, p);
 }
 
-// Launch `which` on its wgmma variant (wgmma: bf16 at Dh = 64 only) or on
-// the scalar bodies.
+// Launch `which` on its wgmma variant (wgmma: bf16 at Dh = 64 only; the
+// backward passes on the persistent grid or one block per item) or on the
+// scalar bodies.
 int dispatch(int which, int dtype, int dh, const Params& p, int batch,
-             void* stream, bool wgmma) {
+             void* stream, bool wgmma, bool persistent = false) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wgmma) {
     if (dtype != 1 || dh != kTcDim) return kBadVariant;
     if (which == 0)
       return launch_wgmma_fwd(tiled_fwd_wgmma_kernel, p, batch, s);
-    return launch_wgmma_bwd(which, p, batch, s);
+    if (which == 1)
+      return launch_wgmma_bwd(tiled_dq_wgmma_kernel, 1, p, batch, persistent,
+                              s);
+    return launch_wgmma_bwd(tiled_dkv_wgmma_kernel, 2, p, batch, persistent,
+                            s);
   }
   if (dtype == 1)
     return by_dim(dh, [&](auto d) {
@@ -139,7 +162,7 @@ int ftl_supported_dim(int dh) {
 // 7, 2: kernel 8) for head dim dh and wgmma as the launches take them.
 size_t ftl_smem_bytes(int which, int dh, int wgmma) {
   if (!wgmma) return smem_bytes(which, dh);
-  return which == 0 ? fwd_wgmma_smem_bytes() : wgmma_smem_bytes();
+  return which == 0 ? fwd_wgmma_smem_bytes() : wgmma_smem_bytes(which);
 }
 
 // Kernel 6.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).
@@ -172,14 +195,16 @@ int ftl_forward(const void* q, const void* k, const void* v,
 // g: d(out).  strides: 18 element strides, (b, h, l) of q, k, v, o, g, dq.
 // wgmma: 1 takes the wgmma variant (bf16 at Dh = 64; q, k, v, o, g with
 // 16-byte aligned rows and outer strides), 0 the scalar one (vec: its
-// 16-byte loads).  Other arguments and the returned code as ftl_forward.
+// 16-byte loads); persistent: the wgmma variant's grid, 1 a block per SM
+// walking the 128-row items, 0 a block per item.  Other arguments and the
+// returned code as ftl_forward.
 int ftl_dq(const void* q, const void* k, const void* v,
            const unsigned char* mask, const void* o, const float* lse,
            const void* g, void* dq, float* delta, int dtype, int batch,
            int heads, int lq, int lk, int dh, int hg,
            const long long* strides, float scale, unsigned int seed,
            unsigned int threshold, float keep_scale, int dropout, int vec,
-           int wgmma, void* stream) {
+           int wgmma, int persistent, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, hg, scale, seed, threshold, keep_scale, dropout,
                          vec);
@@ -193,7 +218,7 @@ int ftl_dq(const void* q, const void* k, const void* v,
   p.so = strides_at(strides, 3);
   p.sg = strides_at(strides, 4);
   p.sout = strides_at(strides, 5);
-  return dispatch(1, dtype, dh, p, batch, stream, wgmma);
+  return dispatch(1, dtype, dh, p, batch, stream, wgmma, persistent);
 }
 
 // Kernel 8: dk and dv from lse and kernel 7's delta.  strides: 18 element
@@ -205,7 +230,7 @@ int ftl_dkv(const void* q, const void* k, const void* v,
             int heads, int lq, int lk, int dh, int hg,
             const long long* strides, float scale, unsigned int seed,
             unsigned int threshold, float keep_scale, int dropout, int vec,
-            int wgmma, void* stream) {
+            int wgmma, int persistent, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, hg, scale, seed, threshold, keep_scale, dropout,
                          vec);
@@ -219,7 +244,7 @@ int ftl_dkv(const void* q, const void* k, const void* v,
   p.sg = strides_at(strides, 3);
   p.sdk = strides_at(strides, 4);
   p.sdv = strides_at(strides, 5);
-  return dispatch(2, dtype, dh, p, batch, stream, wgmma);
+  return dispatch(2, dtype, dh, p, batch, stream, wgmma, persistent);
 }
 
 }  // extern "C"

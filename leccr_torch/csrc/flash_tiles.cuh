@@ -6,11 +6,9 @@
 // holds their launch parameters, the interpret-mode tile hash (per element,
 // and per (b, h) for the wgmma kernels), the element helpers and the kernel
 // bodies that each file wraps in its own __global__ functions: scalar (f32
-// FMA, any dtype and head dim) for kernels 4-8, and kernel 5's backward
-// passes on tensor cores (bf16 at Dh = 64, tensor_core.cuh's mma.sync
-// m16n8k16 fragment helpers).  The bf16 forward of kernels 4 and 6 runs
-// flash_fwd_wgmma.cuh, the bf16 backward of kernels 7 and 8
-// flash_bwd_wgmma.cuh (wgmma and TMA, for TMA-eligible views).
+// FMA, any dtype and head dim) for kernels 4-8.  The bf16 forward of
+// kernels 4 and 6 runs flash_fwd_wgmma.cuh, the bf16 backward of kernels 5,
+// 7 and 8 flash_bwd_wgmma.cuh (wgmma and TMA, for TMA-eligible views).
 //
 // The scalar bodies, per (batch b, head h) and a block of kRows rows (8
 // warps of 8 rows, each warp carrying its rows' state across tiles in
@@ -583,320 +581,6 @@ Params make_params(const void* q, const void* k, const void* v,
 
 Strides strides_at(const long long* s, int t) {
   return {s[3 * t], s[3 * t + 1], s[3 * t + 2]};
-}
-
-// ------------------------------------------- tensor-core kernel bodies
-// Kernel 5 in bf16 at Dh = 64 with 16-byte aligned rows (the long-sequence
-// step's ViT-L): the dq and dk/dv passes with their products on tensor cores
-// (mma.sync m16n8k16, f32 accumulators).  A product of two bf16 values is
-// exact in f32, so only the order of the f32 sums differs from the scalar
-// bodies; the roundings to bf16 (pd, ds, the outputs) sit at the same
-// points.  A block is 8 warps of 16 rows, each warp holding its rows as A
-// fragments and its sums as C fragments in registers.  The streamed tiles
-// are staged row-major in shared memory by cp.async into two buffers, so
-// the copy of tile j+1 runs under the products of tile j; B fragments are
-// read with ldmatrix, transposed in the load (.trans) where a product
-// contracts over the tile's rows, so no tile is stored twice.  The passes
-// take a tile in two halves of 64 to bound the registers (the mask hashes
-// absolute indices, so the halves change nothing).  They stay far above
-// their bound (PERF.md).
-constexpr int kTcWarps = 8;                    // warps of a block
-constexpr int kTcRows = kTcWarps * 16;         // rows a block owns (= kTile)
-constexpr int kTileElems = kTile * kRowPitch;  // bf16 of one staged tile
-
-// All of the block's threads start copying rows [r0, r0 + kTile) of a
-// [n, 64] head matrix (row stride `stride`) into `dst` (row-major, pitch
-// kRowPitch); rows at or past n become zeros.
-__device__ __forceinline__ void stage_async(const bf16* src, long long stride,
-                                            int r0, int n, bf16* dst) {
-  constexpr int per_row = kTcDim / 8;
-  for (int e = threadIdx.x; e < kTile * per_row; e += blockDim.x) {
-    const int r = e / per_row, c = (e % per_row) * 8;
-    const bool valid = r0 + r < n;
-    cp_async16(dst + r * kRowPitch + c,
-               src + (valid ? (long long)(r0 + r) * stride : 0) + c, valid);
-  }
-}
-
-// Key tile kj of (b, h) into buffer `buf`: K and V (one copy group) and the
-// tile's padding bytes.  Shared memory: [buf][K, V] tiles, then [buf] pads.
-__device__ __forceinline__ void stage_keys(const Params& p, int b,
-                                           const bf16* kg, const bf16* vg,
-                                           int kj, int buf, bf16* tiles,
-                                           unsigned char* pads) {
-  const int j0 = kj * kTile;
-  stage_async(kg, p.sk.l, j0, p.lk, tiles + 2 * buf * kTileElems);
-  stage_async(vg, p.sv.l, j0, p.lk, tiles + (2 * buf + 1) * kTileElems);
-  cp_async_commit();
-  unsigned char* pad = pads + buf * kTile;
-  for (int j = threadIdx.x; j < kTile; j += blockDim.x)
-    pad[j] = j0 + j >= p.lk ||
-             (p.mask && p.mask[(long long)b * p.lk + j0 + j]);
-}
-
-// Waits for the tile staged into `buf` (the next one may stay in flight).
-__device__ __forceinline__ void await_tile(bool next_in_flight) {
-  if (next_in_flight)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
-  __syncthreads();
-}
-
-// The dq pass (delta and dq; kernel 5's first launch).  Shared memory: two
-// buffers of the K and V tiles, then two of the padding bytes.
-__device__ __forceinline__ void tc_dq(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NH = 8;  // NH: n-tiles
-  bf16* tiles = reinterpret_cast<bf16*>(smem_tc);           // of a half tile
-  unsigned char* pads = smem_tc + 4 * kTileElems * sizeof(bf16);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
-  const int row0 = blockIdx.y * kTcRows + warp * 16;
-  const bool active = row0 < p.lq;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h;
-  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h;
-  const bf16* og = static_cast<const bf16*>(p.o) + b * p.so.b + h * p.so.h;
-  const long long rows = ((long long)b * p.heads + h) * p.lq;
-
-  uint32_t qa[KS][4], ga[KS][4];
-  load_a(static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.l,
-         row0, p.lq, qa);
-  load_a(gg, p.sg.l, row0, p.lq, ga);
-  // delta = rowsum(g * out) from the rounded output: each lane of a quad
-  // sums 16 features of rows g and g + 8
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + g + 8 * r;
-    float partial = 0.f;
-    lse[r] = 0.f;
-    if (i < p.lq) {
-      for (int d = 16 * t; d < 16 * t + 16; ++d)
-        partial = fmaf(to_f32(gg[i * p.sg.l + d]), to_f32(og[i * p.so.l + d]),
-                       partial);
-      lse[r] = p.lse[rows + i];
-    }
-    delta[r] = quad_sum(partial);
-    if (i < p.lq && t == 0) p.delta[rows + i] = delta[r];
-  }
-  float dq[NF][4];
-#pragma unroll
-  for (int nf = 0; nf < NF; ++nf)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[nf][e] = 0.f;
-
-  const int n_tiles = (p.lk + kTile - 1) / kTile;
-  stage_keys(p, b, kg, vg, 0, 0, tiles, pads);
-  for (int kj = 0; kj < n_tiles; ++kj) {
-    const int buf = kj & 1, j0 = kj * kTile;
-    const bool next = kj + 1 < n_tiles;
-    if (next) stage_keys(p, b, kg, vg, kj + 1, buf ^ 1, tiles, pads);
-    await_tile(next);
-    const bf16* ks = tiles + 2 * buf * kTileElems;
-    const bf16* vs = ks + kTileElems;
-    const unsigned char* pad = pads + buf * kTile;
-    if (active) {
-#pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        const int c0 = half * kTile / 2;  // the half's first key in the tile
-        float s[NH][4], dp[NH][4];
-#pragma unroll
-        for (int nt = 0; nt < NH; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-        mma_nt<NH, KS>(s, qa, ks + c0 * kRowPitch);
-        mma_nt<NH, KS>(dp, ga, vs + c0 * kRowPitch);
-#pragma unroll
-        for (int nt = 0; nt < NH; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1, jl = c0 + 8 * nt + 2 * t + (e & 1);
-            float ds = 0.f;
-            if (!pad[jl]) {
-              const float sv = s[nt][e] * p.scale;
-              const float pij = finite(lse[r]) ? expf(sv - lse[r]) : 0.f;
-              float dpv = dp[nt][e];
-              if (p.drop.on)
-                dpv *= tile_keep(p.drop, b, h, p.hg, row0 + g + 8 * r,
-                                 j0 + jl);
-              ds = pij * (dpv - delta[r]) * p.scale;
-            }
-            s[nt][e] = ds;
-          }
-        uint32_t dsa[NH / 2][4];  // round(ds) as A fragments over the keys
-        c_to_a<NH / 2>(s, dsa);
-        mma_nn<NF, NH / 2>(dq, dsa, ks + c0 * kRowPitch);
-      }
-    }
-    __syncthreads();
-  }
-
-  bf16* dqg = static_cast<bf16*>(p.out) + b * p.sout.b + h * p.sout.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + g + 8 * r;
-    if (i < p.lq)
-#pragma unroll
-      for (int nf = 0; nf < NF; ++nf)
-        *reinterpret_cast<uint32_t*>(dqg + i * p.sout.l + 8 * nf + 2 * t) =
-            pack(dq[nf][2 * r], dq[nf][2 * r + 1]);
-  }
-}
-
-// Query tile qi of (b, h) into buffer `buf`: Q and G (one copy group), then
-// the tile's lse and delta (-inf and 0 past Lq).  Shared memory: [buf][Q, G]
-// tiles, then [buf][lse, delta] rows of kTile floats.
-__device__ __forceinline__ void stage_queries(const Params& p,
-                                              const bf16* qg, const bf16* gg,
-                                              long long rows, int qi, int buf,
-                                              bf16* tiles, float* stats) {
-  const int i0 = qi * kTile;
-  stage_async(qg, p.sq.l, i0, p.lq, tiles + 2 * buf * kTileElems);
-  stage_async(gg, p.sg.l, i0, p.lq, tiles + (2 * buf + 1) * kTileElems);
-  cp_async_commit();
-  float* lse_s = stats + 2 * buf * kTile;
-  for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-    const bool real = i0 + i < p.lq;
-    lse_s[i] = real ? p.lse[rows + i0 + i] : -INFINITY;
-    lse_s[kTile + i] = real ? p.delta[rows + i0 + i] : 0.f;
-  }
-}
-
-// The dk/dv pass (kernel 5's second launch), rows = keys.
-__device__ __forceinline__ void tc_dkv(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  constexpr int KS = kTcDim / 16, NF = kTcDim / 8, NH = 8;
-  bf16* tiles = reinterpret_cast<bf16*>(smem_tc);
-  float* stats = reinterpret_cast<float*>(tiles + 4 * kTileElems);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
-  const int row0 = blockIdx.y * kTcRows + warp * 16;
-  const bool active = row0 < p.lk;
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const bf16* gg = static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h;
-  const long long rows = ((long long)b * p.heads + h) * p.lq;
-
-  uint32_t ka[KS][4], va[KS][4];
-  load_a(static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h, p.sk.l,
-         row0, p.lk, ka);
-  load_a(static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h, p.sv.l,
-         row0, p.lk, va);
-  bool padded[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = row0 + g + 8 * r;
-    padded[r] = j >= p.lk || (p.mask && p.mask[(long long)b * p.lk + j]);
-  }
-  float dk[NF][4], dv[NF][4];
-#pragma unroll
-  for (int nf = 0; nf < NF; ++nf)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[nf][e] = dv[nf][e] = 0.f;
-
-  const int n_tiles = (p.lq + kTile - 1) / kTile;
-  stage_queries(p, qg, gg, rows, 0, 0, tiles, stats);
-  for (int qi = 0; qi < n_tiles; ++qi) {
-    const int buf = qi & 1, i0 = qi * kTile;
-    const bool next = qi + 1 < n_tiles;
-    if (next) stage_queries(p, qg, gg, rows, qi + 1, buf ^ 1, tiles, stats);
-    await_tile(next);
-    const bf16* qs = tiles + 2 * buf * kTileElems;
-    const bf16* gs = qs + kTileElems;
-    const float* lse_s = stats + 2 * buf * kTile;
-    const float* delta_s = lse_s + kTile;
-    if (active) {
-#pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        const int c0 = half * kTile / 2;  // the half's first query
-        float s[NH][4], dp[NH][4];
-#pragma unroll
-        for (int nt = 0; nt < NH; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-        mma_nt<NH, KS>(s, ka, qs + c0 * kRowPitch);
-        mma_nt<NH, KS>(dp, va, gs + c0 * kRowPitch);
-#pragma unroll
-        for (int nt = 0; nt < NH; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1, il = c0 + 8 * nt + 2 * t + (e & 1);
-            float pd = 0.f, ds = 0.f;
-            if (i0 + il < p.lq && !padded[r]) {
-              const float sv = s[nt][e] * p.scale;
-              const float l = lse_s[il];
-              const float pij = finite(l) ? expf(sv - l) : 0.f;
-              float dpv = dp[nt][e];
-              pd = pij;
-              if (p.drop.on) {
-                const float keep = tile_keep(p.drop, b, h, p.hg, i0 + il,
-                                             row0 + g + 8 * r);
-                pd *= keep;
-                dpv *= keep;
-              }
-              ds = pij * (dpv - delta_s[il]) * p.scale;
-            }
-            dp[nt][e] = pd;
-            s[nt][e] = ds;
-          }
-        uint32_t pda[NH / 2][4], dsa[NH / 2][4];  // round(pd), round(ds)
-        c_to_a<NH / 2>(dp, pda);
-        c_to_a<NH / 2>(s, dsa);
-        mma_nn<NF, NH / 2>(dv, pda, gs + c0 * kRowPitch);
-        mma_nn<NF, NH / 2>(dk, dsa, qs + c0 * kRowPitch);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = row0 + g + 8 * r;
-    if (j < p.lk) {
-      bf16* dvg = static_cast<bf16*>(p.dv) + b * p.sdv.b + h * p.sdv.h +
-                  j * p.sdv.l;
-      bf16* dkg = static_cast<bf16*>(p.dk) + b * p.sdk.b + h * p.sdk.h +
-                  j * p.sdk.l;
-#pragma unroll
-      for (int nf = 0; nf < NF; ++nf) {
-        *reinterpret_cast<uint32_t*>(dvg + 8 * nf + 2 * t) =
-            pack(dv[nf][2 * r], dv[nf][2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dkg + 8 * nf + 2 * t) =
-            pack(dk[nf][2 * r], dk[nf][2 * r + 1]);
-      }
-    }
-  }
-}
-
-// Shared-memory bytes of the tensor-core launches (1: dq pass, 2: dk/dv
-// pass): two buffers of two staged tiles, then the padding bytes or the lse
-// and delta rows.
-size_t tc_smem_bytes(int which) {
-  const size_t tiles = 4 * (size_t)kTileElems * sizeof(bf16);
-  if (which == 2) return tiles + 4 * kTile * sizeof(float);
-  return tiles + 2 * kTile;
-}
-
-// bf16 at Dh = 64 with 16-byte aligned rows takes kernel 5's tensor-core
-// passes.
-bool tensor_cores(int dtype, int dh, int vec) {
-  return dtype == 1 && dh == kTcDim && vec;
-}
-
-template <typename T, int DH>
-bool tensor_cores(const Params& p) {
-  return tensor_cores(std::is_same<T, bf16>::value ? 1 : 0, DH, p.vec);
-}
-
-// Shared-memory bytes of launch `which` (0: forward, 1: dq pass, 2: dk/dv
-// pass) for dtype (0: float32, 1: bfloat16), head dim dh and vec, as the
-// kernels other than the wgmma ones take them.
-size_t launch_smem_bytes(int which, int dtype, int dh, int vec) {
-  return which != 0 && tensor_cores(dtype, dh, vec) ? tc_smem_bytes(which)
-                                                    : smem_bytes(which, dh);
 }
 
 }  // namespace

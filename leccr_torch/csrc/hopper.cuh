@@ -5,7 +5,8 @@
 // the conversion of a wgmma accumulator into a bf16 A operand, and the walk
 // that two consumer warpgroups take over a ring of streamed tiles.  The
 // streamed flash forward (kernels 4 and 6, flash_fwd_wgmma.cuh) and the
-// tiled backward (kernels 7 and 8, flash_bwd_wgmma.cuh) are built from them.
+// streamed backward (kernels 5, 7 and 8, flash_bwd_wgmma.cuh) are built
+// from them.
 //
 // Tiles are [rows][64] bf16, 128 bytes a row, loaded by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte aligned shared memory: 16-byte
@@ -360,32 +361,35 @@ struct WgTurns {
   }
 };
 
-// A consumer warpgroup's walk over the n streamed tiles of `ring`, in n + 1
+// A consumer warpgroup's walk over n streamed tiles of `ring`, in n + 1
 // turns: turn t issues prev(stage of tile t - 1) (the products that
 // contract over that tile's rows, from the operands compute() left in
 // registers) and next(stage of tile t) (the products over Dh), waits for
 // both (settle), releases tile t - 1's stage and runs compute(stage, t) on
-// tile t's products.  The first and last turns are peeled, so that no
+// tile t's products.  The ring has carried t0 tiles before this walk (a
+// persistent block's earlier work items), so tile t sits in stage
+// (t0 + t) % STAGES.  The first and last turns are peeled, so that no
 // product is issued or awaited under a condition (ptxas serialises wgmma on
 // divergent paths): a warpgroup whose rows all lie past L computes on TMA's
 // zero fill and stores nothing.
 template <int STAGES, class Prev, class Next, class Settle, class Compute>
 __device__ __forceinline__ void wg_walk(const Ring<STAGES>& ring, int n,
                                         int wg, Prev prev, Next next,
-                                        Settle settle, Compute compute) {
+                                        Settle settle, Compute compute,
+                                        int t0 = 0) {
   const WgTurns turns(wg);
   const bool signal = threadIdx.x % kWarp == 0;
-  mbar_wait(ring.full(0), 0);
+  mbar_wait(ring.full(t0 % STAGES), (t0 / STAGES) & 1);
   turns.take();
   wgmma_fence();
-  next(0);
+  next(t0 % STAGES);
   wgmma_commit();
   turns.pass(false);
   settle();
-  compute(0, 0);
+  compute(t0 % STAGES, 0);
   for (int t = 1; t < n; ++t) {
-    const int s = t % STAGES, sp = (t - 1) % STAGES;
-    mbar_wait(ring.full(s), (t / STAGES) & 1);
+    const int s = (t0 + t) % STAGES, sp = (t0 + t - 1) % STAGES;
+    mbar_wait(ring.full(s), ((t0 + t) / STAGES) & 1);
     turns.take();
     wgmma_fence();
     prev(sp);
@@ -397,7 +401,7 @@ __device__ __forceinline__ void wg_walk(const Ring<STAGES>& ring, int n,
     if (signal) mbar_arrive(ring.empty(sp));
     compute(s, t);
   }
-  const int sp = (n - 1) % STAGES;
+  const int sp = (t0 + n - 1) % STAGES;
   turns.take();
   wgmma_fence();
   prev(sp);
@@ -450,6 +454,19 @@ EncodeTiledFn encode_tiled_fn() {
       fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
   return fn;
+}
+
+// The current device's SM count (cudaDevAttrMultiProcessorCount), asked
+// once a device: the grid of a persistent launch.  0 if it cannot be read.
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
 }
 
 // Error codes of the host side, beside CUDA's (all positive).

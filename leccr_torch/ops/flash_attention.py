@@ -43,9 +43,11 @@ the train steps, and scalar f32 FMA for f32, other head dims and unaligned
 views.  The streamed forwards (kernels 4 and 6) and the tiled backward
 (kernels 7/8) likewise (`tiled_variant`): warp-specialised wgmma bodies fed
 by TMA for bf16 at Dh = 64 with 16-byte aligned rows and outer strides,
-the scalar bodies otherwise (kernel 5 keeps its mma.sync passes for bf16
-at Dh = 64).  The choice is made from the shapes before the launch; a
-launch that fails raises and is never retried on the other body.
+the scalar bodies otherwise; the chunked backward (kernel 5) runs the same
+wgmma passes as kernels 7/8 for the same views, at its own head group,
+on their persistent schedule (`tiled_variant` of q, k, v, g and out).
+The choice is made from the shapes before the launch; a launch that fails
+raises and is never retried on the other body.
 
 For CUDA tensors the wrappers launch the kernels (or raise); for CPU
 tensors they run the plain PyTorch versions (`*_reference`), which do the
@@ -74,6 +76,11 @@ TC_CHUNK = 32  # staged rows a tensor-core kernel sweeps at a time
 TC_PITCH = 72  # bf16 per staged row of a tensor-core kernel
 TC_MAX_KEYS = 192  # keys whose scores the tensor-core forward holds per row
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
+# The grid of kernels 7/8's wgmma passes: persistent (a block per SM walking
+# the 128-row items) or one block per item.  Fixed from both schedules'
+# times at the high-resolution step's [8, 16, 2705, 64] on the H100
+# (chip_smoke.py's tiled_phase, PERF.md); kernel 5 is always persistent.
+TILED_BWD_PERSISTENT = True
 
 # the JAX single-block kernel's VMEM budget (flash_attention.py:37)
 _VMEM_BUDGET = 10 * 2 ** 20
@@ -532,13 +539,13 @@ def tma_eligible(t: torch.Tensor) -> bool:
 
 def tiled_variant(q: torch.Tensor, k: torch.Tensor,
                   *others: torch.Tensor) -> str:
-    """Which body the streamed forwards (kernels 4 and 6) and the tiled
-    backward (kernels 7/8) run a call on, from the shapes alone: "wgmma"
-    for bf16 at Dh = 64 when q, k and `others` (v for a forward; v, g and
-    out for kernel 7, whose delta reads it with 16-byte loads; v, g for
-    kernel 8) are all `tma_eligible` (every call of the long-sequence and
-    high-resolution steps), "scalar" otherwise (f32, other head dims,
-    unaligned views)."""
+    """Which body the streamed forwards (kernels 4 and 6) and the streamed
+    backwards (kernel 5, kernels 7/8) run a call on, from the shapes alone:
+    "wgmma" for bf16 at Dh = 64 when q, k and `others` (v for a forward;
+    v, g and out for kernel 5 and kernel 7, whose delta reads out by TMA;
+    v, g for kernel 8) are all `tma_eligible` (every call of the
+    long-sequence and high-resolution steps), "scalar" otherwise (f32,
+    other head dims, unaligned views)."""
     if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
         return "scalar"
     return ("wgmma" if all(tma_eligible(t) for t in (q, k, *others))
@@ -763,30 +770,30 @@ def _chunk_lib() -> ctypes.CDLL:
     if lib.fca_chunk_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, ptr]
+        # ..., vec, wgmma, stream
         lib.fca_chunk_forward.argtypes = ([ptr] * 6 + [i32] * 7 + tail[:-1]
-                                          + [i32, ptr])  # ..., vec, wgmma
-        lib.fca_chunk_backward.argtypes = [ptr] * 11 + [i32] * 7 + tail
+                                          + [i32, ptr])
+        lib.fca_chunk_backward.argtypes = ([ptr] * 11 + [i32] * 7 + tail[:-1]
+                                           + [i32, ptr])
         lib.fca_chunk_forward.restype = i32
         lib.fca_chunk_backward.restype = i32
-        lib.fca_chunk_smem_bytes.argtypes = [i32] * 5
+        lib.fca_chunk_smem_bytes.argtypes = [i32] * 3
         lib.fca_chunk_smem_bytes.restype = ctypes.c_size_t
         lib.fca_chunk_supported_dim.argtypes = [i32]
         lib.fca_chunk_supported_dim.restype = i32
     return lib
 
 
-def _chunk_prepare(q, seed, rate, launches, vec, wgmma=False):
+def _chunk_prepare(q, seed, rate, launches, wgmma):
     """As `_prepare`, for the chunked kernels, whose shared memory depends
-    on the dtype, the head dim, `vec` (rows 16-byte aligned) and `wgmma`
-    (the forward on its wgmma variant)."""
+    on the head dim and `wgmma` (the launches on their wgmma variant)."""
     lib = _chunk_lib()
     dh = q.shape[-1]
     if not lib.fca_chunk_supported_dim(dh):
         raise ValueError(f"flash_chunked_attention kernels are compiled for "
                          f"Dh in (16, 32, 64, 128), not {dh}")
     for which in launches:
-        smem = lib.fca_chunk_smem_bytes(which, _DTYPES[q.dtype], dh, int(vec),
-                                        int(wgmma))
+        smem = lib.fca_chunk_smem_bytes(which, dh, int(wgmma))
         if smem > SMEM_PER_BLOCK:
             raise ValueError(f"flash_chunked_attention launch {which} at "
                              f"Dh={dh} needs {smem} bytes of shared memory, "
@@ -799,7 +806,7 @@ def _launch_chunk_fwd(q, k, v, mask, seed, rate):
     lk = k.shape[2]
     vec = _aligned((q, k, v), q.element_size())
     wgmma = tiled_variant(q, k, v) == "wgmma"
-    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,), vec, wgmma)
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,), wgmma)
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -820,7 +827,8 @@ def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
     if g.stride(-1) != 1:
         g = g.contiguous()
     vec = _aligned((q, k, v, g), q.element_size())
-    lib, scale, drop = _chunk_prepare(q, seed, rate, (1, 2), vec)
+    wgmma = tiled_variant(q, k, v, g, out) == "wgmma"
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (1, 2), wgmma)
     dq = _heads_last(b, lq, h, dh, q)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
@@ -831,8 +839,10 @@ def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
     _kernel_call(lib.fca_chunk_backward, "flash_chunked_attention backward",
                  q, k, v, mask, out, lse, g, dq, dk, dv, delta,
                  _DTYPES[q.dtype], b, h, lq, lk, dh, chunk_head_group(h),
-                 strides, scale, *drop, int(vec))
+                 strides, scale, *drop, int(vec), int(wgmma))
     flash_tower_attention.chunk_bwd_launches += 1
+    if wgmma:
+        flash_tower_attention.chunk_bwd_wgmma_launches += 1
     return dq, dk, dv
 
 
@@ -878,12 +888,14 @@ def _tiled_lib() -> ctypes.CDLL:
     lib = _build.load(_TILED_LIB)
     if lib.ftl_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        # ..., vec, wgmma, stream
+        # ..., vec, wgmma, stream; the backward passes: ..., vec, wgmma,
+        # persistent, stream
         tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, i32,
                 ptr]
+        bwd_tail = tail[:-1] + [i32, ptr]
         lib.ftl_forward.argtypes = [ptr] * 6 + [i32] * 7 + tail
-        lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + tail
-        lib.ftl_dkv.argtypes = [ptr] * 9 + [i32] * 7 + tail
+        lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + bwd_tail
+        lib.ftl_dkv.argtypes = [ptr] * 9 + [i32] * 7 + bwd_tail
         lib.ftl_forward.restype = lib.ftl_dq.restype = i32
         lib.ftl_dkv.restype = i32
         lib.ftl_smem_bytes.argtypes = [i32] * 3
@@ -951,7 +963,12 @@ def _launch_tiled_fwd(q, k, v, mask, seed, rate):
     return out, lse
 
 
-def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
+def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate,
+                     persistent=None):
+    """Kernel 7; `persistent` (None: TILED_BWD_PERSISTENT) picks the wgmma
+    passes' grid, which chip_smoke.py times both ways."""
+    if persistent is None:
+        persistent = TILED_BWD_PERSISTENT
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
@@ -964,14 +981,19 @@ def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
         *g.stride()[:3], *dq.stride()[:3])
     _kernel_call(lib.ftl_dq, "flash_tiled_attention dq", q, k, v, mask, out,
                  lse, g, dq, delta, _DTYPES[q.dtype], b, h, lq, lk, dh,
-                 head_group(h), strides, scale, *drop, int(vec), int(wgmma))
+                 head_group(h), strides, scale, *drop, int(vec), int(wgmma),
+                 int(persistent))
     flash_tower_attention.tiled_dq_launches += 1
     if wgmma:
         flash_tower_attention.tiled_dq_wgmma_launches += 1
     return dq, delta
 
 
-def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
+def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate,
+                      persistent=None):
+    """Kernel 8; `persistent` as `_launch_tiled_dq`'s."""
+    if persistent is None:
+        persistent = TILED_BWD_PERSISTENT
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
@@ -984,7 +1006,8 @@ def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
         *dk.stride()[:3], *dv.stride()[:3])
     _kernel_call(lib.ftl_dkv, "flash_tiled_attention dk/dv", q, k, v, mask,
                  lse, delta, g, dk, dv, _DTYPES[q.dtype], b, h, lq, lk, dh,
-                 head_group(h), strides, scale, *drop, int(vec), int(wgmma))
+                 head_group(h), strides, scale, *drop, int(vec), int(wgmma),
+                 int(persistent))
     flash_tower_attention.tiled_dkv_launches += 1
     if wgmma:
         flash_tower_attention.tiled_dkv_wgmma_launches += 1
@@ -1133,8 +1156,8 @@ def flash_tower_attention(
     launches of kernels 2/3 (`.tc_fwd_launches` / `.tc_bwd_launches` those
     of them on the tensor-core variant), `.chunk_fwd_launches` /
     `.chunk_bwd_launches` those of kernels 4/5 (a backward's two launches
-    count once; `.chunk_fwd_wgmma_launches` those of kernel 4 on the wgmma
-    variant), and `.tiled_fwd_launches` / `.tiled_dq_launches` /
+    count once; `.chunk_fwd_wgmma_launches` / `.chunk_bwd_wgmma_launches`
+    those of kernels 4 and 5 on the wgmma variant), and `.tiled_fwd_launches` / `.tiled_dq_launches` /
     `.tiled_dkv_launches` those of kernels 6, 7 and 8
     (`.tiled_fwd_wgmma_launches` / `.tiled_dq_wgmma_launches` /
     `.tiled_dkv_wgmma_launches` those of them on the wgmma variant)."""
@@ -1157,6 +1180,7 @@ flash_tower_attention.tiled_fwd_launches = 0
 flash_tower_attention.tiled_dq_launches = 0
 flash_tower_attention.tiled_dkv_launches = 0
 flash_tower_attention.chunk_fwd_wgmma_launches = 0
+flash_tower_attention.chunk_bwd_wgmma_launches = 0
 flash_tower_attention.tiled_fwd_wgmma_launches = 0
 flash_tower_attention.tiled_dq_wgmma_launches = 0
 flash_tower_attention.tiled_dkv_wgmma_launches = 0

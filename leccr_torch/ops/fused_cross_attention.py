@@ -4,7 +4,10 @@ The port of `leccr_tpu/ops/pallas_attention.py`: one hand-written CUDA
 kernel (`csrc/fused_cross_attention.cu`) computes softmax(q kᵀ/√d + mask) v
 with every score and probability kept on chip, in f32 whatever the input
 dtype, with padded keys set to f32 min (so an all-padded row gives the mean
-of v, never NaN).
+of v, never NaN).  It has three bodies, picked from the shapes alone
+(`fused_body`): few queries (Lq ≤ 16: the slots attending the caption or
+vision tokens), few keys (Lk ≤ 16: the vision tokens attending the slots)
+and one for every other shape or view.
 
 `fused_cross_attention` is the wrapper: for CUDA tensors it launches the
 kernel (or raises), for CPU tensors it runs the plain PyTorch version
@@ -23,8 +26,25 @@ from leccr_torch.ops import _build
 
 _LIB = "fused_cross_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-WARPS = 8  # threads per block / 32: one query row per warp
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
+FEW = 16  # the few-queries body takes Lq <= FEW, the few-keys body Lk <= FEW
+BODIES = ("general", "few_queries", "few_keys")  # the kernel's body ids
+
+
+def fused_body(lq: int, lk: int, dh: int, item: int, aligned: bool) -> str:
+    """Which body of the kernel a call runs, from the shapes alone: the
+    two small bodies take rows that load 16 bytes at a time (`aligned`:
+    16-byte aligned rows) in 4, 8 or 16 such chunks (Dh·item = 64, 128 or
+    256 bytes) — "few_keys" for Lk ≤ FEW, else "few_queries" for Lq ≤ FEW
+    and Dh ≤ 128; every other call takes "general".  At the embed_images
+    shapes (Lq, Lk) = (4, 200) and (4, 145) take few_queries, (145, 4)
+    few_keys."""
+    chunks = dh * item // 16 if aligned and dh * item % 16 == 0 else 0
+    if chunks in (4, 8, 16) and lk <= FEW:
+        return "few_keys"
+    if chunks in (4, 8, 16) and lq <= FEW and dh <= 128:
+        return "few_queries"
+    return "general"
 
 
 def fused_cross_attention_reference(
@@ -79,9 +99,9 @@ def _lib() -> ctypes.CDLL:
     if lib.fca_forward.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fca_forward.argtypes = [ptr] * 5 + [i32] * 6 + [
-            ptr, ctypes.c_float, i32, i32, ptr]
+            ptr, ctypes.c_float, i32, i32, ptr]  # ..., vec, body, stream
         lib.fca_forward.restype = i32
-        lib.fca_smem_bytes.argtypes = [i32] * 3
+        lib.fca_smem_bytes.argtypes = [i32] * 5
         lib.fca_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -96,33 +116,36 @@ def _launch(q, k, v, padding_mask) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _lib()
-    smem = lib.fca_smem_bytes(lk, dh, WARPS)
+    # 16-byte loads need 16-byte aligned rows spanning whole 16-byte words
+    item = q.element_size()
+    vec = all(t.data_ptr() % 16 == 0
+              and all(st * item % 16 == 0 for st in t.stride()[:3])
+              for t in (q, k, v)) and dh * item % 16 == 0
+    body = fused_body(lq, lk, dh, item, vec)
+    smem = lib.fca_smem_bytes(BODIES.index(body), lq, lk, dh,
+                              _DTYPES[q.dtype])
     if smem > SMEM_PER_BLOCK:
         raise ValueError(
             f"fused_cross_attention stages K and V of one head in shared "
-            f"memory: Lk={lk}, Dh={dh} needs {smem} bytes, more than the "
-            f"{SMEM_PER_BLOCK} a block may use")
+            f"memory: the {body} body at Lq={lq}, Lk={lk}, Dh={dh} needs "
+            f"{smem} bytes, more than the {SMEM_PER_BLOCK} a block may use")
     mask = None
     if padding_mask is not None:  # the kernel reads one byte per key
         mask = (padding_mask if padding_mask.dtype == torch.bool
                 else padding_mask != 0).contiguous()
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    # 16-byte loads need 16-byte aligned rows spanning whole 16-byte words
-    item = q.element_size()
-    vec = all(t.data_ptr() % 16 == 0
-              and all(st * item % 16 == 0 for st in t.stride()[:3])
-              for t in (q, k, v)) and dh * item % 16 == 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fca_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, h, lq, lk, dh, strides,
-            1.0 / (dh ** 0.5), WARPS, int(vec), stream)
+            1.0 / (dh ** 0.5), int(vec), BODIES.index(body), stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_cross_attention kernel launch failed: CUDA error {rc}")
+    fused_cross_attention.launches_by_body[body] += 1
     fused_cross_attention.launches += 1
     return out
 
@@ -153,10 +176,12 @@ def fused_cross_attention(
     q: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh] (bf16 or f32, feature dim
     contiguous); padding_mask: [B, Lk] (nonzero/True = padding) or None.
     Returns [B, H, Lq, Dh] in q's dtype.  `fused_cross_attention.launches`
-    counts the kernel's launches.
+    counts the kernel's launches, `.launches_by_body` those of each body
+    (`fused_body`; they sum to `.launches`).
     """
     _check(q, k, v, padding_mask)
     return _FusedCrossAttention.apply(q, k, v, padding_mask)
 
 
 fused_cross_attention.launches = 0
+fused_cross_attention.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -1,10 +1,11 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels have no CPU mode.
 
-The fused cross-attention kernel (eval), the single-block flash
-tower-attention kernels 2/3, the chunked kernels 4/5 and the tiled kernels
-6/7/8 (training, forward and backward; 4, 6, 7 and 8 on their wgmma
-variant in bf16), and the fused InfoNCE kernels 9-11 against their plain
-versions on the card, and the launch counters that show a path went
+The fused cross-attention kernel (eval; its few-queries, few-keys and
+general bodies), the single-block flash tower-attention kernels 2/3, the
+chunked kernels 4/5 and the tiled kernels 6/7/8 (training, forward and
+backward; 4-8 on their wgmma variant in bf16, the backward passes on their
+persistent schedule), and the fused InfoNCE kernels 9-11 against their
+plain versions on the card, and the launch counters that show a path went
 through them.
 
 They import neither JAX nor the JAX package, so they also run where JAX is
@@ -20,6 +21,7 @@ from chip_smoke import (
     BF16_K,
     WGMMA_OF,
     bf16_k_needed,
+    chunk_bwd_masks,
     flash_term_scales,
     fwd_masks,
     infonce_errors,
@@ -33,6 +35,8 @@ from chip_smoke import (
 )
 from leccr_torch.ops import infonce
 from leccr_torch.ops.flash_attention import (
+    _launch_tiled_dkv,
+    _launch_tiled_dq,
     chunk_head_group,
     flash_chunked_attention_bwd,
     flash_chunked_attention_bwd_reference,
@@ -54,6 +58,7 @@ from leccr_torch.ops.flash_attention import (
     tiled_variant,
 )
 from leccr_torch.ops.fused_cross_attention import (
+    fused_body,
     fused_cross_attention,
     fused_cross_attention_reference,
 )
@@ -94,6 +99,112 @@ def test_kernel_matches_plain_version(lq, lk, dtype):
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,aligned,body", [
+    (1, 200, True, "few_queries"), (16, 200, True, "few_queries"),
+    (4, 145, True, "few_queries"), (145, 1, True, "few_keys"),
+    (145, 16, True, "few_keys"), (4, 4, True, "few_keys"),
+    (17, 4, True, "few_keys"), (145, 17, True, "general"),
+    (4, 200, False, "general")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_bodies_match_plain_version(lq, lk, aligned, body, dtype):
+    """Each body of kernel 1 at the edges of its class (one query, 16
+    queries, one key, 16 keys, 17 queries against 4 keys; 17 keys and an
+    unaligned view on the general body) against its plain version, B=8,
+    H=8, Dh=64, head-split views, a fully padded row (the mean of v): f32
+    atol 1e-5, bf16 atol 1e-5 plus 1 bf16 ulp of the output.  The launch
+    counts on the body `fused_body` picks."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(lq * 7 + lk)
+    q, k, v = (torch.randn(8, n, 8, 64, device="cuda", generator=g)
+               .to(dtype) for n in (lq, lk, lk))
+    if not aligned:  # rows one element past a 16-byte boundary
+        buf = k.new_empty(k.numel() + 1)[1:]
+        k = buf.view(k.shape).copy_(k)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    pad = torch.rand(8, lk, device="cuda", generator=g) < 0.3
+    pad[0] = True
+    pad[1] = False
+    assert fused_body(lq, lk, 64, q.element_size(), aligned) == body
+    before = dict(fused_cross_attention.launches_by_body)
+    got = fused_cross_attention(q, k, v, pad).float()
+    assert {n: c - before[n] for n, c in
+            fused_cross_attention.launches_by_body.items()
+            if c != before[n]} == {body: 1}
+    want = fused_cross_attention_reference(q, k, v, pad).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    mean_v = v[0].float().mean(dim=1, keepdim=True).expand(-1, lq, -1)
+    assert (got[0] - mean_v).abs().max().item() <= 1e-2
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert ((got - want).abs() <= 1e-5 + _bf16_ulp(want)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [16, 3])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 129, 577])
+def test_persistent_chunked_backward_matches_plain_version(length, heads):
+    """Kernel 5 on the wgmma passes' persistent schedule (bf16, Dh = 64,
+    the path's layout) at ragged lengths around the 64-row tiles and
+    128-row items, key padding with a fully padded row, dropout 0.1, 16
+    heads (head group 2) and 3 (head group 1), batch 2 (fewer items than
+    SMs) and 24 (more): the bf16 term-sum tolerance of the chunked rules;
+    its dq-pass and dk/dv-pass dropout masks, read back bit for bit, equal
+    the plain hash."""
+    _needs_card()
+    seed, rate = 77, 0.1
+    for batch in (2, 24):
+        q, k, v, grad, pad = _flash_inputs(batch, length, torch.bfloat16,
+                                           True, seed=length, heads=heads)
+        before = wgmma_counts()
+        out, lse = flash_chunked_attention_fwd(q, k, v, pad, seed, rate)
+        assert tiled_variant(q, k, v, grad, out) == "wgmma"
+        grads = flash_chunked_attention_bwd(q, k, v, pad, out, lse, grad,
+                                            seed, rate)
+        assert wgmma_launched(before, chunk_fwd=1, chunk_bwd=1)
+        want_out, want_lse = flash_chunked_attention_fwd_reference(
+            q, k, v, pad, seed, rate)
+        want_grads = flash_chunked_attention_bwd_reference(
+            q, k, v, pad, want_out, want_lse, grad, seed, rate)
+        torch.cuda.synchronize()
+        assert all((d[0] == 0).all() for d in grads)
+        scales = flash_term_scales(q, k, v, pad, want_lse, grad, seed, rate,
+                                   out=want_out)
+        for name, got, want in zip(("dq", "dk", "dv"), grads, want_grads):
+            assert torch.isfinite(got).all()
+            assert bf16_k_needed(got, want, scales[name]) <= BF16_K, name
+    want = tile_keep_mask(seed, 2, heads, length, length, rate,
+                          device="cuda", hg=chunk_head_group(heads)) != 0
+    for got in chunk_bwd_masks(2, heads, length, torch.bfloat16, rate, seed):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,masked,rate", [(2705, False, 0.0),
+                                                (1000, True, 0.1)])
+def test_tiled_backward_schedules_agree(length, masked, rate):
+    """Kernels 7 and 8 on the persistent grid and on one block per item
+    give the same bits: each output row is summed by one block in the same
+    order either way."""
+    _needs_card()
+    q, k, v, grad, pad = _flash_inputs(2, length, torch.bfloat16, masked,
+                                       heads=16)
+    mask = None if pad is None else pad.contiguous()
+    out, lse = flash_tiled_attention_fwd(q, k, v, pad, 5, rate)
+    results = []
+    for persistent in (False, True):
+        dq, delta = _launch_tiled_dq(q, k, v, mask, out, lse, grad, 5, rate,
+                                     persistent)
+        dk, dv = _launch_tiled_dkv(q, k, v, mask, lse, delta, grad, 5, rate,
+                                   persistent)
+        results.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
 
 
 def _flash_inputs(batch, length, dtype, masked, seed=0, heads=12, dh=64,
@@ -219,7 +330,7 @@ def test_chunked_kernels_match_plain_versions(shape, dtype, dh):
     """Kernels 4 and 5 against their plain versions: ViT-L/14 @336 (577
     tokens, 16 heads, no mask, rate 0) and the 200-token text bucket (key
     padding with a fully padded row, rate 0.1), batch cut to 4; bf16 at
-    Dh=64 takes the tensor-core kernels, every other case the scalar ones.
+    Dh=64 takes the wgmma kernels, every other case the scalar ones.
     Tolerances as kernels 2/3's, with the chunked rounding points in the
     term sums."""
     _needs_card()

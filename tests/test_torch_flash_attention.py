@@ -344,7 +344,8 @@ def test_bf16_plain_versions_match_interpret_at_flagship_width():
 def test_profiled_kernel_names_map_to_their_kernels():
     """chip_smoke's profile sums kernels 2/3 by their function names, the
     scalar variant's (templates) and the tensor-core one's alike, kernels
-    4 and 6-8 in their scalar and wgmma variants, and keeps kernels 4-11
+    4-8 in their scalar and wgmma variants (kernel 5's and kernels 7/8's
+    wrappers of the shared wgmma passes apart), and keeps kernels 4-11
     and library kernels apart."""
     ns = "(anonymous namespace)"
     names = {
@@ -358,7 +359,10 @@ def test_profiled_kernel_names_map_to_their_kernels():
         f"void {ns}::bwd_dkv_tc_kernel({ns}::Params)": "single_bwd",
         f"void {ns}::chunk_fwd_wgmma_kernel({ns}::FwdMaps, {ns}::Params)":
             "chunked",
-        f"void {ns}::chunk_bwd_dq_tc_kernel({ns}::Params)": "chunked",
+        f"void {ns}::chunk_bwd_dq_wgmma_kernel({ns}::WgMaps, {ns}::Params)":
+            "chunked",
+        f"void {ns}::chunk_bwd_dkv_wgmma_kernel({ns}::WgMaps, {ns}::Params)":
+            "chunked",
         f"void {ns}::chunk_bwd_dkv_kernel<float, 64>({ns}::Params)":
             "chunked",
         f"void {ns}::tiled_fwd_wgmma_kernel({ns}::FwdMaps, {ns}::Params)":
@@ -367,9 +371,9 @@ def test_profiled_kernel_names_map_to_their_kernels():
         f"void {ns}::tiled_dq_kernel<float, 64>({ns}::Params)": "tiled_dq",
         f"void {ns}::tiled_dkv_kernel<__nv_bfloat16, 32>({ns}::Params)":
             "tiled_dkv",
-        f"void {ns}::wgmma_dq_kernel({ns}::WgMaps, {ns}::Params)":
+        f"void {ns}::tiled_dq_wgmma_kernel({ns}::WgMaps, {ns}::Params)":
             "tiled_dq",
-        f"void {ns}::wgmma_dkv_kernel({ns}::WgMaps, {ns}::Params)":
+        f"void {ns}::tiled_dkv_wgmma_kernel({ns}::WgMaps, {ns}::Params)":
             "tiled_dkv",
         f"void {ns}::infonce_bwd_kernel<false>({ns}::Args)": "infonce",
         "void at::native::vectorized_elementwise_kernel<4, "

@@ -3,10 +3,13 @@ the JAX package's Pallas kernel run in interpret mode.
 
 Shapes are the three (Lq, Lk) pairs of the embed_images path scaled down:
 (n_queries, caption tokens), (visual tokens, n_queries) and
-(n_queries, visual tokens).  Tolerances: f32 atol 1e-5 (the same f32 math,
-summed in another order); bf16 inputs the same 1e-5 plus 1 bf16 ulp of the
-output (both sides round an f32 result to bf16 once, so f32 noise can move
-it by one ulp).
+(n_queries, visual tokens), and the edges of the kernel's bodies (one
+query, one key, 16 and 17 keys).  Tolerances: f32 atol 1e-5 (the same f32
+math, summed in another order); bf16 inputs the same 1e-5 plus 1 bf16 ulp
+of the output (both sides round an f32 result to bf16 once, so f32 noise
+can move it by one ulp).  Also the shape rule that picks the body
+(`fused_body`); the bodies themselves run only on the card
+(tests/test_torch_cuda.py).
 """
 
 import jax.numpy as jnp
@@ -15,6 +18,8 @@ import pytest
 import torch
 
 from leccr_torch.ops.fused_cross_attention import (
+    FEW,
+    fused_body,
     fused_cross_attention,
     fused_cross_attention_reference,
 )
@@ -22,6 +27,7 @@ from leccr_tpu.ops.pallas_attention import \
     fused_cross_attention as jax_fused_cross_attention
 
 SHAPES = [(4, 20), (15, 4), (4, 15)]  # (Lq, Lk) at B=3, H=4, Dh=16
+EDGES = [(1, 20), (15, 1), (15, 16), (15, 17)]  # one query, one key, FEW
 B, H, DH = 3, 4, 16
 
 
@@ -70,6 +76,70 @@ def test_reference_matches_pallas_bf16(lq, lk):
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
     assert (np.abs(got - want) <= 1e-5 + _bf16_ulp(want)).all()
+
+
+@pytest.mark.parametrize("lq,lk", EDGES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_matches_pallas_at_body_edges(lq, lk, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at the
+    edges of the kernel's bodies, with a fully padded row (the mean of v)
+    and, at Lk = 1, rows whose one key is padded."""
+    q, k, v, pad = _inputs(lq, lk, seed=31 + lq * 3 + lk)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = np.asarray(jax_fused_cross_attention(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(pad),
+        True)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = fused_cross_attention_reference(
+        *(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+        torch.from_numpy(pad))
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(
+            got[0], np.broadcast_to(v[0].mean(axis=1, keepdims=True),
+                                    got[0].shape), rtol=0, atol=1e-5)
+    else:
+        assert (np.abs(got - want) <= 1e-5 + _bf16_ulp(want)).all()
+
+
+@pytest.mark.parametrize("lq,lk,dh,item,aligned,want", [
+    (4, 200, 64, 2, True, "few_queries"),   # slots x caption tokens
+    (145, 4, 64, 2, True, "few_keys"),      # vision tokens x slots
+    (4, 145, 64, 2, True, "few_queries"),   # slots x vision tokens
+    (1, 200, 64, 2, True, "few_queries"),
+    (FEW, 200, 64, 2, True, "few_queries"),
+    (FEW + 1, 200, 64, 2, True, "general"),
+    (145, 1, 64, 2, True, "few_keys"),
+    (145, FEW, 64, 2, True, "few_keys"),
+    (145, FEW + 1, 64, 2, True, "general"),
+    (4, 4, 64, 2, True, "few_keys"),
+    (4, 200, 64, 4, True, "few_queries"),   # f32: 16 chunks a row
+    (145, 4, 64, 4, True, "few_keys"),
+    (4, 200, 64, 2, False, "general"),      # an unaligned view
+    (145, 4, 64, 2, False, "general"),
+    (145, 4, 48, 2, True, "general"),       # 6 chunks of 16 bytes a row
+    (4, 200, 16, 2, True, "general"),       # 2 chunks
+    (4, 200, 256, 2, True, "general"),      # 32 chunks
+    (145, 4, 12, 2, True, "general"),       # rows of 24 bytes
+])
+def test_body_chooser(lq, lk, dh, item, aligned, want):
+    """The body from the shapes alone: the embed_images shapes take the
+    few-queries and few-keys bodies; the class edges (16 queries or keys
+    in, 17 out), unaligned views and rows of other than 4, 8 or 16 chunks
+    of 16 bytes go to the general one."""
+    assert fused_body(lq, lk, dh, item, aligned) == want
+
+
+def test_cpu_wrapper_counts_no_body():
+    """On CPU tensors no body's launch is counted."""
+    q, k, v, pad = (torch.from_numpy(x) for x in _inputs(4, 20, seed=13))
+    before = dict(fused_cross_attention.launches_by_body)
+    fused_cross_attention(q, k, v, pad)
+    assert fused_cross_attention.launches_by_body == before
+    assert set(before) == {"general", "few_queries", "few_keys"}
 
 
 def test_no_mask_matches_pallas():

@@ -102,8 +102,8 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122chunk_fwd_wgmma_ker
 ptxas info    : Function properties for _ZN12_GLOBAL__N_122chunk_fwd_wgmma_kernelENS_7FwdMapsENS_6ParamsE
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers, 1536 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115wgmma_dq_kernelENS_6WgMapsENS_6ParamsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_115wgmma_dq_kernelENS_6WgMapsENS_6ParamsE
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121tiled_dq_wgmma_kernelENS_6WgMapsENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121tiled_dq_wgmma_kernelENS_6WgMapsENS_6ParamsE
     8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 168 registers, used 16 barriers, 1536 bytes cmem[0]
 """
@@ -116,7 +116,8 @@ def test_ptxas_report_reads_registers_and_spills():
     got = chip_smoke.ptxas_report(_PTXAS_LOG, chip_smoke.WGMMA_KERNELS)
     assert got["chunk_fwd_wgmma_kernel"] == {
         "registers": 168, "spill_stores": 0, "spill_loads": 0}
-    assert got["wgmma_dq_kernel"] == {
+    assert got["tiled_dq_wgmma_kernel"] == {
         "registers": 168, "spill_stores": 12, "spill_loads": 16}
     assert got["tiled_fwd_wgmma_kernel"] is None
-    assert got["wgmma_dkv_kernel"] is None
+    assert got["tiled_dkv_wgmma_kernel"] is None
+    assert got["chunk_bwd_dq_wgmma_kernel"] is None
