@@ -8,7 +8,8 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
 1. device + build: the card's name and power limit (nvidia-smi), then the
    CUDA kernels built from `leccr_torch/csrc/` with nvcc, one process per
    source, side by side (seconds, ptxas report; the wgmma kernels of 4-8,
-   both files' wrappers, must show 0 spill bytes).
+   both files' wrappers, and the InfoNCE kernels 9-11 with their merge
+   passes must show 0 spill bytes).
 2. kernel 1 vs plain: the fused cross-attention kernel against its plain
    PyTorch version at the three embed_images shapes (B=64, H=8, Dh=64;
    (Lq, Lk) = (4,200), (145,4), (4,145)) in bf16 and f32, with random key
@@ -75,11 +76,15 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    INFONCE_SHAPES: the large-batch step's [4096] x [4096] (idx = arange),
    the same with every id twice, a ragged [1000] x [1000], a ring block
    [256] x [32768] (q's ids a subset of k's, some rows without a positive)
-   and [32768] x [32768].  Tolerance: lse and pos_sum within 1e-5 of
-   max(1, |x|), pos_cnt exact, dq_raw and dk_raw within 1e-4 of their
-   largest element.  Timed beside the bound (flops at 67 TFLOP/s f32), the
-   plain versions and the dense composition the port does not call (no
-   single PyTorch call computes them).  Then the whole loss (compute_losses
+   and [32768] x [32768]; untimed, [33] x [4097] with every id twice (a
+   ragged last tile, a last split of one column).  Tolerance: lse and
+   pos_sum within 1e-5 of max(1, |x|), pos_cnt exact, dq_raw and dk_raw
+   within 1e-4 of their largest element; two calls of each kernel
+   bit-identical at [4096] x [4096].  Timed beside the bound (flops at 67
+   TFLOP/s f32), the plain versions and the dense composition the port
+   does not call (no single PyTorch call computes them), with the split
+   grid each launched (`split_plan`: splits, blocks), TFLOP/s and ms /
+   bound.  Then the whole loss (compute_losses
    forward + backward on 4096 random embeddings at the flagship's widths):
    fused + streaming against dense gather, time and peak memory, the 10
    keys within 1e-4 of max(1, |x|).
@@ -252,8 +257,15 @@ INFONCE_SHAPES = [("path", LARGE_BATCH, LARGE_BATCH, "arange"),
                   ("ragged", 1000, 1000, "ragged"),
                   ("ring", 256, 32768, "ring"),
                   ("32k", 32768, 32768, "arange")]
+# correctness only, not timed: a ragged last tile and a last split of one
+# column (4097 = 32 * 128 + 1), every id twice
+INFONCE_CHECK_SHAPES = [("split-edge", 33, 4097, "half")]
 INFONCE_DIM = 256
 INFONCE_INV_TEMP = 1.0 / 0.07
+# the __global__ functions of kernels 9-11 and their merge passes
+INFONCE_KERNELS = ("infonce_stats_kernel", "infonce_stats_merge_kernel",
+                   "infonce_bwd_dq_kernel", "infonce_bwd_dk_kernel",
+                   "infonce_bwd_merge_kernel")
 WORDS = ("a man woman dog child rides walks runs red blue green bike street "
          "field beach ball water in on the with his her two people").split()
 
@@ -1308,10 +1320,14 @@ def infonce_ids(kind: str, m: int, n: int, device):
     return ar(m), ar(n)
 
 
-def infonce_errors(stats, want, grads, want_grads):
+def infonce_errors(stats, want, grads, want_grads, softmax_terms=None):
     """Kernels 9-11 against their plain versions: lse and pos_sum as
     max |Δ| / max(1, |plain|), pos_cnt as max |Δ|, dq_raw and dk_raw as
-    max |Δ| / max |plain|; under "abs" the max absolute errors."""
+    max |Δ| / max |plain|; under "abs" the max absolute errors.  Where a
+    plain gradient is all zero (w = softmax − labels cancels exactly, as at
+    [1] x [1] with one positive), its largest element is taken from
+    `softmax_terms()`: the plain (dq_raw, dk_raw) of the softmax term
+    alone, the terms that cancelled."""
     errs, absolute = {}, {}
     for name, got, ref in zip(("lse", "pos_sum", "pos_cnt", "dq", "dk"),
                               (*stats, *grads), (*want, *want_grads)):
@@ -1322,53 +1338,97 @@ def infonce_errors(stats, want, grads, want_grads):
         elif name == "pos_cnt":
             errs[name] = absolute[name]
         else:
-            errs[name] = absolute[name] / ref.abs().max().item()
+            scale = ref.abs().max().item()
+            if scale == 0 and softmax_terms is not None:
+                scale = softmax_terms()[name == "dk"].abs().max().item()
+            errs[name] = absolute[name] / scale if scale > 0 else (
+                0.0 if absolute[name] == 0 else math.inf)
     return {**errs, "abs": absolute}
 
 
-def infonce_phase(iters: int = 20):
-    """Kernels 9, 10 and 11 against their plain versions at INFONCE_SHAPES
-    (E = 256, unit-norm rows, inv_temp 1/0.07 as a device tensor; the
-    backward kernels take the plain lse and pos_cnt).  Tolerance: lse and
-    pos_sum within 1e-5 of max(1, |x|), pos_cnt exact, dq_raw and dk_raw
-    within 1e-4 of their largest element.  Each kernel, its plain version
-    and the dense composition the port does not call (q kᵀ, logsumexp and
-    the masked sums; for the backward the autograd of that dense half loss,
-    which gives dq and dk together) are timed with the L2 flushed, beside
-    the bound: flops at the f32 rate against the bytes in and out."""
+def infonce_check(m: int, n: int, ids: str, e: int = INFONCE_DIM,
+                  name: str = ""):
+    """Kernels 9, 10 and 11 against their plain versions at q [m, e],
+    k [n, e] (unit-norm rows from a seeded generator, `infonce_ids(ids)`,
+    inv_temp 1/0.07 as a device tensor; the backward kernels take the plain
+    lse and pos_cnt).  Tolerance: lse and pos_sum within 1e-5 of
+    max(1, |x|), pos_cnt exact, dq_raw and dk_raw within 1e-4 of their
+    largest element (of the softmax term's where they are all zero:
+    `infonce_errors`); every output finite.  Returns (args, plain lse, plain
+    pos_cnt, errors, the (row tiles, splits) each kernel launched)."""
     import torch
     import torch.nn.functional as F
 
     from leccr_torch.ops import infonce
 
+    g = torch.Generator(device="cuda").manual_seed(m + n)
+    q, k = (F.normalize(torch.randn(r, e, device="cuda", generator=g),
+                        dim=-1) for r in (m, n))
+    iq, ik = infonce_ids(ids, m, n, "cuda")
+    invt = torch.tensor(INFONCE_INV_TEMP, device="cuda")
+    args = (q, k, iq, ik, invt)
+    stats = infonce.infonce_stats(*args)
+    want = infonce.infonce_stats_reference(*args)
+    lse, pc = want[0], want[2]
+    grads = (infonce.infonce_bwd_dq(*args, lse, pc),
+             infonce.infonce_bwd_dk(*args, lse, pc))
+    want_grads = (infonce.infonce_bwd_dq_reference(*args, lse, pc),
+                  infonce.infonce_bwd_dk_reference(*args, lse, pc))
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(t).all() for t in (*stats, *grads)):
+        raise AssertionError(f"non-finite InfoNCE kernel output {name}")
+    no_match = torch.full_like(ik, min(iq.min(), ik.min()).item() - 1)
+    errs = infonce_errors(stats, want, grads, want_grads, lambda: (
+        infonce.infonce_bwd_dq_reference(q, k, iq, no_match, invt, lse, pc),
+        infonce.infonce_bwd_dk_reference(q, k, iq, no_match, invt, lse, pc)))
+    if not (errs["pos_cnt"] == 0 and errs["lse"] <= 1e-5
+            and errs["pos_sum"] <= 1e-5 and errs["dq"] <= 1e-4
+            and errs["dk"] <= 1e-4):
+        raise AssertionError(f"InfoNCE kernels disagree with their plain "
+                             f"versions at {name} [{m}] x [{n}], E={e}: "
+                             f"{errs}")
+    return args, lse, pc, errs, dict(infonce.last_grid)
+
+
+def infonce_deterministic(args, lse, pc) -> bool:
+    """Two calls of each of kernels 9, 10 and 11 give the same bits."""
+    import torch
+
+    from leccr_torch.ops import infonce
+
+    runs = [(*infonce.infonce_stats(*args),
+             infonce.infonce_bwd_dq(*args, lse, pc),
+             infonce.infonce_bwd_dk(*args, lse, pc)) for _ in range(2)]
+    return all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def infonce_phase(iters: int = 20):
+    """Kernels 9, 10 and 11 against their plain versions (`infonce_check`)
+    at INFONCE_SHAPES and, untimed, INFONCE_CHECK_SHAPES; two calls of each
+    bit-identical at the path shape.  Each kernel, its plain version and
+    the dense composition the port does not call (q kᵀ, logsumexp and the
+    masked sums; for the backward the autograd of that dense half loss,
+    which gives dq and dk together) are timed with the L2 flushed, beside
+    the bound: flops at the f32 rate against the bytes in and out; each
+    kernel's row gives the grid it launched (splits, blocks), TFLOP/s and
+    ms / bound."""
+    import torch
+
+    from leccr_torch.ops import infonce
+
+    for name, m, n, ids in INFONCE_CHECK_SHAPES:
+        errs, grid = infonce_check(m, n, ids, name=name)[3:]
+        emit("infonce_check", shape=name, m=m, n=n, e=INFONCE_DIM, ids=ids,
+             errors=errs, grid=grid)
     flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     e = INFONCE_DIM
     results = []
     for name, m, n, ids in INFONCE_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(m + n)
-        q, k = (F.normalize(torch.randn(r, e, device="cuda", generator=g),
-                            dim=-1) for r in (m, n))
-        iq, ik = infonce_ids(ids, m, n, "cuda")
-        invt = torch.tensor(INFONCE_INV_TEMP, device="cuda")
-        args = (q, k, iq, ik, invt)
-        stats = infonce.infonce_stats(*args)
-        want = infonce.infonce_stats_reference(*args)
-        lse, pc = want[0], want[2]
-        grads = (infonce.infonce_bwd_dq(*args, lse, pc),
-                 infonce.infonce_bwd_dk(*args, lse, pc))
-        want_grads = (infonce.infonce_bwd_dq_reference(*args, lse, pc),
-                      infonce.infonce_bwd_dk_reference(*args, lse, pc))
-        torch.cuda.synchronize()
-        if not all(torch.isfinite(t).all() for t in (*stats, *grads)):
-            raise AssertionError(f"non-finite InfoNCE kernel output {name}")
-        errs = infonce_errors(stats, want, grads, want_grads)
-        if not (errs["pos_cnt"] == 0 and errs["lse"] <= 1e-5
-                and errs["pos_sum"] <= 1e-5 and errs["dq"] <= 1e-4
-                and errs["dk"] <= 1e-4):
-            raise AssertionError(f"InfoNCE kernels disagree with their "
-                                 f"plain versions at {name}: {errs}")
-        del stats, want, grads, want_grads
+        args, lse, pc, errs, grid = infonce_check(m, n, ids, name=name)
+        q, k, iq, ik, invt = args
+        if name == "path" and not infonce_deterministic(args, lse, pc):
+            raise AssertionError("two calls of an InfoNCE kernel differ")
         qg, kg = (t.detach().requires_grad_(True) for t in (q, k))
 
         def dense_stats():
@@ -1389,6 +1449,7 @@ def infonce_phase(iters: int = 20):
         composition_bwd = cuda_ms(dense_half_loss_fwd_bwd, flush, it)
         row = {"shape": name, "m": m, "n": n, "e": e, "ids": ids,
                "errors": errs,
+               **({"bit_identical_calls": 2} if name == "path" else {}),
                "tolerance": "lse, pos_sum: |Δ| <= 1e-5 max(1, |x|); "
                             "pos_cnt exact; dq_raw, dk_raw: |Δ| <= 1e-4 "
                             "max |x|"}
@@ -1409,12 +1470,16 @@ def infonce_phase(iters: int = 20):
                  composition_bwd)):
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+            ms = cuda_ms(fn, flush, it)
+            row_tiles, splits = grid[kernel]
             row[kernel] = {
-                "ms": cuda_ms(fn, flush, it),
-                "plain_ms": cuda_ms(plain, flush, it),
+                "ms": ms, "plain_ms": cuda_ms(plain, flush, it),
                 "composition_ms": comp, "flops": flops, "bytes": n_bytes,
                 "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "splits": splits, "blocks": row_tiles * splits,
+                "tflops": flops / ms * 1e-9,
+                "x_bound": ms / max(t_bytes, t_ops)}
         row["composition"] = (
             "stats: (q @ k.T) * inv_temp, torch.logsumexp and the masked "
             "sums; dq, dk: forward + autograd of that dense half loss (one "
@@ -1781,6 +1846,21 @@ def ptxas_report(log: str, names) -> dict:
             current["registers"] = int(regs.group(1))
     return {name: next((v for k, v in found.items() if name in k), None)
             for name in names}
+
+
+def spill_check(build_module, libs, names) -> dict:
+    """ptxas_report of `names` in the libraries `libs` that this run
+    compiled; raises if one of them spills or is missing, when all of
+    `libs` were compiled here."""
+    built = [n for n in libs if build_module.build_info[n][1]]
+    report = ptxas_report(
+        "\n".join(build_module.build_info[n][1] for n in built), names)
+    if len(built) == len(libs) and not all(
+            r is not None and r["spill_stores"] == r["spill_loads"] == 0
+            for r in report.values()):
+        raise AssertionError(f"a kernel spills or is missing from ptxas' "
+                             f"report: {report}")
+    return report
 
 
 def flash_kernel_of(key: str):
@@ -2155,12 +2235,13 @@ def main() -> int:
          count=torch.cuda.device_count())
     t0 = time.perf_counter()
     _build.build(*KERNEL_LIBS)  # one nvcc per source, side by side
-    # the wgmma kernels (4, 6, 7, 8) in this run's ptxas report: none may
-    # spill (a library found on disk was not compiled, and has no report)
-    streamed = [n for n in ("flash_chunked_attention", "flash_tiled_attention")
-                if _build.build_info[n][1]]
-    wgmma_ptxas = ptxas_report(
-        "\n".join(_build.build_info[n][1] for n in streamed), WGMMA_KERNELS)
+    # the wgmma kernels (4-8) and the InfoNCE kernels (9-11 and their
+    # merges) in this run's ptxas report: none may spill (a library found
+    # on disk was not compiled, and has no report)
+    wgmma_ptxas = spill_check(
+        _build, ("flash_chunked_attention", "flash_tiled_attention"),
+        WGMMA_KERNELS)
+    infonce_ptxas = spill_check(_build, ("fused_infonce",), INFONCE_KERNELS)
     emit("build", kernels=list(KERNEL_LIBS),
          wall_s=time.perf_counter() - t0,
          nvcc_s={n: _build.build_info[n][0] for n in KERNEL_LIBS},
@@ -2168,12 +2249,7 @@ def main() -> int:
                            _build.build_info[n][1].splitlines()
                            if "ptxas info    : Used" in ln})
                 for n in KERNEL_LIBS},
-         wgmma_ptxas=wgmma_ptxas)
-    if len(streamed) == 2 and not all(
-            r is not None and r["spill_stores"] == r["spill_loads"] == 0
-            for r in wgmma_ptxas.values()):
-        raise AssertionError(f"a wgmma kernel spills or is missing from "
-                             f"ptxas' report: {wgmma_ptxas}")
+         wgmma_ptxas=wgmma_ptxas, infonce_ptxas=infonce_ptxas)
 
     shapes = kernel_phase()
     flash = flash_phase()

@@ -14,7 +14,12 @@ w = softmax − labels, recomputed tile by tile from lse, as a flash backward
 does.  Three hand-written CUDA kernels (`csrc/fused_infonce.cu`) compute
 them: kernel 9 the statistics (`infonce_stats`), kernels 10 and 11 the
 unscaled dq_raw = w k and dk_raw = wᵀ q (`infonce_bwd_dq`, `infonce_bwd_dk`,
-both by `infonce_bwd_raw`).
+both by `infonce_bwd_raw`).  Each kernel's grid is row tiles × S splits of
+the streamed side (`split_plan`, from the shape and the card's SM count);
+with S > 1 the blocks write per-split partials to a workspace and a second
+small kernel merges them in split order (plain versions:
+`merge_stats_partials`, `merge_bwd_partials`), so a call's result is the
+same bits every time.
 
 For CUDA tensors the wrappers launch the kernels (or raise); for CPU
 tensors they run the plain PyTorch versions (`*_reference`), which stream
@@ -25,13 +30,14 @@ points take M ≠ N and idx_q ≠ idx_k (a ring block of the multi-device
 loss calls them per block).
 
 `stats_launches`, `dq_launches` and `dk_launches` count the launches of
-kernels 9, 10 and 11.
+kernels 9, 10 and 11 (one a call, the merge included); `last_grid` keeps
+the (row tiles, splits) that each one's last launch ran.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -40,10 +46,15 @@ from leccr_torch.ops import _build
 _LIB = "fused_infonce"
 BLOCK_K = 512  # key columns per step of the plain versions
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
+# (own rows, streamed rows) of a block's tile and of one streamed tile:
+# kernel 9 and kernels 10/11 (`infonce_tile` in csrc/fused_infonce.cu)
+STATS_TILE = (128, 128)
+BWD_TILE = (64, 64)
 
 stats_launches = 0
 dq_launches = 0
 dk_launches = 0
+last_grid: Dict[str, Tuple[int, int]] = {}
 
 Scalar = Union[float, torch.Tensor]
 
@@ -106,6 +117,59 @@ def infonce_bwd_dk_reference(q, k, idx_q, idx_k, inv_temp: Scalar, lse,
         for j0 in range(0, k.shape[0], block_k)])
 
 
+def split_plan(rows: int, cols: int, sm_count: int,
+               tile: Tuple[int, int]) -> Tuple[int, int]:
+    """(splits, tiles a split) of a kernel whose blocks own `tile[0]` of
+    `rows` rows and stream `cols` rows in tiles of `tile[1]`: split s takes
+    the tiles [s·tiles, (s + 1)·tiles), the last split the rest, so every
+    streamed row falls in exactly one split and no split is empty.
+
+    One split where the row tiles alone fill the card's `sm_count` SMs.
+    Otherwise at least the splits that give ~2 blocks an SM (as far as the
+    streamed tiles go), and among those the fewest that minimise waves ×
+    tiles a block: each kernel holds one block an SM (its shared memory),
+    so a grid of B blocks runs in ⌈B / sm_count⌉ waves, each as long as a
+    block's walk over its tiles."""
+    row_tiles = -(-rows // tile[0])
+    col_tiles = -(-cols // tile[1])
+    if row_tiles >= sm_count:
+        return 1, col_tiles
+    want = min(col_tiles, max(1, (2 * sm_count + row_tiles // 2) // row_tiles))
+    best = None
+    for per in range(col_tiles // want, 0, -1):  # ⌈col_tiles / per⌉ ≥ want
+        splits = -(-col_tiles // per)
+        cost = -(-row_tiles * splits // sm_count) * per
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+def merge_stats_partials(partials: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Plain version of kernel 9's merge: partials [S, 4, M] of (max, sum,
+    pos_sum, pos_cnt) over disjoint column splits, merged in split order
+    (logaddexp; a split's empty state is max −inf with sum 0), the sums
+    and counts added.  Returns (lse, pos_sum, pos_cnt), f32 [M] each."""
+    mx = torch.full_like(partials[0, 0], -torch.inf)
+    s = torch.zeros_like(mx)
+    for om, os in partials[:, :2]:
+        new = torch.maximum(mx, om)
+        s = torch.where(new == -torch.inf, 0.0,
+                        s * torch.exp(mx - new) + os * torch.exp(om - new))
+        mx = new
+    return mx + torch.log(s), partials[:, 2].sum(0), partials[:, 3].sum(0)
+
+
+def merge_bwd_partials(partials: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernels 10/11's merge: the sum of partials
+    [S, rows, E] in split order."""
+    out = partials[0].clone()
+    for p in partials[1:]:
+        out += p
+    return out
+
+
 def _check(q, k, idx_q, idx_k) -> None:
     if q.dim() != 2 or k.dim() != 2 or q.shape[1] != k.shape[1]:
         raise ValueError(f"q [M, E] and k [N, E] must share E: "
@@ -123,8 +187,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_LIB)
     if lib.infonce_stats.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.infonce_stats.argtypes = [ptr] * 5 + [i32] * 3 + [ptr] * 4
-        lib.infonce_bwd_dq.argtypes = [ptr] * 7 + [i32] * 3 + [ptr] * 2
+        lib.infonce_tile.argtypes = [i32, i32]
+        lib.infonce_tile.restype = i32
+        for which, tile in enumerate((STATS_TILE, BWD_TILE)):
+            built = (lib.infonce_tile(which, 0), lib.infonce_tile(which, 1))
+            if built != tile:
+                raise RuntimeError(f"{_LIB} tiles {built} are not the "
+                                   f"wrapper's {tile}")
+        lib.infonce_stats.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 5
+        lib.infonce_bwd_dq.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 3
         lib.infonce_bwd_dk.argtypes = lib.infonce_bwd_dq.argtypes
         for fn in (lib.infonce_stats, lib.infonce_bwd_dq, lib.infonce_bwd_dk,
                    lib.infonce_max_dim):
@@ -169,17 +240,34 @@ def _raise_on(rc: int, what: str) -> None:
                            f"CUDA error {rc}")
 
 
+def _grid(which: str, rows: int, cols: int, device, tile, part_shape):
+    """(splits, tiles a split, workspace) of a launch: its split plan on
+    this card, and the f32 partials [splits, *part_shape] (None at one
+    split); records (row tiles, splits) in `last_grid`."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits, tiles = split_plan(rows, cols, sms, tile)
+    last_grid[which] = (-(-rows // tile[0]), splits)
+    part = (torch.empty((splits, *part_shape), dtype=torch.float32,
+                        device=device) if splits > 1 else None)
+    return splits, tiles, part
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_stats(q, k, idx_q, idx_k, inv_temp):
     global stats_launches
     lib, q, k, iq, ik, invt = _operands(q, k, idx_q, idx_k, inv_temp)
-    m, e = q.shape
+    (m, e), n = q.shape, k.shape[0]
     out = torch.empty((3, m), dtype=torch.float32, device=q.device)
+    splits, tiles, part = _grid("stats", m, n, q.device, STATS_TILE, (4, m))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.infonce_stats(q.data_ptr(), k.data_ptr(), iq.data_ptr(),
-                               ik.data_ptr(), invt.data_ptr(), m, k.shape[0],
-                               e, out[0].data_ptr(), out[1].data_ptr(),
-                               out[2].data_ptr(), stream)
+                               ik.data_ptr(), invt.data_ptr(), m, n, e,
+                               splits, tiles, _ptr(part), out[0].data_ptr(),
+                               out[1].data_ptr(), out[2].data_ptr(), stream)
     _raise_on(rc, "stats")
     stats_launches += 1
     return out[0], out[1], out[2]
@@ -194,11 +282,14 @@ def _launch_bwd(q, k, idx_q, idx_k, inv_temp, lse, pos_cnt, which: str):
     (m, e), n = q.shape, k.shape[0]
     out = torch.empty_like(q if which == "dq" else k)
     fn = lib.infonce_bwd_dq if which == "dq" else lib.infonce_bwd_dk
+    own, other = (m, n) if which == "dq" else (n, m)
+    splits, tiles, part = _grid(which, own, other, q.device, BWD_TILE,
+                                (own, e))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), iq.data_ptr(), ik.data_ptr(),
                 invt.data_ptr(), lse.data_ptr(), pos_cnt.data_ptr(), m, n, e,
-                out.data_ptr(), stream)
+                splits, tiles, _ptr(part), out.data_ptr(), stream)
     _raise_on(rc, which)
     if which == "dq":
         dq_launches += 1

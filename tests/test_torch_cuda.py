@@ -24,8 +24,8 @@ from chip_smoke import (
     chunk_bwd_masks,
     flash_term_scales,
     fwd_masks,
-    infonce_errors,
-    infonce_ids,
+    infonce_check,
+    infonce_deterministic,
     path_layout,
     single_masks,
     tc_counts,
@@ -530,41 +530,46 @@ def test_wgmma_forward_matches_plain_version(lq, lk, masked, rate, heads,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,ids", [(1000, 1000, "ragged"),
-                                     (256, 32768, "ring")])
-def test_infonce_kernels_match_plain_versions(m, n, ids):
-    """Kernels 9, 10 and 11 against their plain versions at E = 256,
-    inv_temp 1/0.07 (a device tensor): a ragged [1000] x [1000] with
-    duplicated ids, and a ring block [256] x [32768] whose q ids are a
-    subset of k's with some rows that have no positive.  lse and pos_sum
+@pytest.mark.parametrize("e", [4, 68, 256])
+@pytest.mark.parametrize("m,n,ids", [(4096, 4096, "arange"),
+                                     (1000, 1000, "ragged"),
+                                     (256, 32768, "ring"),
+                                     (33, 4097, "half"),
+                                     (1, 1, "arange")])
+def test_infonce_kernels_match_plain_versions(m, n, ids, e):
+    """Kernels 9, 10 and 11 against their plain versions (chip_smoke's
+    `infonce_check`: inv_temp 1/0.07 as a device tensor; lse and pos_sum
     within 1e-5 of max(1, |x|), pos_cnt exact, dq_raw and dk_raw within
-    1e-4 of their largest element; one launch each."""
+    1e-4 of their largest element) at E = 4, 68 and 256: the large-batch
+    step's [4096]², a ragged [1000]² with every id three times, a ring
+    block [256] x [32768] whose q ids are a subset of k's with some rows
+    that have no positive (launched on more than one split), [33] x [4097]
+    with every id twice (a ragged last tile, a last split of one column)
+    and [1] x [1]; one counted launch each."""
     _needs_card()
-    g = torch.Generator(device="cuda").manual_seed(m + n)
-    q, k = (torch.nn.functional.normalize(
-        torch.randn(r, 256, device="cuda", generator=g), dim=-1)
-        for r in (m, n))
-    idx_q, idx_k = infonce_ids(ids, m, n, "cuda")
-    invt = torch.tensor(1.0 / 0.07, device="cuda")
     before = (infonce.stats_launches, infonce.dq_launches,
               infonce.dk_launches)
-    stats = infonce.infonce_stats(q, k, idx_q, idx_k, invt)
-    grads = infonce.infonce_bwd_raw(q, k, idx_q, idx_k, invt, stats[0],
-                                    stats[2])
+    _, _, pc, errs, grid = infonce_check(m, n, ids, e=e)
     assert (infonce.stats_launches, infonce.dq_launches,
             infonce.dk_launches) == tuple(b + 1 for b in before)
-    want = infonce.infonce_stats_reference(q, k, idx_q, idx_k, invt)
-    want_grads = (infonce.infonce_bwd_dq_reference(
-        q, k, idx_q, idx_k, invt, stats[0], stats[2]),
-        infonce.infonce_bwd_dk_reference(q, k, idx_q, idx_k, invt, stats[0],
-                                         stats[2]))
-    torch.cuda.synchronize()
-    errs = infonce_errors(stats, want, grads, want_grads)
     assert errs["pos_cnt"] == 0
     assert errs["lse"] <= 1e-5 and errs["pos_sum"] <= 1e-5, errs
     assert errs["dq"] <= 1e-4 and errs["dk"] <= 1e-4, errs
     if ids == "ring":
-        assert (stats[2] == 0).any() and (stats[2] == 1).any()
+        assert (pc == 0).any() and (pc == 1).any()
+        assert grid["stats"][1] > 1 and grid["dq"][1] > 1, grid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,ids", [(4096, 4096, "arange"),
+                                     (256, 32768, "ring")])
+def test_infonce_kernels_are_deterministic(m, n, ids):
+    """Two calls of each of kernels 9, 10 and 11 give the same bits at
+    [4096]² (each on several splits, on an H100) and at the ring block
+    (kernel 11 on one): no atomics, and the merges go in split order."""
+    _needs_card()
+    args, lse, pc = infonce_check(m, n, ids)[:3]
+    assert infonce_deterministic(args, lse, pc)
 
 
 @pytest.mark.cuda

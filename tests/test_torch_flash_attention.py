@@ -345,8 +345,8 @@ def test_profiled_kernel_names_map_to_their_kernels():
     """chip_smoke's profile sums kernels 2/3 by their function names, the
     scalar variant's (templates) and the tensor-core one's alike, kernels
     4-8 in their scalar and wgmma variants (kernel 5's and kernels 7/8's
-    wrappers of the shared wgmma passes apart), and keeps kernels 4-11
-    and library kernels apart."""
+    wrappers of the shared wgmma passes apart), kernels 9-11 with their
+    merge passes, and keeps kernels 4-11 and library kernels apart."""
     ns = "(anonymous namespace)"
     names = {
         f"void {ns}::fwd_kernel<__nv_bfloat16, 64>({ns}::Params)":
@@ -376,6 +376,10 @@ def test_profiled_kernel_names_map_to_their_kernels():
         f"void {ns}::tiled_dkv_wgmma_kernel({ns}::WgMaps, {ns}::Params)":
             "tiled_dkv",
         f"void {ns}::infonce_bwd_kernel<false>({ns}::Args)": "infonce",
+        f"void {ns}::infonce_stats_merge_kernel(const float *, int, int, "
+        f"float *, float *, float *)": "infonce",
+        f"void {ns}::infonce_bwd_merge_kernel(const float4 *, int, "
+        f"long long, float4 *)": "infonce",
         "void at::native::vectorized_elementwise_kernel<4, "
         "at::native::FillFunctor<float>>(int, Fn)": None,
         "sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64": None,
