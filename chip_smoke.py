@@ -140,6 +140,15 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    batch 50, text batch 256): embed + streaming ranks + Recall@K; the ranks
    must equal a dense count over the same block products; kernel 1 on its
    few-queries and few-keys bodies only; wall time and pairs/s.
+11. fit: `Trainer(cfg).fit()` on configs/multi30k_all.yaml at full width
+   from synthetic files on disk (FIT_OPTIONS: 64 images x 5 captions, 2
+   steps an epoch at bs128, 2 epochs, 64 eval images, val + test, a
+   mid-epoch snapshot): kernels 2/3 FLAGSHIP_STEP_LAUNCHES a step, all on
+   the tensor-core variant, kernel 1 7 launches an embed_images batch on
+   its small bodies; finite losses every step and finite sumR; log.txt
+   and best.json; the last checkpoint restored into a second
+   Trainer(resume) bit for bit.  Host-fed ms/step, the loader's wait,
+   eval s per split (uncached, cached), checkpoint s and bytes.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -2214,6 +2223,189 @@ def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
     return by_body
 
 
+# the fit phase's cuts of configs/multi30k_all.yaml: synthetic data (64
+# images x 5 captions = 320 pairs: 2 steps an epoch at bs128, 64 eval
+# images), 2 epochs, one checkpoint kept, a mid-epoch snapshot at step 3
+FIT_OPTIONS = {"data.dataset": "synthetic", "data.synthetic_size": 64,
+               "data.synthetic_eval_images": 64,
+               "train.schedular.epochs": 2, "train.keep_checkpoints": 1,
+               "train.checkpoint_every_steps": 3}
+
+
+def state_equal(a, b) -> bool:
+    """Two state trees (dicts, lists, tensors, scalars) bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(state_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(state_equal, a, b))
+    return a == b
+
+
+def fit_phase(card_line: str, seed: int = 0):
+    """`Trainer(cfg).fit()` on the card: configs/multi30k_all.yaml at full
+    width with FIT_OPTIONS, from files on disk (the synthetic set written
+    in a temporary output dir, removed after).  Kernels 2/3 must launch
+    FLAGSHIP_STEP_LAUNCHES a step (all on the tensor-core variant) and
+    kernel 1 launches_per_batch() an embed_images batch (its small bodies
+    only), counted over every step and eval batch of the run; every step's
+    losses finite, sumr finite, log.txt's records, best.json, and the last
+    checkpoint restored into a second Trainer(resume) bit for bit (model,
+    optimizer, step).  Prints host-fed ms/step (the median of the steps
+    after each epoch's first, each ending in the loss read-back) and
+    pairs/s, the loader's wait per step, eval s per split (epoch 0
+    uncached, epoch 1 from the device cache), checkpoint save s and
+    bytes, peak memory.  Returns (kernel 2/3 launches, kernel 1 counts)."""
+    import copy
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+
+    from leccr_torch.config import load_config
+    from leccr_torch.ops.fused_cross_attention import fused_cross_attention
+    from leccr_torch.train.trainer import Trainer
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+        set_options(cfg, FIT_OPTIONS)
+        cfg.train.seed = seed
+        cfg.output_dir = str(out)
+        resume_cfg = copy.deepcopy(cfg)
+        resume_cfg.train.resume = True
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg)
+        init_s = time.perf_counter() - t0
+
+        losses, evals, saves, writes = [], [], [], []
+        run, evaluate = tr.state.train_step.run, tr.evaluate
+        save, write = tr.ckpt.save, tr.ckpt._write_step
+
+        def run_noted(batch, step_no):
+            values = run(batch, step_no)
+            losses.append(values)
+            return values
+
+        def evaluate_timed(dataset):
+            t = time.perf_counter()
+            metrics = evaluate(dataset)
+            torch.cuda.synchronize()
+            evals.append(time.perf_counter() - t)
+            return metrics
+
+        def save_timed(*args, **kwargs):
+            t = time.perf_counter()
+            save(*args, **kwargs)
+            saves.append(time.perf_counter() - t)
+
+        def write_timed(*args):
+            t = time.perf_counter()
+            write(*args)
+            writes.append(time.perf_counter() - t)
+
+        tr.state.train_step.run = run_noted
+        tr.evaluate = evaluate_timed
+        tr.ckpt.save, tr.ckpt._write_step = save_timed, write_timed
+
+        reset_counts()
+        t0 = time.perf_counter()
+        stats = tr.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = step_counts()
+        tc = tc_counts()
+        by_body = kernel1_counts("the fit's evals")
+
+        steps = tr.state.step
+        epochs = cfg.train.schedular.epochs
+        bs_test = cfg.train.batch_size_test
+        eval_batches = epochs * sum(
+            math.ceil(len(ds) / bs_test)
+            for split in (tr.val_ds, tr.test_ds) for ds in split.values())
+        want = tuple(n * steps for n in FLAGSHIP_STEP_LAUNCHES)
+        if steps != epochs * tr.steps_per_epoch or launches != want:
+            raise AssertionError(f"the fit took {steps} steps and launched "
+                                 f"kernels 2-11 {launches}, want {want}")
+        if tc != launches[:2]:
+            raise AssertionError(f"kernels 2/3 launched {launches[:2]}, of "
+                                 f"them {tc} on the tensor-core variant")
+        if by_body["all"] != launches_per_batch(cfg) * eval_batches:
+            raise AssertionError(f"kernel 1 launched {by_body} for "
+                                 f"{eval_batches} embed_images batches")
+        values = torch.stack(losses)
+        if len(losses) != steps or not torch.isfinite(values).all():
+            raise AssertionError(f"losses of {len(losses)} steps: {values}")
+        records = [json.loads(line) for line in
+                   (out / "log.txt").read_text().splitlines()]
+        sumr = [r["de_test_sumr_sum"] for r in records[:-1]]
+        if ([r.get("epoch") for r in records] != list(range(epochs)) + [None]
+                or not all(math.isfinite(v) for v in sumr)
+                or not math.isfinite(stats["de_test_sumr_sum"])):
+            raise AssertionError(f"log.txt records {records}")
+        best = json.loads((out / "checkpoints" / "best.json").read_text())
+        files = sorted((out / "checkpoints").glob("step_*.pt"))
+        if [f.name for f in files] != [f"step_{steps:08d}.pt"]:
+            raise AssertionError(f"checkpoints kept: {files}")
+
+        t0 = time.perf_counter()
+        tr2 = Trainer(resume_cfg)
+        resumed = tr2.resume()
+        restore_s = time.perf_counter() - t0
+        if not (resumed == (epochs, 0) and tr2.state.step == steps
+                and state_equal(tr2.state.model.state_dict(),
+                                 tr.state.model.state_dict())
+                and state_equal(tr2.state.optimizer.state_dict(),
+                                 tr.state.optimizer.state_dict())):
+            raise AssertionError("the checkpoint did not restore bit for "
+                                 "bit")
+        del tr2
+
+        # host-fed step time: each epoch's steps after its first (from
+        # asking the loader for its batch to asking for the next, or to
+        # the epoch's end after the loss read-back)
+        later = [s for t in tr.timing for s in t["step_s"][1:]]
+        step_ms = statistics.median(later) * 1e3
+        batch = cfg.train.batch_size_train
+        emit("fit", card=card_line, config="configs/multi30k_all.yaml",
+             options=FIT_OPTIONS, batch=batch, steps=steps,
+             steps_per_epoch=tr.steps_per_epoch, epochs=epochs,
+             eval_batches=eval_batches, init_s=init_s, fit_s=fit_s,
+             host_fed_ms_per_step=step_ms,
+             host_fed_pairs_per_s=batch / step_ms * 1e3,
+             step_s=[t["step_s"] for t in tr.timing],
+             loader_wait_s=[t["wait_s"] for t in tr.timing],
+             loader_wait_ms_median=statistics.median(
+                 w for t in tr.timing for w in t["wait_s"]) * 1e3,
+             eval_s=evals, eval_s_uncached=evals[:2],
+             eval_s_cached=evals[2:4],
+             eval_cache_mb=tr._eval_cache_bytes / 2 ** 20,
+             save_caller_s=saves, save_write_s=writes,
+             checkpoint_bytes=files[0].stat().st_size,
+             restore_s=restore_s, peak_mem_gb=(
+                 torch.cuda.max_memory_allocated() / 1e9),
+             launches=dict(zip(STEP_COUNTERS, launches)),
+             tc_launches=dict(zip(TC_COUNTERS, tc)),
+             kernel1_launches=by_body, best=best,
+             losses_first=values[0].tolist(), losses_last=values[-1].tolist(),
+             sumr_sum=sumr,
+             train_loss_itc_vs=[r["train_loss_itc_vs"]
+                                for r in records[:-1]],
+             fused_cross_attention_launches=fused_cross_attention.launches)
+        del tr
+        torch.cuda.empty_cache()
+        return launches, by_body
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2302,6 +2494,8 @@ def main() -> int:
         phase="large_batch_step", batch=LARGE_BATCH, warmup=1, steps=2)
     emb, serve_launches = serve_phase(cfg)
     eval_launches = eval_phase(emb, card_line)
+    del emb
+    fit_launches, fit_kernel1 = fit_phase(card_line)
 
     def path_sum(key):  # bf16 at B=64: one embed_images batch, 7 launches
         return sum(PATH_LAUNCHES[(r["lq"], r["lk"])] * r[key] for r in bf16)
@@ -2314,7 +2508,7 @@ def main() -> int:
                 "caption": text_layers}
 
     def flash_entry(name, line, direction, launches, slice_launches,
-                    hires_launches, large_launches, errs):
+                    hires_launches, large_launches, fit_launches, errs):
         rows = [r for r in flash if r["direction"] == direction
                 and r["dtype"] == "bfloat16" and r["shape"] in per_step]
 
@@ -2330,6 +2524,7 @@ def main() -> int:
             "launches_slice_step": slice_launches,
             "launches_hires_step": hires_launches,
             "launches_large_batch_step": large_launches,
+            "launches_fit": fit_launches,
             "max_abs_err": max(r["max_abs_err"][e] for r in flash
                                if r["direction"] == direction for e in errs),
             "check": "ok",
@@ -2438,6 +2633,7 @@ def main() -> int:
         "launches": serve_launches["all"] + eval_launches["all"],
         "launches_serve": serve_launches,
         "launches_eval": eval_launches,
+        "launches_fit": fit_kernel1,
         "bodies": sorted({r["body"] for r in bf16}),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "check": "ok",
@@ -2452,10 +2648,10 @@ def main() -> int:
         "shapes": shapes,
     }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
                    slice_launches[0], hires_launches[0], large_launches[0],
-                   ("out", "lse")),
+                   fit_launches[0], ("out", "lse")),
         flash_entry("flash_tower_attention_bwd", 110, "bwd",
                     train_launches[1], slice_launches[1], hires_launches[1],
-                    large_launches[1], ("dq", "dk", "dv")),
+                    large_launches[1], fit_launches[1], ("dq", "dk", "dv")),
         chunk_entry("flash_chunked_attention_fwd", 429, "fwd",
                     slice_launches[2], SLICE_STEP_LAUNCHES[True][2],
                     ("out", "lse")),

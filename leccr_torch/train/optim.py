@@ -69,6 +69,16 @@ class AdamW(torch.optim.Optimizer):
         self.mu_dtype = moment_dtype
         self.nu_dtype = moment_dtype if legacy_eps else torch.float32
 
+    def load_state_dict(self, state_dict) -> None:
+        """As torch's, which casts floating state to each parameter's dtype:
+        the moments go back to their storage dtypes (a bf16 → f32 → bf16
+        round trip is exact)."""
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            if "mu" in state:
+                state["mu"] = state["mu"].to(self.mu_dtype)
+                state["nu"] = state["nu"].to(self.nu_dtype)
+
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:

@@ -1,9 +1,10 @@
 """One training step on one device: the port of the train step of
-`leccr_tpu/train/trainer.py` (`_make_train_step` with `_grad_cache_grads`,
-without the EMA or a mesh).
+`leccr_tpu/train/trainer.py` (`_make_train_step` with `_grad_cache_grads`
+and the EMA, without a mesh).
 
     step = make_train_step(cfg, model, total_steps)
     losses = step(batch, step_no)   # dict of the 10 loss keys, as floats
+    values = step.run(batch, step_no)  # the same, a [10] tensor, no sync
 
 Each step builds its random streams from (cfg.train.seed + 17, step_no),
 preprocesses the uint8 images on the device (normalize, per-image flip),
@@ -11,7 +12,16 @@ runs the model forward in training mode, computes the loss suite, takes
 the gradient of the `grad_total` objective (the DDP-parity weighting of the
 JAX trainer; with num_blocks = 1 it equals `total`), clips by global norm
 when `train.grad_clip` > 0, and takes one optimizer and one scheduler step.
-The losses are read back from the device once, as one tensor.
+`step(...)` reads the losses back from the device once, as one tensor;
+`step.run(...)` leaves them there.
+
+`train.ema_decay` = d > 0: after the optimizer step the EMA of the
+parameters advances, ema = ema·d + p·(1−d) in f32 over the parameter list
+(`step.ema`, seeded from a copy of the parameters).
+
+`train.debug_nans`: the forward and backward run in autograd's anomaly
+mode, and the losses and gradients are checked finite after each step
+(`utils.debug`).
 
 `train.grad_cache_microbatches` = m > 1 takes the gradient by GradCache
 (`grad_cache_backward`): the loss sees the whole batch as negatives while
@@ -24,12 +34,15 @@ the dense losses, as in the JAX trainer, whose ring applies only across
 blocks (trainer.py:342-359); `ring` sets the streaming rows to 256 when the
 config leaves them at 0.  `parallel.stream_loss_block_rows` streams dstl
 and the caption-vision loss in row blocks when it divides a larger batch.
+`parallel.data` must be -1 or 1 (the one card), `parallel.model` 1 and
+`parallel.fsdp` off: DDP, tensor parallelism and FSDP come with the
+multi-device path of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -41,6 +54,7 @@ from leccr_torch.ops.dropout import Generators
 from leccr_torch.ops.infonce import infonce_loss
 from leccr_torch.train.optim import build_optimizer, clip_by_global_norm
 from leccr_torch.train.schedule import linear_warmup_decay
+from leccr_torch.utils.debug import assert_all_finite, nan_checks
 
 _U64 = 2 ** 64 - 1
 
@@ -142,47 +156,80 @@ def grad_cache_backward(
     return {key: v.detach() for key, v in losses.items()}
 
 
-def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
-                    num_blocks: int = 1
-                    ) -> Callable[[Dict[str, torch.Tensor], int],
-                                  Dict[str, float]]:
-    """A train step over `model` (put in training mode here), with the
-    optimizer and scheduler of `cfg.train` for a run of `total_steps`
-    optimizer steps; they are the returned function's `optimizer` and
-    `scheduler` attributes.
+@torch.no_grad()
+def ema_update_(ema: List[torch.Tensor], params: List[torch.Tensor],
+                decay: float) -> None:
+    """ema = ema·decay + p·(1−decay), in place, in f32 (the JAX trainer's
+    update, trainer.py:446-451)."""
+    torch._foreach_mul_(ema, decay)
+    torch._foreach_add_(ema, [p.float() for p in params], alpha=1 - decay)
 
-    batch: "vision" uint8 [B,H,W,3], "flip" bool [B] (optional), "idx" [B],
-    "text_ids_s"/"text_mask_s", "text_ids_t"/"text_mask_t", "caption_ids"/
-    "caption_mask", all on the model's device."""
-    tc, mc = cfg.train, cfg.model
-    negatives = cfg.parallel.negatives
-    stream_rows = cfg.parallel.stream_loss_block_rows
-    if negatives not in ("gather", "fused", "ring", "ring_fused"):
-        raise ValueError(f"unknown negatives: {negatives!r}")
-    if negatives in ("ring", "ring_fused") and num_blocks > 1:
+
+def check_parallel(cfg: LECCRConfig) -> None:
+    """Raise for a `parallel` layout other than the one card."""
+    par = cfg.parallel
+    if par.model > 1:
         raise NotImplementedError(
-            f"negatives: {negatives} over {num_blocks} blocks (the ring "
-            "InfoNCE) comes with the multi-device slice of the port")
-    if negatives == "ring" and stream_rows == 0:
-        stream_rows = 256  # the JAX trainer's default (trainer.py:344-345)
-    itc_loss_fn = infonce_loss if negatives == "fused" else None
-    if tc.ema_decay > 0:
-        raise NotImplementedError("the EMA comes with the trainer slice of "
-                                  "the port")
-    microbatches = tc.grad_cache_microbatches
-    schedule = linear_warmup_decay(tc.optimizer.lr, total_steps,
-                                   tc.schedular.num_warmup_steps)
-    optimizer, scheduler = build_optimizer(
-        tc.optimizer, model, schedule,
-        lr_mult_paths=tuple(tc.optimizer.lr_mult_paths),
-        frozen_paths=("clip_text_tower",))
-    params = list(model.parameters())
-    randaugment_n = cfg.data.randaugment_n if cfg.data.randaugment else 0
-    seed = tc.seed + 17
-    model.train()
+            f"parallel.model: {par.model} (tensor parallelism) comes with "
+            "the multi-device path of the port")
+    if par.fsdp:
+        raise NotImplementedError(
+            "parallel.fsdp comes with the multi-device path of the port")
+    if par.data not in (-1, 1):
+        raise NotImplementedError(
+            f"parallel.data: {par.data} (data parallelism over several "
+            "devices) comes with the multi-device path of the port")
 
-    def objective(emb: TrainEmbeddings, idx: torch.Tensor):
-        b = idx.shape[0]
+
+class TrainStep:
+    """A train step over `model`; see `make_train_step`.  Attributes:
+    `optimizer`, `scheduler`, `params` (the model's parameter list) and
+    `ema` (None, or f32 tensors aligned with `params`)."""
+
+    def __init__(self, cfg: LECCRConfig, model: LECCRModel, total_steps: int,
+                 num_blocks: int = 1):
+        tc, mc = cfg.train, cfg.model
+        check_parallel(cfg)
+        negatives = cfg.parallel.negatives
+        stream_rows = cfg.parallel.stream_loss_block_rows
+        if negatives not in ("gather", "fused", "ring", "ring_fused"):
+            raise ValueError(f"unknown negatives: {negatives!r}")
+        if negatives in ("ring", "ring_fused") and num_blocks > 1:
+            raise NotImplementedError(
+                f"negatives: {negatives} over {num_blocks} blocks (the ring "
+                "InfoNCE) comes with the multi-device slice of the port")
+        if negatives == "ring" and stream_rows == 0:
+            stream_rows = 256  # the JAX trainer's default (trainer.py:344-345)
+        self.model, self.mc = model, mc
+        self.num_blocks = num_blocks
+        self.stream_rows = stream_rows
+        self.itc_loss_fn = infonce_loss if negatives == "fused" else None
+        self.microbatches = tc.grad_cache_microbatches
+        self.grad_clip = tc.grad_clip
+        self.debug_nans = tc.debug_nans
+        self.ema_decay = tc.ema_decay
+        schedule = linear_warmup_decay(tc.optimizer.lr, total_steps,
+                                       tc.schedular.num_warmup_steps)
+        self.optimizer, self.scheduler = build_optimizer(
+            tc.optimizer, model, schedule,
+            lr_mult_paths=tuple(tc.optimizer.lr_mult_paths),
+            frozen_paths=("clip_text_tower",))
+        self.params = list(model.parameters())
+        self.ema: Optional[List[torch.Tensor]] = (
+            self.ema_of_params() if self.ema_decay > 0 else None)
+        self.randaugment_n = (cfg.data.randaugment_n if cfg.data.randaugment
+                              else 0)
+        self.seed = tc.seed + 17
+        model.train()
+
+    @torch.no_grad()
+    def ema_of_params(self) -> List[torch.Tensor]:
+        """A fresh EMA: f32 copies of the parameters."""
+        return [p.detach().to(torch.float32, copy=True) for p in self.params]
+
+    def objective(self, emb: TrainEmbeddings, idx: torch.Tensor):
+        b, mc = idx.shape[0], self.mc
+        rows = self.stream_rows
         losses = compute_losses(
             emb, idx,
             weight_caption_loss=mc.weight_caption_loss,
@@ -190,39 +237,64 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
             weight_dstl_loss=mc.weight_dstl_loss,
             weight_cv_loss=mc.weight_cv_loss,
             dstl_alpha=mc.dstl_alpha,
-            num_blocks=num_blocks,
-            itc_loss_fn=itc_loss_fn,
-            stream_block_rows=(stream_rows if 0 < stream_rows < b
-                               and b % stream_rows == 0 else 0))
-        return grad_total(losses, mc, num_blocks), losses
+            num_blocks=self.num_blocks,
+            itc_loss_fn=self.itc_loss_fn,
+            stream_block_rows=(rows if 0 < rows < b and b % rows == 0
+                               else 0))
+        return grad_total(losses, mc, self.num_blocks), losses
 
-    def step(batch: Dict[str, torch.Tensor], step_no: int
-             ) -> Dict[str, float]:
+    def _backward(self, batch: Dict[str, torch.Tensor], idx: torch.Tensor,
+                  step_no: int) -> Dict[str, torch.Tensor]:
+        model = self.model
+        if self.microbatches > 1:
+            gens = [microbatch_generators(self.seed, step_no, k, model.device)
+                    for k in range(self.microbatches)]
+            return grad_cache_backward(
+                model, batch, gens, lambda emb: self.objective(emb, idx),
+                self.randaugment_n)
+        batch["vision"] = preprocess_train_images(
+            batch["vision"], batch.pop("flip", None), self.randaugment_n)
+        emb = model(batch, step_generators(self.seed, step_no, model.device))
+        value, losses = self.objective(emb, idx)
+        value.backward()
+        return losses
+
+    def run(self, batch: Dict[str, torch.Tensor], step_no: int
+            ) -> torch.Tensor:
+        """One step; the losses as a [len(LOSS_KEYS)] f32 tensor on the
+        device (no host sync unless train.debug_nans)."""
         batch = dict(batch)
         idx = batch.pop("idx")
-        optimizer.zero_grad(set_to_none=True)
-        if microbatches > 1:
-            gens = [microbatch_generators(seed, step_no, k, model.device)
-                    for k in range(microbatches)]
-            losses = grad_cache_backward(
-                model, batch, gens, lambda emb: objective(emb, idx),
-                randaugment_n)
-        else:
-            batch["vision"] = preprocess_train_images(
-                batch["vision"], batch.pop("flip", None), randaugment_n)
-            emb = model(batch, step_generators(seed, step_no, model.device))
-            value, losses = objective(emb, idx)
-            value.backward()
-        for p in params:  # optax decays a param whose gradient is zero
+        self.optimizer.zero_grad(set_to_none=True)
+        with nan_checks(self.debug_nans):
+            losses = self._backward(batch, idx, step_no)
+        for p in self.params:  # optax decays a param whose gradient is zero
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if tc.grad_clip > 0.0:
-            clip_by_global_norm(params, tc.grad_clip)
-        optimizer.step()
-        scheduler.step()
-        values = torch.stack([losses[k].detach().float() for k in LOSS_KEYS])
-        return dict(zip(LOSS_KEYS, values.tolist()))
+        if self.debug_nans:
+            assert_all_finite(losses, "losses")
+            assert_all_finite([p.grad for p in self.params], "gradients")
+        if self.grad_clip > 0.0:
+            clip_by_global_norm(self.params, self.grad_clip)
+        self.optimizer.step()
+        self.scheduler.step()
+        if self.ema is not None:
+            ema_update_(self.ema, self.params, self.ema_decay)
+        return torch.stack([losses[k].detach().float() for k in LOSS_KEYS])
 
-    step.optimizer = optimizer
-    step.scheduler = scheduler
-    return step
+    def __call__(self, batch: Dict[str, torch.Tensor], step_no: int
+                 ) -> Dict[str, float]:
+        return dict(zip(LOSS_KEYS, self.run(batch, step_no).tolist()))
+
+
+def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
+                    num_blocks: int = 1) -> TrainStep:
+    """A train step over `model` (put in training mode here), with the
+    optimizer and scheduler of `cfg.train` for a run of `total_steps`
+    optimizer steps; they are the returned step's `optimizer` and
+    `scheduler` attributes, the EMA (train.ema_decay > 0) its `ema`.
+
+    batch: "vision" uint8 [B,H,W,3], "flip" bool [B] (optional), "idx" [B],
+    "text_ids_s"/"text_mask_s", "text_ids_t"/"text_mask_t", "caption_ids"/
+    "caption_mask" (or "caption_feats"), all on the model's device."""
+    return TrainStep(cfg, model, total_steps, num_blocks)

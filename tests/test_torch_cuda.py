@@ -597,3 +597,45 @@ def test_infonce_loss_gradients_through_kernels():
     assert (loss - want).abs().item() <= 1e-5 * max(1.0, want.abs().item())
     for got, ref in zip(grads, want_grads):
         assert ((got - ref).abs().max() <= 1e-4 * ref.abs().max()).item()
+
+
+@pytest.mark.cuda
+def test_device_prefetch_copies_batches_to_the_card():
+    """device_prefetch's side-stream copies: every array arrives on the
+    card equal to the host batch (counts pass through), batches stay
+    valid after later copies were queued, and an exception upstream is
+    raised in the consumer after the batches before it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the pinned side-stream copy path")
+    import numpy as np
+
+    from leccr_torch.data.pipeline import device_prefetch
+
+    rs = np.random.RandomState(0)
+    host = [({"vision": rs.randint(0, 256, (8, 64, 64, 3)).astype(np.uint8),
+              "flip": rs.rand(8) < 0.5,
+              "ids": rs.randint(0, 999, (8, 32)).astype(np.int32)}, k)
+            for k in range(6)]
+
+    class Broken(Exception):
+        pass
+
+    def source(fail_at=None):
+        for k, item in enumerate(host):
+            if k == fail_at:
+                raise Broken(k)
+            yield item
+
+    got = list(device_prefetch(source(), torch.device("cuda"), depth=3))
+    torch.cuda.synchronize()
+    assert [count for _, count in got] == list(range(6))
+    for (batch, _), (want, _) in zip(got, host):
+        for key, value in want.items():
+            assert batch[key].device.type == "cuda"
+            assert np.array_equal(batch[key].cpu().numpy(), value), key
+    seen = []
+    with pytest.raises(Broken):
+        for batch, count in device_prefetch(source(fail_at=4),
+                                            torch.device("cuda")):
+            seen.append(count)
+    assert seen == [0, 1, 2, 3]

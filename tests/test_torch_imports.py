@@ -36,7 +36,12 @@ def test_port_imports_no_jax_and_builds_nothing():
             "leccr_torch.models.weights", "leccr_torch.ops.dropout",
             "leccr_torch.ops.flash_attention", "leccr_torch.models.losses",
             "leccr_torch.train.optim", "leccr_torch.train.schedule",
-            "leccr_torch.train.step"} <= set(out["modules"])
+            "leccr_torch.train.step", "leccr_torch.data.pipeline",
+            "leccr_torch.data.datasets", "leccr_torch.data.synthetic",
+            "leccr_torch.data.text", "leccr_torch.train.trainer",
+            "leccr_torch.train.checkpoints", "leccr_torch.train.metrics",
+            "leccr_torch.utils.io", "leccr_torch.utils.debug",
+            "leccr_torch.run"} <= set(out["modules"])
     assert out["foreign"] == []
     assert out["built"] == []
 

@@ -304,9 +304,12 @@ def test_params_to_jax_round_trip():
         torch.testing.assert_close(sd[name], value, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("override", [{"train.ema_decay": 0.999}])
+@pytest.mark.parametrize("override", [
+    {"parallel.model": 2}, {"parallel.fsdp": True}, {"parallel.data": 2}])
 def test_unported_train_options_raise(override):
-    """The EMA is a later slice; `negatives: fused` and GradCache train on
+    """Tensor parallelism, FSDP and data parallelism over several devices
+    come with the multi-device path; the EMA trains
+    (tests/test_torch_trainer.py), `negatives: fused` and GradCache train on
     one device (tests/test_torch_large_batch_step.py), as do `ring` and
     `ring_fused` (tests/test_torch_scale_step.py)."""
     cfg = torch_tiny_config(**override)
