@@ -149,6 +149,18 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    and best.json; the last checkpoint restored into a second
    Trainer(resume) bit for bit.  Host-fed ms/step, the loader's wait,
    eval s per split (uncached, cached), checkpoint s and bytes.
+12. checkpoint: weights in and out at full width (`checkpoint_phase`):
+   configs/multi30k_en_xlmr.yaml's model uncut (ViT-B/32 @384 +
+   XLM-R-base) from synthetic files; a reference-format .pth exported from
+   a seeded model (plus dead X-VLM keys) imported by `python -m
+   leccr_torch.run --checkpoint` bit for bit, 2 epochs trained with the
+   Unigram tokenizer (kernels 2/3 36 / 24 a step, kernel 1 7 an eval
+   batch), `--task export` re-imported bit for bit, an Embedder serving
+   the export (ranks equal a dense count); an OpenAI-CLIP-layout ViT-B/32
+   at its 7 x 7 grid into the flagship with the CLIP caption encoder
+   (position table = interpolate_pos_embed of the file's, 2 steps, the
+   tower unmoved, kernels 2/3 24 / 24 a step); native tokenizers equal
+   the Python ones (texts/s).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -2406,6 +2418,368 @@ def fit_phase(card_line: str, seed: int = 0):
         shutil.rmtree(out, ignore_errors=True)
 
 
+CHECKPOINT_OPTIONS = {**FIT_OPTIONS, "train.checkpoint_every_steps": 0}
+# parameters of the reference's checkpoints that no LECCR module reads
+DEAD_KEYS = {"itm_head.weight": (2, 768), "itm_head.bias": (2,),
+             "clip_encoder.logit_scale": ()}
+CLIP_MERGES = ["#version: 0.2", "t h", "th e</w>", "a</w>", "m a", "ma n</w>",
+               "r e", "re d</w>", "d o", "do g", "dog s</w>", "b i", "bi k",
+               "bik e</w>", "r i", "ri d", "rid e", "ride s</w>"]
+NATIVE_TEXTS = 20000
+
+
+def openai_clip_state_dict(variant, seed: int):
+    """A seeded OpenAI-CLIP-layout state_dict at `variant`'s full widths
+    and its native 224² grid (7 x 7 patches for ViT-B/32), vision and text,
+    in fp16 as OpenAI ships it."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    w, tw, e = variant.vision_width, variant.text_width, variant.embed_dim
+    grid = 224 // variant.patch_size
+
+    def r(*shape, scale=0.02):
+        return (scale * torch.randn(*shape, generator=g)).half()
+
+    sd = {"visual.conv1.weight": r(w, 3, variant.patch_size,
+                                   variant.patch_size),
+          "visual.class_embedding": r(w),
+          "visual.positional_embedding": r(grid * grid + 1, w),
+          "visual.proj": r(w, e),
+          "token_embedding.weight": r(variant.vocab_size, tw),
+          "positional_embedding": r(variant.context_length, tw),
+          "text_projection": r(tw, e), "logit_scale": torch.tensor(4.6052)}
+    for prefix, width, layers in (("visual.transformer", w,
+                                   variant.vision_layers),
+                                  ("transformer", tw, variant.text_layers)):
+        for i in range(layers):
+            b = f"{prefix}.resblocks.{i}"
+            sd[f"{b}.attn.in_proj_weight"] = r(3 * width, width)
+            sd[f"{b}.attn.in_proj_bias"] = r(3 * width)
+            for name, (o, k) in {"attn.out_proj": (width, width),
+                                 "mlp.c_fc": (4 * width, width),
+                                 "mlp.c_proj": (width, 4 * width)}.items():
+                sd[f"{b}.{name}.weight"] = r(o, k)
+                sd[f"{b}.{name}.bias"] = r(o)
+            for ln in ("ln_1", "ln_2"):
+                sd[f"{b}.{ln}.weight"] = 1 + r(width)
+                sd[f"{b}.{ln}.bias"] = r(width)
+    for ln, width in (("visual.ln_pre", w), ("visual.ln_post", w),
+                      ("ln_final", tw)):
+        sd[f"{ln}.weight"] = 1 + r(width)
+        sd[f"{ln}.bias"] = r(width)
+    return sd
+
+
+def checkpoint_phase(card_line: str, seed: int = 1):
+    """Weights in and out at full width, through the entry points.
+
+    configs/multi30k_en_xlmr.yaml's model, uncut (ViT-B/32 @384 +
+    XLM-R-base, 250 002 x 768, 12 layers; caption interaction 3/2/2; bf16
+    on f32 masters), synthetic data as in fit_phase (CHECKPOINT_OPTIONS: 4
+    steps, 2 epochs, no mid-epoch snapshot), a derived yaml in a temporary
+    directory, removed after:
+    1. a reference-format .pth exported from a model built from `seed`,
+       plus DEAD_KEYS (bytes and write s);
+    2. `python -m leccr_torch.run --task itr_caption --checkpoint` it:
+       every parameter equals the seed model's bit for bit before the
+       first step, the dead keys are reported unused and nothing else an
+       issue; kernels 2/3 FLAGSHIP_STEP_LAUNCHES a step (all tensor-core)
+       and kernel 1 launches_per_batch() an eval batch; finite losses
+       (import s, host-fed ms/step, the loader's tokenizer);
+    3. `--task export` of the trained checkpoint, re-imported into a fresh
+       model: every parameter equals the trained one's bit for bit;
+    4. an Embedder with `checkpoint=` the export and the Unigram tokenizer
+       indexes 256 images and answers 3 queries; its top-10 ranks equal a
+       dense count of the same scores; kernel 1 7 launches a batch;
+    5. an OpenAI-CLIP-layout file (ViT-B/32 at its native 7 x 7 grid,
+       vision and text) into configs/multi30k_all.yaml's model with
+       `caption_encoder_name: clip` and a synthetic merges file: the
+       position table equals interpolate_pos_embed of the file's; 2 train
+       steps with finite losses, kernels 2/3 24 / 24 a step (the causal
+       CLIP tower runs none), the CLIP tower's parameters unchanged;
+    6. native against Python tokenizers on NATIVE_TEXTS synthetic
+       sentences: equal ids, texts/s of each, WordPiece and Unigram.
+    Returns (kernel 2/3 launches of 2 and 5, kernel 1 launches of 2 and
+    4)."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from leccr_torch import run
+    from leccr_torch.config import load_config
+    from leccr_torch.data import native_tokenizer
+    from leccr_torch.data.synthetic import _WORDS_EN, _WORDS_T
+    from leccr_torch.data.tokenizers import (
+        UnigramTokenizer,
+        WordPieceTokenizer,
+        write_tiny_wordpiece_vocab,
+    )
+    from leccr_torch.models.clip import CLIP_VARIANTS, interpolate_pos_embed
+    from leccr_torch.models.leccr import LECCRModel
+    from leccr_torch.models.weights import (
+        export_reference_state_dict,
+        load_initial_checkpoint,
+        save_reference_checkpoint,
+    )
+    from leccr_torch.serve import Embedder
+    from leccr_torch.train.trainer import Trainer
+
+    def cpu_state(model):
+        return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    fields = {}
+    try:
+        cfg = load_config(str(ROOT / "configs" / "multi30k_en_xlmr.yaml"))
+        set_options(cfg, CHECKPOINT_OPTIONS)
+        derived = tmp / "multi30k_en_xlmr.yaml"
+        derived.write_text(yaml.safe_dump(cfg.to_dict()))
+        out = tmp / "run"
+
+        # 1. a reference-format file
+        source = LECCRModel(cfg.model, seed=seed)
+        want = cpu_state(source)
+        ref = tmp / "checkpoint_best.pth"
+        t0 = time.perf_counter()
+        sd = export_reference_state_dict(source)
+        sd.update({k: torch.ones(s) for k, s in DEAD_KEYS.items()})
+        save_reference_checkpoint(sd, str(ref))
+        fields.update(reference_bytes=ref.stat().st_size,
+                      reference_tensors=len(sd),
+                      reference_write_s=time.perf_counter() - t0)
+        del source, sd
+
+        # 2. import and train through the entry point
+        seen = {}
+        original = Trainer.load_initial_checkpoint
+
+        def spy(self, path):
+            t = time.perf_counter()
+            report = original(self, path)
+            torch.cuda.synchronize()
+            seen.update(import_s=time.perf_counter() - t, report=report,
+                        trainer=self, losses=[],
+                        equal=state_equal(cpu_state(self.state.model), want))
+            step_run = self.state.train_step.run
+
+            def run_noted(batch, step_no):
+                values = step_run(batch, step_no)
+                seen["losses"].append(values)
+                return values
+
+            self.state.train_step.run = run_noted
+            return report
+
+        Trainer.load_initial_checkpoint = spy
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            run.main(["--task", "itr_caption", "--config", str(derived),
+                      "--output_dir", str(out), "--checkpoint", str(ref)])
+        finally:
+            Trainer.load_initial_checkpoint = original
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches, tc = step_counts(), tc_counts()
+        kernel1 = kernel1_counts("the checkpoint phase's evals")
+        tr, report = seen["trainer"], seen["report"]
+        if not seen["equal"]:
+            raise AssertionError("the imported parameters are not the "
+                                 "source model's bit for bit")
+        if (sorted(report.unused) != sorted(DEAD_KEYS)
+                or report.issues != [f"unused: {k}" for k in report.unused]
+                or sorted(report.grafted) != sorted(want)):
+            raise AssertionError(f"import report: {report.issues[:8]}, "
+                                 f"{len(report.grafted)} grafted")
+        steps = tr.state.step
+        epochs = cfg.train.schedular.epochs
+        eval_batches = epochs * sum(
+            math.ceil(len(ds) / cfg.train.batch_size_test)
+            for split in (tr.val_ds, tr.test_ds) for ds in split.values())
+        want_launches = tuple(n * steps for n in FLAGSHIP_STEP_LAUNCHES)
+        if (steps != epochs * tr.steps_per_epoch or launches != want_launches
+                or tc != launches[:2]):
+            raise AssertionError(f"{steps} steps launched kernels 2-11 "
+                                 f"{launches} ({tc} tensor-core), want "
+                                 f"{want_launches}")
+        if kernel1["all"] != launches_per_batch(cfg) * eval_batches:
+            raise AssertionError(f"kernel 1 launched {kernel1} for "
+                                 f"{eval_batches} eval batches")
+        losses = torch.stack(seen["losses"])
+        if len(losses) != steps or not torch.isfinite(losses).all():
+            raise AssertionError(f"losses: {losses}")
+        later = [s for t in tr.timing for s in t["step_s"][1:]]
+        fields.update(
+            import_s=seen["import_s"], fit_s=fit_s, steps=steps,
+            host_fed_ms_per_step=statistics.median(later) * 1e3,
+            tokenizer=type(tr.tokenizer).__name__,
+            tokenizer_native=tr.train_loader.native,
+            launches=dict(zip(STEP_COUNTERS, launches)),
+            kernel1_launches=kernel1, eval_batches=eval_batches,
+            losses_first=losses[0].tolist(), losses_last=losses[-1].tolist())
+
+        # 3. export, then import into a fresh model
+        trained = cpu_state(tr.state.model)
+        unigram = Path(tr.cfg.data.text_vocab)
+        del tr, seen
+        torch.cuda.empty_cache()
+        (step_file,) = (out / "checkpoints").glob("step_*.pt")
+        exported = tmp / "exported.pth"
+        t0 = time.perf_counter()
+        run.main(["--task", "export", "--config", str(derived),
+                  "--checkpoint", str(step_file), "--export_path",
+                  str(exported)])
+        export_s = time.perf_counter() - t0
+        fresh = LECCRModel(cfg.model, seed=seed + 1)
+        t0 = time.perf_counter()
+        back = load_initial_checkpoint(str(exported), fresh)
+        torch.cuda.synchronize()
+        reimport_s = time.perf_counter() - t0
+        if back.issues or not state_equal(cpu_state(fresh), trained):
+            raise AssertionError(f"export + import: {back.issues[:8]}")
+        del fresh
+        fields.update(export_s=export_s, export_bytes=exported.stat().st_size,
+                      reimport_s=reimport_s)
+
+        # 4. serve the exported weights with the Unigram tokenizer
+        serve_cfg = load_config(str(derived))
+        serve_cfg.data.text_vocab = str(unigram)
+        serve_cfg.output_dir = str(tmp / "serve")
+        emb = Embedder.from_config(serve_cfg, checkpoint=str(exported))
+        if not isinstance(emb.tokenizer, UnigramTokenizer):
+            raise AssertionError(f"serving tokenizer {emb.tokenizer}")
+        rs = np.random.RandomState(seed)
+        res = serve_cfg.model.vision.image_res
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        images = torch.randint(0, 256, (256, res, res, 3), dtype=torch.uint8,
+                               device="cuda", generator=g)
+        words = _WORDS_EN + _WORDS_T
+        captions = [" ".join(rs.choice(words, 12)) for _ in range(256)]
+        queries = [" ".join(rs.choice(words, n)) for n in (3, 6, 9)]
+        reset_counts()
+        t0 = time.perf_counter()
+        index = emb.build_image_index(images, captions)
+        hits = emb.search_texts(queries, index, k=10)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_kernel1 = kernel1_counts("the checkpoint phase's serving")
+        if serve_kernel1["all"] != launches_per_batch(serve_cfg) * 4:
+            raise AssertionError(f"serving launched kernel 1 {serve_kernel1}")
+        # the queries as search_texts embeds them: one batch padded with ""
+        padded = queries + [""] * (emb.batch_size - len(queries))
+        dense = (torch.from_numpy(emb.embed_texts(padded)).cuda()
+                 @ index.feats.T)[:len(queries)]
+        for q, row in enumerate(hits):
+            for rank, (item, score) in enumerate(row):
+                above = int((dense[q] > score).sum())
+                tied = int((dense[q] >= score).sum())
+                if not (above <= rank < tied) or abs(
+                        dense[q, int(item)].item() - score) > 0.0:
+                    raise AssertionError(f"query {q} rank {rank}: {item} "
+                                         f"{score}, {above} above")
+        fields.update(serve_s=serve_s, serve_kernel1=serve_kernel1,
+                      top_hits=[row[0] for row in hits])
+        del emb, index
+        torch.cuda.empty_cache()
+
+        # 5. an OpenAI archive into the flagship with the CLIP captions
+        clip_cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+        set_options(clip_cfg, CHECKPOINT_OPTIONS)
+        merges = tmp / "merges.txt"
+        merges.write_text("\n".join(CLIP_MERGES) + "\n")
+        clip_cfg.model.caption_encoder_name = "clip"
+        clip_cfg.data.clip_bpe_vocab = str(merges)
+        clip_cfg.output_dir = str(tmp / "clip")
+        variant = CLIP_VARIANTS[clip_cfg.model.vision.variant]
+        openai = tmp / "ViT-B-32.pt"
+        osd = openai_clip_state_dict(variant, seed)
+        torch.save(osd, openai)
+        trainer = Trainer(clip_cfg)
+        t0 = time.perf_counter()
+        clip_report = trainer.load_initial_checkpoint(str(openai))
+        openai_import_s = time.perf_counter() - t0
+        model = trainer.state.model
+        grid = clip_cfg.model.vision.image_res // variant.patch_size
+        pos_want = interpolate_pos_embed(
+            osd["visual.positional_embedding"].float(), grid)
+        if not torch.equal(model.vision_tower.positional_embedding.cpu(),
+                           pos_want):
+            raise AssertionError("the position table is not "
+                                 "interpolate_pos_embed of the file's")
+        tower = cpu_state(model.clip_text_tower)
+        if not torch.equal(tower["token_embedding.weight"],
+                           osd["token_embedding.weight"].float()):
+            raise AssertionError("the CLIP text tower was not loaded")
+        proj = model.vision_tower.proj.detach().clone()
+        clip_losses = []
+        clip_run = trainer.state.train_step.run
+
+        def clip_run_noted(batch, step_no):
+            clip_losses.append(clip_run(batch, step_no))
+            return clip_losses[-1]
+
+        trainer.state.train_step.run = clip_run_noted
+        reset_counts()
+        trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        clip_launches = step_counts()
+        clip_steps = len(clip_losses)
+        if clip_launches != tuple(n * clip_steps for n in
+                                  (24, 24) + (0,) * 8):
+            raise AssertionError(f"{clip_steps} steps with the CLIP caption "
+                                 f"encoder launched {clip_launches}")
+        values = torch.stack(clip_losses)
+        if clip_steps != 2 or not torch.isfinite(values).all():
+            raise AssertionError(f"CLIP-caption losses {values}")
+        if not state_equal(cpu_state(model.clip_text_tower), tower):
+            raise AssertionError("the CLIP text tower moved")
+        if torch.equal(model.vision_tower.proj, proj):
+            raise AssertionError("the vision tower did not train")
+        fields.update(openai_bytes=openai.stat().st_size,
+                      openai_import_s=openai_import_s,
+                      openai_issues=clip_report.issues[:8],
+                      clip_caption_launches=dict(zip(STEP_COUNTERS,
+                                                     clip_launches)),
+                      clip_caption_losses=values[-1].tolist())
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        # 6. native against Python tokenizers
+        rs = np.random.RandomState(seed)
+        texts = [" ".join(rs.choice(words, rs.randint(3, 30)))
+                 for _ in range(NATIVE_TEXTS)]
+        vocab = tmp / "vocab.txt"
+        write_tiny_wordpiece_vocab(str(vocab), words)
+        rates = {}
+        for name, py in (("wordpiece", WordPieceTokenizer(str(vocab))),
+                         ("unigram", UnigramTokenizer(str(unigram)))):
+            native = native_tokenizer.native_counterpart(py)
+            if native is None:
+                raise AssertionError(f"the native {name} tokenizer did "
+                                     f"not build")
+            got = {}
+            for kind, tok in (("python", py), ("native", native)):
+                t0 = time.perf_counter()
+                got[kind] = tok.encode(texts, 64)
+                rates[f"{name}_{kind}_texts_per_s"] = (
+                    len(texts) / (time.perf_counter() - t0))
+            if not all(np.array_equal(a, b) for a, b in zip(
+                    got["python"], got["native"])):
+                raise AssertionError(f"native {name} ids differ")
+        emit("checkpoint", card=card_line,
+             config="configs/multi30k_en_xlmr.yaml",
+             options=CHECKPOINT_OPTIONS, **fields, native_texts=len(texts),
+             **rates)
+        return launches, kernel1["all"] + serve_kernel1["all"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2496,6 +2870,7 @@ def main() -> int:
     eval_launches = eval_phase(emb, card_line)
     del emb
     fit_launches, fit_kernel1 = fit_phase(card_line)
+    ckpt_launches, ckpt_kernel1 = checkpoint_phase(card_line)
 
     def path_sum(key):  # bf16 at B=64: one embed_images batch, 7 launches
         return sum(PATH_LAUNCHES[(r["lq"], r["lk"])] * r[key] for r in bf16)
@@ -2508,7 +2883,8 @@ def main() -> int:
                 "caption": text_layers}
 
     def flash_entry(name, line, direction, launches, slice_launches,
-                    hires_launches, large_launches, fit_launches, errs):
+                    hires_launches, large_launches, fit_launches,
+                    ckpt_launches, errs):
         rows = [r for r in flash if r["direction"] == direction
                 and r["dtype"] == "bfloat16" and r["shape"] in per_step]
 
@@ -2525,6 +2901,7 @@ def main() -> int:
             "launches_hires_step": hires_launches,
             "launches_large_batch_step": large_launches,
             "launches_fit": fit_launches,
+            "launches_checkpoint": ckpt_launches,
             "max_abs_err": max(r["max_abs_err"][e] for r in flash
                                if r["direction"] == direction for e in errs),
             "check": "ok",
@@ -2634,6 +3011,7 @@ def main() -> int:
         "launches_serve": serve_launches,
         "launches_eval": eval_launches,
         "launches_fit": fit_kernel1,
+        "launches_checkpoint": ckpt_kernel1,
         "bodies": sorted({r["body"] for r in bf16}),
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "check": "ok",
@@ -2648,10 +3026,11 @@ def main() -> int:
         "shapes": shapes,
     }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
                    slice_launches[0], hires_launches[0], large_launches[0],
-                   fit_launches[0], ("out", "lse")),
+                   fit_launches[0], ckpt_launches[0], ("out", "lse")),
         flash_entry("flash_tower_attention_bwd", 110, "bwd",
                     train_launches[1], slice_launches[1], hires_launches[1],
-                    large_launches[1], fit_launches[1], ("dq", "dk", "dv")),
+                    large_launches[1], fit_launches[1], ckpt_launches[1],
+                    ("dq", "dk", "dv")),
         chunk_entry("flash_chunked_attention_fwd", 429, "fwd",
                     slice_launches[2], SLICE_STEP_LAUNCHES[True][2],
                     ("out", "lse")),

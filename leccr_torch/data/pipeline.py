@@ -11,8 +11,11 @@ bucketed widths, threaded decode, device prefetch (the port of
 - image decode and crop run in a thread pool; normalization and the flips
   happen on the device (`data.images.preprocess_train_images`).
 
-The WordPiece tokenizer is the port's Python one (`data.tokenizers`); the
-native C++ tokenizers and the Unigram (XLM-R) one come with a later slice.
+`TrainLoader` tokenizes its texts with the native C++ encoder of its
+WordPiece or Unigram tokenizer where the library builds
+(`data.native_tokenizer`; the same ids), else with the Python one, and
+says which in `TrainLoader.native`.  A CLIP BPE caption tokenizer gives
+77-wide rows padded with 0, and the caption mask is `ids != 0`.
 
 Errors: every background thread hands its exception to the consuming
 thread, which raises it at its next batch.  A failing sample read never
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from leccr_torch.config import DataConfig
+from leccr_torch.data.native_tokenizer import native_counterpart
 from leccr_torch.data.text import normalize_caption, video_id_of
 
 _END = object()
@@ -165,6 +169,11 @@ def _feats_width(dataset) -> int:
     return max(np.asarray(v).shape[0] for v in dataset.generated.values())
 
 
+def _is_clip_bpe(tokenizer) -> bool:
+    """CLIP's BPE encodes to fixed 77-wide rows with no [CLS]/<s>."""
+    return not hasattr(tokenizer, "cls_id")
+
+
 def _encode_rows(tokenizer, texts: List[str], max_len: int
                  ) -> List[List[int]]:
     """Tokenize a text list to unpadded id rows."""
@@ -188,6 +197,9 @@ class TrainLoader:
         self.prefetch = prefetch
         self.tokenizer = tokenizer
         self.caption_tokenizer = caption_tokenizer or tokenizer
+        # the native encoder of the text tokenizer where the library builds
+        self._encoder = native_counterpart(tokenizer) or tokenizer
+        self.native = self._encoder is not tokenizer
         self._tokenize_all()
 
     def _tokenize_all(self) -> None:
@@ -200,7 +212,7 @@ class TrainLoader:
             texts = [normalize_caption(cmap[ds.caption_key(cap_id, k)],
                                        self.cfg.max_words)
                      for cap_id in ds.cap_ids]
-            self.text_tokens.append(_encode_rows(self.tokenizer, texts,
+            self.text_tokens.append(_encode_rows(self._encoder, texts,
                                                  max_len))
         self.caption_tokens: Dict[str, List[int]] = {}
         if self.cfg.generated_caption_type == "feats":
@@ -208,8 +220,15 @@ class TrainLoader:
             return
         # one batch encode over the unique images
         uniq = list(dict.fromkeys(video_id_of(c) for c in ds.cap_ids))
-        rows = _encode_rows(self.caption_tokenizer,
-                            [ds.generated[i] for i in uniq], max_len)
+        texts = [ds.generated[i] for i in uniq]
+        if _is_clip_bpe(self.caption_tokenizer):  # 77 wide, padded with 0
+            rows = [row.tolist() for row in
+                    self.caption_tokenizer.encode(texts)]
+        else:
+            encoder = (self._encoder
+                       if self.caption_tokenizer is self.tokenizer
+                       else self.caption_tokenizer)
+            rows = _encode_rows(encoder, texts, max_len)
         self.caption_tokens = dict(zip(uniq, rows))
 
     def steps_per_epoch(self) -> int:
@@ -267,9 +286,14 @@ class TrainLoader:
         else:
             caps = [self.caption_tokens[video_id_of(s.cap_id)]
                     for s in samples]
-            cwidth = bucket_width([len(c) for c in caps], buckets)
-            batch["caption_ids"], batch["caption_mask"] = pad_token_batch(
-                caps, cwidth)
+            if _is_clip_bpe(self.caption_tokenizer):
+                ids = np.asarray(caps, np.int32)
+                batch["caption_ids"] = ids
+                batch["caption_mask"] = (ids != 0).astype(np.int32)
+            else:
+                cwidth = bucket_width([len(c) for c in caps], buckets)
+                batch["caption_ids"], batch["caption_mask"] = (
+                    pad_token_batch(caps, cwidth))
         batch["vision"] = np.stack([s.image_u8 for s in samples])
         batch["flip"] = np.asarray([s.flip for s in samples], bool)
         return batch
@@ -403,6 +427,10 @@ class EvalLoader:
                 if self.cfg.generated_caption_type == "feats":
                     batch["caption_feats"], batch["caption_mask"] = (
                         _feats_batch(caps, feats_width))
+                elif _is_clip_bpe(self.caption_tokenizer):
+                    ids = self.caption_tokenizer.encode(caps)
+                    batch["caption_ids"] = ids
+                    batch["caption_mask"] = (ids != 0).astype(np.int32)
                 else:
                     batch["caption_ids"], batch["caption_mask"] = (
                         self.caption_tokenizer.encode(

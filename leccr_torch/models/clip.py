@@ -1,9 +1,15 @@
-"""OpenAI-CLIP-architecture vision tower.
+"""OpenAI-CLIP-architecture towers: the vision tower and the text tower.
 
-The port of the vision half of `leccr_tpu/models/clip.py`: pre-LN residual
-transformer with QuickGELU MLPs, a ViT patch embedding with a class token,
-and ln_post + proj applied to EVERY token (LECCR consumes per-token
-features).  Images are NHWC.  LayerNorms use CLIP's epsilon, 1e-5.
+The port of `leccr_tpu/models/clip.py`: pre-LN residual transformer with
+QuickGELU MLPs; a ViT patch embedding with a class token, and ln_post +
+proj applied to EVERY token (LECCR consumes per-token features).  Images
+are NHWC.  LayerNorms use CLIP's epsilon, 1e-5.
+
+`CLIPTextTower` is the caption encoder of `caption_encoder_name: clip`:
+token and position embeddings, a causal transformer, ln_final and
+text_projection on every token, pooled at the EOT token (the largest id).
+Its attention is always the plain causal core (see `_CLIPAttention`), with
+no dropout and no remat, as in the JAX package.
 
 The patch embedding (a stride-P convolution with no bias) is written as a
 reshape of each P×P×3 patch into one row and a matmul, so no cuDNN (and no
@@ -35,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from leccr_torch.ops.attention import Dense, LayerNorm
+from leccr_torch.ops.attention import Dense, Embed, LayerNorm
 from leccr_torch.ops.dropout import checkpoint_block
 from leccr_torch.ops.flash_attention import flash_tower_attention
 
@@ -91,12 +97,21 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class _CLIPAttention(nn.Module):
-    """Non-causal self-attention of a CLIP block (packed in_proj)."""
+    """Self-attention of a CLIP block (packed in_proj), causal for the text
+    tower.
 
-    def __init__(self, width: int, heads: int, fused: bool = False):
+    Causal attention always takes the plain path, fused or not, as in the
+    JAX package (`models/clip.py:78-90` there): the scores above the
+    diagonal are set (by a lower-triangular mask) to the most negative
+    finite value of the scores' dtype, not to -inf, and the softmax runs
+    in f32.  So no kernel runs in the text tower."""
+
+    def __init__(self, width: int, heads: int, fused: bool = False,
+                 causal: bool = False):
         super().__init__()
         self.heads = heads
         self.fused = fused
+        self.causal = causal
         self.in_proj = Dense(width, 3 * width)
         self.out_proj = Dense(width, width)
 
@@ -106,10 +121,15 @@ class _CLIPAttention(nn.Module):
         head_dim = width // self.heads
         q, k, v = (t.view(b, l, self.heads, head_dim).transpose(1, 2)
                    for t in self.in_proj(x).chunk(3, dim=-1))
-        if self.fused and not deterministic:
+        if self.fused and not self.causal and not deterministic:
             out = flash_tower_attention(q, k, v, None, 0, 0.0)
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
+            if self.causal:
+                keep = torch.ones(l, l, dtype=torch.bool,
+                                  device=x.device).tril()
+                scores = scores.masked_fill(~keep,
+                                            torch.finfo(scores.dtype).min)
             probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
             out = torch.matmul(probs, v)
         return self.out_proj(out.transpose(1, 2).reshape(b, l, width))
@@ -118,10 +138,11 @@ class _CLIPAttention(nn.Module):
 class _ResidualBlock(nn.Module):
     """Pre-LN residual attention block."""
 
-    def __init__(self, width: int, heads: int, fused: bool = False):
+    def __init__(self, width: int, heads: int, fused: bool = False,
+                 causal: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width, eps=1e-5)
-        self.attn = _CLIPAttention(width, heads, fused)
+        self.attn = _CLIPAttention(width, heads, fused, causal)
         self.ln_2 = LayerNorm(width, eps=1e-5)
         self.c_fc = Dense(width, 4 * width)
         self.c_proj = Dense(4 * width, width)
@@ -134,11 +155,13 @@ class _ResidualBlock(nn.Module):
 
 class _Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int,
-                 fused: bool = False, remat: bool = False):
+                 fused: bool = False, remat: bool = False,
+                 causal: bool = False):
         super().__init__()
         self.remat = remat
         self.resblocks = nn.ModuleList(
-            _ResidualBlock(width, heads, fused) for _ in range(layers))
+            _ResidualBlock(width, heads, fused, causal)
+            for _ in range(layers))
 
     def forward(self, x: torch.Tensor,
                 deterministic: bool = True) -> torch.Tensor:
@@ -194,6 +217,39 @@ class CLIPVisionTower(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
         x = self.transformer(self.ln_pre(x), deterministic)
         return self.ln_post(x) @ self.proj.to(dtype)
+
+
+class CLIPTextTower(nn.Module):
+    """CLIP text transformer returning (pooled [B, E], hidden [B, L, E]).
+
+    hidden = ln_final(transformer(tok + pos)) @ text_projection per token;
+    pooled = hidden at the EOT position (the argmax of the ids, the first
+    one on a tie), the LECCR patch of encode_text (reference
+    clip/model.py:348-365)."""
+
+    compute_dtype = torch.float32
+
+    def __init__(self, width: int, layers: int, heads: int, embed_dim: int,
+                 vocab_size: int = 49408, context_length: int = 77):
+        super().__init__()
+        self.token_embedding = Embed(vocab_size, width)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(context_length, width))
+        self.transformer = _Transformer(width, layers, heads, causal=True)
+        self.ln_final = LayerNorm(width, eps=1e-5)
+        self.text_projection = nn.Parameter(torch.empty(width, embed_dim))
+
+    def forward(self, text_ids: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dtype = self.compute_dtype
+        x = (self.token_embedding(text_ids)
+             + self.positional_embedding[: text_ids.shape[1]].to(dtype))
+        x = self.ln_final(self.transformer(x))
+        hidden = x @ self.text_projection.to(dtype)
+        eot = text_ids.argmax(dim=-1)
+        pooled = hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                        eot]
+        return pooled, hidden
 
 
 def build_vision_tower(cfg, remat: bool = False

@@ -1,8 +1,11 @@
 """The LECCR retrieval model: towers, caption interaction, heads.
 
-The port of `leccr_tpu/models/leccr.py` for the `clip_vit` vision tower
-with the `mbert` caption encoder.  The caption encoder IS the text tower
-(the same submodule, called twice).  `num_queries` learned query slots
+The port of `leccr_tpu/models/leccr.py` for the `clip_vit` vision tower.
+With `caption_encoder_name: mbert` the caption encoder IS the text tower
+(the same submodule, called twice); with `clip` it is CLIP's causal text
+tower (`clip_text_tower`), whose dims come from the CLIP variant's text
+fields and whose caption padding is `caption_ids == 0`.  No gradient
+reaches the caption encoder.  `num_queries` learned query slots
 cross-attend to the projected caption tokens, then the visual tokens attend
 to the slots and the slots attend back to the visual tokens.  Features are
 256-d L2-normalized projections of the CLS token (images) and the first
@@ -27,7 +30,12 @@ from torch import nn
 from leccr_torch.config import ModelConfig
 from leccr_torch.device import resolve_device
 from leccr_torch.models.bert import BertEncoder
-from leccr_torch.models.clip import CLIPVisionTower, build_vision_tower
+from leccr_torch.models.clip import (
+    CLIP_VARIANTS,
+    CLIPTextTower,
+    CLIPVisionTower,
+    build_vision_tower,
+)
 from leccr_torch.ops.attention import (
     CrossAttentionStack,
     Dense,
@@ -74,11 +82,7 @@ class LECCRModel(nn.Module):
                 "slice of the port")
         if cfg.vision.kind != "clip_vit":
             raise ValueError(f"unknown vision tower: {cfg.vision.kind}")
-        if cfg.caption_encoder_name == "clip":
-            raise NotImplementedError(
-                "the CLIP text tower as caption encoder comes with a later "
-                "slice of the port")
-        if cfg.caption_encoder_name != "mbert":
+        if cfg.caption_encoder_name not in ("mbert", "clip"):
             raise ValueError(
                 f"unknown caption encoder: {cfg.caption_encoder_name}")
         if cfg.dtype not in _DTYPES:
@@ -91,9 +95,23 @@ class LECCRModel(nn.Module):
             self.vision_tower, d = build_vision_tower(cfg.vision,
                                                       remat=cfg.remat)
             self.text_encoder = BertEncoder(cfg.text, remat=cfg.remat)
+            if cfg.caption_encoder_name == "clip":
+                # the vendored CLIP's own text branch encodes the captions;
+                # its dims are the variant's text fields, not the vision
+                # tower's overrides (no dropout, no remat)
+                var = CLIP_VARIANTS[cfg.vision.variant]
+                self.clip_text_tower = CLIPTextTower(
+                    width=var.text_width, layers=var.text_layers,
+                    heads=var.text_heads, embed_dim=d,
+                    vocab_size=var.vocab_size,
+                    context_length=var.context_length)
+                caption_width = d
+            else:
+                self.clip_text_tower = None
+                caption_width = cfg.text.hidden_size
             heads = 8 if d % 8 == 0 else max(
                 h for h in (1, 2, 4) if d % h == 0)
-            self.caption_proj = Dense(cfg.text.hidden_size, d)
+            self.caption_proj = Dense(caption_width, d)
             self.queries = nn.Parameter(torch.empty(cfg.num_queries, d))
             self.crossattn_query = CrossAttentionStack(
                 d, heads, cfg.caption_ca_layer, cfg.dropout)
@@ -154,6 +172,10 @@ class LECCRModel(nn.Module):
                 std = m.class_embedding.shape[0] ** -0.5
                 for p in (m.class_embedding, m.positional_embedding, m.proj):
                     p.normal_(0.0, std, generator=gen)
+            elif isinstance(m, CLIPTextTower):
+                m.positional_embedding.normal_(0.0, 0.01, generator=gen)
+                m.text_projection.normal_(
+                    0.0, m.text_projection.shape[0] ** -0.5, generator=gen)
         self.queries.zero_()
         self.temp.fill_(self.cfg.temp)
 
@@ -181,16 +203,20 @@ class LECCRModel(nn.Module):
         """Encode the MLLM-generated caption -> (embeds [B,L,Dc],
         key_padding_mask [B,L] True=pad).  caption_feats short-circuits the
         encoder with precomputed per-token features.  No gradient reaches
-        the caption encoder: in training it runs under no_grad (with its
-        dropout), the counterpart of the JAX package's stop_gradient."""
-        padding_mask = ~caption_mask.bool()
+        the caption encoder: in training it runs under no_grad (the mBERT
+        one with its dropout), the counterpart of the JAX package's
+        stop_gradient.  The CLIP caption encoder's padding is
+        `caption_ids == 0`."""
         if caption_feats is not None:
             return (caption_feats.to(self.compute_dtype).detach(),
-                    padding_mask)
+                    ~caption_mask.bool())
         with torch.no_grad():
+            if self.clip_text_tower is not None:
+                _, hidden = self.clip_text_tower(caption_ids)
+                return hidden, caption_ids == 0
             hidden = self.text_encoder(caption_ids, caption_mask,
                                        deterministic=deterministic, gen=gen)
-        return hidden, padding_mask
+        return hidden, ~caption_mask.bool()
 
     # ------------------------------------------------- caption interaction
 

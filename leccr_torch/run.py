@@ -1,16 +1,31 @@
-"""leccr_torch launcher: train and evaluate on the GPU (the port of the
-`itr_caption` task of the JAX package's `run.py`).
+"""leccr_torch launcher: train and evaluate on the GPU, and export to the
+reference's format (the port of the `itr_caption` and `export` tasks of
+the JAX package's `run.py`).
 
     python -m leccr_torch.run --task itr_caption \\
         --config configs/multi30k_fr.yaml --output_dir out/m30k_fr \\
-        [--bs 128] [--epoch 50] [--seed 42] [--evaluate] [--resume] \\
-        [--device cpu]
+        [--checkpoint weights.pth] [--bs 128] [--epoch 50] [--seed 42] \\
+        [--evaluate] [--resume] [--device cpu]
+    python -m leccr_torch.run --task export \\
+        --checkpoint out/m30k_fr/checkpoints/step_00000040.pt \\
+        --export_path out/m30k_fr/reference.pth [--config ...]
 
-It writes `config.json`, `log.txt` (one JSON line per epoch) and
-`checkpoints/` under the output dir.  A `hdfs://` config is fetched first;
-a `hdfs://` output dir is staged in a local directory, mirrored up after
-each checkpointed epoch, and pulled down on --resume when the local stage
-is empty.  --device defaults to the GPU (it raises when there is none).
+itr_caption writes `config.json`, `log.txt` (one JSON line per epoch) and
+`checkpoints/` under the output dir.  --checkpoint loads initial weights
+after the trainer is built: a reference `checkpoint_best.pth`, an OpenAI
+CLIP archive, a HF BERT/XLM-R checkpoint (file or directory) or one of the
+port's own checkpoints (`models.weights.load_initial_checkpoint`).
+
+export writes the reference-format state_dict (`.pth`) of --checkpoint,
+else of the newest checkpoint under --output_dir, else of seeded random
+weights (`serve.load_params_for_inference`); without --config it reads the
+`config.json` that training wrote beside the checkpoint (or in the output
+dir).
+
+A `hdfs://` config is fetched first; a `hdfs://` output dir is staged in a
+local directory, mirrored up after each checkpointed epoch, and pulled
+down on --resume when the local stage is empty.  --device defaults to the
+GPU (it raises when there is none).
 """
 
 from __future__ import annotations
@@ -31,8 +46,6 @@ _UNPORTED = {
                    "serving')",
     "update_index": "the rest of serving (ROADMAP §1, 'The rest of "
                     "serving')",
-    "export": "checkpoint import and export (ROADMAP §1, 'Tokenizers, the "
-              "CLIP text tower, and checkpoint import and export')",
 }
 DEFAULT_CONFIGS = {"itr_caption": "configs/multi30k_fr.yaml"}
 
@@ -44,9 +57,13 @@ def parse_args(argv=None):
     p.add_argument("--config", default="",
                    help="config yaml/json (hdfs:// ok); default: "
                         "configs/multi30k_fr.yaml for itr_caption")
-    p.add_argument("--output_dir", required=True, help="hdfs:// ok")
+    p.add_argument("--output_dir", default="",
+                   help="hdfs:// ok; required for itr_caption")
     p.add_argument("--checkpoint", default="",
-                   help="initial weights: only '' or 'null' (none) so far")
+                   help="initial weights (itr_caption) or the weights to "
+                        "export: a reference .pth, an OpenAI CLIP archive, "
+                        "a HF BERT/XLM-R file or dir, or a checkpoint of "
+                        "the port's; '' or 'null' for none")
     p.add_argument("--seed", default=None, type=int,
                    help="override the config's train.seed")
     p.add_argument("--epoch", default=-1, type=int,
@@ -57,6 +74,9 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' for tests)")
+    e = p.add_argument_group("export", "--task export only")
+    e.add_argument("--export_path", default="",
+                   help="destination reference-format .pth")
     return p.parse_args(argv)
 
 
@@ -92,19 +112,58 @@ def _stage_output_dir(output_dir: str, resume: bool) -> str:
     return local_out
 
 
+def _config_beside(path: str) -> str:
+    """The config.json that training wrote beside a port checkpoint or in
+    an output dir (in `checkpoints/` or the output dir), or ''."""
+    if not path or path.startswith("hdfs://"):
+        return ""
+    path = Path(path).resolve()
+    for d in (path, *path.parents[:3]):
+        if (d / "config.json").is_file():
+            return str(d / "config.json")
+    return ""
+
+
+def export_main(args, cfg) -> None:
+    """--task export: weights -> a reference-format torch .pth, which the
+    reference's strict=False `--checkpoint` load takes
+    (image_Retrieval_caption.py:384-387)."""
+    from leccr_torch.models.weights import (
+        export_reference_state_dict,
+        save_reference_checkpoint,
+    )
+    from leccr_torch.serve import load_params_for_inference
+
+    if not args.export_path:
+        raise SystemExit("--task export requires --export_path "
+                         "(destination .pth)")
+    model = load_params_for_inference(cfg, args.checkpoint or None,
+                                      device=args.device)
+    sd = export_reference_state_dict(model)
+    Path(args.export_path).parent.mkdir(parents=True, exist_ok=True)
+    save_reference_checkpoint(sd, args.export_path)
+    print(f"### exported {len(sd)} tensors -> {args.export_path}",
+          flush=True)
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.task in _UNPORTED:
         raise NotImplementedError(
             f"--task {args.task} comes with {_UNPORTED[args.task]}")
-    if args.checkpoint and args.checkpoint != "null":
-        raise NotImplementedError(
-            "--checkpoint (reference and OpenAI/HF weights) comes with "
-            "checkpoint import (ROADMAP §1, 'Tokenizers, the CLIP text "
-            "tower, and checkpoint import and export')")
+    if args.checkpoint == "null":
+        args.checkpoint = ""
+    if args.task != "export" and not args.output_dir:
+        raise SystemExit(f"--task {args.task} requires --output_dir")
     from leccr_torch.config import load_config
 
     config_path = args.config
+    if not config_path and args.task == "export":
+        config_path = _config_beside(args.checkpoint or args.output_dir)
+        if not config_path:
+            raise SystemExit("--task export needs --config (no config.json "
+                             "beside the checkpoint or in the output dir)")
+        print(f"### no --config given; using {config_path}")
     if not config_path:
         config_path = str(Path(__file__).resolve().parent.parent
                           / DEFAULT_CONFIGS[args.task])
@@ -114,6 +173,11 @@ def main(argv=None) -> None:
         config_path = _stage_config(config_path)
     cfg = load_config(config_path)
     cfg.task = args.task
+    if args.task == "export":
+        if args.output_dir:
+            cfg.output_dir = args.output_dir
+        export_main(args, cfg)
+        return
     cfg.output_dir = args.output_dir
     if args.output_dir.startswith("hdfs://"):
         cfg.remote_output_dir = args.output_dir
@@ -133,7 +197,11 @@ def main(argv=None) -> None:
 
     from leccr_torch.train.trainer import Trainer
 
-    Trainer(cfg, device=args.device).fit(evaluate_only=args.evaluate)
+    trainer = Trainer(cfg, device=args.device)
+    if args.checkpoint:
+        trainer.load_initial_checkpoint(args.checkpoint)
+        print(f"### loaded initial checkpoint from {args.checkpoint}")
+    trainer.fit(evaluate_only=args.evaluate)
 
 
 if __name__ == "__main__":

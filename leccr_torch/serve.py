@@ -3,9 +3,16 @@ answer top-K text→image and image→text queries.
 
 The port of the single-device f32 path of `leccr_tpu/serve.py`:
 
-    emb = Embedder.from_config(cfg)                 # on the GPU
+    emb = Embedder.from_config(cfg, checkpoint="reference.pth")  # the GPU
     index = emb.build_image_index(images_u8, mllm_captions)
     hits = emb.search_texts(["ein mann fährt rad"], index, k=10)
+
+The weights come from `load_params_for_inference`: an explicit checkpoint
+(any flavor `models.weights.load_initial_checkpoint` reads), else the
+newest checkpoint under `cfg.output_dir`, else seeded random weights.
+Texts are tokenized as the trainer does (`data.tokenizers.make_tokenizers`:
+Unigram for `text.kind: xlmr`, CLIP's BPE for the captions of
+`caption_encoder_name: clip`).
 
 Query batches are padded with "" to `batch_size` and image chunks by
 repeating their last row, as in the JAX package; the `minmax` fusion keeps
@@ -15,6 +22,7 @@ pad queries out of its min/max with a `valid` mask.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -22,9 +30,9 @@ import torch
 
 from leccr_torch.config import LECCRConfig
 from leccr_torch.data.images import load_eval_image, normalize_images
-from leccr_torch.data.tokenizers import WordPieceTokenizer
+from leccr_torch.data.tokenizers import make_tokenizers
 from leccr_torch.models.leccr import LECCRModel
-from leccr_torch.models.weights import load_jax_params
+from leccr_torch.models.weights import load_initial_checkpoint, load_jax_params
 
 
 @dataclasses.dataclass
@@ -38,36 +46,71 @@ class ImageIndex:
         return len(self.ids)
 
 
+def load_params_for_inference(
+        cfg: LECCRConfig, checkpoint: Optional[str] = None,
+        device: Optional[Union[str, torch.device]] = None,
+        seed: int = 0) -> LECCRModel:
+    """A LECCRModel for an inference-only consumer (Embedder, the export
+    task), with weights from, in this order: `checkpoint` (any flavor
+    `load_initial_checkpoint` reads); the newest checkpoint of
+    `cfg.output_dir` (its EMA when it holds one and `train.ema_eval`, the
+    weights evaluation gated on); seeded random weights.  Prints which.
+    device: None = the GPU."""
+    from leccr_torch.train.checkpoints import (
+        CheckpointManager,
+        newest_step_file,
+    )
+
+    model = LECCRModel(cfg.model, device=device, seed=seed)
+    if checkpoint:
+        load_initial_checkpoint(checkpoint, model)
+        print(f"### inference weights: {checkpoint}")
+        return model
+    newest = (newest_step_file(Path(cfg.output_dir)) if cfg.output_dir
+              else None)
+    if newest is None:
+        print(f"### inference weights: random (seed {seed})")
+        return model
+    state, _, ema, _ = CheckpointManager.read(newest)
+    model.load_state_dict(state)
+    if ema is not None and cfg.train.ema_eval:
+        with torch.no_grad():
+            for param, value in zip(model.parameters(), ema):
+                param.copy_(value)
+    print(f"### inference weights: {newest}"
+          + (" (EMA)" if ema is not None and cfg.train.ema_eval else ""))
+    return model
+
+
 class Embedder:
     """Text and image embedding plus top-K search around one LECCRModel;
     runs wherever the model lives."""
 
     def __init__(self, cfg: LECCRConfig, model: LECCRModel,
                  batch_size: int = 64):
-        if cfg.model.text.kind == "xlmr":
-            raise NotImplementedError(
-                "the XLM-R (Unigram) tokenizer comes with a later slice of "
-                "the port")
         self.cfg = cfg
         self.model = model
         self.batch_size = batch_size
         self.device = model.device
-        self.tokenizer = WordPieceTokenizer(cfg.data.text_vocab,
-                                            lowercase=cfg.data.lowercase)
+        self.tokenizer, self.caption_tokenizer = make_tokenizers(cfg)
 
     @classmethod
     def from_config(cls, cfg: LECCRConfig,
                     params: Optional[Mapping[str, Any]] = None,
                     seed: int = 0,
                     device: Optional[Union[str, torch.device]] = None,
-                    batch_size: int = 64) -> "Embedder":
-        """Random weights from `seed`, or the JAX package's `params` (a
-        flax param tree of numpy arrays).  device: None = the GPU.  The
-        model serves only, so its weights are held in the compute dtype
-        (no f32 masters, no cast per call)."""
-        model = LECCRModel(cfg.model, device=device, seed=seed)
+                    batch_size: int = 64,
+                    checkpoint: Optional[str] = None) -> "Embedder":
+        """The JAX package's `params` (a flax param tree of numpy arrays)
+        when given, else `load_params_for_inference(cfg, checkpoint)`
+        (random weights from `seed` when there is no checkpoint).  device:
+        None = the GPU.  The model serves only, so its weights are held in
+        the compute dtype (no f32 masters, no cast per call)."""
         if params is not None:
+            model = LECCRModel(cfg.model, device=device, seed=seed)
             load_jax_params(model, params)
+        else:
+            model = load_params_for_inference(cfg, checkpoint, device, seed)
         return cls(cfg, model.serve_in_compute_dtype_(), batch_size)
 
     def _tokens(self, texts: Sequence[str]
@@ -76,6 +119,13 @@ class Embedder:
                                           self.cfg.data.max_tokens)
         return (torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device))
+
+    def _caption_tokens(self, caps: List[str]
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        if self.caption_tokenizer is self.tokenizer:
+            return self.tokenizer.encode(caps, self.cfg.data.max_tokens)
+        ids = self.caption_tokenizer.encode(caps)  # CLIP BPE, padded with 0
+        return ids, (ids != 0).astype(np.int32)
 
     # ------------------------------------------------------------- texts
 
@@ -128,8 +178,7 @@ class Embedder:
                 batch = {"caption_feats": torch.from_numpy(arr),
                          "caption_mask": torch.from_numpy(msk)}
             else:
-                cap_ids, cap_mask = self.tokenizer.encode(
-                    caps, self.cfg.data.max_tokens)
+                cap_ids, cap_mask = self._caption_tokens(caps)
                 batch = {"caption_ids": torch.from_numpy(cap_ids),
                          "caption_mask": torch.from_numpy(cap_mask)}
             batch = {k: v.to(self.device) for k, v in batch.items()}

@@ -57,6 +57,16 @@ def _step_files(directory: Path) -> Dict[int, Path]:
             for m in map(_STEP_FILE.match, os.listdir(directory)) if m}
 
 
+def newest_step_file(directory: Path) -> Optional[Path]:
+    """The newest step file in `directory` or, failing that, in its
+    `checkpoints/` (an output dir); None if neither holds one."""
+    for d in (directory, directory / "checkpoints"):
+        files = _step_files(d)
+        if files:
+            return files[max(files)]
+    return None
+
+
 def _write(state: Dict[str, Any], path: Path) -> None:
     tmp = path.with_name(f".{path.name}.tmp")
     torch.save(state, tmp)
@@ -147,9 +157,11 @@ class CheckpointManager:
         return max(_step_files(self.dir), default=None)
 
     @staticmethod
-    def _load(path: Path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
-                                   Optional[List[torch.Tensor]],
-                                   Dict[str, int]]:
+    def read(path: Path) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any],
+                                  Optional[List[torch.Tensor]],
+                                  Dict[str, int]]:
+        """(model_state, optimizer_state, ema_or_None, meta) of one step
+        file, on the CPU."""
         state = torch.load(path, map_location="cpu", weights_only=True)
         meta = dict(state["meta"])
         meta.setdefault("steps_per_epoch", 0)
@@ -163,7 +175,7 @@ class CheckpointManager:
         step = step if step is not None else max(files, default=None)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
-        return self._load(files[step])
+        return self.read(files[step])
 
     def restore_best(self):
         """The best-metric checkpoint (never evicted by rotation), as
@@ -172,7 +184,7 @@ class CheckpointManager:
         files = _step_files(self.best_dir)
         if not files:
             raise FileNotFoundError(f"no best checkpoint in {self.best_dir}")
-        return self._load(files[max(files)])
+        return self.read(files[max(files)])
 
     def best_info(self) -> Optional[Dict]:
         self.wait()

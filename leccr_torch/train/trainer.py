@@ -40,7 +40,7 @@ from leccr_torch.data.pipeline import (
     background_iter,
     device_prefetch,
 )
-from leccr_torch.data.tokenizers import WordPieceTokenizer
+from leccr_torch.data.tokenizers import make_tokenizers
 from leccr_torch.device import resolve_device
 from leccr_torch.eval.retrieval import itm_metrics_from_ranks, retrieval_ranks
 from leccr_torch.models.leccr import LECCRModel
@@ -81,6 +81,15 @@ def build_datasets(cfg: LECCRConfig):
                       "image_root", "generated_caption_dir", "text_vocab"):
             setattr(data, field, getattr(synth, field))
         data.dataset = "multi30k"
+        if cfg.model.text.kind == "xlmr":
+            # the xlmr tower pairs with the Unigram tokenizer: a tiny
+            # unigram vocab over the synthetic words
+            from leccr_torch.data.synthetic import _WORDS_EN, _WORDS_T
+            from leccr_torch.data.tokenizers import write_tiny_unigram_vocab
+
+            uni = str(Path(synth.root_dir) / "unigram.tsv")
+            write_tiny_unigram_vocab(uni, _WORDS_EN + _WORDS_T)
+            data.text_vocab = uni
     res = cfg.model.vision.image_res
     train = ImageTrainDataset(data, res)
     val = {k: ImageEvalDataset(data, p, res, "eval")
@@ -117,11 +126,6 @@ class Trainer:
         self.cfg = cfg
         self.device = resolve_device(device)
         check_parallel(cfg)
-        if cfg.model.text.kind == "xlmr":
-            raise NotImplementedError(
-                "the XLM-R (Unigram) tokenizer comes with a later slice of "
-                "the port (ROADMAP §1, 'Tokenizers, the CLIP text tower, and "
-                "checkpoint import and export')")
         self.train_ds, self.val_ds, self.test_ds = build_datasets(cfg)
         # startup summary (reference image_Retrieval_caption.py:345-349)
         print(f"### Train Files: "
@@ -132,16 +136,15 @@ class Trainer:
               f"{[(k, len(d)) for k, d in self.val_ds.items()]}")
         print(f"### Test: {[(k, len(d)) for k, d in self.test_ds.items()]}")
 
-        self.tokenizer = WordPieceTokenizer(cfg.data.text_vocab,
-                                            lowercase=cfg.data.lowercase)
-        # mbert: the caption encoder is the text tower (LECCRModel raises
-        # for the CLIP caption encoder)
-        self.caption_tokenizer = self.tokenizer
+        self.tokenizer, self.caption_tokenizer = make_tokenizers(cfg)
         self.train_loader = TrainLoader(
             self.train_ds, self.tokenizer, cfg.data,
             batch_size=cfg.train.batch_size_train,
             num_workers=cfg.data.num_workers,
             caption_tokenizer=self.caption_tokenizer)
+        print(f"### Tokenizer: {type(self.tokenizer).__name__} "
+              f"({'native' if self.train_loader.native else 'Python'}), "
+              f"captions: {type(self.caption_tokenizer).__name__}")
         self.steps_per_epoch = self.train_loader.steps_per_epoch()
         total_steps = max(1, cfg.train.schedular.epochs
                           * self.steps_per_epoch)
@@ -169,6 +172,19 @@ class Trainer:
         # asking for its batch to asking for the next, or to the epoch's
         # end after the last loss read-back)
         self.timing: List[Dict[str, Any]] = []
+
+    def load_initial_checkpoint(self, path: str):
+        """Load initial weights (`models.weights.load_initial_checkpoint`:
+        reference, OpenAI CLIP, HF BERT/XLM-R or the port's own) into the
+        model's f32 parameters; the optimizer state stays fresh, and an
+        EMA restarts from the loaded weights.  Returns the ImportReport."""
+        from leccr_torch.models.weights import load_initial_checkpoint
+
+        report = load_initial_checkpoint(path, self.state.model)
+        train_step = self.state.train_step
+        if train_step.ema is not None:
+            train_step.ema = train_step.ema_of_params()
+        return report
 
     # ----------------------------------------------------------- epochs
 

@@ -1,5 +1,6 @@
 """The port stands alone: importing every leccr_torch module pulls in no
-JAX, flax, optax or leccr_tpu module, and builds no kernel."""
+JAX, flax, optax, leccr_tpu, safetensors or transformers module, and
+builds nothing: no CUDA kernel, no native tokenizer library."""
 
 import json
 import subprocess
@@ -12,6 +13,7 @@ _SCRIPT = """
 import importlib, json, pkgutil, sys
 import leccr_torch
 from leccr_torch.ops import _build
+from leccr_torch.data import native_tokenizer
 names = [m.name for m in pkgutil.walk_packages(leccr_torch.__path__,
                                                 "leccr_torch.")]
 for name in names:
@@ -20,8 +22,11 @@ print(json.dumps({
     "modules": names,
     "foreign": sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                             "optax", "leccr_tpu")),
+                                             "optax", "leccr_tpu",
+                                             "safetensors", "transformers",
+                                             "regex")),
     "built": sorted(_build.build_info),
+    "native_loaded": native_tokenizer._lib is not None,
 }))
 """
 
@@ -41,9 +46,12 @@ def test_port_imports_no_jax_and_builds_nothing():
             "leccr_torch.data.text", "leccr_torch.train.trainer",
             "leccr_torch.train.checkpoints", "leccr_torch.train.metrics",
             "leccr_torch.utils.io", "leccr_torch.utils.debug",
-            "leccr_torch.run"} <= set(out["modules"])
+            "leccr_torch.run", "leccr_torch.data.tokenizers",
+            "leccr_torch.data.native_tokenizer", "leccr_torch.models.clip",
+            "leccr_torch.models.convert"} <= set(out["modules"])
     assert out["foreign"] == []
     assert out["built"] == []
+    assert not out["native_loaded"]
 
 
 def test_library_name_hashes_only_the_headers_a_source_includes(

@@ -291,3 +291,29 @@ def test_same_cli_calls_as_the_jax_package(hdfs, tmp_path):
         logs.append([[a.replace(f"/r{k}", "/r").replace(f"back{k}", "back")
                       for a in argv] for argv in _argv_log(hdfs)])
     assert logs[0] == logs[1]
+
+
+def test_initial_checkpoint_from_hdfs_is_staged(hdfs, tmp_path):
+    """load_initial_checkpoint copies a hdfs:// checkpoint to a local file
+    first, then loads it as any other (a reference export here)."""
+    import torch
+
+    from leccr_torch.config import tiny_test_config
+    from leccr_torch.models.leccr import LECCRModel
+    from leccr_torch.models.weights import (
+        export_reference_state_dict,
+        load_initial_checkpoint,
+        save_reference_checkpoint,
+    )
+
+    cfg = tiny_test_config().model
+    source = LECCRModel(cfg, device="cpu", seed=3)
+    (hdfs / "ckpts").mkdir()
+    save_reference_checkpoint(export_reference_state_dict(source),
+                              str(hdfs / "ckpts" / "ref.pth"))
+    model = LECCRModel(cfg, device="cpu", seed=4)
+    report = load_initial_checkpoint("hdfs://nn/ckpts/ref.pth", model)
+    assert report.flavor == "reference" and report.issues == []
+    for key, value in source.state_dict().items():
+        assert torch.equal(model.state_dict()[key], value), key
+    assert any("-get" in call for call in _argv_log(hdfs))

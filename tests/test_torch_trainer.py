@@ -33,12 +33,20 @@ import torch
 
 from chip_smoke import state_equal
 from leccr_torch.config import tiny_test_config as port_tiny_config
+from leccr_torch.data import pipeline as port_pipe
+from leccr_torch.data.tokenizers import (
+    make_tokenizers,
+    write_tiny_unigram_vocab,
+)
 from leccr_torch.models.leccr import LECCRModel
 from leccr_torch.models.weights import load_jax_params, params_from_jax
 from leccr_torch.train import trainer as port_trainer
 from leccr_torch.train.checkpoints import CheckpointManager
 from leccr_torch.train.step import ema_update_, make_train_step
 from leccr_tpu.config import tiny_test_config
+from leccr_tpu.data import pipeline as jax_pipe
+from leccr_tpu.data import tokenizers as jax_tok
+from leccr_tpu.train import trainer as jax_trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 LR = 1e-3
@@ -470,8 +478,7 @@ def test_cli_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["--task", "vtr_caption"], ["--task", "serve"], ["--task", "export"],
-    ["--checkpoint", "/some/weights.pth"]])
+    ["--task", "vtr_caption"], ["--task", "serve"]])
 def test_cli_unported_options_raise(tmp_path, args):
     from leccr_torch.run import main
 
@@ -479,9 +486,23 @@ def test_cli_unported_options_raise(tmp_path, args):
         main(["--output_dir", str(tmp_path), "--device", "cpu", *args])
 
 
+def test_cli_checkpoint_from_an_orbax_directory_raises(tmp_path):
+    """The port reads no orbax directory; the error names the routes from
+    the JAX package."""
+    from leccr_torch.run import main
+
+    orbax = tmp_path / "orbax" / "40"
+    orbax.mkdir(parents=True)
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="orbax.*params_from_jax"):
+        main(["--config", str(ROOT / "configs" / "tiny_synth.yaml"),
+              "--output_dir",
+              str(tmp_path / "run"), "--device", "cpu", "--checkpoint",
+              str(orbax)])
+
+
 @pytest.mark.parametrize("overrides,error", [
     ({"data.dataset": "video"}, NotImplementedError),
-    ({"model.text.kind": "xlmr"}, NotImplementedError),
     ({"parallel.model": 2}, NotImplementedError)])
 def test_trainer_unported_options_raise(tmp_path, overrides, error):
     with pytest.raises(error):
@@ -508,3 +529,204 @@ def test_debug_nans_checks_each_step():
     with pytest.raises((FloatingPointError, RuntimeError), match="nan|NaN"):
         step(_torch_batch(_batch(cfg)), 1)
     assert not torch.is_anomaly_enabled()
+
+
+# ------------------------------------- tokenizers, weights in and out, serving
+
+WORDS = ("a man rides his red bike dog runs in the green field ein mann "
+         "fährt rad").split()
+MERGES = ["#version: 0.2", "r e", "re d</w>", "d o", "do g</w>", "m a",
+          "ma n</w>", "a</w>", "t h", "th e</w>"]
+
+
+@pytest.mark.parametrize("text_kind,caption", [
+    ("xlmr", "mbert"), ("xlmr", "clip"), ("bert", "clip")])
+def test_loader_batches_equal_jax_for_each_tokenizer(tmp_path, text_kind,
+                                                      caption):
+    """The trainer's tokenizer choice and the loaders' batches, bit for bit
+    against the JAX Trainer's, for the Unigram text tokenizer and the CLIP
+    BPE caption tokenizer (77-wide caption rows, mask = ids != 0)."""
+    merges = tmp_path / "merges.txt"
+    merges.write_text("\n".join(MERGES) + "\n", encoding="utf-8")
+    overrides = {"model.text.kind": text_kind,
+                 "model.caption_encoder_name": caption,
+                 "data.clip_bpe_vocab": str(merges),
+                 "data.token_buckets": [8, 16]}
+    loaders = []
+    for make, build, pipe in (
+            (tiny_test_config, jax_trainer.build_datasets, jax_pipe),
+            (port_tiny_config, port_trainer.build_datasets, port_pipe)):
+        cfg = _cfg(make, tmp_path / make.__module__, **overrides)
+        train, val, _ = build(cfg)
+        if make is port_tiny_config:
+            tok, cap = make_tokenizers(cfg)
+        else:  # the JAX Trainer's choice (leccr_tpu/train/trainer.py)
+            tok = (jax_tok.UnigramTokenizer if text_kind == "xlmr"
+                   else jax_tok.WordPieceTokenizer)(cfg.data.text_vocab)
+            cap = (jax_tok.ClipBPETokenizer(str(merges)) if caption == "clip"
+                   else tok)
+        loader = pipe.TrainLoader(train, tok, cfg.data, batch_size=4,
+                                  num_workers=1, caption_tokenizer=cap)
+        (split,) = val.values()
+        evals = pipe.EvalLoader(split, tok, cfg.data, batch_size=3,
+                                text_batch_size=4, caption_tokenizer=cap)
+        loaders.append((loader, evals))
+    (jax_loader, jax_eval), (port_loader, port_eval) = loaders
+    assert port_loader.native  # g++ builds the library here
+    for epoch in range(2):
+        got, want = (list(port_loader.epoch(epoch)),
+                     list(jax_loader.epoch(epoch)))
+        assert len(got) == len(want) == 8
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            for key in w:
+                np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+            if caption == "clip":
+                assert g["caption_ids"].shape[1] == 77
+    for (g, gn), (w, wn) in zip(port_eval.image_batches(),
+                                jax_eval.image_batches()):
+        assert gn == wn
+        for key in ("caption_ids", "caption_mask"):
+            np.testing.assert_array_equal(g[key], w[key], err_msg=key)
+    for g, w in zip(port_eval.text_batches(), jax_eval.text_batches()):
+        np.testing.assert_array_equal(g[0], w[0])
+
+
+def test_inference_weights_take_the_newest_checkpoint_and_its_ema(fitted):
+    """load_params_for_inference: the newest checkpoint of output_dir, its
+    EMA when it holds one (ema_eval); seeded random weights when there is
+    none."""
+    from leccr_torch.serve import load_params_for_inference
+
+    _, port_tr, out, _ = fitted
+    model = load_params_for_inference(port_tr.cfg, device="cpu")
+    for got, want in zip(model.parameters(), port_tr.state.ema):
+        assert torch.equal(got.detach(), want)
+    cfg = _cfg(port_tiny_config, out / "empty")
+    fresh = load_params_for_inference(cfg, device="cpu", seed=4)
+    assert state_equal(fresh.state_dict(),
+                       LECCRModel(cfg.model, device="cpu",
+                                  seed=4).state_dict())
+
+
+def _xlmr_config(tmp_path, **overrides):
+    """A config file of the tiny model with the XLM-R text tower, and the
+    config itself."""
+    cfg = _cfg(port_tiny_config, tmp_path / "unused", **{
+        "model.text.kind": "xlmr", "model.text.type_vocab_size": 1,
+        "model.text.pad_token_id": 1, "model.text.max_position_embeddings": 66,
+        "train.schedular.epochs": 1, **overrides})
+    path = tmp_path / "xlmr.json"
+    cfg.save(str(path))
+    return str(path), cfg
+
+
+def test_cli_imports_trains_and_exports_the_xlmr_model(tmp_path, capsys):
+    """`--checkpoint` with a reference .pth (other weights plus dead X-VLM
+    keys) before training; then `--task export` of the trained checkpoint
+    (config.json read beside it) gives the trained weights back."""
+    from leccr_torch.models.weights import (
+        export_reference_state_dict,
+        load_initial_checkpoint,
+        save_reference_checkpoint,
+    )
+    from leccr_torch.run import main
+
+    config, cfg = _xlmr_config(tmp_path)
+    source = LECCRModel(cfg.model, device="cpu", seed=21)
+    ref = export_reference_state_dict(source)
+    ref["itm_head.weight"] = torch.zeros(2, 64)
+    save_reference_checkpoint(ref, str(tmp_path / "ref.pth"))
+
+    loaded = []
+    original = port_trainer.Trainer.load_initial_checkpoint
+
+    def spy(self, path):
+        report = original(self, path)
+        loaded.append(state_equal(self.state.model.state_dict(),
+                                  source.state_dict()))
+        return report
+
+    port_trainer.Trainer.load_initial_checkpoint = spy
+    try:
+        main(["--config", config, "--output_dir", str(tmp_path / "run"),
+              "--checkpoint", str(tmp_path / "ref.pth"), "--device", "cpu"])
+    finally:
+        port_trainer.Trainer.load_initial_checkpoint = original
+    printed = capsys.readouterr().out
+    assert loaded == [True]
+    assert "### Tokenizer: UnigramTokenizer (native)" in printed
+    assert "itm_head.weight" in printed  # listed as unused
+    records = _records(tmp_path / "run")
+    assert [r.get("epoch") for r in records] == [0, None]
+    assert np.isfinite(float(records[0]["train_loss_itc_vs"]))
+
+    (step,) = (tmp_path / "run" / "checkpoints").glob("step_*.pt")
+    main(["--task", "export", "--checkpoint", str(step), "--export_path",
+          str(tmp_path / "export" / "ref.pth"), "--device", "cpu"])
+    trained = torch.load(step, map_location="cpu",
+                         weights_only=True)["model"]
+    back = LECCRModel(cfg.model, device="cpu", seed=22)
+    report = load_initial_checkpoint(str(tmp_path / "export" / "ref.pth"),
+                                     back)
+    assert report.issues == []
+    assert state_equal(back.state_dict(), trained)
+
+
+def test_embedder_serves_the_xlmr_model_as_jax_does(tmp_path):
+    """Embedder with the Unigram tokenizer: the JAX Embedder's text
+    embeddings and index at the same params, and `checkpoint=` (an
+    exported reference file) serving the same weights."""
+    from leccr_torch.models.weights import (
+        export_reference_state_dict,
+        save_reference_checkpoint,
+    )
+    from leccr_torch.serve import Embedder as PortEmbedder
+    from leccr_tpu.models.leccr import LECCRModel as JaxLECCR
+    from leccr_tpu.serve import Embedder as JaxEmbedder
+
+    _, cfg = _xlmr_config(tmp_path)
+    vocab = tmp_path / "uni.tsv"
+    write_tiny_unigram_vocab(str(vocab), WORDS)
+    cfg.data.text_vocab = str(vocab)
+    jcfg = _cfg(tiny_test_config, tmp_path / "unused", **{
+        "model.text.kind": "xlmr", "model.text.type_vocab_size": 1,
+        "model.text.pad_token_id": 1,
+        "model.text.max_position_embeddings": 66})
+    jcfg.data.text_vocab = str(vocab)
+    rs = np.random.RandomState(0)
+    res = cfg.model.vision.image_res
+    ids = rs.randint(2, 100, (1, 8)).astype(np.int32)
+    one = np.ones_like(ids)
+    batch = {"vision": np.zeros((1, res, res, 3), np.float32),
+             "text_ids_s": ids, "text_mask_s": one, "text_ids_t": ids,
+             "text_mask_t": one, "caption_ids": ids, "caption_mask": one}
+    params = JaxLECCR(jcfg.model).init(
+        {"params": jax.random.PRNGKey(0)},
+        jax.tree.map(np.asarray, batch))["params"]
+    params = jax.tree.map(
+        lambda x: np.asarray(x + 0.05 * rs.randn(*np.shape(x)), np.float32),
+        params)
+    texts = ["a man rides his red bike", "ein mann fährt rad", "dog €",
+             "the green field", "runs", ""]
+    images = rs.randint(0, 256, (5, res, res, 3)).astype(np.uint8)
+    captions = ["a red dog", "the field", "a man", "bike", "ein rad"]
+    jax_emb = JaxEmbedder(jcfg, params, batch_size=4)
+    port = PortEmbedder.from_config(cfg, params=params, device="cpu",
+                                    batch_size=4)
+    np.testing.assert_allclose(port.embed_texts(texts),
+                               jax_emb.embed_texts(texts), rtol=0, atol=1e-4)
+    want = jax_emb.build_image_index(images, captions)
+    got = port.build_image_index(images, captions)
+    np.testing.assert_allclose(got.feats.numpy(), np.asarray(want.feats)[:5],
+                               rtol=0, atol=1e-4)
+
+    path = tmp_path / "exported.pth"
+    save_reference_checkpoint(export_reference_state_dict(port.model),
+                              str(path))
+    served = PortEmbedder.from_config(cfg, device="cpu", batch_size=4,
+                                      checkpoint=str(path))
+    assert state_equal(served.model.state_dict(), port.model.state_dict())
+    hits = served.search_texts(texts[:3], served.build_image_index(
+        images, captions), k=2)
+    assert [len(h) for h in hits] == [2, 2, 2]
