@@ -161,6 +161,18 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    (position table = interpolate_pos_embed of the file's, 2 steps, the
    tower unmoved, kernels 2/3 24 / 24 a step); native tokenizers equal
    the Python ones (texts/s).
+13. video (`video_phase`): configs/msrvtt.yaml's model uncut (temporal
+   tower over 4096-d frames, mBERT-base, caption interaction 3/2/2 at
+   width 4096, so Dh = 512; bf16 on f32 masters).  Kernel 1's key-tiles
+   body against its plain version at the video shapes (VIDEO_SHAPES timed
+   beside the bound and SDPA, VIDEO_EDGE_SHAPES checked; phase 2's
+   tolerances), then `python -m leccr_torch.run --task vtr_caption` on a
+   synthetic MSR-VTT-layout set (512 clips, 4 steps at bs128; val and
+   test of 1000 videos x 5 captions): kernels 2/3 VIDEO_STEP_LAUNCHES a
+   step, all tensor-core, kernel 1 7 launches an eval batch on the
+   key-tiles body only; the test split's double-sim ranks equal a dense
+   count; ms/step, peak memory, embed_texts / embed_images / ranking s;
+   then build_video_index of 256 videos and search_texts(minmax).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -185,6 +197,23 @@ PATH_LAUNCHES = {(4, 200): 3, (145, 4): 2, (4, 145): 2}  # per embed_images
 # kernel 1's edge shapes, checked (not timed) on each body: one query, one
 # key, the few-keys body's last Lk and the first past it
 EDGE_SHAPES = [(1, 200), (145, 1), (145, 16), (145, 17)]
+# the video model's (configs/msrvtt.yaml: 4096-d frames at 8 heads, Dh =
+# 512) embed_images calls, all on the key-tiles body: (slots, caption tokens
+# at max_tokens), (frames, slots), (slots, frames); checked only: the
+# 64- and 128-token buckets (past the general body's 52 keys at Dh = 512)
+# and the edges of its 16-key and 16-row tiles
+VIDEO_DH = 512
+VIDEO_SHAPES = [(2, 200), (32, 2), (2, 32)]
+VIDEO_PATH_LAUNCHES = {(2, 200): 3, (32, 2): 2, (2, 32): 2}
+VIDEO_EDGE_SHAPES = [(2, 64), (2, 128), (1, 1), (17, 33), (32, 16)]
+# the video phase's cuts of configs/msrvtt.yaml (widths uncut): synthetic
+# frame features, 512 training clips with one caption each (4 steps at
+# bs128, one epoch), 1000 videos x 5 captions a split (msrvtt10ktest has
+# 2990 x 20), 256 videos indexed for serving
+VIDEO_TRAIN_CLIPS = 512
+VIDEO_EVAL_VIDEOS = 1000
+VIDEO_EVAL_CAPTIONS = 5
+VIDEO_SERVE_VIDEOS = 256
 # (name, B, H, L, dropout rate, key padding, backward) of the towers'
 # calls of kernels 2/3 in one train step: in the flagship's (bs128) the ViT
 # at 145 tokens, the text tower on source + target texts at the 64-token
@@ -269,6 +298,10 @@ LARGE_BATCH = 4096
 LARGE_MICROBATCHES = 16
 LARGE_STREAM_ROWS = 256
 LARGE_STEP_LAUNCHES = (1152, 384, 0, 0, 0, 0, 0, 6, 6, 6)
+# a video step: kernel 2 on the text tower (12 layers, source + target in
+# one call) and on the caption pass (12, forward only), kernel 3 on the
+# text tower's backward; the temporal tower's attention is plain
+VIDEO_STEP_LAUNCHES = (24, 12, 0, 0, 0, 0, 0, 0, 0, 0)
 # (name, M, N, ids) of kernels 9-11's checks, E = 256: the large-batch
 # step's [4096] x [4096] (idx = arange), the same with every id twice, a
 # ragged size, a ring block of the multi-device loss (256 q rows against
@@ -338,11 +371,15 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
 
 
-def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
-    """Kernel 1 against its plain version at SHAPES (timed, beside its
-    bound, the plain version and SDPA) and EDGE_SHAPES (checked only), in
-    bf16 (the path's dtype) and f32, each launch on the body `fused_body`
-    picks (read from the per-body counters)."""
+def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64,
+                 shapes=tuple(SHAPES), edges=tuple(EDGE_SHAPES),
+                 phase: str = "kernel"):
+    """Kernel 1 against its plain version at `shapes` (timed, beside its
+    bound, the plain version and SDPA) and `edges` (checked only), in bf16
+    (the path's dtype) and f32, each launch on the body `fused_body` picks
+    (read from the per-body counters): the image model's SHAPES and
+    EDGE_SHAPES at Dh = 64 by default, the video model's at Dh = 512 with
+    phase="video_kernel"."""
     import torch
     import torch.nn.functional as F
 
@@ -355,8 +392,8 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
     flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     results = []
-    for lq, lk in SHAPES + EDGE_SHAPES:
-        timed = (lq, lk) in SHAPES
+    for lq, lk in list(shapes) + list(edges):
+        timed = (lq, lk) in shapes
         for dtype in (torch.bfloat16, torch.float32):
             g = torch.Generator(device="cuda").manual_seed(lq * 1000 + lk)
             # the path's layout: [B, L, H, Dh] storage seen as [B, H, L, Dh]
@@ -398,7 +435,7 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
                    "max_abs_err": err, "padded_row_vs_mean_v": mean_err,
                    "tolerance": tol}
             if not timed:
-                emit("kernel_edge_vs_plain", **row)
+                emit(f"{phase}_edge_vs_plain", dh=dh, **row)
                 continue
             attend = ~pad[:, None, None, :]
             ms = cuda_ms(lambda: fused_cross_attention(q, k, v, pad), flush)
@@ -414,11 +451,11 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64):
             t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[name] * 1e3
             results.append({
-                **row, "ms": ms, "plain_ms": plain_ms,
+                **row, "dh": dh, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bytes": n_bytes, "flops": flops,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-            emit("kernel_vs_plain", **results[-1])
+            emit(f"{phase}_vs_plain", **results[-1])
     return results
 
 
@@ -499,17 +536,17 @@ def path_layout(x, aligned: bool = True):
     return x.transpose(1, 2)
 
 
-def kernel1_counts(what: str) -> dict:
+def kernel1_counts(what: str, bodies=("few_queries", "few_keys")) -> dict:
     """Kernel 1's launches since reset_counts(), all and by body; `what`
-    (a path) must have launched both the few-queries and the few-keys body
-    and the general one never (the embed_images shapes)."""
+    (a path) must have launched each of `bodies` and no other (the image
+    model's embed_images shapes: the few-queries and few-keys bodies, never
+    the general one; the video model's: the key-tiles body)."""
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
 
-    counts = {"all": fused_cross_attention.launches,
-              **fused_cross_attention.launches_by_body}
-    if (counts["few_queries"] == 0 or counts["few_keys"] == 0
-            or counts["general"] != 0 or counts["all"] != sum(
-                fused_cross_attention.launches_by_body.values())):
+    by_body = fused_cross_attention.launches_by_body
+    counts = {"all": fused_cross_attention.launches, **by_body}
+    if (any((by_body[b] > 0) != (b in bodies) for b in by_body)
+            or counts["all"] != sum(by_body.values())):
         raise AssertionError(f"{what} launched kernel 1's bodies {counts}")
     return counts
 
@@ -2205,21 +2242,7 @@ def eval_phase(emb, card_line: str, n_img: int = 1000, n_txt: int = 5000,
         raise AssertionError(f"eval launched the kernel {launches} times")
 
     # the ranks against a dense count over the same block products
-    block = 256
-    pad = (-n_img) % block
-    padded = torch.nn.functional.pad(img, (0, 0, 0, pad))
-    s = torch.cat([padded[r:r + block] @ txt.T
-                   for r in range(0, n_img + pad, block)])[:n_img]
-    s = s.cpu().numpy()
-    cols = np.arange(n_txt)
-    g_t = s[txt2img, cols]
-    want_t2i = ((s > g_t) | ((s == g_t)
-                             & (np.arange(n_img)[:, None] > txt2img))).sum(0)
-    gt = np.array([img2txt[i] for i in range(n_img)])
-    g_i = np.take_along_axis(s, gt, axis=1)[:, :, None]
-    want_i2t = ((s[:, None, :] > g_i) | ((s[:, None, :] == g_i)
-                                         & (cols > gt[:, :, None]))
-                ).sum(-1).min(1)
+    want_i2t, want_t2i = dense_ranks(img, txt, txt2img, img2txt)
     if not (np.array_equal(i2t, want_i2t) and np.array_equal(t2i, want_t2i)):
         raise AssertionError("streaming ranks differ from the dense count")
     metrics = itm_metrics_from_ranks(i2t, t2i)
@@ -2519,6 +2542,7 @@ def checkpoint_phase(card_line: str, seed: int = 1):
         WordPieceTokenizer,
         write_tiny_wordpiece_vocab,
     )
+    from leccr_torch.eval.retrieval import pairwise_scores
     from leccr_torch.models.clip import CLIP_VARIANTS, interpolate_pos_embed
     from leccr_torch.models.leccr import LECCRModel
     from leccr_torch.models.weights import (
@@ -2670,10 +2694,11 @@ def checkpoint_phase(card_line: str, seed: int = 1):
         serve_kernel1 = kernel1_counts("the checkpoint phase's serving")
         if serve_kernel1["all"] != launches_per_batch(serve_cfg) * 4:
             raise AssertionError(f"serving launched kernel 1 {serve_kernel1}")
-        # the queries as search_texts embeds them: one batch padded with ""
+        # the queries as search_texts embeds them (one batch padded with
+        # ""), scored by the same fixed-order product
         padded = queries + [""] * (emb.batch_size - len(queries))
-        dense = (torch.from_numpy(emb.embed_texts(padded)).cuda()
-                 @ index.feats.T)[:len(queries)]
+        dense = pairwise_scores(torch.from_numpy(
+            emb.embed_texts(padded)).cuda(), index.feats)[:len(queries)]
         for q, row in enumerate(hits):
             for rank, (item, score) in enumerate(row):
                 above = int((dense[q] > score).sum())
@@ -2780,6 +2805,331 @@ def checkpoint_phase(card_line: str, seed: int = 1):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def dense_ranks(img, txt, txt2img, img2txt, slots=None, alpha=0.9,
+                block: int = 256):
+    """(i2t, t2i) ranks by a dense count over the streaming ranker's own
+    block products (`pairwise_scores` of the same 256-row blocks, so the
+    same bits), fused as the ranker fuses them: none without `slots`, else
+    the double-sim's min-max blend.  img2txt: a dict of equal-length
+    lists."""
+    import numpy as np
+    import torch
+
+    from leccr_torch.eval.retrieval import pairwise_scores
+
+    n_img, n_txt = img.shape[0], txt.shape[0]
+    pad = (-n_img) % block
+
+    def blocks(x):
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, pad))
+        return [x[r:r + block] for r in range(0, n_img + pad, block)]
+
+    s = torch.cat([pairwise_scores(b, txt) for b in blocks(img)])[:n_img]
+    if slots is not None:
+        c = torch.cat([pairwise_scores(b.reshape(-1, b.shape[-1]), txt).view(
+            b.shape[0], b.shape[1], n_txt).amax(dim=1)
+            for b in blocks(slots)])[:n_img]
+        sa = 1.0 / torch.clamp_min(s.max() - s.min(), 1e-12)
+        ca = 1.0 / torch.clamp_min(c.max() - c.min(), 1e-12)
+        a0, a1 = alpha * sa, alpha * (-s.max() * sa)
+        b0, b1 = (1.0 - alpha) * ca, (1.0 - alpha) * (-c.max() * ca)
+        s = s * a0 + a1 + c * b0 + b1
+    s = s.cpu().numpy()
+    cols = np.arange(n_txt)
+    g_t = s[txt2img, cols]
+    t2i = ((s > g_t) | ((s == g_t)
+                        & (np.arange(n_img)[:, None] > txt2img))).sum(0)
+    gt = np.array([img2txt[i] for i in range(n_img)])
+    g_i = np.take_along_axis(s, gt, axis=1)[:, :, None]
+    i2t = ((s[:, None, :] > g_i) | ((s[:, None, :] == g_i)
+                                    & (cols > gt[:, :, None]))
+           ).sum(-1).min(1)
+    return i2t, t2i
+
+
+def video_phase(card_line: str = "", seed: int = 0):
+    """The video path at configs/msrvtt.yaml's widths, uncut: temporal tower
+    over 4096-d frames (1 layer, 8 heads, 32 frames), mBERT-base (119 547 x
+    768, 12 layers), 2 slots, caption interaction 3/2/2 at width 4096 (Dh =
+    512), bf16 on f32 masters.  Cut only in data and length (VIDEO_*):
+    1. kernel 1 on its key-tiles body against its plain version at
+       VIDEO_SHAPES (timed beside its bound, the plain version and SDPA)
+       and VIDEO_EDGE_SHAPES, bf16 and f32, with key padding and a fully
+       padded row (`kernel_phase`);
+    2. `python -m leccr_torch.run --task vtr_caption` on a derived yaml
+       over a synthetic MSR-VTT-layout set that the port's
+       `make_video_dataset` writes in a temporary directory (removed
+       after): 4 steps at bs128, then the double-sim eval of val and test
+       (1000 videos x 5 captions each) and the epoch's checkpoint.
+       Kernels 2/3 must launch VIDEO_STEP_LAUNCHES a step (all on the
+       tensor-core variant) and kernel 1 launches_per_batch() an eval
+       batch, on its key-tiles body only; finite losses and sumR;
+    3. the test split evaluated again with embed_texts, embed_images and
+       the ranker timed alone (the images from the eval device cache), its
+       minmax ranks equal a dense count over the same block products
+       (`dense_ranks`); then one more step under the profiler (device
+       time by kernel, busy share of the host-fed step);
+    4. an Embedder at the same widths (seeded random weights) indexes
+       VIDEO_SERVE_VIDEOS videos of 2-32 frames (`build_video_index`) and
+       answers 5 queries with fusion="minmax": kernel 1 launches_per_batch()
+       an index batch on its key-tiles body; each hit's rank and score
+       agree with a dense count of the same scores.
+    Returns (kernel 1 rows at the video shapes, kernel 2/3 launches of 2,
+    kernel 1 counts of 2-4)."""
+    import gc
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from leccr_torch import run
+    from leccr_torch.config import load_config
+    from leccr_torch.data.pipeline import device_prefetch
+    from leccr_torch.data.synthetic import (
+        _WORDS_EN,
+        _WORDS_T,
+        make_video_dataset,
+    )
+    from leccr_torch.serve import Embedder
+    from leccr_torch.train import trainer as trainer_module
+    from leccr_torch.train.trainer import Trainer
+
+    card_line = card_line or card()
+    shapes = kernel_phase(dh=VIDEO_DH, shapes=tuple(VIDEO_SHAPES),
+                          edges=tuple(VIDEO_EDGE_SHAPES),
+                          phase="video_kernel")
+    for r in shapes:
+        if r["body"] != "key_tiles":
+            raise AssertionError(f"kernel 1 at the video shape {r['lq']}x"
+                                 f"{r['lk']} took the {r['body']} body")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_video_"))
+    try:
+        cfg = load_config(str(ROOT / "configs" / "msrvtt.yaml"))
+        vision = cfg.model.vision
+        t0 = time.perf_counter()
+        data = make_video_dataset(
+            str(tmp / "msrvtt"), n_train=VIDEO_TRAIN_CLIPS,
+            n_eval=VIDEO_EVAL_VIDEOS, caps_per_video=VIDEO_EVAL_CAPTIONS,
+            feat_dim=vision.frame_feat_dim,
+            frames_per_video=vision.max_frames, seed=seed)
+        for rel in data.train_file:  # one caption a training clip
+            path = Path(data.root_dir) / rel
+            path.write_text("\n".join(
+                line for line in path.read_text().splitlines()
+                if line.split(" ", 1)[0].endswith("#0")))
+        data_s = time.perf_counter() - t0
+        for field in ("root_dir", "train_file", "val_file", "test_file",
+                      "image_root", "generated_caption_dir", "text_vocab"):
+            setattr(cfg.data, field, getattr(data, field))
+        cfg.train.schedular.epochs = 1
+        cfg.train.seed = seed
+        derived = tmp / "msrvtt.yaml"
+        derived.write_text(yaml.safe_dump(cfg.to_dict()))
+        out = tmp / "run"
+
+        # 2. train and evaluate through the entry point
+        seen = {"losses": [], "eval_s": []}
+        original_fit = Trainer.fit
+
+        def fit_spy(self, evaluate_only=False):
+            seen["trainer"] = self
+            step_run, evaluate = self.state.train_step.run, self.evaluate
+
+            def run_noted(batch, step_no):
+                values = step_run(batch, step_no)
+                seen["losses"].append(values)
+                return values
+
+            def evaluate_timed(dataset):
+                t = time.perf_counter()
+                metrics = evaluate(dataset)
+                torch.cuda.synchronize()
+                seen["eval_s"].append(time.perf_counter() - t)
+                return metrics
+
+            self.state.train_step.run = run_noted
+            self.evaluate = evaluate_timed
+            return original_fit(self, evaluate_only)
+
+        Trainer.fit = fit_spy
+        # earlier phases' trainers sit in reference cycles (their spied
+        # step functions): collect them, or their tensors join this peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            run.main(["--task", "vtr_caption", "--config", str(derived),
+                      "--output_dir", str(out)])
+        finally:
+            Trainer.fit = original_fit
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches, tc = step_counts(), tc_counts()
+        fit_kernel1 = kernel1_counts("the video fit's evals", ("key_tiles",))
+        tr = seen["trainer"]
+        steps = tr.state.step
+        bs_test = cfg.train.batch_size_test
+        eval_batches = sum(math.ceil(len(ds) / bs_test)
+                           for split in (tr.val_ds, tr.test_ds)
+                           for ds in split.values())
+        want = tuple(n * steps for n in VIDEO_STEP_LAUNCHES)
+        if (steps != VIDEO_TRAIN_CLIPS // cfg.train.batch_size_train
+                or launches != want or tc != launches[:2]):
+            raise AssertionError(f"{steps} video steps launched kernels 2-11 "
+                                 f"{launches} ({tc} tensor-core), want {want}")
+        if fit_kernel1["all"] != launches_per_batch(cfg) * eval_batches:
+            raise AssertionError(f"kernel 1 launched {fit_kernel1} for "
+                                 f"{eval_batches} embed_images batches")
+        losses = torch.stack(seen["losses"])
+        if len(losses) != steps or not torch.isfinite(losses).all():
+            raise AssertionError(f"video losses: {losses}")
+        records = [json.loads(line) for line in
+                   (out / "log.txt").read_text().splitlines()]
+        lang = next(iter(tr.test_ds))
+        sumr = records[0][f"{lang}_test_sumr_sum"]
+        if not math.isfinite(sumr):
+            raise AssertionError(f"log.txt records {records}")
+        later = [x for t in tr.timing for x in t["step_s"][1:]]
+        step_ms = statistics.median(later) * 1e3
+
+        # 3. the test split again, each part timed alone
+        ds = tr.test_ds[lang]
+        model = tr.eval_model()
+        times = {"embed_texts_s": 0.0, "embed_images_s": 0.0,
+                 "ranks_s": 0.0}
+
+        def timed(key, fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                times[key] += time.perf_counter() - t
+                return result
+            return call
+
+        ranker = trainer_module.retrieval_ranks
+        model.embed_texts = timed("embed_texts_s", model.embed_texts)
+        model.embed_images = timed("embed_images_s", model.embed_images)
+        trainer_module.retrieval_ranks = timed("ranks_s", ranker)
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            metrics = tr.evaluate(ds)
+        finally:
+            del model.embed_texts, model.embed_images
+            trainer_module.retrieval_ranks = ranker
+        eval_s = time.perf_counter() - t0
+        eval_kernel1 = kernel1_counts("the video eval", ("key_tiles",))
+        if any(step_counts()):
+            raise AssertionError("the video eval launched training kernels")
+        img, img_slots, txt = tr.embed_split(ds)
+        i2t, t2i = ranker(img, txt, ds.index.txt2img, ds.index.img2txt,
+                          slots=img_slots, fusion="minmax",
+                          alpha=cfg.train.eval_alpha)
+        t2i_gt = ds.index.txt2img
+        want_i2t, want_t2i = dense_ranks(
+            img, txt, np.array([t2i_gt[t] for t in range(len(t2i_gt))]),
+            ds.index.img2txt, img_slots, cfg.train.eval_alpha)
+        if not (np.array_equal(i2t, want_i2t)
+                and np.array_equal(t2i, want_t2i)):
+            raise AssertionError("the double-sim ranks differ from the "
+                                 "dense count")
+        if len(metrics) != 13 or not all(math.isfinite(v)
+                                         for v in metrics.values()):
+            raise AssertionError(f"bad video metrics {metrics}")
+        # one more step, on a batch on the card, under the profiler
+        batches = device_prefetch(tr.train_loader.epoch(0), tr.device)
+        profile_step(tr.state.train_step, next(batches), steps, step_ms,
+                     "video_train_step_profile")
+        batches.close()
+        n_params = sum(p.numel() for p in tr.state.model.parameters())
+        ckpt = sorted((out / "checkpoints").glob("step_*.pt"))
+        fields = dict(
+            data_s=data_s, run_s=run_s, steps=steps,
+            host_fed_ms_per_step=step_ms,
+            host_fed_pairs_per_s=cfg.train.batch_size_train / step_ms * 1e3,
+            step_s=[t["step_s"] for t in tr.timing],
+            loader_wait_s=[t["wait_s"] for t in tr.timing],
+            fit_eval_s=seen["eval_s"], eval_s=eval_s, **times,
+            eval_batches=eval_batches, peak_mem_gb=peak_gb,
+            checkpoint_bytes=ckpt[-1].stat().st_size if ckpt else None,
+            params=n_params, launches=dict(zip(STEP_COUNTERS, launches)),
+            launches_per_step=dict(zip(STEP_COUNTERS, VIDEO_STEP_LAUNCHES)),
+            tc_launches=dict(zip(TC_COUNTERS, tc)),
+            kernel1_fit=fit_kernel1, kernel1_eval=eval_kernel1,
+            losses_first=losses[0].tolist(), losses_last=losses[-1].tolist(),
+            sumr_sum=sumr, metrics=metrics)
+        del tr, model, img, img_slots, txt
+        seen.clear()
+        torch.cuda.empty_cache()
+
+        # 4. serving
+        serve_cfg = load_config(str(derived))
+        serve_cfg.output_dir = ""  # seeded random weights
+        emb = Embedder.from_config(serve_cfg, seed=seed, device="cuda",
+                                   batch_size=64)
+        rs = np.random.RandomState(seed)
+        frames = [rs.randn(rs.randint(2, vision.max_frames + 1),
+                           vision.frame_feat_dim).astype(np.float32)
+                  for _ in range(VIDEO_SERVE_VIDEOS)]
+        words = _WORDS_EN + _WORDS_T
+        captions = [" ".join(rs.choice(words, 12))
+                    for _ in range(VIDEO_SERVE_VIDEOS)]
+        queries = [" ".join(rs.choice(words, n)) for n in (3, 5, 6, 8, 9)]
+        reset_counts()
+        t0 = time.perf_counter()
+        index = emb.build_video_index(frames, captions)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hits = emb.search_texts(queries, index, k=10, fusion="minmax")
+        search_s = time.perf_counter() - t0
+        serve_kernel1 = kernel1_counts("video serving", ("key_tiles",))
+        n_batches = math.ceil(VIDEO_SERVE_VIDEOS / emb.batch_size)
+        if serve_kernel1["all"] != launches_per_batch(serve_cfg) * n_batches:
+            raise AssertionError(f"video serving launched kernel 1 "
+                                 f"{serve_kernel1}")
+        if not (torch.isfinite(index.feats).all()
+                and torch.isfinite(index.slots).all()):
+            raise AssertionError("non-finite video index")
+        # the queries as search_texts embeds them, fused by the same scores
+        padded = queries + [""] * (emb.batch_size - len(queries))
+        q = torch.from_numpy(emb.embed_texts(padded)).to(index.feats.device)
+        valid = torch.arange(emb.batch_size, device=q.device) < len(queries)
+        dense = emb._scores(q, index, valid, "minmax", 0.9)[:len(queries)]
+        for qi, row in enumerate(hits):
+            for rank, (item, score) in enumerate(row):
+                above = int((dense[qi] > score).sum())
+                tied = int((dense[qi] >= score).sum())
+                if not (above <= rank < tied) or (
+                        dense[qi, int(item)].item() != score):
+                    raise AssertionError(f"query {qi} rank {rank}: {item} "
+                                         f"{score}, {above} above")
+        fields.update(serve_videos=VIDEO_SERVE_VIDEOS, serve_index_s=index_s,
+                      serve_search_s=search_s, serve_kernel1=serve_kernel1,
+                      top_hits=[row[0] for row in hits])
+        del emb, index
+        torch.cuda.empty_cache()
+        emit("video", card=card_line, config="configs/msrvtt.yaml",
+             cuts={"train_clips": VIDEO_TRAIN_CLIPS, "captions_a_clip": 1,
+                   "epochs": 1, "eval_videos_a_split": VIDEO_EVAL_VIDEOS,
+                   "eval_captions_a_video": VIDEO_EVAL_CAPTIONS,
+                   "note": "msrvtt10ktest is 2990 videos x 20 captions; "
+                           "frames and captions synthetic"},
+             batch=cfg.train.batch_size_train, **fields)
+        return shapes, launches, {"fit": fit_kernel1, "eval": eval_kernel1,
+                                  "serve": serve_kernel1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2871,11 +3221,15 @@ def main() -> int:
     del emb
     fit_launches, fit_kernel1 = fit_phase(card_line)
     ckpt_launches, ckpt_kernel1 = checkpoint_phase(card_line)
+    video_shapes, video_launches, video_kernel1 = video_phase(card_line)
 
-    def path_sum(key):  # bf16 at B=64: one embed_images batch, 7 launches
-        return sum(PATH_LAUNCHES[(r["lq"], r["lk"])] * r[key] for r in bf16)
+    def path_sum(key, rows=None, launches=PATH_LAUNCHES):
+        # bf16 at B=64: one embed_images batch, 7 launches
+        return sum(launches[(r["lq"], r["lk"])] * r[key]
+                   for r in (bf16 if rows is None else rows))
 
     bf16 = [r for r in shapes if r["dtype"] == "bfloat16"]
+    video_bf16 = [r for r in video_shapes if r["dtype"] == "bfloat16"]
     vision_layers = (cfg.model.vision.depth
                      or CLIP_VARIANTS[cfg.model.vision.variant].vision_layers)
     text_layers = cfg.model.text.num_layers
@@ -2884,7 +3238,7 @@ def main() -> int:
 
     def flash_entry(name, line, direction, launches, slice_launches,
                     hires_launches, large_launches, fit_launches,
-                    ckpt_launches, errs):
+                    ckpt_launches, video_launches, errs):
         rows = [r for r in flash if r["direction"] == direction
                 and r["dtype"] == "bfloat16" and r["shape"] in per_step]
 
@@ -2902,6 +3256,7 @@ def main() -> int:
             "launches_large_batch_step": large_launches,
             "launches_fit": fit_launches,
             "launches_checkpoint": ckpt_launches,
+            "launches_video": video_launches,
             "max_abs_err": max(r["max_abs_err"][e] for r in flash
                                if r["direction"] == direction for e in errs),
             "check": "ok",
@@ -3012,8 +3367,9 @@ def main() -> int:
         "launches_eval": eval_launches,
         "launches_fit": fit_kernel1,
         "launches_checkpoint": ckpt_kernel1,
-        "bodies": sorted({r["body"] for r in bf16}),
-        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "launches_video": video_kernel1,
+        "bodies": sorted({r["body"] for r in bf16 + video_bf16}),
+        "max_abs_err": max(r["max_abs_err"] for r in shapes + video_shapes),
         "check": "ok",
         "timed_as": "bf16, B=64: 3x(4,200) + 2x(145,4) + 2x(4,145), "
                     "the 7 launches of one embed_images batch, L2 flushed",
@@ -3024,13 +3380,26 @@ def main() -> int:
                      else "operations"),
         "library_ms": path_sum("library_ms"),
         "shapes": shapes,
+        "video": {
+            "timed_as": "bf16, B=64, Dh=512 (configs/msrvtt.yaml): "
+                        "3x(2,200) + 2x(32,2) + 2x(2,32), the 7 launches "
+                        "of one video embed_images batch, key-tiles body, "
+                        "L2 flushed",
+            **{key: path_sum(key, video_bf16, VIDEO_PATH_LAUNCHES)
+               for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in video_bf16)
+                         else "operations"),
+            "shapes": video_shapes,
+        },
     }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
                    slice_launches[0], hires_launches[0], large_launches[0],
-                   fit_launches[0], ckpt_launches[0], ("out", "lse")),
+                   fit_launches[0], ckpt_launches[0], video_launches[0],
+                   ("out", "lse")),
         flash_entry("flash_tower_attention_bwd", 110, "bwd",
                     train_launches[1], slice_launches[1], hires_launches[1],
                     large_launches[1], fit_launches[1], ckpt_launches[1],
-                    ("dq", "dk", "dv")),
+                    video_launches[1], ("dq", "dk", "dv")),
         chunk_entry("flash_chunked_attention_fwd", 429, "fwd",
                     slice_launches[2], SLICE_STEP_LAUNCHES[True][2],
                     ("out", "lse")),

@@ -23,7 +23,7 @@
 // and read every input byte from device memory once.  No tensor cores: at
 // 4 flops a byte the products are not what takes the time.
 //
-// The design: three bodies, chosen by the caller from the shapes
+// The design: four bodies, chosen by the caller from the shapes
 // (`fused_body` in ops/fused_cross_attention.py).  In the two small
 // bodies a block owns one (b, h) and all its rows; they are compiled for
 // rows of 4, 8 or 16 chunks of 16 bytes (Dh = 32, 64, 128 in bf16).
@@ -48,10 +48,23 @@
 //   in its registers, K and V are read as broadcasts, and it writes its
 //   out row over its q row in the tile, which the block then stores whole
 //   lines at a time.
-// - every other shape (and unaligned views, or head dims the two bodies do
-//   not take): one block per (b, h) and 8 query rows, K and V staged as f32
-//   (rows padded by one float), a warp a query row with lanes over keys for
-//   the scores and over features for p·v.
+// - key tiles (wide heads, 128 < Dh <= 512: the video model's interaction
+//   width 4096 at 8 heads gives Dh = 512, 1 KB a bf16 row).  No block
+//   holds a whole head's K and V: a block owns one (b, h) and up to 16
+//   query rows and streams the keys in tiles of 16 through a double buffer
+//   (cp.async, 16 bytes a copy: the next tile lands while this one is
+//   used), with an online f32 softmax.  Scores: a warp a key, lanes over
+//   its 16-byte chunks, a warp sum per (row, key); each tile rescales the
+//   rows' running sum and output by exp(old max - new max), so a row whose
+//   keys are all padded (every score f32 min) keeps exp(0) = 1 per key and
+//   ends as the mean of v.  p·v: a thread a feature pair, over the tile's
+//   keys.  Per (b, h) at (Lq, Lk) = (2, 200) it reads 400 KB of K and V
+//   in bf16, so the bound is the bytes: ~63 µs a call at B = 64, H = 8.
+// - every other shape (and unaligned views, or head dims the other bodies
+//   do not take): one block per (b, h) and 8 query rows, K and V staged as
+//   f32 (rows padded by one float), a warp a query row with lanes over keys
+//   for the scores and over features for p·v.  Its shared memory grows
+//   with Lk·Dh: at Dh = 512 it holds at most 52 keys.
 // Loads of q/k/v take the innermost stride 1 and any outer strides, so the
 // caller passes head-split views without a transpose copy.  Every body sums
 // in a fixed order: the result does not depend on the launch.
@@ -74,8 +87,11 @@ constexpr int kPairs = 2;         // feature pairs a lane in p·v: Dh <= 128
 constexpr int kFkTileRows = 256;  // q rows (and threads) of a few-keys block
 constexpr int kSmallBlocksPerSm = 4;  // resident few-queries blocks an SM
 
+constexpr int kKt = 16;           // keys a tile of the key-tiles body
+constexpr int kKtMaxDh = 2 * kBlock;  // its widest head: 2 features a thread
+
 // Bodies, as the caller names them.
-constexpr int kGeneral = 0, kFewQueries = 1, kFewKeys = 2;
+constexpr int kGeneral = 0, kFewQueries = 1, kFewKeys = 2, kKeyTiles = 3;
 
 struct Strides {
   long long b, h, l;  // element strides of dims 0, 1, 2; dim 3 has stride 1
@@ -460,6 +476,172 @@ __global__ void __launch_bounds__(kFkTileRows)
   }
 }
 
+// ------------------------------------------- key tiles (128 < Dh <= 512)
+// Shared memory (bytes, each piece 16-byte aligned): q [QMAX][Dh] T; K
+// [2][kKt][Dh] T and V [2][kKt][Dh] T (the double buffer); the tile's
+// scores, then exp, [QMAX][kKt] f32; the rows' running max, sum and this
+// tile's rescale, [3][QMAX] f32.
+struct KtLayout {
+  size_t k, v, p, stat, total;
+};
+
+__host__ __device__ inline KtLayout kt_layout(int qmax, int dh, int item) {
+  const size_t row = (size_t)dh * item;
+  KtLayout l;
+  l.k = round16(qmax * row);
+  l.v = l.k + 2 * kKt * row;
+  l.p = l.v + 2 * kKt * row;
+  l.stat = l.p + round16((size_t)qmax * kKt * 4);
+  l.total = l.stat + round16(3 * (size_t)qmax * 4);
+  return l;
+}
+
+// The query rows a key-tiles block takes: 4 when Lq <= 4 (the slots), else
+// 16 (blockIdx.y walks the tiles of rows).
+__host__ __device__ inline int kt_rows(int lq) { return lq <= 4 ? 4 : kFew; }
+
+template <typename T, int QMAX>
+__global__ void __launch_bounds__(kBlock) fca_key_tiles_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  constexpr int n = Vec<T>::n;
+  constexpr int kMaxChunks = kKtMaxDh / n / kWarp;  // a lane's, per row
+  const int dh = p.dh, lk = p.lk, chunks = dh / n;
+  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
+  const int r0 = blockIdx.y * QMAX, rows = min(QMAX, p.lq - r0);
+  const KtLayout lay = kt_layout(QMAX, dh, sizeof(T));
+  T* qs = reinterpret_cast<T*>(smem_bytes);
+  T* ks = reinterpret_cast<T*>(smem_bytes + lay.k);
+  T* vs = reinterpret_cast<T*>(smem_bytes + lay.v);
+  float* ps = reinterpret_cast<float*>(smem_bytes + lay.p);
+  float* row_max = reinterpret_cast<float*>(smem_bytes + lay.stat);
+  float* row_sum = row_max + QMAX;
+  float* row_scale = row_sum + QMAX;
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+
+  const T* qg = head<T>(p.q, p.sq, b, h) + (long long)r0 * p.sq.l;
+  const T* kg = head<T>(p.k, p.sk, b, h);
+  const T* vg = head<T>(p.v, p.sv, b, h);
+  const unsigned char* mask = p.mask ? p.mask + (long long)b * lk : nullptr;
+  const long long k_row = p.sk.l, v_row = p.sv.l;
+  const int tiles = (lk + kKt - 1) / kKt;
+
+  // K and V of tile t into buffer t % 2, as one copy group
+  auto stage = [&](int t) {
+    const int j0 = t * kKt, keys = min(kKt, lk - j0);
+    T* kb = ks + (t & 1) * kKt * dh;
+    T* vb = vs + (t & 1) * kKt * dh;
+    for (int e = tid; e < keys * chunks; e += kBlock) {
+      const int j = e / chunks, c = (e % chunks) * n;
+      cp_async16(kb + j * dh + c, kg + (j0 + j) * k_row + c);
+      cp_async16(vb + j * dh + c, vg + (j0 + j) * v_row + c);
+    }
+    cp_async_commit();
+  };
+  for (int e = tid; e < rows * chunks; e += kBlock) {  // q joins tile 0
+    const int i = e / chunks, c = (e % chunks) * n;
+    cp_async16(qs + i * dh + c, qg + (long long)i * p.sq.l + c);
+  }
+  stage(0);
+  if (tid < QMAX) {
+    row_max[tid] = -FLT_MAX;
+    row_sum[tid] = 0.f;
+  }
+
+  const int d0 = 2 * tid;  // this thread's output feature pair
+  float acc[QMAX][2];
+#pragma unroll
+  for (int i = 0; i < QMAX; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      stage(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int j0 = t * kKt, keys = min(kKt, lk - j0);
+    const T* kb = ks + (t & 1) * kKt * dh;
+    const T* vb = vs + (t & 1) * kKt * dh;
+
+    // scores: a warp a key, its chunks over the lanes (lane + 32 u)
+    for (int j = warp; j < keys; j += kBlockWarps) {
+      float kf[kMaxChunks][n];
+#pragma unroll
+      for (int u = 0; u < kMaxChunks; ++u)
+        if (lane + kWarp * u < chunks)
+          load16(kb + j * dh + (lane + kWarp * u) * n, kf[u]);
+      const bool padded = mask && mask[j0 + j];
+#pragma unroll
+      for (int i = 0; i < QMAX; ++i)
+        if (i < rows) {
+          float part = 0.f;
+#pragma unroll
+          for (int u = 0; u < kMaxChunks; ++u)
+            if (lane + kWarp * u < chunks) {
+              float qf[n];
+              load16(qs + i * dh + (lane + kWarp * u) * n, qf);
+#pragma unroll
+              for (int e = 0; e < n; ++e) part = fmaf(qf[e], kf[u][e], part);
+            }
+          const float s = warp_sum(part);
+          if (lane == 0) ps[i * kKt + j] = padded ? -FLT_MAX : s * p.scale;
+        }
+    }
+    __syncthreads();
+
+    // the online softmax, a warp a row, a lane a key of the tile
+    for (int i = warp; i < rows; i += kBlockWarps) {
+      float* pr = ps + i * kKt;
+      const float s = lane < keys ? pr[lane] : -FLT_MAX;
+      const float m_old = row_max[i];
+      const float m_new = fmaxf(m_old, warp_max(s));
+      const float e = lane < keys ? expf(s - m_new) : 0.f;
+      const float sum = warp_sum(e);
+      if (lane < keys) pr[lane] = e;
+      if (lane == 0) {
+        const float rescale = expf(m_old - m_new);  // 1 while all padded
+        row_scale[i] = rescale;
+        row_sum[i] = row_sum[i] * rescale + sum;
+        row_max[i] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // p·v: a thread its feature pair, over the tile's keys in order
+    if (d0 < dh) {
+#pragma unroll
+      for (int i = 0; i < QMAX; ++i)
+        if (i < rows) {
+          acc[i][0] *= row_scale[i];
+          acc[i][1] *= row_scale[i];
+        }
+      for (int j = 0; j < keys; ++j) {
+        const float2 vj = load2(vb + j * dh + d0);
+#pragma unroll
+        for (int i = 0; i < QMAX; ++i)
+          if (i < rows) {
+            const float pj = ps[i * kKt + j];
+            acc[i][0] = fmaf(pj, vj.x, acc[i][0]);
+            acc[i][1] = fmaf(pj, vj.y, acc[i][1]);
+          }
+      }
+    }
+    __syncthreads();  // the next tile rewrites the scores and this buffer
+  }
+
+  if (d0 < dh) {
+    T* og = static_cast<T*>(p.out) + b * p.so.b + h * p.so.h +
+            (long long)r0 * p.so.l;
+#pragma unroll
+    for (int i = 0; i < QMAX; ++i)
+      if (i < rows) {
+        store(og + i * p.so.l + d0, acc[i][0] / row_sum[i]);
+        store(og + i * p.so.l + d0 + 1, acc[i][1] / row_sum[i]);
+      }
+  }
+}
+
 // ---------------------------------------------------------- every shape
 // Shared memory: K [Lk][Dh+1] f32, V [Lk][Dh] f32, per warp a q row [Dh]
 // and a score row [Lk], then the mask row [Lk] as bytes.
@@ -562,8 +744,9 @@ bool small_chunks(int chunks) {
 // Whether `body` takes these shapes (the caller's choice, checked).
 bool takes(int body, int lq, int lk, int dh, int item, int vec) {
   if (body == kGeneral) return true;
-  if (!vec || dh * item % 16 != 0 || !small_chunks(dh * item / 16))
-    return false;
+  if (!vec || dh * item % 16 != 0) return false;
+  if (body == kKeyTiles) return dh <= kKtMaxDh;
+  if (!small_chunks(dh * item / 16)) return false;
   return body == kFewQueries ? lq <= kFew && dh <= 2 * kWarp * kPairs
                              : body == kFewKeys && lk <= kFew;
 }
@@ -604,6 +787,13 @@ int run(int body, const Params& p, int batch, size_t smem, cudaStream_t s) {
       return launch(fca_few_keys_kernel<T, decltype(c)::value>, dim3(bh),
                     fk_threads(p.lq), smem, s, p);
     });
+  if (body == kKeyTiles) {
+    const int qmax = kt_rows(p.lq);
+    const dim3 grid(bh, (p.lq + qmax - 1) / qmax);
+    if (qmax == 4)
+      return launch(fca_key_tiles_kernel<T, 4>, grid, kBlock, smem, s, p);
+    return launch(fca_key_tiles_kernel<T, kFew>, grid, kBlock, smem, s, p);
+  }
   return launch(fca_general_kernel<T>,
                 dim3(bh, (p.lq + kGeneralWarps - 1) / kGeneralWarps),
                 kGeneralWarps * kWarp, smem, s, p);
@@ -614,12 +804,14 @@ int run(int body, const Params& p, int batch, size_t smem, cudaStream_t s) {
 extern "C" {
 
 // Bytes of dynamic shared memory one block of `body` (0: every shape, 1: few
-// queries, 2: few keys) needs at these shapes; dtype: 0 = float32, 1 =
-// bfloat16.  The caller checks it against the card's per-block limit.
+// queries, 2: few keys, 3: key tiles) needs at these shapes; dtype: 0 =
+// float32, 1 = bfloat16.  The caller checks it against the card's
+// per-block limit.
 size_t fca_smem_bytes(int body, int lq, int lk, int dh, int dtype) {
   const int item = dtype == 1 ? 2 : 4;
   if (body == kFewQueries) return fq_layout(lq, lk, dh, item).total;
   if (body == kFewKeys) return fk_smem_bytes(lq, lk, dh, item);
+  if (body == kKeyTiles) return kt_layout(kt_rows(lq), dh, item).total;
   return general_smem_bytes(lk, dh);
 }
 
@@ -628,9 +820,10 @@ size_t fca_smem_bytes(int body, int lq, int lk, int dh, int dtype) {
 // vec: 1 when every q/k/v row starts 16-byte aligned and Dh spans whole
 // 16-byte words (the caller checks), so rows load 16 bytes at a time.
 // body: 0 every shape, 1 few queries (Lq <= 16, vec, Dh <= 128), 2 few keys
-// (Lk <= 16, vec, Dh·size/16 a power of 2 up to 32); out's rows must be
-// 16-byte aligned for 1 and 2.  Returns cudaGetLastError() after the launch
-// (0 = success), or -2 for a body that does not take these shapes.
+// (Lk <= 16, vec, Dh·size/16 a power of 2 up to 32), 3 key tiles (vec, Dh
+// <= 512); out's rows must be 16-byte aligned for 1 and 2.  Returns
+// cudaGetLastError() after the launch (0 = success), or -2 for a body that
+// does not take these shapes.
 int fca_forward(const void* q, const void* k, const void* v,
                 const unsigned char* mask, void* out, int dtype, int batch,
                 int heads, int lq, int lk, int dh, const long long* strides,

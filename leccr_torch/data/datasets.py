@@ -1,5 +1,5 @@
-"""Image datasets in the reference on-disk layout (the port of the image
-half of `leccr_tpu/data/datasets.py`).
+"""Datasets in the reference on-disk layout, image and video (the port of
+`leccr_tpu/data/datasets.py`).
 
 - train caption files: first file = source language (`imgid#enc#n cap`),
   later files = machine-translated targets (`imgid#enc2fr#n cap`);
@@ -7,12 +7,14 @@ half of `leccr_tpu/data/datasets.py`).
   its position in train_id.txt (duplicate-caption soft labels key off it);
 - per-image MLLM captions live in `<generated_caption_dir>/<id>.txt`
   (or `.npy` 768-d feature files when generated_caption_type == 'feats');
-- mscoco id→filename indirection via `img_id/image_ids.txt`.
+- mscoco id→filename indirection via `img_id/image_ids.txt`;
+- video: a BigFile feature bank `FeatureData/<image_root>` with its
+  `video2frames.txt`, ids in `video_id/{train,val,test}_id.txt`; a
+  video's frames come padded (or uniformly subsampled) to `max_frames`
+  with a valid mask.
 
 Each language's cap_id is derived from the source cap_id (not by the
-reference's cumulative in-place replace), as in the JAX package.  The
-video datasets (feature bank + `video2frames.txt`) come with the video
-path of the port.
+reference's cumulative in-place replace), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ from __future__ import annotations
 import dataclasses
 import os
 from pathlib import Path
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from leccr_torch.config import DataConfig
 from leccr_torch.data import images as I
+from leccr_torch.data.feature_bank import FeatureBank, read_video2frames
 from leccr_torch.data.text import (
     EvalIndex,
     build_eval_index,
@@ -53,12 +56,14 @@ def _load_caption_feats(caption_dir: str, image_ids: Sequence[str]
 
 @dataclasses.dataclass
 class TrainSample:
-    image_u8: np.ndarray  # [H, W, 3]
+    image_u8: Optional[np.ndarray]  # [H, W, 3], or None (video)
     flip: bool
     texts: List[str]  # [source, target, ...] normalized
     caption: Union[str, np.ndarray]  # MLLM caption text (or feats)
     idx: int
     cap_id: str
+    frames: Optional[np.ndarray] = None  # [max_frames, D] f32 (video)
+    frame_mask: Optional[np.ndarray] = None  # [max_frames] bool, True=valid
 
 
 def _read_generated(cfg: DataConfig, image_ids: Sequence[str], name_map):
@@ -173,3 +178,89 @@ class ImageEvalDataset:
         img = I.load_eval_image(self.image_path(image_id), self.image_res,
                                 fast=self.cfg.fast_decode)
         return img, self.generated[image_id], index
+
+
+def _video_bank(cfg: DataConfig):
+    """The split-independent video inputs: the feature bank and its
+    video → frame names map."""
+    feat_dir = os.path.join(cfg.root_dir, "FeatureData", cfg.image_root)
+    return FeatureBank(feat_dir), read_video2frames(
+        os.path.join(feat_dir, "video2frames.txt"))
+
+
+class VideoTrainDataset:
+    """reference video_train_dataset_caption
+    (retrieval_dataset_video.py:71-159)."""
+
+    def __init__(self, cfg: DataConfig, max_frames: int = 32):
+        self.cfg = cfg
+        self.max_frames = max_frames
+        self.bank, self.video2frames = _video_bank(cfg)
+        train_ids = read_id_file(
+            os.path.join(cfg.root_dir, "video_id", "train_id.txt"))
+        self.img_ids = {vid: i for i, vid in enumerate(train_ids)}
+        self.generated = _read_generated(cfg, train_ids, None)
+
+        self.languages: List[str] = []
+        self.caption_maps: List[Dict[str, str]] = []
+        self.cap_ids: List[str] = []
+        for i, rel in enumerate(cfg.train_file):
+            if i != 0:
+                self.languages.append(language_of_train_file(rel))
+            entries = parse_caption_file(os.path.join(cfg.root_dir, rel))
+            self.caption_maps.append(dict(entries))
+            if i == 0:
+                self.cap_ids = [cid for cid, _ in entries]
+
+    def __len__(self) -> int:
+        return len(self.cap_ids)
+
+    caption_key = ImageTrainDataset.caption_key
+
+    def get(self, index: int, rng: np.random.RandomState) -> TrainSample:
+        """The sample of caption `index` (rng unused: video features take
+        no augmentation)."""
+        cap_id = self.cap_ids[index]
+        video_id = video_id_of(cap_id)
+        frames, mask = self.bank.read_video(self.video2frames[video_id],
+                                            self.max_frames)
+        texts = [normalize_caption(cmap[self.caption_key(cap_id, k)],
+                                   self.cfg.max_words)
+                 for k, cmap in enumerate(self.caption_maps)]
+        return TrainSample(
+            image_u8=None, flip=False, texts=texts,
+            caption=self.generated[video_id], idx=self.img_ids[video_id],
+            cap_id=cap_id, frames=frames, frame_mask=mask)
+
+
+class VideoEvalDataset:
+    """reference video_eval_dataset_caption
+    (retrieval_dataset_video.py:164-244)."""
+
+    def __init__(self, cfg: DataConfig, ann_file: str, max_frames: int = 32,
+                 split: str = "eval"):
+        self.cfg = cfg
+        self.max_frames = max_frames
+        self.bank, self.video2frames = _video_bank(cfg)
+        id_name = "val_id.txt" if split == "eval" else "test_id.txt"
+        split_ids = read_id_file(
+            os.path.join(cfg.root_dir, "video_id", id_name))
+        self.generated = _read_generated(cfg, split_ids, None)
+        self.index: EvalIndex = build_eval_index(
+            parse_caption_file(os.path.join(cfg.root_dir, ann_file)),
+            cfg.max_words)
+
+    @property
+    def texts(self) -> List[str]:
+        return self.index.texts
+
+    def __len__(self) -> int:
+        return len(self.index.image_ids)
+
+    def get(self, index: int):
+        """((frames [max_frames, D] f32, valid mask [max_frames] bool),
+        MLLM caption or feats, index)."""
+        video_id = self.index.image_ids[index]
+        frames = self.bank.read_video(self.video2frames[video_id],
+                                      self.max_frames)
+        return frames, self.generated[video_id], index

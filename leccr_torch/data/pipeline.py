@@ -9,7 +9,10 @@ bucketed widths, threaded decode, device prefetch (the port of
 - the shuffle is a seeded permutation of the full index set per epoch
   (`shard_indices`, DistributedSampler parity, drop_last for training);
 - image decode and crop run in a thread pool; normalization and the flips
-  happen on the device (`data.images.preprocess_train_images`).
+  happen on the device (`data.images.preprocess_train_images`);
+- a video batch carries "vision" frames [B, max_frames, Df] f32 and
+  "vision_mask" [B, max_frames] bool (True = a real frame) instead of
+  uint8 images and flips.
 
 `TrainLoader` tokenizes its texts with the native C++ encoder of its
 WordPiece or Unigram tokenizer where the library builds
@@ -294,8 +297,12 @@ class TrainLoader:
                 cwidth = bucket_width([len(c) for c in caps], buckets)
                 batch["caption_ids"], batch["caption_mask"] = (
                     pad_token_batch(caps, cwidth))
-        batch["vision"] = np.stack([s.image_u8 for s in samples])
-        batch["flip"] = np.asarray([s.flip for s in samples], bool)
+        if samples[0].frames is None:
+            batch["vision"] = np.stack([s.image_u8 for s in samples])
+            batch["flip"] = np.asarray([s.flip for s in samples], bool)
+        else:  # video: frames [B, T, Df] f32 and their valid mask [B, T]
+            batch["vision"] = np.stack([s.frames for s in samples])
+            batch["vision_mask"] = np.stack([s.frame_mask for s in samples])
         return batch
 
 
@@ -368,9 +375,10 @@ def device_prefetch(iterator: Iterable, device: torch.device,
 class EvalLoader:
     """Eval batches: the split's texts, tokenized once and padded to the
     smallest token bucket covering its longest text, in chunks of
-    `text_batch_size` (the last padded with empty rows), and image/caption
-    batches padded to `batch_size` by repeating the last row (surplus rows
-    are sliced off after the forward)."""
+    `text_batch_size` (the last padded with empty rows), and image (or
+    video frames + mask)/caption batches padded to `batch_size` by
+    repeating the last row (surplus rows are sliced off after the
+    forward)."""
 
     def __init__(self, dataset, tokenizer, cfg: DataConfig, batch_size: int,
                  text_batch_size: int, caption_tokenizer=None,
@@ -422,8 +430,13 @@ class EvalLoader:
                 rows += [rows[-1]] * (self.batch_size - count)
                 items = list(pool.map(self.dataset.get, rows))
                 caps = [it[1] for it in items]
-                batch: Dict[str, np.ndarray] = {
-                    "vision": np.stack([it[0] for it in items])}
+                vision = [it[0] for it in items]
+                if isinstance(vision[0], tuple):  # video: (frames, mask)
+                    batch: Dict[str, np.ndarray] = {
+                        "vision": np.stack([v[0] for v in vision]),
+                        "vision_mask": np.stack([v[1] for v in vision])}
+                else:
+                    batch = {"vision": np.stack(vision)}
                 if self.cfg.generated_caption_type == "feats":
                     batch["caption_feats"], batch["caption_mask"] = (
                         _feats_batch(caps, feats_width))

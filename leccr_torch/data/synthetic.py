@@ -1,13 +1,12 @@
-"""Synthetic image datasets in the reference on-disk layout (the port's
-own copy of the image half of `leccr_tpu/data/synthetic.py`).
+"""Synthetic datasets in the reference on-disk layout (the port's own copy
+of `leccr_tpu/data/synthetic.py`).
 
-Writes a miniature Multi30K-style or MSCOCO-style dataset — caption files,
-id files, MLLM caption dir, JPEG images and a WordPiece vocab — so the full
-parsing + pipeline + train/eval path runs end to end with no external
-data.  At the same arguments the files are byte for byte the JAX
-package's: the same RandomState draws in the same order.  The video
-generator (MSR-VTT layout with a feature bank) comes with the video path
-of the port."""
+Writes a miniature Multi30K-style, MSCOCO-style or MSR-VTT-style dataset —
+caption files, id files, MLLM caption dir, JPEG images or a frame-feature
+bank with `video2frames.txt`, and a WordPiece vocab — so the full parsing +
+pipeline + train/eval path runs end to end with no external data.  At the
+same arguments the files are byte for byte the JAX package's: the same
+RandomState draws in the same order."""
 
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ from typing import List
 import numpy as np
 
 from leccr_torch.config import DataConfig
+from leccr_torch.data.feature_bank import write_feature_bank
 from leccr_torch.data.tokenizers import write_tiny_wordpiece_vocab
 
 _WORDS_EN = ("a man rides his red bike near the old bridge while two dogs "
@@ -225,6 +225,79 @@ def make_mscoco_dataset(
         test_file={target_lang:
                    f"TextData/cocotest_{target_lang}.caption.txt"},
         image_root=str(root / "images"),
+        generated_caption_dir=str(root / "caption"),
+        max_tokens=24,
+        token_buckets=[16, 24],
+        text_vocab=str(root / "vocab.txt"),
+        num_workers=2,
+    )
+
+
+def make_video_dataset(
+    root: str,
+    n_train: int = 16,
+    n_eval: int = 6,
+    caps_per_video: int = 2,
+    feat_dim: int = 64,
+    frames_per_video: int = 5,
+    seed: int = 0,
+    target_lang: str = "zh",
+) -> DataConfig:
+    """MSR-VTT-layout video set: a BigFile feature bank of `feat_dim`-wide
+    frame features (2 to `frames_per_video` frames a video) under
+    `FeatureData/feats` with its `video2frames.txt`, `video_id/` id files,
+    caption files and one MLLM caption per video; `n_eval` videos in each
+    of val and test."""
+    rs = np.random.RandomState(seed)
+    root = Path(root)
+    (root / "video_id").mkdir(parents=True, exist_ok=True)
+    (root / "TextData").mkdir(exist_ok=True)
+    (root / "caption").mkdir(exist_ok=True)
+
+    all_ids = ([f"video{i}" for i in range(n_train)]
+               + [f"vval{i}" for i in range(n_eval)]
+               + [f"vtst{i}" for i in range(n_eval)])
+    frame_names, video2frames = [], {}
+    for vid in all_ids:
+        nf = int(rs.randint(2, frames_per_video + 1))
+        names = [f"{vid}_f{j}" for j in range(nf)]
+        video2frames[vid] = names
+        frame_names.extend(names)
+    feats = rs.randn(len(frame_names), feat_dim).astype(np.float32)
+    feat_dir = root / "FeatureData" / "feats"
+    write_feature_bank(str(feat_dir), frame_names, feats)
+    (feat_dir / "video2frames.txt").write_text(repr(video2frames))
+
+    def write_split(name: str, ids: List[str], id_file: str):
+        lines_en, lines_t = [], []
+        for vid in ids:
+            (root / "caption" / f"{vid}.txt").write_text(
+                _sentence(rs, _WORDS_EN, 10))
+            for c in range(caps_per_video):
+                lines_en.append(f"{vid}#enc#{c} {_sentence(rs, _WORDS_EN)}")
+                lines_t.append(
+                    f"{vid}#enc2{target_lang}#{c} {_sentence(rs, _WORDS_T)}")
+        (root / "TextData" / f"{name}_enc.caption.txt").write_text(
+            "\n".join(lines_en))
+        (root / "TextData" / f"{name}_enc2{target_lang}.caption.txt"
+         ).write_text("\n".join(lines_t))
+        (root / "video_id" / id_file).write_text("\n".join(ids))
+
+    write_split("train", all_ids[:n_train], "train_id.txt")
+    write_split("val", all_ids[n_train:n_train + n_eval], "val_id.txt")
+    write_split("test", all_ids[n_train + n_eval:], "test_id.txt")
+
+    write_tiny_wordpiece_vocab(str(root / "vocab.txt"),
+                               _WORDS_EN + _WORDS_T)
+
+    return DataConfig(
+        dataset="video",
+        root_dir=str(root),
+        train_file=["TextData/train_enc.caption.txt",
+                    f"TextData/train_enc2{target_lang}.caption.txt"],
+        val_file={target_lang: "TextData/val_enc.caption.txt"},
+        test_file={target_lang: "TextData/test_enc.caption.txt"},
+        image_root="feats",
         generated_caption_dir=str(root / "caption"),
         max_tokens=24,
         token_buckets=[16, 24],

@@ -13,6 +13,11 @@ Exactness: ground-truth scores are GATHERED in pass 1 from the same block
 products that pass 2 compares against (same call, same shapes, so the same
 bits), never recomputed from the embeddings — a separately computed dot
 product can differ in the last ulp and demote an exact-tie self-match.
+Every score is a sum over E in one fixed order (`pairwise_scores`), so
+identical embedding rows give identical bits wherever they sit in a block
+and whatever the thread count: a blocked matrix product sums edge rows in
+another order, and the tie rule then sees no tie where JAX's product, which
+gives equal rows equal bits, sees one.
 
 Fusion (video double-sim and the image alpha blend) is affine in the raw
 scores: pass 1 also collects the global min/max, and the same affine map is
@@ -36,6 +41,21 @@ def score_matrix(img_embeds: torch.Tensor,
     """Dense [N_img, N_txt] cosine score matrix (embeddings are already
     L2-normalized)."""
     return img_embeds @ txt_embeds.T
+
+
+def pairwise_scores(a: torch.Tensor, b: torch.Tensor,
+                    chunk_elems: int = 1 << 25) -> torch.Tensor:
+    """[M, N] = a @ b.T for a [M, E], b [N, E], each entry the same
+    fixed-order reduction of a[i] * b[j] over E: equal rows of a (or of b)
+    give bit-equal scores, wherever they sit and whatever the thread
+    count.  Columns go in chunks of one width (b zero-padded), so every
+    reduction has one shape; a chunk holds about `chunk_elems` products."""
+    m, e = a.shape
+    n = b.shape[0]
+    step = max(1, min(n, chunk_elems // max(1, m * e)))
+    b = torch.nn.functional.pad(b, (0, 0, 0, (-n) % step))
+    return torch.cat([(a[:, None, :] * b[None, j:j + step]).sum(-1)
+                      for j in range(0, b.shape[0], step)], dim=1)[:, :n]
 
 
 def _gt_arrays(txt2img, img2txt, n_img: int):
@@ -99,10 +119,12 @@ def retrieval_ranks(
     txt_ids = torch.arange(n_txt, device=device)
 
     def raw_scores(r0):
-        s = img[r0:r0 + block] @ txt.T  # [blk, n_txt]
+        s = pairwise_scores(img[r0:r0 + block], txt)  # [blk, n_txt]
         if fusion == "none":
             return s, None
-        c = torch.matmul(slots[r0:r0 + block], txt.T).amax(dim=1)
+        sl = slots[r0:r0 + block]
+        c = pairwise_scores(sl.reshape(-1, sl.shape[-1]), txt).view(
+            sl.shape[0], sl.shape[1], n_txt).amax(dim=1)
         return s, c
 
     # ---- pass 1: min/max (minmax fusion) + exact gt gathers ------------

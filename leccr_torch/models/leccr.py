@@ -1,15 +1,18 @@
 """The LECCR retrieval model: towers, caption interaction, heads.
 
-The port of `leccr_tpu/models/leccr.py` for the `clip_vit` vision tower.
-With `caption_encoder_name: mbert` the caption encoder IS the text tower
-(the same submodule, called twice); with `clip` it is CLIP's causal text
-tower (`clip_text_tower`), whose dims come from the CLIP variant's text
-fields and whose caption padding is `caption_ids == 0`.  No gradient
+The port of `leccr_tpu/models/leccr.py`, image (`vision.kind: clip_vit`)
+and video (`temporal`: self-attention over precomputed frame features, at
+the frame features' width `frame_feat_dim`).  With
+`caption_encoder_name: mbert` the caption encoder IS the text tower (the
+same submodule, called twice); with `clip` it is CLIP's causal text tower
+(`clip_text_tower`), whose dims come from the CLIP variant's text fields
+and whose caption padding is `caption_ids == 0`.  No gradient
 reaches the caption encoder.  `num_queries` learned query slots
 cross-attend to the projected caption tokens, then the visual tokens attend
-to the slots and the slots attend back to the visual tokens.  Features are
-256-d L2-normalized projections of the CLS token (images) and the first
-token (texts).
+to the slots and the slots attend back to the visual tokens (for video,
+past the padded frames' mask).  Features are 256-d L2-normalized
+projections of the CLS token (images), of the mean over the valid frames
+(video) and of the first token (texts).
 
 Parameters are made on the chosen device from a seeded torch.Generator and
 stay f32 (master weights); every Dense and Embed computes in `cfg.dtype`,
@@ -36,6 +39,7 @@ from leccr_torch.models.clip import (
     CLIPVisionTower,
     build_vision_tower,
 )
+from leccr_torch.models.temporal import TemporalTower, masked_mean_pool
 from leccr_torch.ops.attention import (
     CrossAttentionStack,
     Dense,
@@ -60,11 +64,13 @@ class TrainEmbeddings:
     ori_slots: torch.Tensor  # [B, n, Dv] caption-only slots (pre-fusion)
     cv_caption_mean: torch.Tensor  # [B, Dv] token-mean of normalized slots
     cv_vision_mean: torch.Tensor  # [B, Dv] token-mean of normalized tokens
+    # (for video the mean over the valid frames, or over all of them when
+    # `video_cv_mask_frames` is off)
     temp: torch.Tensor  # scalar temperature
 
 
 class LECCRModel(nn.Module):
-    """LECCR image retrieval model.
+    """LECCR retrieval model, image or video by `cfg.vision.kind`.
 
     device: None = the GPU (raises when there is none); pass "cpu" to run
     on the CPU ("meta" builds the module tree without weights).  seed: the
@@ -76,11 +82,7 @@ class LECCRModel(nn.Module):
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0):
         super().__init__()
-        if cfg.vision.kind == "temporal":
-            raise NotImplementedError(
-                "the temporal (video) vision tower comes with the video "
-                "slice of the port")
-        if cfg.vision.kind != "clip_vit":
+        if cfg.vision.kind not in ("clip_vit", "temporal"):
             raise ValueError(f"unknown vision tower: {cfg.vision.kind}")
         if cfg.caption_encoder_name not in ("mbert", "clip"):
             raise ValueError(
@@ -92,8 +94,14 @@ class LECCRModel(nn.Module):
         self.compute_dtype = _DTYPES[cfg.dtype]
 
         with torch.device("meta"):
-            self.vision_tower, d = build_vision_tower(cfg.vision,
-                                                      remat=cfg.remat)
+            if cfg.vision.kind == "temporal":
+                d = cfg.vision.frame_feat_dim
+                self.vision_tower = TemporalTower(
+                    d, cfg.vision.num_heads, cfg.vision.num_layers,
+                    cfg.dropout)
+            else:
+                self.vision_tower, d = build_vision_tower(cfg.vision,
+                                                          remat=cfg.remat)
             self.text_encoder = BertEncoder(cfg.text, remat=cfg.remat)
             if cfg.caption_encoder_name == "clip":
                 # the vendored CLIP's own text branch encodes the captions;
@@ -181,10 +189,15 @@ class LECCRModel(nn.Module):
 
     # ------------------------------------------------------------- towers
 
-    def encode_vision(self, images: torch.Tensor,
-                      deterministic: bool = True) -> torch.Tensor:
-        """Image [B,H,W,3] -> [B, 1+G², Dv]."""
-        return self.vision_tower(images, deterministic)
+    def encode_vision(self, vision: torch.Tensor,
+                      vision_mask: Optional[torch.Tensor] = None,
+                      deterministic: bool = True,
+                      gen: Optional[Generators] = None) -> torch.Tensor:
+        """Image [B,H,W,3] -> [B, 1+G², Dv]; video frames [B,T,Df] with
+        their valid mask [B,T] -> [B,T,Dv]."""
+        if self.cfg.vision.kind == "temporal":
+            return self.vision_tower(vision, vision_mask, deterministic, gen)
+        return self.vision_tower(vision, deterministic)
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor, deterministic: bool = True,
@@ -247,11 +260,18 @@ class LECCRModel(nn.Module):
 
     # ------------------------------------------------------------ features
 
-    def vision_features(self, vision_embeds: torch.Tensor) -> torch.Tensor:
-        """L2-normalized projection of the CLS token."""
+    def vision_features(self, vision_embeds: torch.Tensor,
+                        vision_mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+        """L2-normalized projection of the CLS token (images) or of the
+        mean over the valid frames (video)."""
         proj = self.vision_proj if self.vision_proj is not None \
             else self.text_proj
-        return _l2_normalize(proj(vision_embeds[:, 0]))
+        if self.cfg.vision.kind == "temporal":
+            pooled = masked_mean_pool(vision_embeds, vision_mask)
+        else:
+            pooled = vision_embeds[:, 0]
+        return _l2_normalize(proj(pooled))
 
     def text_features(self, text_embeds: torch.Tensor) -> torch.Tensor:
         return _l2_normalize(self.text_proj(text_embeds[:, 0]))
@@ -264,21 +284,25 @@ class LECCRModel(nn.Module):
         dropout when the module is in training mode (`generators` then
         gives the random streams).
 
-        batch: "vision" [B,H,W,3] normalized images, "text_ids_s" /
-        "text_mask_s", "text_ids_t" / "text_mask_t", "caption_mask" and
-        "caption_ids" or "caption_feats"."""
+        batch: "vision" [B,H,W,3] normalized images (or, for video, frames
+        [B,T,Df] with "vision_mask" [B,T] bool, True = a real frame),
+        "text_ids_s" / "text_mask_s", "text_ids_t" / "text_mask_t",
+        "caption_mask" and "caption_ids" or "caption_feats"."""
         deterministic = not self.training
         if not deterministic and generators is None:
             raise ValueError("a training forward needs its Generators")
         gen = generators
-        ori_vision = self.encode_vision(batch["vision"], deterministic)
+        vision_mask = self._vision_mask(batch)
+        ori_vision = self.encode_vision(batch["vision"], vision_mask,
+                                        deterministic, gen)
         caption_embeds, caption_padding = self.encode_caption(
             batch.get("caption_ids"), batch["caption_mask"],
             batch.get("caption_feats"), deterministic, gen)
         fused_vision, fused_slots, ori_slots = self.interact(
-            ori_vision, caption_embeds, caption_padding, None,
+            ori_vision, caption_embeds, caption_padding,
+            None if vision_mask is None else ~vision_mask,
             deterministic=deterministic, gen=gen)
-        image_feat = self.vision_features(fused_vision)
+        image_feat = self.vision_features(fused_vision, vision_mask)
         # source and target texts in one tower call (doubled batch)
         b = batch["text_ids_s"].shape[0]
         text_embeds_st = self.encode_text(
@@ -289,10 +313,17 @@ class LECCRModel(nn.Module):
         slots = self.caption_proj1(fused_slots)
         # caption_vision_loss inputs: L2-normalize cproj/vproj outputs over
         # cv_normalize_dim (1 = the TOKEN axis, the reference's F.normalize
-        # default), then the token mean
+        # default), then the token mean; for video over the valid frames
+        # unless video_cv_mask_frames is off (the reference's plain mean,
+        # video_model_retrieval_caption.py:144-160; equal when no frame is
+        # padded)
         cv_dim = 1 if self.cfg.cv_normalize_dim == 1 else -1
         cap_norm = _l2_normalize(self.cproj(ori_slots), dim=cv_dim)
         vis_norm = _l2_normalize(self.vproj(ori_vision), dim=cv_dim)
+        if vision_mask is not None and self.cfg.video_cv_mask_frames:
+            cv_vision_mean = masked_mean_pool(vis_norm, vision_mask)
+        else:
+            cv_vision_mean = vis_norm.mean(dim=1)
         return TrainEmbeddings(
             image_feat=image_feat.float(),
             text_feat_s=text_feat_st[:b].float(),
@@ -300,7 +331,7 @@ class LECCRModel(nn.Module):
             slots=slots.float(),
             ori_slots=ori_slots.float(),
             cv_caption_mean=cap_norm.mean(dim=1).float(),
-            cv_vision_mean=vis_norm.mean(dim=1).float(),
+            cv_vision_mean=cv_vision_mean.float(),
             temp=self.temp.float(),
         )
 
@@ -309,18 +340,30 @@ class LECCRModel(nn.Module):
                      ) -> Dict[str, torch.Tensor]:
         """Eval-side visual embedding: towers + caption interaction.
 
-        batch: "vision" [B,H,W,3] normalized images, "caption_mask" [B,L],
-        and "caption_ids" [B,L] or "caption_feats" [B,L,Dc].  Returns
+        batch: "vision" [B,H,W,3] normalized images (or video frames
+        [B,T,Df] with "vision_mask" [B,T]), "caption_mask" [B,L], and
+        "caption_ids" [B,L] or "caption_feats" [B,L,Dc].  Returns
         {"feat": [B,E], "slots": [B,n,E]}, both f32."""
-        ori_vision = self.encode_vision(batch["vision"])
+        vision_mask = self._vision_mask(batch)
+        ori_vision = self.encode_vision(batch["vision"], vision_mask)
         caption_embeds, caption_padding = self.encode_caption(
             batch.get("caption_ids"), batch["caption_mask"],
             batch.get("caption_feats"))
         fused_vision, fused_slots, _ = self.interact(
-            ori_vision, caption_embeds, caption_padding, None,
+            ori_vision, caption_embeds, caption_padding,
+            None if vision_mask is None else ~vision_mask,
             fused=self.cfg.fused_eval_attention)
-        return {"feat": self.vision_features(fused_vision).float(),
+        return {"feat": self.vision_features(fused_vision,
+                                             vision_mask).float(),
                 "slots": self.caption_proj1(fused_slots).float()}
+
+    def _vision_mask(self, batch: Dict[str, torch.Tensor]
+                     ) -> Optional[torch.Tensor]:
+        """A video batch's valid-frame mask [B,T] as bool; None for
+        images."""
+        if self.cfg.vision.kind != "temporal":
+            return None
+        return batch["vision_mask"].bool()
 
     @torch.inference_mode()
     def embed_texts(self, input_ids: torch.Tensor,

@@ -119,11 +119,9 @@ def flax_to_state_dict(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def params_from_jax(params: Mapping[str, Any],
                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The state_dict of `LECCRModel(cfg)` holding the JAX model's params."""
-    if cfg.vision.kind == "temporal":
-        raise NotImplementedError(
-            "the temporal (video) vision tower comes with the video slice "
-            "of the port")
+    """The state_dict of `LECCRModel(cfg)` holding the JAX model's params
+    (image or video: the temporal tower's `vision_tower/encoder/layer_i`
+    become `vision_tower.encoder.layers.i`)."""
     return flax_to_state_dict(params)
 
 
@@ -184,7 +182,6 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
             f"state_dict does not match LECCRModel(cfg): missing "
             f"{sorted(set(paths) - set(state_dict))[:5]}, unexpected "
             f"{sorted(set(state_dict) - set(paths))[:5]}")
-    patch = skeleton.vision_tower.patch_size
     tree: Dict[str, Any] = {}
     for name, value in state_dict.items():
         path = paths[name]
@@ -192,6 +189,7 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor],
         if path[-1] == "kernel":
             leaf = leaf.T
             if name == "vision_tower.conv1.weight":
+                patch = skeleton.vision_tower.patch_size
                 leaf = leaf.reshape(patch, patch, 3, -1)
         node = tree
         for part in path[:-1]:
@@ -530,25 +528,24 @@ def export_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     `caption_encoder.` (the reference registers it twice,
     model_retrieval_caption.py:34-36); `queries` as [n, 1, d], `temp` as a
     0-d tensor, the cross-attention stacks with a packed `in_proj`."""
-    if model.cfg.vision.kind == "temporal":
-        raise NotImplementedError(
-            "exporting the temporal (video) tower comes with the video "
-            "slice of the port")
     sd = {k: v.detach().to("cpu", torch.float32)
           for k, v in model.state_dict().items()}
     out: Dict[str, torch.Tensor] = {}
 
-    v, p = "vision_tower", "clip_encoder.visual"
-    conv = sd[f"{v}.conv1.weight"]  # [out, kh·kw·in] -> [out, in, kh, kw]
-    patch = model.vision_tower.patch_size
-    out[f"{p}.conv1.weight"] = conv.reshape(
-        conv.shape[0], patch, patch, -1).permute(0, 3, 1, 2).contiguous()
-    for name in ("class_embedding", "positional_embedding", "proj"):
-        out[f"{p}.{name}"] = sd[f"{v}.{name}"]
-    for ln in ("ln_pre", "ln_post"):
-        for part in ("weight", "bias"):
-            out[f"{p}.{ln}.{part}"] = sd[f"{v}.{ln}.{part}"]
-    _export_clip_blocks(out, sd, f"{v}.transformer", f"{p}.transformer")
+    if model.cfg.vision.kind == "temporal":
+        _export_block_stack(out, sd, "vision_tower.encoder", "vid_encoder")
+    else:
+        v, p = "vision_tower", "clip_encoder.visual"
+        conv = sd[f"{v}.conv1.weight"]  # [out, kh·kw·in] -> [out, in, kh, kw]
+        patch = model.vision_tower.patch_size
+        out[f"{p}.conv1.weight"] = conv.reshape(
+            conv.shape[0], patch, patch, -1).permute(0, 3, 1, 2).contiguous()
+        for name in ("class_embedding", "positional_embedding", "proj"):
+            out[f"{p}.{name}"] = sd[f"{v}.{name}"]
+        for ln in ("ln_pre", "ln_post"):
+            for part in ("weight", "bias"):
+                out[f"{p}.{ln}.{part}"] = sd[f"{v}.{ln}.{part}"]
+        _export_clip_blocks(out, sd, f"{v}.transformer", f"{p}.transformer")
 
     if model.clip_text_tower is not None:
         t, p = "clip_text_tower", "clip_encoder"
@@ -585,19 +582,27 @@ def export_reference_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     out["queries"] = sd["queries"][:, None, :]
     out["temp"] = sd["temp"].reshape(())
     for stack in _STACKS:
-        i = 0
-        while f"{stack}.layers.{i}.norm.weight" in sd:
-            s, d = f"{stack}.layers.{i}", f"{stack}.layers.{i}"
-            for part in ("weight", "bias"):
-                out[f"{d}.multihead_attn.in_proj_{part}"] = torch.cat(
-                    [sd[f"{s}.attn.{n}_proj.{part}"] for n in "qkv"])
-                out[f"{d}.multihead_attn.out_proj.{part}"] = sd[
-                    f"{s}.attn.out_proj.{part}"]
-                out[f"{d}.linear1.{part}"] = sd[f"{s}.ffn.linear1.{part}"]
-                out[f"{d}.linear2.{part}"] = sd[f"{s}.ffn.linear2.{part}"]
-                out[f"{d}.norm2.{part}"] = sd[f"{s}.norm.{part}"]
-            i += 1
+        _export_block_stack(out, sd, stack, stack)
     return out
+
+
+def _export_block_stack(out: Dict[str, torch.Tensor],
+                        sd: Mapping[str, torch.Tensor], src: str,
+                        dst: str) -> None:
+    """An attention stack of the port (cross or self) in the reference's
+    names: a packed `in_proj`, `linear1`/`linear2`, `norm2`."""
+    i = 0
+    while f"{src}.layers.{i}.norm.weight" in sd:
+        s, d = f"{src}.layers.{i}", f"{dst}.layers.{i}"
+        for part in ("weight", "bias"):
+            out[f"{d}.multihead_attn.in_proj_{part}"] = torch.cat(
+                [sd[f"{s}.attn.{n}_proj.{part}"] for n in "qkv"])
+            out[f"{d}.multihead_attn.out_proj.{part}"] = sd[
+                f"{s}.attn.out_proj.{part}"]
+            out[f"{d}.linear1.{part}"] = sd[f"{s}.ffn.linear1.{part}"]
+            out[f"{d}.linear2.{part}"] = sd[f"{s}.ffn.linear2.{part}"]
+            out[f"{d}.norm2.{part}"] = sd[f"{s}.norm.{part}"]
+        i += 1
 
 
 def save_reference_checkpoint(sd: Mapping[str, torch.Tensor],

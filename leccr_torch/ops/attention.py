@@ -1,5 +1,6 @@
-"""Attention blocks of the LECCR caption-interaction branch, and the
-layers every module of the port is built from.
+"""Attention blocks of the LECCR caption-interaction branch and of the
+video temporal tower, and the layers every module of the port is built
+from.
 
 The port of `leccr_tpu/ops/attention.py`: batch-first [B, L, D] tensors,
 q/k/v split as [B, H, L, Dh], key padding masks with True = padding, and
@@ -202,4 +203,45 @@ class CrossAttentionStack(nn.Module):
         for layer in self.layers:
             out = layer(out, memory, memory_key_padding_mask, fused,
                         deterministic, gen)
+        return out
+
+
+class SelfAttentionBlock(CrossAttentionBlock):
+    """One LECCR self-attention layer: the cross block's residual and norm
+    pattern with q = k = v = src, the key padding mask over src's own
+    positions (the video temporal tower over padded frames).  Its core is
+    always the plain attention, as the JAX package's (which never passes
+    `fused` here)."""
+
+    def forward(
+        self,
+        src: torch.Tensor,
+        key_padding_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        gen: Optional[Generators] = None,
+    ) -> torch.Tensor:
+        return super().forward(src, src, key_padding_mask, False,
+                               deterministic, gen)
+
+
+class SelfAttentionStack(nn.Module):
+    """N self-attention layers."""
+
+    def __init__(self, d_model: int, num_heads: int, num_layers: int = 1,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            SelfAttentionBlock(d_model, num_heads, dropout)
+            for _ in range(num_layers))
+
+    def forward(
+        self,
+        src: torch.Tensor,
+        key_padding_mask: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        gen: Optional[Generators] = None,
+    ) -> torch.Tensor:
+        out = src
+        for layer in self.layers:
+            out = layer(out, key_padding_mask, deterministic, gen)
         return out

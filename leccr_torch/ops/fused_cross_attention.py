@@ -4,10 +4,12 @@ The port of `leccr_tpu/ops/pallas_attention.py`: one hand-written CUDA
 kernel (`csrc/fused_cross_attention.cu`) computes softmax(q kᵀ/√d + mask) v
 with every score and probability kept on chip, in f32 whatever the input
 dtype, with padded keys set to f32 min (so an all-padded row gives the mean
-of v, never NaN).  It has three bodies, picked from the shapes alone
+of v, never NaN).  It has four bodies, picked from the shapes alone
 (`fused_body`): few queries (Lq ≤ 16: the slots attending the caption or
-vision tokens), few keys (Lk ≤ 16: the vision tokens attending the slots)
-and one for every other shape or view.
+vision tokens), few keys (Lk ≤ 16: the vision tokens attending the slots),
+key tiles (128 < Dh ≤ 512: the video model's 4096-wide interaction at 8
+heads; keys streamed in tiles with an online softmax, so no block holds a
+whole head's K and V) and one for every other shape or view.
 
 `fused_cross_attention` is the wrapper: for CUDA tensors it launches the
 kernel (or raises), for CPU tensors it runs the plain PyTorch version
@@ -28,7 +30,8 @@ _LIB = "fused_cross_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
 FEW = 16  # the few-queries body takes Lq <= FEW, the few-keys body Lk <= FEW
-BODIES = ("general", "few_queries", "few_keys")  # the kernel's body ids
+BODIES = ("general", "few_queries", "few_keys", "key_tiles")  # body ids
+KEY_TILES_MAX_DH = 512  # the key-tiles body: a feature pair a thread
 
 
 def fused_body(lq: int, lk: int, dh: int, item: int, aligned: bool) -> str:
@@ -36,14 +39,18 @@ def fused_body(lq: int, lk: int, dh: int, item: int, aligned: bool) -> str:
     two small bodies take rows that load 16 bytes at a time (`aligned`:
     16-byte aligned rows) in 4, 8 or 16 such chunks (Dh·item = 64, 128 or
     256 bytes) — "few_keys" for Lk ≤ FEW, else "few_queries" for Lq ≤ FEW
-    and Dh ≤ 128; every other call takes "general".  At the embed_images
-    shapes (Lq, Lk) = (4, 200) and (4, 145) take few_queries, (145, 4)
-    few_keys."""
-    chunks = dh * item // 16 if aligned and dh * item % 16 == 0 else 0
+    and Dh ≤ 128; such rows at 128 < Dh ≤ 512 take "key_tiles"; every
+    other call takes "general".  At the image model's embed_images shapes
+    (Lq, Lk) = (4, 200) and (4, 145) take few_queries, (145, 4) few_keys;
+    every call of the video model's (Dh = 512) takes key_tiles."""
+    whole = aligned and dh * item % 16 == 0
+    chunks = dh * item // 16 if whole else 0
     if chunks in (4, 8, 16) and lk <= FEW:
         return "few_keys"
     if chunks in (4, 8, 16) and lq <= FEW and dh <= 128:
         return "few_queries"
+    if whole and 128 < dh <= KEY_TILES_MAX_DH:
+        return "key_tiles"
     return "general"
 
 
@@ -124,7 +131,7 @@ def _launch(q, k, v, padding_mask) -> torch.Tensor:
     body = fused_body(lq, lk, dh, item, vec)
     smem = lib.fca_smem_bytes(BODIES.index(body), lq, lk, dh,
                               _DTYPES[q.dtype])
-    if smem > SMEM_PER_BLOCK:
+    if smem > SMEM_PER_BLOCK:  # only the general body grows with Lk
         raise ValueError(
             f"fused_cross_attention stages K and V of one head in shared "
             f"memory: the {body} body at Lq={lq}, Lk={lk}, Dh={dh} needs "

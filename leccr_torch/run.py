@@ -1,17 +1,21 @@
 """leccr_torch launcher: train and evaluate on the GPU, and export to the
-reference's format (the port of the `itr_caption` and `export` tasks of
-the JAX package's `run.py`).
+reference's format (the port of the `itr_caption`, `vtr_caption` and
+`export` tasks of the JAX package's `run.py`).
 
     python -m leccr_torch.run --task itr_caption \\
         --config configs/multi30k_fr.yaml --output_dir out/m30k_fr \\
         [--checkpoint weights.pth] [--bs 128] [--epoch 50] [--seed 42] \\
         [--evaluate] [--resume] [--device cpu]
+    python -m leccr_torch.run --task vtr_caption \\
+        --config configs/msrvtt.yaml --output_dir out/msrvtt [...]
     python -m leccr_torch.run --task export \\
         --checkpoint out/m30k_fr/checkpoints/step_00000040.pt \\
         --export_path out/m30k_fr/reference.pth [--config ...]
 
-itr_caption writes `config.json`, `log.txt` (one JSON line per epoch) and
-`checkpoints/` under the output dir.  --checkpoint loads initial weights
+itr_caption (images) and vtr_caption (video, evaluated with the
+double-sim fusion; the config must name a temporal vision tower) write
+`config.json`, `log.txt` (one JSON line per epoch) and `checkpoints/`
+under the output dir.  --checkpoint loads initial weights
 after the trainer is built: a reference `checkpoint_best.pth`, an OpenAI
 CLIP archive, a HF BERT/XLM-R checkpoint (file or directory) or one of the
 port's own checkpoints (`models.weights.load_initial_checkpoint`).
@@ -39,15 +43,14 @@ from pathlib import Path
 TASKS = ("itr_caption", "vtr_caption", "serve", "build_index",
          "update_index", "export")
 _UNPORTED = {
-    "vtr_caption": "the video path of the port (ROADMAP §1, 'The video "
-                   "path')",
     "serve": "the rest of serving (ROADMAP §1, 'The rest of serving')",
     "build_index": "the rest of serving (ROADMAP §1, 'The rest of "
                    "serving')",
     "update_index": "the rest of serving (ROADMAP §1, 'The rest of "
                     "serving')",
 }
-DEFAULT_CONFIGS = {"itr_caption": "configs/multi30k_fr.yaml"}
+DEFAULT_CONFIGS = {"itr_caption": "configs/multi30k_fr.yaml",
+                   "vtr_caption": "configs/msrvtt.yaml"}
 
 
 def parse_args(argv=None):
@@ -56,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--task", default="itr_caption", choices=TASKS)
     p.add_argument("--config", default="",
                    help="config yaml/json (hdfs:// ok); default: "
-                        "configs/multi30k_fr.yaml for itr_caption")
+                        "configs/multi30k_fr.yaml for itr_caption, "
+                        "configs/msrvtt.yaml for vtr_caption")
     p.add_argument("--output_dir", default="",
                    help="hdfs:// ok; required for itr_caption")
     p.add_argument("--checkpoint", default="",
@@ -191,6 +195,9 @@ def main(argv=None) -> None:
         cfg.train.batch_size_train = args.bs
     if args.resume:
         cfg.train.resume = True
+    if args.task == "vtr_caption" and cfg.model.vision.kind != "temporal":
+        raise SystemExit("--task vtr_caption needs a temporal vision tower "
+                         "(model.vision.kind: temporal) in the config")
 
     Path(cfg.output_dir).mkdir(parents=True, exist_ok=True)
     cfg.save(os.path.join(cfg.output_dir, "config.json"))

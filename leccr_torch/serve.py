@@ -1,11 +1,14 @@
-"""Serving API: embed an image corpus once, keep the index on the device,
-answer top-K text→image and image→text queries.
+"""Serving API: embed an image or video corpus once, keep the index on the
+device, answer top-K text→image/video and image→text queries.
 
 The port of the single-device f32 path of `leccr_tpu/serve.py`:
 
     emb = Embedder.from_config(cfg, checkpoint="reference.pth")  # the GPU
     index = emb.build_image_index(images_u8, mllm_captions)
     hits = emb.search_texts(["ein mann fährt rad"], index, k=10)
+    # a video model: per-frame features, the double-sim ranking
+    index = emb.build_video_index(frame_feats, mllm_captions)
+    hits = emb.search_texts(["一个男人骑自行车"], index, fusion="minmax")
 
 The weights come from `load_params_for_inference`: an explicit checkpoint
 (any flavor `models.weights.load_initial_checkpoint` reads), else the
@@ -16,7 +19,10 @@ Unigram for `text.kind: xlmr`, CLIP's BPE for the captions of
 
 Query batches are padded with "" to `batch_size` and image chunks by
 repeating their last row, as in the JAX package; the `minmax` fusion keeps
-pad queries out of its min/max with a `valid` mask.
+pad queries out of its min/max with a `valid` mask.  Scores are the
+ranker's fixed-order products (`eval.retrieval.pairwise_scores`), so equal
+index rows score bit for bit alike, and the top-k takes equal scores
+lowest index first, as `jax.lax.top_k` does.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from leccr_torch.config import LECCRConfig
 from leccr_torch.data.images import load_eval_image, normalize_images
 from leccr_torch.data.tokenizers import make_tokenizers
+from leccr_torch.eval.retrieval import pairwise_scores
 from leccr_torch.models.leccr import LECCRModel
 from leccr_torch.models.weights import load_initial_checkpoint, load_jax_params
 
@@ -82,9 +89,17 @@ def load_params_for_inference(
     return model
 
 
+def _top_k(scores: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest scores of each row and their columns, equal scores
+    lowest column first (`jax.lax.top_k`'s order)."""
+    values, idxs = torch.sort(scores, dim=1, descending=True, stable=True)
+    return values[:, :k], idxs[:, :k]
+
+
 class Embedder:
-    """Text and image embedding plus top-K search around one LECCRModel;
-    runs wherever the model lives."""
+    """Text and image (or video) embedding plus top-K search around one
+    LECCRModel; runs wherever the model lives."""
 
     def __init__(self, cfg: LECCRConfig, model: LECCRModel,
                  batch_size: int = 64):
@@ -211,6 +226,53 @@ class Embedder:
 
         return self._embed_chunks(n, chunk, mllm_captions, ids)
 
+    def build_video_index(
+        self,
+        frame_feats: Union[Sequence[np.ndarray], np.ndarray],
+        mllm_captions: Sequence,
+        frame_masks: Optional[np.ndarray] = None,
+        ids: Optional[List[str]] = None,
+    ) -> ImageIndex:
+        """Index pre-extracted per-frame video features (a temporal vision
+        tower's model).  frame_feats: an [N, T, D] array (with an optional
+        bool frame_masks [N, T], True = a real frame; without one the first
+        T frames are real), or a list of per-video [t_i, D] arrays; either
+        is padded or truncated to `max_frames`.  Search it with
+        fusion="minmax" for the video evaluator's double-sim ranking."""
+        vcfg = self.cfg.model.vision
+        if vcfg.kind != "temporal":
+            raise ValueError("build_video_index needs a temporal vision "
+                             f"tower, got {vcfg.kind!r}")
+        t_max, d = vcfg.max_frames, vcfg.frame_feat_dim
+        if isinstance(frame_feats, np.ndarray) and frame_feats.ndim == 3:
+            n = frame_feats.shape[0]
+            arr = frame_feats[:, :t_max].astype(np.float32)
+            if arr.shape[1] < t_max:
+                arr = np.pad(arr, ((0, 0), (0, t_max - arr.shape[1]), (0, 0)))
+            if frame_masks is None:
+                m = np.zeros((n, t_max), bool)
+                m[:, :min(frame_feats.shape[1], t_max)] = True
+            else:
+                m = np.asarray(frame_masks, bool)[:, :t_max]
+                if m.shape[1] < t_max:
+                    m = np.pad(m, ((0, 0), (0, t_max - m.shape[1])))
+        else:
+            n = len(frame_feats)
+            arr = np.zeros((n, t_max, d), np.float32)
+            m = np.zeros((n, t_max), bool)
+            for i, f in enumerate(frame_feats):
+                t = min(f.shape[0], t_max)
+                arr[i, :t] = f[:t]
+                m[i, :t] = True
+
+        def chunk(i):
+            rows = slice(i, i + self.batch_size)
+            return ({"vision": torch.from_numpy(arr[rows]).to(self.device),
+                     "vision_mask": torch.from_numpy(m[rows]).to(
+                         self.device)}, arr[rows].shape[0])
+
+        return self._embed_chunks(n, chunk, mllm_captions, ids)
+
     # ------------------------------------------------------------ search
 
     def _scores(self, q: torch.Tensor, index: ImageIndex,
@@ -218,10 +280,12 @@ class Embedder:
                 alpha: float) -> torch.Tensor:
         """[B, N] query×index scores, with the slot blend for fusion
         "raw"/"minmax"."""
-        s = q @ index.feats.T
+        s = pairwise_scores(q, index.feats)
         if fusion == "none":
             return s
-        c = torch.matmul(index.slots, q.T).amax(dim=1).T  # max over slots
+        n, n_q, e = index.slots.shape
+        c = pairwise_scores(q, index.slots.reshape(n * n_q, e)).view(
+            q.shape[0], n, n_q).amax(dim=2)  # max over slots
         if fusion == "raw":
             return alpha * s + (1.0 - alpha) * c
 
@@ -257,8 +321,8 @@ class Embedder:
         else:
             q = self._embed_texts(queries)
             valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        scores, idxs = torch.topk(
-            self._scores(q, index, valid, fusion, float(alpha)), k, dim=1)
+        scores, idxs = _top_k(
+            self._scores(q, index, valid, fusion, float(alpha)), k)
         scores, idxs = scores[:n].cpu().numpy(), idxs[:n].cpu().numpy()
         return [[(index.ids[j], float(s)) for j, s in zip(row_i, row_s)]
                 for row_i, row_s in zip(idxs, scores)]
@@ -270,7 +334,7 @@ class Embedder:
         item, the top-k (text position, score)."""
         t = self._embed_texts(texts)
         k = min(k, t.shape[0])
-        scores, idxs = torch.topk(index.feats @ t.T, k, dim=1)
+        scores, idxs = _top_k(pairwise_scores(index.feats, t), k)
         scores, idxs = scores.cpu().numpy(), idxs.cpu().numpy()
         return [[(int(j), float(s)) for j, s in zip(ri, rs)]
                 for ri, rs in zip(idxs, scores)]

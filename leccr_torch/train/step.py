@@ -7,10 +7,11 @@ and the EMA, without a mesh).
     values = step.run(batch, step_no)  # the same, a [10] tensor, no sync
 
 Each step builds its random streams from (cfg.train.seed + 17, step_no),
-preprocesses the uint8 images on the device (normalize, per-image flip),
-runs the model forward in training mode, computes the loss suite, takes
-the gradient of the `grad_total` objective (the DDP-parity weighting of the
-JAX trainer; with num_blocks = 1 it equals `total`), clips by global norm
+preprocesses the uint8 images on the device (normalize, per-image flip;
+video frames go in as they are), runs the model forward in training mode,
+computes the loss suite, takes the gradient of the `grad_total` objective
+(the DDP-parity weighting of the JAX trainer; with num_blocks = 1 it
+equals `total`), clips by global norm
 when `train.grad_clip` > 0, and takes one optimizer and one scheduler step.
 `step(...)` reads the losses back from the device once, as one tensor;
 `step.run(...)` leaves them there.
@@ -76,16 +77,21 @@ def microbatch_generators(seed: int, step_no: int, k: int,
 
 
 def grad_total(losses: Dict[str, torch.Tensor], mc: ModelConfig,
-               num_blocks: int = 1) -> torch.Tensor:
+               num_blocks: int = 1, cv_loss_local: bool = False
+               ) -> torch.Tensor:
     """The objective the JAX trainer differentiates: the gathered
     (global-negative) terms scaled by 1/num_blocks plus the per-block local
-    terms (caption contrastive and regularization), so that a DDP mean of
-    per-rank gradients equals the reference's."""
+    terms (caption contrastive and regularization, and for video, where
+    `cv_loss_local`, the caption-vision loss), so that a DDP mean of
+    per-rank gradients equals the reference's (trainer.py:421-431)."""
     gathered = (losses["raw_itc_vs"]
                 + losses["raw_itc_vt"] * (1 - mc.weight_dstl_loss)
-                + losses["loss_itc_st"] + losses["raw_dstl"]
-                + losses["raw_cv"])
+                + losses["loss_itc_st"] + losses["raw_dstl"])
     local = losses["loss_itc_c"] + losses["loss_reg_c"]
+    if cv_loss_local:
+        local = local + losses["raw_cv"]
+    else:
+        gathered = gathered + losses["raw_cv"]
     return gathered / num_blocks + local
 
 
@@ -128,11 +134,14 @@ def grad_cache_backward(
     flip = batch.get("flip")
     inputs = {key: v for key, v in batch.items() if key != "flip"}
 
+    video = "vision_mask" in inputs
+
     def forward(k: int) -> TrainEmbeddings:
         mb = {key: v[rows[k]] for key, v in inputs.items()}
-        mb["vision"] = preprocess_train_images(
-            mb["vision"], None if flip is None else flip[rows[k]],
-            randaugment_n)
+        if not video:
+            mb["vision"] = preprocess_train_images(
+                mb["vision"], None if flip is None else flip[rows[k]],
+                randaugment_n)
         return model(mb, gens[k])
 
     states = [g.get_state() for g in gens]
@@ -202,6 +211,9 @@ class TrainStep:
             stream_rows = 256  # the JAX trainer's default (trainer.py:344-345)
         self.model, self.mc = model, mc
         self.num_blocks = num_blocks
+        # video: frames skip the image preprocessing, and the
+        # caption-vision loss is a local (per-block) term
+        self.is_video = mc.vision.kind == "temporal"
         self.stream_rows = stream_rows
         self.itc_loss_fn = infonce_loss if negatives == "fused" else None
         self.microbatches = tc.grad_cache_microbatches
@@ -238,10 +250,12 @@ class TrainStep:
             weight_cv_loss=mc.weight_cv_loss,
             dstl_alpha=mc.dstl_alpha,
             num_blocks=self.num_blocks,
+            cv_loss_local=self.is_video,
             itc_loss_fn=self.itc_loss_fn,
             stream_block_rows=(rows if 0 < rows < b and b % rows == 0
                                else 0))
-        return grad_total(losses, mc, self.num_blocks), losses
+        return (grad_total(losses, mc, self.num_blocks, self.is_video),
+                losses)
 
     def _backward(self, batch: Dict[str, torch.Tensor], idx: torch.Tensor,
                   step_no: int) -> Dict[str, torch.Tensor]:
@@ -252,8 +266,9 @@ class TrainStep:
             return grad_cache_backward(
                 model, batch, gens, lambda emb: self.objective(emb, idx),
                 self.randaugment_n)
-        batch["vision"] = preprocess_train_images(
-            batch["vision"], batch.pop("flip", None), self.randaugment_n)
+        if not self.is_video:
+            batch["vision"] = preprocess_train_images(
+                batch["vision"], batch.pop("flip", None), self.randaugment_n)
         emb = model(batch, step_generators(self.seed, step_no, model.device))
         value, losses = self.objective(emb, idx)
         value.backward()
@@ -294,7 +309,9 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
     optimizer steps; they are the returned step's `optimizer` and
     `scheduler` attributes, the EMA (train.ema_decay > 0) its `ema`.
 
-    batch: "vision" uint8 [B,H,W,3], "flip" bool [B] (optional), "idx" [B],
+    batch: "vision" uint8 [B,H,W,3] with "flip" bool [B] (optional), or
+    for video "vision" f32 frames [B,T,Df] with "vision_mask" bool [B,T];
+    "idx" [B],
     "text_ids_s"/"text_mask_s", "text_ids_t"/"text_mask_t", "caption_ids"/
     "caption_mask" (or "caption_feats"), all on the model's device."""
     return TrainStep(cfg, model, total_steps, num_blocks)

@@ -57,16 +57,25 @@ _LOSS_INDEX = [STEP_LOSS_KEYS.index(k) for k in LOSS_KEYS]
 
 def build_datasets(cfg: LECCRConfig):
     """(train_ds, {lang: val_ds}, {lang: test_ds}) in the reference layout
-    (dataset/__init__.py:117-162).  `dataset: synthetic` writes a tiny
-    Multi30K-layout set under `<output_dir>/.synthetic` first and points
-    `cfg.data` at it."""
-    from leccr_torch.data.datasets import ImageEvalDataset, ImageTrainDataset
+    (dataset/__init__.py:117-162): image datasets, or with `dataset: video`
+    the feature-bank video datasets at `model.vision.max_frames`.
+    `dataset: synthetic` writes a tiny Multi30K-layout set under
+    `<output_dir>/.synthetic` first and points `cfg.data` at it."""
+    from leccr_torch.data.datasets import (
+        ImageEvalDataset,
+        ImageTrainDataset,
+        VideoEvalDataset,
+        VideoTrainDataset,
+    )
 
     data = cfg.data
     if data.dataset == "video":
-        raise NotImplementedError(
-            "dataset: video comes with the video path of the port (ROADMAP "
-            "§1, 'The video path')")
+        frames = cfg.model.vision.max_frames
+        return (VideoTrainDataset(data, frames),
+                {k: VideoEvalDataset(data, p, frames, "eval")
+                 for k, p in data.val_file.items()},
+                {k: VideoEvalDataset(data, p, frames, "test")
+                 for k, p in data.test_file.items()})
     if data.dataset == "synthetic":
         from leccr_torch.data.synthetic import make_image_dataset
 
@@ -125,6 +134,7 @@ class Trainer:
         pass "cpu"."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.is_video = cfg.model.vision.kind == "temporal"
         check_parallel(cfg)
         self.train_ds, self.val_ds, self.test_ds = build_datasets(cfg)
         # startup summary (reference image_Retrieval_caption.py:345-349)
@@ -329,8 +339,9 @@ class Trainer:
                                  for i in range(len(tb))])[:n_txt]
         feats, slots = [], []
         for batch, count in self._image_batches(loader, dataset):
-            out = model.embed_images(
-                {**batch, "vision": normalize_images(batch["vision"])})
+            if not self.is_video:  # video frames go in as they are
+                batch = {**batch, "vision": normalize_images(batch["vision"])}
+            out = model.embed_images(batch)
             feats.append(out["feat"][:count])
             slots.append(out["slots"][:count])
         return torch.cat(feats), torch.cat(slots), text_embeds
@@ -342,8 +353,8 @@ class Trainer:
         t0 = time.time()
         img_feats, img_slots, text_embeds = self.embed_split(dataset)
         fusion = self.cfg.train.eval_fusion
-        if fusion == "auto":
-            fusion = "none"  # images: plain cosine (video: minmax)
+        if fusion == "auto":  # video: the double-sim; images: plain cosine
+            fusion = "minmax" if self.is_video else "none"
         i2t, t2i = retrieval_ranks(
             img_feats, text_embeds, dataset.index.txt2img,
             dataset.index.img2txt,

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels have no CPU mode.
 
-The fused cross-attention kernel (eval; its few-queries, few-keys and
-general bodies), the single-block flash tower-attention kernels 2/3, the
+The fused cross-attention kernel (eval; its few-queries, few-keys,
+key-tiles and general bodies), the single-block flash tower-attention kernels 2/3, the
 chunked kernels 4/5 and the tiled kernels 6/7/8 (training, forward and
 backward; 4-8 on their wgmma variant in bf16, the backward passes on their
 persistent schedule), and the fused InfoNCE kernels 9-11 against their
@@ -133,6 +133,41 @@ def test_kernel_bodies_match_plain_version(lq, lk, aligned, body, dtype):
     assert {n: c - before[n] for n, c in
             fused_cross_attention.launches_by_body.items()
             if c != before[n]} == {body: 1}
+    want = fused_cross_attention_reference(q, k, v, pad).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    mean_v = v[0].float().mean(dim=1, keepdim=True).expand(-1, lq, -1)
+    assert (got[0] - mean_v).abs().max().item() <= 1e-2
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert ((got - want).abs() <= 1e-5 + _bf16_ulp(want)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,lk,dh", [
+    (2, 200, 512), (32, 2, 512), (2, 32, 512), (1, 1, 512), (17, 33, 512),
+    (4, 16, 512), (5, 17, 256), (2, 200, 136)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_key_tiles_body_matches_plain_version(lq, lk, dh, dtype):
+    """The key-tiles body (wide heads) at the video model's shapes (Dh =
+    512: slots x caption tokens, frames x slots, slots x frames) and the
+    edges of its tiles (one key; 16, 17 and 33 keys; 17 rows: two row
+    tiles), B=8, H=8, head-split views, a fully padded row (the mean of
+    v): f32 atol 1e-5, bf16 atol 1e-5 plus 1 bf16 ulp of the output."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(lq * 13 + lk + dh)
+    q, k, v = (torch.randn(8, n, 8, dh, device="cuda", generator=g)
+               .to(dtype).transpose(1, 2) for n in (lq, lk, lk))
+    pad = torch.rand(8, lk, device="cuda", generator=g) < 0.3
+    pad[0] = True
+    pad[1] = False
+    assert fused_body(lq, lk, dh, q.element_size(), True) == "key_tiles"
+    before = dict(fused_cross_attention.launches_by_body)
+    got = fused_cross_attention(q, k, v, pad).float()
+    assert {n: c - before[n] for n, c in
+            fused_cross_attention.launches_by_body.items()
+            if c != before[n]} == {"key_tiles": 1}
     want = fused_cross_attention_reference(q, k, v, pad).float()
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()

@@ -1,6 +1,7 @@
 """The port's streaming ranker against the JAX package's: exact rank
-equality for every fusion and several block sizes, on embeddings with
-duplicated rows (exact score ties), plus the Recall@K metric dict."""
+equality for every fusion, several block sizes and torch CPU thread counts
+1, 4 and 8, on embeddings with duplicated rows (exact score ties), plus the
+Recall@K metric dict and the fixed-order score product."""
 
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ import torch
 
 from leccr_torch.eval.retrieval import (
     itm_metrics_from_ranks,
+    pairwise_scores,
     retrieval_ranks,
     score_matrix,
 )
@@ -39,9 +41,18 @@ def data():
     return img, txt, slots, txt2img, img2txt
 
 
+@pytest.fixture(params=[1, 4, 8], ids=lambda n: f"threads{n}")
+def threads(request):
+    """torch's CPU thread count for one test, restored afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(request.param)
+    yield request.param
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("fusion", ["none", "raw", "minmax"])
 @pytest.mark.parametrize("block", [3, 4, 256])
-def test_ranks_equal_jax(data, fusion, block):
+def test_ranks_equal_jax(data, fusion, block, threads):
     img, txt, slots, txt2img, img2txt = data
     want = jax_retrieval.retrieval_ranks(
         img, txt, txt2img, img2txt, slots=slots, fusion=fusion, alpha=0.7,
@@ -88,3 +99,22 @@ def test_score_matrix_and_bad_fusion(data):
     with pytest.raises(ValueError, match="unknown fusion"):
         retrieval_ranks(img, txt, txt2img, img2txt, fusion="max",
                         device="cpu")
+
+
+@pytest.mark.parametrize("chunk_elems", [1, 100, 1 << 25])
+def test_pairwise_scores_give_equal_rows_equal_bits(data, threads,
+                                                    chunk_elems):
+    """Equal rows score bit for bit alike wherever they sit (the tie the
+    ranker's rule counts), within 1e-6 of the dense product, for any
+    column chunking."""
+    img, txt, _, _, _ = data
+    s = pairwise_scores(torch.from_numpy(img), torch.from_numpy(txt),
+                        chunk_elems).numpy()
+    assert s.shape == (N_IMG, N_TXT)
+    np.testing.assert_array_equal(s[7], s[2])
+    np.testing.assert_array_equal(s[10], s[2])
+    t = pairwise_scores(torch.from_numpy(txt), torch.from_numpy(img),
+                        chunk_elems).numpy()
+    np.testing.assert_array_equal(t[:, 7], t[:, 2])  # equal rows of b
+    np.testing.assert_array_equal(t[:, 10], t[:, 2])
+    np.testing.assert_allclose(s, img @ txt.T, rtol=0, atol=1e-6)

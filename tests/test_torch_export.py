@@ -1,9 +1,9 @@
 """Export to the reference's format (leccr_torch.models.weights.
 export_reference_state_dict, save_reference_checkpoint) against the JAX
 package's export of the same weights: the same keys, bit for bit; and
-export then import is the identity on every live parameter."""
-
-import dataclasses
+export then import is the identity on every live parameter.  The video
+model's temporal tower goes out and comes back as the reference's
+`vid_encoder.*`."""
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +34,10 @@ CASES = {
     "xlmr": {"model.text.kind": "xlmr", "model.text.type_vocab_size": 1,
              "model.text.pad_token_id": 1,
              "model.text.max_position_embeddings": 66},
+    "video": {"model.vision.kind": "temporal",
+              "model.vision.frame_feat_dim": 48, "model.vision.num_heads": 4,
+              "model.vision.num_layers": 2, "model.vision.max_frames": 6,
+              "model.num_queries": 2},
 }
 
 
@@ -54,6 +58,11 @@ def _pair(case, seed=0):
              "text_ids_s": ids, "text_mask_s": np.ones_like(ids),
              "text_ids_t": ids, "text_mask_t": np.ones_like(ids),
              "caption_ids": ids, "caption_mask": np.ones_like(ids)}
+    vision = cfg.model.vision
+    if vision.kind == "temporal":
+        batch["vision"] = np.zeros((1, vision.max_frames,
+                                    vision.frame_feat_dim), np.float32)
+        batch["vision_mask"] = np.ones((1, vision.max_frames), bool)
     params = LECCRModel(cfg.model).init(
         {"params": jax.random.PRNGKey(seed)},
         jax.tree.map(jnp.asarray, batch))["params"]
@@ -112,9 +121,18 @@ def test_jax_export_imports_into_the_port_bit_for_bit(tmp_path):
         assert torch.equal(value, want[key]), key
 
 
-def test_export_of_the_video_tower_names_the_video_slice():
-    _, _, port = _pair("mbert")
-    port.cfg = dataclasses.replace(port.cfg, vision=dataclasses.replace(
-        port.cfg.vision, kind="temporal"))
-    with pytest.raises(NotImplementedError, match="video"):
-        export_reference_state_dict(port)
+def test_jax_video_export_imports_into_the_port_bit_for_bit(tmp_path):
+    """A reference .pth of the video model written by the JAX package's
+    export (its temporal tower as `vid_encoder.*`) loads into the port as
+    the JAX model's parameters, with nothing left over."""
+    cfg, params, port = _pair("video", seed=4)
+    sd = jweights.export_reference_state_dict(params, cfg)
+    assert any(k.startswith("vid_encoder.layers.1.") for k in sd)
+    path = tmp_path / "jax_video.pth"
+    jweights.save_reference_checkpoint(sd, str(path))
+    fresh = TorchLECCR(port.cfg, device="cpu", seed=9)
+    report = load_initial_checkpoint(str(path), fresh)
+    assert report.issues == []
+    want = port.state_dict()
+    for key, value in fresh.state_dict().items():
+        assert torch.equal(value, want[key]), key

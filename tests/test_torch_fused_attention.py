@@ -3,8 +3,9 @@ the JAX package's Pallas kernel run in interpret mode.
 
 Shapes are the three (Lq, Lk) pairs of the embed_images path scaled down:
 (n_queries, caption tokens), (visual tokens, n_queries) and
-(n_queries, visual tokens), and the edges of the kernel's bodies (one
-query, one key, 16 and 17 keys).  Tolerances: f32 atol 1e-5 (the same f32
+(n_queries, visual tokens), the edges of the kernel's bodies (one
+query, one key, 16 and 17 keys), and the video model's head dim Dh = 512
+(the key-tiles body's) at its slots, frames and caption tokens.  Tolerances: f32 atol 1e-5 (the same f32
 math, summed in another order); bf16 inputs the same 1e-5 plus 1 bf16 ulp
 of the output (both sides round an f32 result to bf16 once, so f32 noise
 can move it by one ulp).  Also the shape rule that picks the body
@@ -122,14 +123,23 @@ def test_reference_matches_pallas_at_body_edges(lq, lk, dtype):
     (145, 4, 64, 2, False, "general"),
     (145, 4, 48, 2, True, "general"),       # 6 chunks of 16 bytes a row
     (4, 200, 16, 2, True, "general"),       # 2 chunks
-    (4, 200, 256, 2, True, "general"),      # 32 chunks
+    (4, 200, 256, 2, True, "key_tiles"),    # 32 chunks: a wide head
     (145, 4, 12, 2, True, "general"),       # rows of 24 bytes
+    (2, 200, 512, 2, True, "key_tiles"),    # the video model: slots x caption
+    (32, 2, 512, 2, True, "key_tiles"),     # frames x slots
+    (2, 32, 512, 2, True, "key_tiles"),     # slots x frames
+    (2, 32, 512, 4, True, "key_tiles"),
+    (4, 200, 128, 4, True, "general"),      # f32 Dh = 128: 32 chunks
+    (4, 200, 136, 2, True, "key_tiles"),
+    (2, 200, 512, 2, False, "general"),     # an unaligned view
+    (2, 200, 1024, 2, True, "general"),     # past the key-tiles body
 ])
 def test_body_chooser(lq, lk, dh, item, aligned, want):
-    """The body from the shapes alone: the embed_images shapes take the
-    few-queries and few-keys bodies; the class edges (16 queries or keys
-    in, 17 out), unaligned views and rows of other than 4, 8 or 16 chunks
-    of 16 bytes go to the general one."""
+    """The body from the shapes alone: the image model's embed_images
+    shapes take the few-queries and few-keys bodies, the video model's (Dh
+    = 512) the key-tiles one; the class edges (16 queries or keys in, 17
+    out), unaligned views, heads past 512 and rows of other than 4, 8 or
+    16 chunks of 16 bytes up to Dh = 128 go to the general one."""
     assert fused_body(lq, lk, dh, item, aligned) == want
 
 
@@ -139,7 +149,7 @@ def test_cpu_wrapper_counts_no_body():
     before = dict(fused_cross_attention.launches_by_body)
     fused_cross_attention(q, k, v, pad)
     assert fused_cross_attention.launches_by_body == before
-    assert set(before) == {"general", "few_queries", "few_keys"}
+    assert set(before) == {"general", "few_queries", "few_keys", "key_tiles"}
 
 
 def test_no_mask_matches_pallas():
@@ -201,3 +211,35 @@ def test_wrapper_rejects_bad_inputs(case):
         k = k.to(torch.bfloat16)
     with pytest.raises((ValueError, TypeError)):
         fused_cross_attention(q, k, v, pad)
+
+
+@pytest.mark.parametrize("lq,lk", [(2, 40), (32, 2), (2, 32), (17, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reference_matches_pallas_at_dh_512(lq, lk, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at the
+    video model's Dh = 512 (what the key-tiles body computes), with a
+    fully padded row (the mean of v) and key padding across several
+    16-key tiles; B = 2, H = 2."""
+    rs = np.random.RandomState(lq * 41 + lk)
+    q, k, v = (rs.randn(2, 2, n, 512).astype(np.float32)
+               for n in (lq, lk, lk))
+    pad = rs.rand(2, lk) < 0.3
+    pad[0] = True
+    pad[1, 0] = False
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = np.asarray(jax_fused_cross_attention(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(pad),
+        True)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    got = fused_cross_attention(tq, tk, tv, torch.from_numpy(pad))
+    assert got.dtype == tdt and got.shape == (2, 2, lq, 512)
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    mean_v = tv[0].float().mean(dim=1, keepdim=True).numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(
+            got[0], np.broadcast_to(mean_v, got[0].shape), rtol=0, atol=1e-5)
+    else:
+        assert (np.abs(got - want) <= 1e-5 + _bf16_ulp(want)).all()

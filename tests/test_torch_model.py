@@ -155,10 +155,10 @@ def test_seeded_init_is_reproducible():
 
 def test_unported_configs_and_missing_gpu_raise():
     cfg = torch_tiny_config().model
-    video = dataclasses.replace(
-        cfg, vision=dataclasses.replace(cfg.vision, kind="temporal"))
-    with pytest.raises(NotImplementedError, match="video"):
-        TorchLECCR(video, device="cpu")
+    other = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, kind="resnet"))
+    with pytest.raises(ValueError, match="unknown vision tower"):
+        TorchLECCR(other, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TorchLECCR(cfg)

@@ -1,12 +1,18 @@
 """The port's Embedder against the JAX package's on the tiny config at the
 same params: index feats and slots (atol 1e-4), and search_texts /
 search_images results (scores atol 1e-4; ids wherever the scores are
-distinct, since the two top-k orders of equal scores may differ)."""
+distinct, since the two top-k orders of nearly equal scores may differ).
+On an index with a duplicated row (exact ties), at torch CPU thread counts
+1, 4 and 8: the tied rows score bit for bit alike and come lowest index
+first, as `jax.lax.top_k` returns them."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from leccr_torch.config import tiny_test_config as torch_tiny_config
 from leccr_torch.data.tokenizers import (
@@ -105,6 +111,44 @@ def test_search_texts_matches_jax(embedders, indexes, fusion, n_queries):
                             alpha=0.6)
     assert len(got) == n_queries and all(len(r) == 4 for r in got)
     _same_ranking(got, want)
+
+
+@pytest.mark.parametrize("threads", [1, 4, 8])
+@pytest.mark.parametrize("fusion", ["none", "minmax"])
+def test_search_texts_on_tied_rows_matches_jax(embedders, indexes, fusion,
+                                               threads):
+    """Index row 4 a copy of row 1 in both packages: every query scores
+    them bit for bit alike, and both list id 1 right before id 4."""
+    jax_emb, port, _ = embedders
+    want_index, got_index = indexes
+
+    def tie(x):
+        x = np.array(x)
+        x[4] = x[1]
+        return x
+
+    want_index = dataclasses.replace(
+        want_index, feats=jnp.asarray(tie(want_index.feats)),
+        slots=jnp.asarray(tie(want_index.slots)))
+    got_index = dataclasses.replace(
+        got_index, feats=torch.from_numpy(tie(got_index.feats)),
+        slots=torch.from_numpy(tie(got_index.slots)))
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = port.search_texts(QUERIES, got_index, k=len(CAPTIONS),
+                                fusion=fusion, alpha=0.6)
+    finally:
+        torch.set_num_threads(before)
+    want = jax_emb.search_texts(QUERIES, want_index, k=len(CAPTIONS),
+                                fusion=fusion, alpha=0.6)
+    _same_ranking(got, want)
+    for g_row, w_row in zip(got, want):
+        g_ids, g_s = zip(*g_row)
+        w_ids = [i for i, _ in w_row]
+        at = g_ids.index("1")
+        assert g_ids[at + 1] == "4" and g_s[at + 1] == g_s[at]
+        assert w_ids.index("4") == w_ids.index("1") + 1
 
 
 def test_search_images_matches_jax(embedders, indexes):
