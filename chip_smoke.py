@@ -172,7 +172,29 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    step, all tensor-core, kernel 1 7 launches an eval batch on the
    key-tiles body only; the test split's double-sim ranks equal a dense
    count; ms/step, peak memory, embed_texts / embed_images / ranking s;
-   then build_video_index of 256 videos and search_texts(minmax).
+   then build_video_index of 256 videos and search_texts(minmax); then
+   `--task build_index` of the test split from the run's checkpoint
+   (kernel 1 7 a batch of 64, key tiles only) and search_texts(minmax)
+   on the loaded save.
+14. serving tasks (`serve_tasks_phase`): configs/multi30k_all.yaml's
+   model from fit's last checkpoint over a synthetic Multi30K test split
+   of 1000 images, through `leccr_torch.run.main`: `--task build_index`
+   f32, `--int8` and `--ivf --ivf_recall 0.95` (kernel 1 7 a batch of 64,
+   small bodies only); `--task update_index` removing 50 items and adding
+   them back (7 launches; re-added rows within 1e-2 of the originals,
+   int8 rows untouched bit for bit); `--task serve --port 0` of each save
+   in child processes, 32 concurrent clients whose answers equal an
+   in-process search (scores within 1e-3), coalesced dispatches, then 32
+   clients sending fresh requests back to back for SERVE_WINDOW_S s a
+   save, SIGINT exits 0.  Build, embed, save and load s, bytes on disk,
+   and over each window requests/s and client p50 / p95.
+15. the index at scale (`index_scale_phase`, no model): 1M unit rows at E
+   = 256 with 4 slots around 1000 concepts, IVF of C = 4000 clusters:
+   the full probe equals the exact search (1e-5), the calibrated nprobe
+   reaches recall@10 0.95, int8 within 0.03 (exact) and 5e-3 (IVF) of
+   f32, two builds from one seed bit for bit, equal rows tie bit for
+   bit; quantize, k-means, pack, calibrate and each search timed, exact
+   f32 (`pairwise_scores`) beside `torch.matmul` of the same product.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -186,6 +208,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2282,10 +2305,10 @@ def state_equal(a, b) -> bool:
     return a == b
 
 
-def fit_phase(card_line: str, seed: int = 0):
+def fit_phase(card_line: str, out: Path, seed: int = 0):
     """`Trainer(cfg).fit()` on the card: configs/multi30k_all.yaml at full
     width with FIT_OPTIONS, from files on disk (the synthetic set written
-    in a temporary output dir, removed after).  Kernels 2/3 must launch
+    in `out`).  Kernels 2/3 must launch
     FLAGSHIP_STEP_LAUNCHES a step (all on the tensor-core variant) and
     kernel 1 launches_per_batch() an embed_images batch (its small bodies
     only), counted over every step and eval batch of the run; every step's
@@ -2295,11 +2318,11 @@ def fit_phase(card_line: str, seed: int = 0):
     after each epoch's first, each ending in the loss read-back) and
     pairs/s, the loader's wait per step, eval s per split (epoch 0
     uncached, epoch 1 from the device cache), checkpoint save s and
-    bytes, peak memory.  Returns (kernel 2/3 launches, kernel 1 counts)."""
+    bytes, peak memory.  The run writes into `out`, which the caller
+    removes.  Returns (kernel 2/3 launches, kernel 1 counts, the last
+    checkpoint's path)."""
     import copy
-    import shutil
     import statistics
-    import tempfile
 
     import torch
 
@@ -2307,138 +2330,134 @@ def fit_phase(card_line: str, seed: int = 0):
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
     from leccr_torch.train.trainer import Trainer
 
-    out = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
-    try:
-        cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
-        set_options(cfg, FIT_OPTIONS)
-        cfg.train.seed = seed
-        cfg.output_dir = str(out)
-        resume_cfg = copy.deepcopy(cfg)
-        resume_cfg.train.resume = True
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        tr = Trainer(cfg)
-        init_s = time.perf_counter() - t0
+    cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+    set_options(cfg, FIT_OPTIONS)
+    cfg.train.seed = seed
+    cfg.output_dir = str(out)
+    resume_cfg = copy.deepcopy(cfg)
+    resume_cfg.train.resume = True
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg)
+    init_s = time.perf_counter() - t0
 
-        losses, evals, saves, writes = [], [], [], []
-        run, evaluate = tr.state.train_step.run, tr.evaluate
-        save, write = tr.ckpt.save, tr.ckpt._write_step
+    losses, evals, saves, writes = [], [], [], []
+    run, evaluate = tr.state.train_step.run, tr.evaluate
+    save, write = tr.ckpt.save, tr.ckpt._write_step
 
-        def run_noted(batch, step_no):
-            values = run(batch, step_no)
-            losses.append(values)
-            return values
+    def run_noted(batch, step_no):
+        values = run(batch, step_no)
+        losses.append(values)
+        return values
 
-        def evaluate_timed(dataset):
-            t = time.perf_counter()
-            metrics = evaluate(dataset)
-            torch.cuda.synchronize()
-            evals.append(time.perf_counter() - t)
-            return metrics
-
-        def save_timed(*args, **kwargs):
-            t = time.perf_counter()
-            save(*args, **kwargs)
-            saves.append(time.perf_counter() - t)
-
-        def write_timed(*args):
-            t = time.perf_counter()
-            write(*args)
-            writes.append(time.perf_counter() - t)
-
-        tr.state.train_step.run = run_noted
-        tr.evaluate = evaluate_timed
-        tr.ckpt.save, tr.ckpt._write_step = save_timed, write_timed
-
-        reset_counts()
-        t0 = time.perf_counter()
-        stats = tr.fit()
+    def evaluate_timed(dataset):
+        t = time.perf_counter()
+        metrics = evaluate(dataset)
         torch.cuda.synchronize()
-        fit_s = time.perf_counter() - t0
-        launches = step_counts()
-        tc = tc_counts()
-        by_body = kernel1_counts("the fit's evals")
+        evals.append(time.perf_counter() - t)
+        return metrics
 
-        steps = tr.state.step
-        epochs = cfg.train.schedular.epochs
-        bs_test = cfg.train.batch_size_test
-        eval_batches = epochs * sum(
-            math.ceil(len(ds) / bs_test)
-            for split in (tr.val_ds, tr.test_ds) for ds in split.values())
-        want = tuple(n * steps for n in FLAGSHIP_STEP_LAUNCHES)
-        if steps != epochs * tr.steps_per_epoch or launches != want:
-            raise AssertionError(f"the fit took {steps} steps and launched "
-                                 f"kernels 2-11 {launches}, want {want}")
-        if tc != launches[:2]:
-            raise AssertionError(f"kernels 2/3 launched {launches[:2]}, of "
-                                 f"them {tc} on the tensor-core variant")
-        if by_body["all"] != launches_per_batch(cfg) * eval_batches:
-            raise AssertionError(f"kernel 1 launched {by_body} for "
-                                 f"{eval_batches} embed_images batches")
-        values = torch.stack(losses)
-        if len(losses) != steps or not torch.isfinite(values).all():
-            raise AssertionError(f"losses of {len(losses)} steps: {values}")
-        records = [json.loads(line) for line in
-                   (out / "log.txt").read_text().splitlines()]
-        sumr = [r["de_test_sumr_sum"] for r in records[:-1]]
-        if ([r.get("epoch") for r in records] != list(range(epochs)) + [None]
-                or not all(math.isfinite(v) for v in sumr)
-                or not math.isfinite(stats["de_test_sumr_sum"])):
-            raise AssertionError(f"log.txt records {records}")
-        best = json.loads((out / "checkpoints" / "best.json").read_text())
-        files = sorted((out / "checkpoints").glob("step_*.pt"))
-        if [f.name for f in files] != [f"step_{steps:08d}.pt"]:
-            raise AssertionError(f"checkpoints kept: {files}")
+    def save_timed(*args, **kwargs):
+        t = time.perf_counter()
+        save(*args, **kwargs)
+        saves.append(time.perf_counter() - t)
 
-        t0 = time.perf_counter()
-        tr2 = Trainer(resume_cfg)
-        resumed = tr2.resume()
-        restore_s = time.perf_counter() - t0
-        if not (resumed == (epochs, 0) and tr2.state.step == steps
-                and state_equal(tr2.state.model.state_dict(),
-                                 tr.state.model.state_dict())
-                and state_equal(tr2.state.optimizer.state_dict(),
-                                 tr.state.optimizer.state_dict())):
-            raise AssertionError("the checkpoint did not restore bit for "
-                                 "bit")
-        del tr2
+    def write_timed(*args):
+        t = time.perf_counter()
+        write(*args)
+        writes.append(time.perf_counter() - t)
 
-        # host-fed step time: each epoch's steps after its first (from
-        # asking the loader for its batch to asking for the next, or to
-        # the epoch's end after the loss read-back)
-        later = [s for t in tr.timing for s in t["step_s"][1:]]
-        step_ms = statistics.median(later) * 1e3
-        batch = cfg.train.batch_size_train
-        emit("fit", card=card_line, config="configs/multi30k_all.yaml",
-             options=FIT_OPTIONS, batch=batch, steps=steps,
-             steps_per_epoch=tr.steps_per_epoch, epochs=epochs,
-             eval_batches=eval_batches, init_s=init_s, fit_s=fit_s,
-             host_fed_ms_per_step=step_ms,
-             host_fed_pairs_per_s=batch / step_ms * 1e3,
-             step_s=[t["step_s"] for t in tr.timing],
-             loader_wait_s=[t["wait_s"] for t in tr.timing],
-             loader_wait_ms_median=statistics.median(
-                 w for t in tr.timing for w in t["wait_s"]) * 1e3,
-             eval_s=evals, eval_s_uncached=evals[:2],
-             eval_s_cached=evals[2:4],
-             eval_cache_mb=tr._eval_cache_bytes / 2 ** 20,
-             save_caller_s=saves, save_write_s=writes,
-             checkpoint_bytes=files[0].stat().st_size,
-             restore_s=restore_s, peak_mem_gb=(
-                 torch.cuda.max_memory_allocated() / 1e9),
-             launches=dict(zip(STEP_COUNTERS, launches)),
-             tc_launches=dict(zip(TC_COUNTERS, tc)),
-             kernel1_launches=by_body, best=best,
-             losses_first=values[0].tolist(), losses_last=values[-1].tolist(),
-             sumr_sum=sumr,
-             train_loss_itc_vs=[r["train_loss_itc_vs"]
-                                for r in records[:-1]],
-             fused_cross_attention_launches=fused_cross_attention.launches)
-        del tr
-        torch.cuda.empty_cache()
-        return launches, by_body
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    tr.state.train_step.run = run_noted
+    tr.evaluate = evaluate_timed
+    tr.ckpt.save, tr.ckpt._write_step = save_timed, write_timed
+
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = step_counts()
+    tc = tc_counts()
+    by_body = kernel1_counts("the fit's evals")
+
+    steps = tr.state.step
+    epochs = cfg.train.schedular.epochs
+    bs_test = cfg.train.batch_size_test
+    eval_batches = epochs * sum(
+        math.ceil(len(ds) / bs_test)
+        for split in (tr.val_ds, tr.test_ds) for ds in split.values())
+    want = tuple(n * steps for n in FLAGSHIP_STEP_LAUNCHES)
+    if steps != epochs * tr.steps_per_epoch or launches != want:
+        raise AssertionError(f"the fit took {steps} steps and launched "
+                             f"kernels 2-11 {launches}, want {want}")
+    if tc != launches[:2]:
+        raise AssertionError(f"kernels 2/3 launched {launches[:2]}, of "
+                             f"them {tc} on the tensor-core variant")
+    if by_body["all"] != launches_per_batch(cfg) * eval_batches:
+        raise AssertionError(f"kernel 1 launched {by_body} for "
+                             f"{eval_batches} embed_images batches")
+    values = torch.stack(losses)
+    if len(losses) != steps or not torch.isfinite(values).all():
+        raise AssertionError(f"losses of {len(losses)} steps: {values}")
+    records = [json.loads(line) for line in
+               (out / "log.txt").read_text().splitlines()]
+    sumr = [r["de_test_sumr_sum"] for r in records[:-1]]
+    if ([r.get("epoch") for r in records] != list(range(epochs)) + [None]
+            or not all(math.isfinite(v) for v in sumr)
+            or not math.isfinite(stats["de_test_sumr_sum"])):
+        raise AssertionError(f"log.txt records {records}")
+    best = json.loads((out / "checkpoints" / "best.json").read_text())
+    files = sorted((out / "checkpoints").glob("step_*.pt"))
+    if [f.name for f in files] != [f"step_{steps:08d}.pt"]:
+        raise AssertionError(f"checkpoints kept: {files}")
+
+    t0 = time.perf_counter()
+    tr2 = Trainer(resume_cfg)
+    resumed = tr2.resume()
+    restore_s = time.perf_counter() - t0
+    if not (resumed == (epochs, 0) and tr2.state.step == steps
+            and state_equal(tr2.state.model.state_dict(),
+                             tr.state.model.state_dict())
+            and state_equal(tr2.state.optimizer.state_dict(),
+                             tr.state.optimizer.state_dict())):
+        raise AssertionError("the checkpoint did not restore bit for "
+                             "bit")
+    del tr2
+
+    # host-fed step time: each epoch's steps after its first (from
+    # asking the loader for its batch to asking for the next, or to
+    # the epoch's end after the loss read-back)
+    later = [s for t in tr.timing for s in t["step_s"][1:]]
+    step_ms = statistics.median(later) * 1e3
+    batch = cfg.train.batch_size_train
+    emit("fit", card=card_line, config="configs/multi30k_all.yaml",
+         options=FIT_OPTIONS, batch=batch, steps=steps,
+         steps_per_epoch=tr.steps_per_epoch, epochs=epochs,
+         eval_batches=eval_batches, init_s=init_s, fit_s=fit_s,
+         host_fed_ms_per_step=step_ms,
+         host_fed_pairs_per_s=batch / step_ms * 1e3,
+         step_s=[t["step_s"] for t in tr.timing],
+         loader_wait_s=[t["wait_s"] for t in tr.timing],
+         loader_wait_ms_median=statistics.median(
+             w for t in tr.timing for w in t["wait_s"]) * 1e3,
+         eval_s=evals, eval_s_uncached=evals[:2],
+         eval_s_cached=evals[2:4],
+         eval_cache_mb=tr._eval_cache_bytes / 2 ** 20,
+         save_caller_s=saves, save_write_s=writes,
+         checkpoint_bytes=files[0].stat().st_size,
+         restore_s=restore_s, peak_mem_gb=(
+             torch.cuda.max_memory_allocated() / 1e9),
+         launches=dict(zip(STEP_COUNTERS, launches)),
+         tc_launches=dict(zip(TC_COUNTERS, tc)),
+         kernel1_launches=by_body, best=best,
+         losses_first=values[0].tolist(), losses_last=values[-1].tolist(),
+         sumr_sum=sumr,
+         train_loss_itc_vs=[r["train_loss_itc_vs"]
+                            for r in records[:-1]],
+         fused_cross_attention_launches=fused_cross_attention.launches)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, by_body, str(files[0])
 
 
 CHECKPOINT_OPTIONS = {**FIT_OPTIONS, "train.checkpoint_every_steps": 0}
@@ -2873,9 +2892,12 @@ def video_phase(card_line: str = "", seed: int = 0):
        VIDEO_SERVE_VIDEOS videos of 2-32 frames (`build_video_index`) and
        answers 5 queries with fusion="minmax": kernel 1 launches_per_batch()
        an index batch on its key-tiles body; each hit's rank and score
-       agree with a dense count of the same scores.
+       agree with a dense count of the same scores;
+    5. `--task build_index` of the test split from the run's checkpoint:
+       kernel 1 launches_per_batch() a batch of 64, key-tiles body only; the
+       save loaded back answers search_texts(fusion="minmax").
     Returns (kernel 1 rows at the video shapes, kernel 2/3 launches of 2,
-    kernel 1 counts of 2-4)."""
+    kernel 1 counts of 2-5)."""
     import gc
     import shutil
     import statistics
@@ -2893,7 +2915,7 @@ def video_phase(card_line: str = "", seed: int = 0):
         _WORDS_T,
         make_video_dataset,
     )
-    from leccr_torch.serve import Embedder
+    from leccr_torch.serve import Embedder, _search_scores, load_index
     from leccr_torch.train import trainer as trainer_module
     from leccr_torch.train.trainer import Trainer
 
@@ -3103,7 +3125,7 @@ def video_phase(card_line: str = "", seed: int = 0):
         padded = queries + [""] * (emb.batch_size - len(queries))
         q = torch.from_numpy(emb.embed_texts(padded)).to(index.feats.device)
         valid = torch.arange(emb.batch_size, device=q.device) < len(queries)
-        dense = emb._scores(q, index, valid, "minmax", 0.9)[:len(queries)]
+        dense = _search_scores(q, index, valid, "minmax", 0.9)[:len(queries)]
         for qi, row in enumerate(hits):
             for rank, (item, score) in enumerate(row):
                 above = int((dense[qi] > score).sum())
@@ -3117,6 +3139,40 @@ def video_phase(card_line: str = "", seed: int = 0):
                       top_hits=[row[0] for row in hits])
         del emb, index
         torch.cuda.empty_cache()
+
+        # 5. --task build_index of the test split from the run's checkpoint
+        reset_counts()
+        t0 = time.perf_counter()
+        run.main(["--task", "build_index", "--config", str(derived),
+                  "--output_dir", str(out), "--index", str(tmp / "index")])
+        build_s = time.perf_counter() - t0
+        build_kernel1 = kernel1_counts("video build_index", ("key_tiles",))
+        n_batches = math.ceil(len(ds) / 64)
+        if build_kernel1["all"] != launches_per_batch(cfg) * n_batches:
+            raise AssertionError(f"video build_index launched kernel 1 "
+                                 f"{build_kernel1}")
+        index = load_index(str(tmp / "index"), "cuda")
+        serve_cfg = load_config(str(derived))
+        serve_cfg.output_dir = str(out)  # the run's newest checkpoint
+        emb = Embedder.from_config(serve_cfg, device="cuda", batch_size=64)
+        t0 = time.perf_counter()
+        hits = emb.search_texts(queries, index, k=10, fusion="minmax")
+        search_s = time.perf_counter() - t0
+        ids = set(index.ids)
+        for row in hits:
+            scores = [s for _, s in row]
+            if (len(row) != 10 or not all(i in ids for i, _ in row)
+                    or scores != sorted(scores, reverse=True)
+                    or not all(math.isfinite(s) for s in scores)):
+                raise AssertionError(f"bad video search result {row}")
+        if (index.n_valid != len(ds) or index.slots is None
+                or not torch.isfinite(index.feats).all()):
+            raise AssertionError("bad video index from build_index")
+        fields.update(build_index_s=build_s, build_index_kernel1=build_kernel1,
+                      build_index_search_s=search_s,
+                      build_index_top_hits=[row[0] for row in hits])
+        del emb, index
+        torch.cuda.empty_cache()
         emit("video", card=card_line, config="configs/msrvtt.yaml",
              cuts={"train_clips": VIDEO_TRAIN_CLIPS, "captions_a_clip": 1,
                    "epochs": 1, "eval_videos_a_split": VIDEO_EVAL_VIDEOS,
@@ -3125,12 +3181,661 @@ def video_phase(card_line: str = "", seed: int = 0):
                            "frames and captions synthetic"},
              batch=cfg.train.batch_size_train, **fields)
         return shapes, launches, {"fit": fit_kernel1, "eval": eval_kernel1,
-                                  "serve": serve_kernel1}
+                                  "serve": serve_kernel1,
+                                  "build_index": build_kernel1}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+SERVE_IMAGES = 1000  # Multi30K's test2016
+SERVE_REMOVED = 50
+SERVE_CLIENTS = 32
+SERVE_WINDOW_S = 10.0  # the sustained load each save serves, after warm-up
+
+
+def serve_child(argv):
+    """`python -m leccr_torch.run --task serve ... --port 0` in a child
+    process, its output read on a thread: (process, queue of lines, None
+    after the last)."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "leccr_torch.run", "--task", "serve",
+         "--port", "0", *argv], cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout]
+                     + [lines.put(None)], daemon=True).start()
+    return proc, lines
+
+
+def serving_url(proc, lines, what: str, timeout: float = 300) -> str:
+    """The base url of a `serve_child` once it prints its '### serving on'
+    line, within `timeout` s; a child that exits or stays silent is killed
+    and raises."""
+    import queue
+
+    seen, deadline = [], time.monotonic() + timeout
+    while True:
+        try:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        except queue.Empty:
+            line = None
+        if line is None:
+            proc.kill()
+            proc.wait(timeout=30)
+            raise AssertionError(f"{what}: no '### serving on' line:\n"
+                                 + "".join(seen[-30:]))
+        seen.append(line)
+        if line.startswith("### serving on "):
+            return line.split()[3]
+
+
+def http_json(url: str, body=None, timeout: float = 60):
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def same_hits(got, want, what: str) -> None:
+    """Scores within 1e-3; ids equal wherever the scores are more than
+    1e-3 apart from every other score of the row."""
+    for g_row, w_row in zip(got, want):
+        if len(g_row) != len(w_row):
+            raise AssertionError(f"{what}: {len(g_row)} hits, want "
+                                 f"{len(w_row)}")
+        w_s = [s for _, s in w_row]
+        for j, ((gi, gs), (wi, ws)) in enumerate(zip(g_row, w_row)):
+            gaps = [abs(ws - s) for i, s in enumerate(w_s) if i != j]
+            if abs(gs - ws) > 1e-3 or (min(gaps, default=1) > 1e-3
+                                       and gi != wi):
+                raise AssertionError(f"{what}: hit {j} {gi, gs} vs "
+                                     f"{wi, ws}")
+
+
+def sustained_load(base: str, words, seed: int, window_s: float) -> dict:
+    """SERVE_CLIENTS client threads, each sending fresh requests of 1-4
+    queries of 2-8 words to base/search back to back until window_s s
+    have passed: requests, queries, wall s (from the start to the last
+    answer), requests/s and queries/s over that wall, client p50 / p95 /
+    p99 ms over every request, and "last": each client's last (queries,
+    answer rows).  Raises if a request failed or a client hung."""
+    import threading
+
+    import numpy as np
+
+    lat = [[] for _ in range(SERVE_CLIENTS)]
+    nq = [0] * SERVE_CLIENTS
+    last = [None] * SERVE_CLIENTS
+    failed = []
+    t0 = time.perf_counter()
+    end = t0 + window_s
+
+    def client(i):
+        rs = np.random.RandomState([seed, 1, i])
+        try:
+            while time.perf_counter() < end:
+                queries = [" ".join(rs.choice(words, rs.randint(2, 9)))
+                           for _ in range(rs.randint(1, 5))]
+                t = time.perf_counter()
+                r = http_json(base + "/search", {"queries": queries, "k": 10})
+                lat[i].append(time.perf_counter() - t)
+                if len(r["results"]) != len(queries):
+                    raise AssertionError(f"{len(r['results'])} rows for "
+                                         f"{len(queries)} queries")
+                nq[i] += len(queries)
+                last[i] = (queries, r["results"])
+        except Exception as e:  # noqa: BLE001 - reported below
+            failed.append(f"client {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=max(0.0, end + 120 - time.perf_counter()))
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        failed.append("a client did not finish within 120 s of the window")
+    if failed or None in last:
+        raise AssertionError(f"sustained load on {base}: {failed}")
+    every = np.array([x for xs in lat for x in xs]) * 1e3
+    return {"window_s": window_s, "wall_s": wall, "requests": every.size,
+            "queries": sum(nq), "requests_per_s": every.size / wall,
+            "queries_per_s": sum(nq) / wall,
+            "client_p50_ms": float(np.percentile(every, 50)),
+            "client_p95_ms": float(np.percentile(every, 95)),
+            "client_p99_ms": float(np.percentile(every, 99)),
+            "last": last}
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def serve_tasks_phase(card_line: str, checkpoint: str, seed: int = 0):
+    """The serving tasks at the flagship's width (configs/multi30k_all.yaml,
+    bf16) from `fit_phase`'s last checkpoint, through `leccr_torch.run.main`
+    in this process (so the launch counts can be read), over a synthetic
+    Multi30K-layout test split of SERVE_IMAGES images that build_datasets
+    writes (FIT_OPTIONS, `synthetic_eval_images: SERVE_IMAGES`) in a
+    temporary directory, removed after:
+    1. `--task build_index` three times, f32, `--int8` and `--ivf
+       --ivf_recall 0.95`: kernel 1 launches_per_batch() an image batch of
+       serve_bs 64, on its small bodies only, none of kernels 2-11;
+    2. `--task update_index --remove_ids` of SERVE_REMOVED items, then
+       `--add_new` on each save: the add embeds exactly those items; on
+       the f32 save the re-added rows are finite, unit-norm within 1e-2 and
+       within 1e-2 of the rows they replace; on the int8 save every other
+       row keeps its bytes and scales; the IVF save holds every item once;
+    3. `--task serve --port 0` of each save, three child processes side by
+       side: SERVE_CLIENTS client threads of 1-4 queries each (a warm-up
+       burst, then the checked one), every
+       result equal to an in-process `Embedder.search_texts` (or
+       `search_texts_ivf`) on the same loaded save (`same_hits`),
+       /healthz's index_size, /stats with fewer dispatches than requests
+       and no error; then `sustained_load` of SERVE_WINDOW_S s, no
+       request failed or shed and each client's last answer equal to
+       the in-process search; SIGINT, then exit 0 within 30 s.
+    Prints build s, embed s a batch, save and load s, bytes on disk, and
+    over each window requests/s, queries/s, client p50 / p95 / p99
+    latency and the dispatches' mean batch.  Returns kernel 1's counts."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from leccr_torch import run
+    from leccr_torch import serve as serve_module
+    from leccr_torch import serve_ann
+    from leccr_torch.config import load_config
+    from leccr_torch.data.synthetic import _WORDS_EN, _WORDS_T
+    from leccr_torch.serve import Embedder, load_index
+    from leccr_torch.train.trainer import build_datasets
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    children = []
+    try:
+        cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+        set_options(cfg, {**FIT_OPTIONS,
+                          "data.synthetic_eval_images": SERVE_IMAGES})
+        cfg.output_dir = str(tmp / "run")
+        t0 = time.perf_counter()
+        build_datasets(cfg)  # writes the files, points cfg.data at them
+        data_s = time.perf_counter() - t0
+        derived = tmp / "multi30k_serve.yaml"
+        derived.write_text(yaml.safe_dump(cfg.to_dict()))
+        common = ["--config", str(derived), "--output_dir", str(tmp / "run"),
+                  "--checkpoint", checkpoint]
+        saves = {"f32": tmp / "f32", "int8": tmp / "int8", "ivf": tmp / "ivf"}
+        flags = {"f32": [], "int8": ["--int8"],
+                 "ivf": ["--ivf", "--ivf_recall", "0.95"]}
+        timing = {"embed_s": [], "save_s": []}
+
+        def spy(module, name, key):
+            fn = getattr(module, name)
+
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                timing[key].append(time.perf_counter() - t)
+                return out
+            setattr(module, name, call)
+            return fn
+
+        originals = [(run, "_embed_corpus", spy(run, "_embed_corpus",
+                                                "embed_s")),
+                     (serve_module, "save_index",
+                      spy(serve_module, "save_index", "save_s")),
+                     (serve_ann, "save_ivf",
+                      spy(serve_ann, "save_ivf", "save_s"))]
+        per_batch = launches_per_batch(cfg)
+        counts, build_s = {}, {}
+        try:
+            for name, path in saves.items():
+                reset_counts()
+                t0 = time.perf_counter()
+                run.main(["--task", "build_index", *common, "--index",
+                          str(path), *flags[name]])
+                build_s[name] = time.perf_counter() - t0
+                counts[f"build_{name}"] = kernel1_counts(f"build_index {name}")
+                if any(step_counts()):
+                    raise AssertionError("build_index launched kernels 2-11")
+                want = per_batch * math.ceil(SERVE_IMAGES / 64)
+                if counts[f"build_{name}"]["all"] != want:
+                    raise AssertionError(f"build_index {name} launched kernel "
+                                         f"1 {counts[f'build_{name}']}, want "
+                                         f"{want}")
+            before = {name: (load_index(str(saves[name]), "cuda")
+                             if name != "ivf" else
+                             serve_ann.load_ivf(str(saves[name]), "cuda"))
+                      for name in saves}
+            ids = before["f32"].ids
+            removed = [ids[i] for i in np.random.RandomState(seed).choice(
+                len(ids), SERVE_REMOVED, replace=False)]
+            update_s = {}
+            for name, path in saves.items():
+                t0 = time.perf_counter()
+                run.main(["--task", "update_index", *common, "--index",
+                          str(path), "--remove_ids", ",".join(removed)])
+                reset_counts()
+                run.main(["--task", "update_index", *common, "--index",
+                          str(path), "--add_new"])
+                update_s[name] = time.perf_counter() - t0
+                counts[f"add_{name}"] = kernel1_counts(f"add_new {name}")
+                want = per_batch * math.ceil(SERVE_REMOVED / 64)
+                if counts[f"add_{name}"]["all"] != want:
+                    raise AssertionError(f"add_new {name} launched kernel 1 "
+                                         f"{counts[f'add_{name}']}, want "
+                                         f"{want}")
+        finally:
+            for module, name, fn in originals:
+                setattr(module, name, fn)
+        t0 = time.perf_counter()
+        after = {"f32": load_index(str(saves["f32"]), "cuda"),
+                 "int8": load_index(str(saves["int8"]), "cuda"),
+                 "ivf": serve_ann.load_ivf(str(saves["ivf"]), "cuda")}
+        load_s = time.perf_counter() - t0
+        gone = set(removed)
+        old, new = before["f32"], after["f32"]
+        pos = {i: j for j, i in enumerate(new.ids)}
+        back = torch.tensor([pos[i] for i in removed], device="cuda")
+        was = torch.tensor([ids.index(i) for i in removed], device="cuda")
+        rows = new.feats[back]
+        drift = (rows - old.feats[was]).abs().max().item()
+        norm_err = (rows.norm(dim=-1) - 1).abs().max().item()
+        if (sorted(new.ids) != sorted(ids) or not torch.isfinite(rows).all()
+                or norm_err > 1e-2 or drift > 1e-2):
+            raise AssertionError(f"re-added rows: norm {norm_err}, drift "
+                                 f"{drift}")
+        kept = [i for i in ids if i not in gone]
+        o8, n8 = before["int8"], after["int8"]
+        p8 = {i: j for j, i in enumerate(n8.ids)}
+        ko = torch.tensor([ids.index(i) for i in kept], device="cuda")
+        kn = torch.tensor([p8[i] for i in kept], device="cuda")
+        for key in ("feats", "slots", "scale", "slot_scale"):
+            if not torch.equal(getattr(o8, key)[ko], getattr(n8, key)[kn]):
+                raise AssertionError(f"int8 rows changed their {key}")
+        ivf = after["ivf"]
+        placed = ivf.rows[ivf.valid]
+        if (sorted(ivf.ids) != sorted(ids) or placed.numel() != len(ids)
+                or placed.unique().numel() != len(ids)):
+            raise AssertionError("the updated IVF index lost rows")
+        del before, old, o8
+
+        # 3. serve each save from a child process, side by side
+        emb = Embedder.from_config(cfg, checkpoint=checkpoint, device="cuda",
+                                   batch_size=64)
+        rs = np.random.RandomState(seed)
+        words = _WORDS_EN + _WORDS_T
+        requests = [[" ".join(rs.choice(words, rs.randint(2, 9)))
+                     for _ in range(rs.randint(1, 5))]
+                    for _ in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for name, path in saves.items():
+            children.append((name, *serve_child(
+                [*common, "--index", str(path)])))
+        urls = {name: serving_url(proc, lines, f"serve {name}")
+                for name, proc, lines in children}
+        start_s = time.perf_counter() - t0
+        served = {}
+
+        def burst(base):
+            """SERVE_CLIENTS client threads at once: (answers, wall s)."""
+            out = [None] * SERVE_CLIENTS
+
+            def client(i):
+                out[i] = http_json(base + "/search",
+                                   {"queries": requests[i], "k": 10})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            return out, time.perf_counter() - t0
+
+        for name, base in urls.items():
+            burst(base)  # warm: the first burst's batch sizes are new
+            out, wall = burst(base)
+            if any(r is None for r in out):
+                raise AssertionError(f"serve {name}: a client got no answer")
+            index = after[name]
+            for i, r in enumerate(out):
+                want = (serve_ann.search_texts_ivf(emb, requests[i], index,
+                                                   k=10)
+                        if name == "ivf" else
+                        emb.search_texts(requests[i], index, k=10))
+                same_hits([[tuple(h) for h in row] for row in r["results"]],
+                          want, f"serve {name} request {i}")
+            health = http_json(base + "/healthz")
+            stats = http_json(base + "/stats")
+            if (health != {"ok": True, "index_size": len(ids)}
+                    or stats["errors"] or not stats["dispatches"]
+                    < stats["requests"] or "latency_p95_s" not in stats):
+                raise AssertionError(f"serve {name}: {health} {stats}")
+            load = sustained_load(base, words, seed, SERVE_WINDOW_S)
+            for i, (queries, got) in enumerate(load.pop("last")):
+                want = (serve_ann.search_texts_ivf(emb, queries, index, k=10)
+                        if name == "ivf" else
+                        emb.search_texts(queries, index, k=10))
+                same_hits([[tuple(h) for h in row] for row in got], want,
+                          f"serve {name} load client {i}")
+            after_stats = http_json(base + "/stats")
+            dispatches = after_stats["dispatches"] - stats["dispatches"]
+            if (after_stats["errors"] or after_stats["rejected"]
+                    or after_stats["requests"] - stats["requests"]
+                    != load["requests"] or dispatches >= load["requests"]):
+                raise AssertionError(f"serve {name} under load: {load} "
+                                     f"{after_stats}")
+            served[name] = {
+                **load, "dispatches": dispatches,
+                "mean_batch": (after_stats["dispatched_queries"]
+                               - stats["dispatched_queries"]) / dispatches,
+                "check_burst": {"wall_s": wall, "dispatches":
+                                stats["dispatches"], "requests":
+                                stats["requests"]},
+                "stats": after_stats}
+        for name, proc, _ in children:
+            proc.send_signal(signal.SIGINT)
+            try:
+                rc = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"serve {name} did not stop on SIGINT")
+            if rc != 0:
+                raise AssertionError(f"serve {name} exited {rc}")
+        children.clear()
+        batches = math.ceil(SERVE_IMAGES / 64)
+        emit("serve_tasks", card=card_line, config="configs/multi30k_all.yaml",
+             images=SERVE_IMAGES, removed=SERVE_REMOVED,
+             clients=SERVE_CLIENTS, data_s=data_s, build_s=build_s,
+             embed_s=timing["embed_s"],
+             embed_s_per_batch=[s / batches for s in timing["embed_s"][:3]],
+             save_s=timing["save_s"], load_s_all_three=load_s,
+             update_s=update_s,
+             bytes_on_disk={name: dir_bytes(path)
+                            for name, path in saves.items()},
+             ivf={"clusters": ivf.n_clusters, "capacity": ivf.capacity,
+                  "nprobe": ivf.default_nprobe},
+             readded_max_drift=drift, readded_max_norm_err=norm_err,
+             serve_start_s=start_s, served=served, kernel1=counts)
+        return counts
+    finally:
+        for _, proc, *_ in children:
+            proc.kill()
+            proc.wait(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+INDEX_ROWS = 1_000_000  # the JAX module's production point: 1M rows, C = 4000
+INDEX_SLOTS = 4
+INDEX_DIM = 256
+INDEX_CONCEPTS = 1000
+INDEX_QUERIES = 64
+INDEX_RECALL = 0.95
+
+
+def span_ms(fn, iters: int = 5) -> float:
+    """Median ms of fn() on the device's clock, each call alone between
+    two CUDA events with the device idle before it: device time plus the
+    host's gaps inside fn (a search's sorts and its host reads).  With
+    iters > 1 a first, untimed call warms it up."""
+    import statistics
+
+    import torch
+
+    if iters > 1:
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def clustered_rows(g, cents, n: int, slots: int = 0):
+    """L2-normalized rows around random concept directions, as
+    tests/test_serve_ann.py draws them (concept + spread · noise), the
+    spread scaled by √(32 / E) to keep that test's angle to the concept at
+    E = 32; with `slots`, [n, slots, E] around each row's concept."""
+    import torch
+
+    e = cents.shape[1]
+    spread = 0.15 * math.sqrt(32 / e)
+    pick = torch.randint(0, cents.shape[0], (n,), device=cents.device,
+                         generator=g)
+    shape = (n, slots, e) if slots else (n, e)
+    base = cents[pick][:, None] if slots else cents[pick]
+    x = base + spread * torch.randn(shape, device=cents.device, generator=g)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+INT8_CARD_SHAPES = [(3, 13, 36), (17, 1003, 256), (64, 1000, 256)]
+
+
+def int8_matches_cpu(b: int, n: int, e: int, slots: int = 3) -> None:
+    """The int8 serving path on the card against the CPU at [b, e] queries
+    and [n, e] rows ([n, slots, e] slots): quantization, `_int8_mm`'s sums
+    and the dequantized scores bit for bit.  The shapes reach
+    `torch._int_mm`'s CUDA rules (more than 16 rows, widths a multiple of
+    8) through `_int8_mm`'s zero padding: b <= 16, n and e off a multiple
+    of 8."""
+    import torch
+
+    from leccr_torch.serve import (
+        _int8_mm,
+        _int8_scores,
+        _int8_slot_scores,
+        _quantize_rows,
+    )
+
+    g = torch.Generator().manual_seed(b * n + e)
+    q, f, sl = (torch.nn.functional.normalize(
+        torch.randn(*shape, generator=g), dim=-1)
+        for shape in ((b, e), (n, e), (n, slots, e)))
+    f8, fs = _quantize_rows(f)
+    s8, ss = _quantize_rows(sl)
+    card = [x.cuda() for x in (q, f, f8, fs, sl, s8, ss)]
+    qc, fc, f8c, fsc, slc, s8c, ssc = card
+    pairs = {
+        "quantize": (torch.cat([x.flatten().view(torch.uint8) for x in
+                                (*_quantize_rows(fc), *_quantize_rows(slc))]),
+                     torch.cat([x.flatten().view(torch.uint8) for x in
+                                (f8, fs, s8, ss)])),
+        "int8_mm": (_int8_mm(_quantize_rows(qc)[0], f8c),
+                    _quantize_rows(q)[0].int() @ f8.int().T),
+        "scores": (_int8_scores(qc, f8c, fsc), _int8_scores(q, f8, fs)),
+        "slot_scores": (_int8_slot_scores(qc, s8c, ssc),
+                        _int8_slot_scores(q, s8, ss)),
+    }
+    for what, (got, want) in pairs.items():
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"int8 {what} at {(b, n, e)}: the card "
+                                 f"differs from the CPU")
+
+
+def index_scale_phase(card_line: str = "", seed: int = 0):
+    """The serving index at scale, no model: INDEX_ROWS unit rows at E =
+    INDEX_DIM with INDEX_SLOTS slots each around INDEX_CONCEPTS concepts
+    (`clustered_rows`), the last row a copy of the first; C = 4·√N
+    clusters.  Checks: the int8 path on the card equals the CPU's bit for
+    bit at INT8_CARD_SHAPES (`int8_matches_cpu`); the IVF's full probe
+    equals the exact search
+    (scores within 1e-5, ids where untied); recall@10 at the calibrated
+    nprobe reaches INDEX_RECALL on the calibration's sample (and on 64
+    fresh queries, printed); int8 against f32 within 0.03 on the exact
+    index (every score) and 5e-3 on the IVF (top-10 at the full probe);
+    two builds from one seed give bit-identical centroids and packing;
+    the two equal rows score bit for bit alike (f32 and int8, none and
+    minmax).  Timed (CUDA events, median of 5, INDEX_QUERIES pre-embedded
+    queries): quantize_index, k-means, _pack, calibrate_nprobe, and the
+    searches: exact f32 (pairwise_scores + top-10) beside torch.matmul of
+    the same product (the library yardstick), exact minmax, exact int8
+    (none and minmax), IVF f32 and int8 at the calibrated nprobe."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from leccr_torch import serve_ann as sa
+    from leccr_torch.eval.retrieval import pairwise_scores
+    from leccr_torch.serve import (
+        ImageIndex,
+        _feat_scores,
+        _search_scores,
+        _top_k,
+        quantize_index,
+    )
+
+    card_line = card_line or card()
+    for shape in INT8_CARD_SHAPES:
+        int8_matches_cpu(*shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, e, k = INDEX_ROWS, INDEX_DIM, 10
+    n_clusters = int(4 * math.sqrt(n))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cents = torch.randn(INDEX_CONCEPTS, e, device="cuda", generator=g)
+        cents /= cents.norm(dim=-1, keepdim=True)
+        feats = clustered_rows(g, cents, n)
+        slots = torch.cat([clustered_rows(g, cents, n // 8, INDEX_SLOTS)
+                           for _ in range(8)])
+        feats[-1], slots[-1] = feats[0], slots[0]  # a tie
+        q = clustered_rows(g, cents, INDEX_QUERIES)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    index = ImageIndex(feats=feats, slots=slots,
+                       ids=[str(i) for i in range(n)])
+    valid = torch.ones(INDEX_QUERIES, dtype=torch.bool, device="cuda")
+    times = {}
+
+    def timed(key, fn, iters=1):
+        times[key] = span_ms(fn, iters)
+
+    with torch.inference_mode():
+        timed("quantize_index_ms", lambda: quantize_index(index), 3)
+        q8 = quantize_index(index)
+
+        # two builds from one seed: one through build_ivf_index, one by
+        # its parts, each part timed
+        t0 = time.perf_counter()
+        ivf = sa.build_ivf_index(index, n_clusters=n_clusters, seed=seed,
+                                 device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cent = [None]
+        timed("kmeans_ms", lambda: cent.__setitem__(
+            0, sa._kmeans(feats, n_clusters, 15, seed)))
+        packing = [None]
+        timed("pack_ms", lambda: packing.__setitem__(
+            0, sa._pack(feats, cent[0], 1.3, 8)))
+        rows, cap = packing[0]
+        if not (torch.equal(cent[0], ivf.centroids) and cap == ivf.capacity
+                and np.array_equal(np.maximum(rows, 0),
+                                   ivf.rows.cpu().numpy())
+                and np.array_equal(rows >= 0, ivf.valid.cpu().numpy())):
+            raise AssertionError("two IVF builds from one seed differ")
+        placed = ivf.rows[ivf.valid]
+        if placed.numel() != n or placed.unique().numel() != n:
+            raise AssertionError("the IVF did not pack every row once")
+        calib = [None]
+        timed("calibrate_nprobe_ms", lambda: calib.__setitem__(
+            0, sa.calibrate_nprobe(ivf, target_recall=INDEX_RECALL)))
+        nprobe, calib_recall = calib[0]
+        if calib_recall < INDEX_RECALL or not 1 <= nprobe <= n_clusters:
+            raise AssertionError(f"calibrated nprobe {nprobe} reads recall "
+                                 f"{calib_recall}")
+        ivf8 = sa.quantize_ivf(ivf)
+
+        # exact search, f32: the fixed-order product and the library's
+        def exact(idx, fusion):
+            return _top_k(_search_scores(q, idx, valid, fusion, 0.9), k)
+
+        timed("exact_f32_ms", lambda: exact(index, "none"), 5)
+        timed("exact_f32_scores_ms",
+              lambda: pairwise_scores(q, feats), 5)
+        timed("matmul_scores_ms", lambda: torch.matmul(q, feats.T), 5)
+        timed("exact_f32_minmax_ms", lambda: exact(index, "minmax"), 5)
+        timed("exact_int8_ms", lambda: exact(q8, "none"), 5)
+        timed("exact_int8_minmax_ms", lambda: exact(q8, "minmax"), 5)
+        arrays, arrays8 = sa._ivf_arrays(ivf), sa._ivf_arrays(ivf8)
+        timed("ivf_f32_ms", lambda: sa._ivf_topk(q, arrays, k, nprobe), 5)
+        timed("ivf_int8_ms", lambda: sa._ivf_topk(q, arrays8, k, nprobe),
+              5)
+
+        # the full probe is the exact search
+        es, ei = exact(index, "none")
+        fs, fi = sa._ivf_topk(q, arrays, k, n_clusters)
+        full_err = (fs - es).abs().max().item()
+        untied = (es[:, :-1] - es[:, 1:]).abs() > 1e-6
+        id_agree = (fi[:, :-1] == ei[:, :-1])[untied].float().mean().item()
+        if full_err > 1e-5 or id_agree < 0.99:
+            raise AssertionError(f"the full probe differs from the exact "
+                                 f"search: {full_err}, ids {id_agree}")
+        _, ai = sa._ivf_topk(q, arrays, k, nprobe)
+        query_recall = np.mean([len(set(a) & set(b)) / k for a, b in zip(
+            ai.cpu().numpy(), ei.cpu().numpy())])
+        # int8 against f32
+        int8_err = (_feat_scores(q, feats, None)
+                    - _feat_scores(q, q8.feats, q8.scale)).abs().max().item()
+        f8s, _ = sa._ivf_topk(q, arrays8, k, n_clusters)
+        ivf_int8_err = (f8s - fs).abs().max().item()
+        if int8_err > 0.03 or ivf_int8_err > 5e-3:
+            raise AssertionError(f"int8 scores off: exact {int8_err}, IVF "
+                                 f"{ivf_int8_err}")
+        # the tie: rows 0 and n-1 are equal
+        for idx in (index, q8):
+            for fusion in ("none", "minmax"):
+                s = _search_scores(q, idx, valid, fusion, 0.9)
+                if not torch.equal(s[:, 0], s[:, -1]):
+                    raise AssertionError(f"equal rows scored apart "
+                                         f"({fusion}, int8 {idx.quantized})")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gb = lambda *xs: sum(x.numel() * x.element_size() for x in xs) / 1e9  # noqa: E731
+    emit("index_scale", card=card_line, rows=n, dim=e, slots=INDEX_SLOTS,
+         concepts=INDEX_CONCEPTS, queries=INDEX_QUERIES,
+         clusters=n_clusters, capacity=ivf.capacity, nprobe=nprobe,
+         calibration_recall=calib_recall, query_recall_at_nprobe=query_recall,
+         int8_card_equals_cpu=INT8_CARD_SHAPES,
+         full_probe_max_err=full_err, full_probe_id_agreement=id_agree,
+         int8_max_err=int8_err, ivf_int8_max_err=ivf_int8_err,
+         data_s=data_s, build_ivf_s=build_s, **times,
+         exact_f32_vs_matmul=(times["exact_f32_scores_ms"]
+                              / times["matmul_scores_ms"]),
+         device_gb={"feats": gb(feats), "slots": gb(slots),
+                    "int8": gb(q8.feats, q8.slots, q8.scale, q8.slot_scale),
+                    "ivf": gb(*[x for x in arrays if x is not None]),
+                    "ivf_int8": gb(*[x for x in arrays8 if x is not None])},
+         peak_mem_gb=peak_gb)
+    del index, q8, ivf, ivf8, feats, slots, arrays, arrays8
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    import shutil
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3219,9 +3924,15 @@ def main() -> int:
     emb, serve_launches = serve_phase(cfg)
     eval_launches = eval_phase(emb, card_line)
     del emb
-    fit_launches, fit_kernel1 = fit_phase(card_line)
-    ckpt_launches, ckpt_kernel1 = checkpoint_phase(card_line)
-    video_shapes, video_launches, video_kernel1 = video_phase(card_line)
+    fit_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        fit_launches, fit_kernel1, fit_ckpt = fit_phase(card_line, fit_dir)
+        ckpt_launches, ckpt_kernel1 = checkpoint_phase(card_line)
+        video_shapes, video_launches, video_kernel1 = video_phase(card_line)
+        serve_tasks_kernel1 = serve_tasks_phase(card_line, fit_ckpt)
+    finally:
+        shutil.rmtree(fit_dir, ignore_errors=True)
+    index_scale_phase(card_line)
 
     def path_sum(key, rows=None, launches=PATH_LAUNCHES):
         # bf16 at B=64: one embed_images batch, 7 launches
@@ -3368,6 +4079,7 @@ def main() -> int:
         "launches_fit": fit_kernel1,
         "launches_checkpoint": ckpt_kernel1,
         "launches_video": video_kernel1,
+        "launches_serve_tasks": serve_tasks_kernel1,
         "bodies": sorted({r["body"] for r in bf16 + video_bf16}),
         "max_abs_err": max(r["max_abs_err"] for r in shapes + video_shapes),
         "check": "ok",

@@ -1,6 +1,6 @@
-"""leccr_torch launcher: train and evaluate on the GPU, and export to the
-reference's format (the port of the `itr_caption`, `vtr_caption` and
-`export` tasks of the JAX package's `run.py`).
+"""leccr_torch launcher: train and evaluate on the GPU, export to the
+reference's format, and build, maintain and serve a retrieval index (the
+port of the tasks of the JAX package's `run.py`).
 
     python -m leccr_torch.run --task itr_caption \\
         --config configs/multi30k_fr.yaml --output_dir out/m30k_fr \\
@@ -26,10 +26,36 @@ weights (`serve.load_params_for_inference`); without --config it reads the
 `config.json` that training wrote beside the checkpoint (or in the output
 dir).
 
+Serving (the port of the JAX launcher's build_index, update_index and
+serve tasks):
+
+    python -m leccr_torch.run --task build_index \
+        --config out/m30k_fr/config.json --output_dir out/m30k_fr \
+        --index out/m30k_fr/index [--split test] [--int8] \
+        [--ivf [--ivf_clusters C] [--ivf_recall 0.95]] [--serve_bs 64]
+    python -m leccr_torch.run --task update_index --output_dir out/m30k_fr \
+        --index out/m30k_fr/index [--remove_ids a,b] [--add_new] \
+        [--ivf_recall 0.95]
+    python -m leccr_torch.run --task serve --output_dir out/m30k_fr \
+        --index out/m30k_fr/index --port 8080
+
+build_index embeds the split's images (or videos) with their MLLM
+captions through the weights (--checkpoint, else the newest checkpoint
+under --output_dir, else seeded random weights) and saves an exact index
+(`serve.save_index`; --int8 quantizes it) or an IVF index
+(`serve_ann.save_ivf`; --ivf_recall stamps the smallest nprobe reaching
+that recall@10).  update_index removes items by id and, with --add_new,
+embeds only the split's items the index lacks.  serve answers POST
+/search, GET /healthz and GET /stats (`serve_frontend`) until SIGINT.
+The serving tasks read --config, else the config.json beside the
+checkpoint or in the output dir; a save of the JAX package serves as is.
+
 A `hdfs://` config is fetched first; a `hdfs://` output dir is staged in a
 local directory, mirrored up after each checkpointed epoch, and pulled
 down on --resume when the local stage is empty.  --device defaults to the
-GPU (it raises when there is none).
+GPU (it raises when there is none).  --devices 1 is the one device the
+port runs; --multihost and --devices above 1 wait for the multi-device
+path (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
@@ -42,13 +68,7 @@ from pathlib import Path
 
 TASKS = ("itr_caption", "vtr_caption", "serve", "build_index",
          "update_index", "export")
-_UNPORTED = {
-    "serve": "the rest of serving (ROADMAP §1, 'The rest of serving')",
-    "build_index": "the rest of serving (ROADMAP §1, 'The rest of "
-                   "serving')",
-    "update_index": "the rest of serving (ROADMAP §1, 'The rest of "
-                    "serving')",
-}
+SERVING_TASKS = ("serve", "build_index", "update_index")
 DEFAULT_CONFIGS = {"itr_caption": "configs/multi30k_fr.yaml",
                    "vtr_caption": "configs/msrvtt.yaml"}
 
@@ -78,9 +98,54 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' for tests)")
+    p.add_argument("--multihost", action="store_true",
+                   help="not ported: the multi-device path (ROADMAP §1 "
+                        "item 6)")
+    p.add_argument("--devices", default=0, type=int,
+                   help="use only the first N local devices (0 = all); "
+                        "above 1 not ported: the multi-device path "
+                        "(ROADMAP §1 item 6)")
+    g = p.add_argument_group("serve", "--task serve only")
+    g.add_argument("--index", default="",
+                   help="saved index dir (serve.save_index or "
+                        "serve_ann.save_ivf; hdfs:// ok)")
+    g.add_argument("--host", default="127.0.0.1")
+    g.add_argument("--port", default=8080, type=int,
+                   help="0 picks a free port")
+    g.add_argument("--serve_bs", default=64, type=int,
+                   help="embed/search batch size = max coalesced batch")
+    g.add_argument("--max_delay_ms", default=5.0, type=float,
+                   help="how long the first queued query waits for "
+                        "followers before dispatching")
+    g.add_argument("--max_pending", default=1024, type=int,
+                   help="admission bound in queries; beyond it /search "
+                        "returns 503 (0 = unbounded)")
     e = p.add_argument_group("export", "--task export only")
     e.add_argument("--export_path", default="",
                    help="destination reference-format .pth")
+    b = p.add_argument_group("build_index", "--task build_index only")
+    b.add_argument("--split", default="test", choices=["test", "val"],
+                   help="which dataset split's corpus to index")
+    b.add_argument("--int8", action="store_true",
+                   help="quantize the index rows to int8 (4x smaller; "
+                        "order kept to ~1e-3 of score)")
+    b.add_argument("--ivf", action="store_true",
+                   help="cluster into an IVF approximate-NN index "
+                        "(serve_ann; probe cost independent of corpus "
+                        "size)")
+    b.add_argument("--ivf_clusters", default=0, type=int,
+                   help="IVF cluster count (0 = auto, ~4*sqrt(N))")
+    b.add_argument("--ivf_recall", default=0.0, type=float,
+                   help="calibrate the smallest nprobe reaching this "
+                        "recall@10 (self-query sample vs the exact "
+                        "probe) and save it as the index's default "
+                        "(0 = skip); update_index too")
+    u = p.add_argument_group("update_index", "--task update_index only")
+    u.add_argument("--remove_ids", default="",
+                   help="comma-separated item ids to drop from the index")
+    u.add_argument("--add_new", action="store_true",
+                   help="embed and add the split's items not yet in the "
+                        "index (existing rows are never embedded again)")
     return p.parse_args(argv)
 
 
@@ -150,11 +215,191 @@ def export_main(args, cfg) -> None:
           flush=True)
 
 
+def _corpus_split(args, cfg):
+    """The dataset split whose visual corpus gets indexed (any language's
+    split carries the same images or videos).  build_datasets writes the
+    synthetic dataset first and points cfg.data at it, vocab included,
+    which the Embedder's tokenizer reads."""
+    from leccr_torch.train.trainer import build_datasets
+
+    _, val_ds, test_ds = build_datasets(cfg)
+    splits = test_ds if args.split == "test" else val_ds
+    return next(iter(splits.values()))
+
+
+def _embed_corpus(emb, cfg, ds, ids):
+    """An exact ImageIndex of the given item ids (a subset of ds's), with
+    their MLLM captions, through the Embedder's model."""
+    import numpy as np
+
+    captions = [ds.generated[i] for i in ids]
+    if cfg.model.vision.kind == "temporal":
+        pos = {im: i for i, im in enumerate(ds.index.image_ids)}
+        pairs = [ds.get(pos[i])[0] for i in ids]  # ds.get is positional
+        return emb.build_video_index(
+            np.stack([p[0] for p in pairs]), captions,
+            frame_masks=np.stack([p[1] for p in pairs]), ids=ids)
+    return emb.build_image_index(
+        [ds.image_path(i) for i in ids], captions, ids=ids)
+
+
+def _embedder(args, cfg):
+    from leccr_torch.serve import Embedder
+
+    return Embedder.from_config(cfg, checkpoint=args.checkpoint or None,
+                                batch_size=args.serve_bs,
+                                device=args.device)
+
+
+def _calibrated(ivf, target: float, what: str):
+    """ivf stamped with the smallest nprobe reaching recall@10 >= target
+    (measured on the bank as deployed)."""
+    import dataclasses
+
+    from leccr_torch.serve_ann import calibrate_nprobe
+
+    nprobe, recall = calibrate_nprobe(ivf, target_recall=target)
+    print(f"### {what} nprobe={nprobe} (recall@10 {recall:.3f} >= "
+          f"{target})", flush=True)
+    return dataclasses.replace(ivf, default_nprobe=nprobe)
+
+
+def build_index_main(args, cfg) -> None:
+    """--task build_index: weights + a dataset split -> a saved serving
+    index (exact, int8, or IVF)."""
+    from leccr_torch.serve import quantize_index, save_index
+    from leccr_torch.serve_ann import build_ivf_index, quantize_ivf, save_ivf
+
+    if not args.index:
+        raise SystemExit("--task build_index requires --index "
+                         "(the output directory for serve.save_index)")
+    ds = _corpus_split(args, cfg)
+    emb = _embedder(args, cfg)
+    index = _embed_corpus(emb, cfg, ds, list(ds.index.image_ids))
+    if args.ivf:
+        ivf = build_ivf_index(index, n_clusters=args.ivf_clusters or None,
+                              device=emb.device)
+        if args.int8:
+            ivf = quantize_ivf(ivf)
+        if args.ivf_recall:
+            ivf = _calibrated(ivf, args.ivf_recall, "calibrated")
+        save_ivf(ivf, args.index)
+        print(f"### built IVF index: {ivf.n_valid} items, "
+              f"C={ivf.n_clusters} cap={ivf.capacity}"
+              + (" (int8)" if ivf.quantized else "")
+              + f" -> {args.index}", flush=True)
+        return
+    if args.int8:
+        index = quantize_index(index)
+    save_index(index, args.index)
+    print(f"### built index: {index.n_valid} items"
+          + (" (int8)" if index.quantized else "")
+          + f" -> {args.index}", flush=True)
+
+
+def update_index_main(args, cfg) -> None:
+    """--task update_index: remove items by id and/or embed and add the
+    split's new items (exact: merge_indexes; IVF: add_to_ivf, no new
+    clustering).  Existing rows keep their bytes, int8 ones too; the model
+    is loaded only when there is something to embed."""
+    from leccr_torch.serve import (load_index, merge_indexes,
+                                   quantize_index, remove_from_index,
+                                   save_index)
+    from leccr_torch.serve_ann import (add_to_ivf, is_ivf_save, load_ivf,
+                                       remove_from_ivf, save_ivf)
+
+    if not args.index:
+        raise SystemExit("--task update_index requires --index "
+                         "(an existing saved index directory)")
+    removes = [s for s in args.remove_ids.split(",") if s]
+    if not removes and not args.add_new and not args.ivf_recall:
+        raise SystemExit("--task update_index needs --remove_ids, "
+                         "--add_new, and/or --ivf_recall")
+    ivf = is_ivf_save(args.index)
+    if args.ivf_recall and not ivf:
+        raise SystemExit("--ivf_recall applies to IVF indexes only")
+    index = (load_ivf if ivf else load_index)(args.index, args.device)
+    n0 = index.n_valid
+    if removes:
+        index = (remove_from_ivf if ivf else remove_from_index)(
+            index, removes)
+    added = 0
+    if args.add_new:
+        ds = _corpus_split(args, cfg)
+        have = set(index.ids)
+        new_ids = [i for i in ds.index.image_ids if i not in have]
+        if new_ids:
+            new = _embed_corpus(_embedder(args, cfg), cfg, ds, new_ids)
+            if ivf:
+                index = add_to_ivf(index, new)
+            else:
+                if index.quantized:
+                    new = quantize_index(new)
+                index = merge_indexes(index, new)
+            added = len(new_ids)
+    if ivf and args.ivf_recall:
+        # adds live under a partition not fit to them: measure again
+        index = _calibrated(index, args.ivf_recall, "recalibrated")
+    (save_ivf if ivf else save_index)(index, args.index)
+    print(f"### updated index: {n0} -> {index.n_valid} items "
+          f"(+{added} -{len(removes)}) -> {args.index}", flush=True)
+
+
+def serve_main(args, cfg) -> None:
+    """--task serve: weights + a saved index -> the HTTP retrieval service,
+    until SIGINT."""
+    import threading
+
+    from leccr_torch.serve import load_index
+    from leccr_torch.serve_ann import is_ivf_save, load_ivf
+    from leccr_torch.serve_frontend import DynamicBatcher, ServingFrontend
+
+    if not args.index:
+        raise SystemExit("--task serve requires --index "
+                         "(a serve.save_index directory)")
+    if cfg.data.dataset == "synthetic":
+        # a config from a synthetic-data run: materialize the corpus paths
+        # (tokenizer vocab included) as the trainer does
+        from leccr_torch.train.trainer import build_datasets
+
+        build_datasets(cfg)
+    emb = _embedder(args, cfg)
+    if is_ivf_save(args.index):
+        index = load_ivf(args.index, emb.device)
+        print(f"### IVF index: {index.n_valid} items, "
+              f"C={index.n_clusters}"
+              + (" (int8)" if index.quantized else ""), flush=True)
+    else:
+        index = load_index(args.index, emb.device)
+        print(f"### index: {index.n_valid} items"
+              + (" (int8)" if index.quantized else ""), flush=True)
+    batcher = DynamicBatcher(emb, index, max_delay=args.max_delay_ms / 1000,
+                             max_pending=args.max_pending or None)
+    frontend = ServingFrontend(batcher, host=args.host, port=args.port)
+    try:
+        # warm the search path so the first real query pays no set-up; a
+        # video model's slot-carrying index also gets the minmax fusion,
+        # the double-sim ranking its clients use
+        batcher.search(["warmup"], k=min(10, index.n_valid))
+        if (cfg.model.vision.kind == "temporal"
+                and getattr(index, "slots", None) is not None):
+            batcher.search(["warmup"], k=min(10, index.n_valid),
+                           fusion="minmax")
+        print(f"### serving on http://{frontend.host}:{frontend.port} "
+              "(POST /search, GET /healthz, GET /stats)", flush=True)
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        print("### serve: interrupted, shutting down", flush=True)
+    finally:
+        frontend.close()
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.task in _UNPORTED:
+    if args.multihost or args.devices > 1:
         raise NotImplementedError(
-            f"--task {args.task} comes with {_UNPORTED[args.task]}")
+            "--multihost and --devices above 1 come with the multi-device "
+            "path (ROADMAP §1 item 6)")
     if args.checkpoint == "null":
         args.checkpoint = ""
     if args.task != "export" and not args.output_dir:
@@ -162,11 +407,12 @@ def main(argv=None) -> None:
     from leccr_torch.config import load_config
 
     config_path = args.config
-    if not config_path and args.task == "export":
+    if not config_path and args.task not in DEFAULT_CONFIGS:
         config_path = _config_beside(args.checkpoint or args.output_dir)
         if not config_path:
-            raise SystemExit("--task export needs --config (no config.json "
-                             "beside the checkpoint or in the output dir)")
+            raise SystemExit(f"--task {args.task} needs --config (no "
+                             "config.json beside the checkpoint or in the "
+                             "output dir)")
         print(f"### no --config given; using {config_path}")
     if not config_path:
         config_path = str(Path(__file__).resolve().parent.parent
@@ -195,6 +441,10 @@ def main(argv=None) -> None:
         cfg.train.batch_size_train = args.bs
     if args.resume:
         cfg.train.resume = True
+    if args.task in SERVING_TASKS:
+        {"serve": serve_main, "build_index": build_index_main,
+         "update_index": update_index_main}[args.task](args, cfg)
+        return
     if args.task == "vtr_caption" and cfg.model.vision.kind != "temporal":
         raise SystemExit("--task vtr_caption needs a temporal vision tower "
                          "(model.vision.kind: temporal) in the config")

@@ -1,11 +1,14 @@
 """Serving API: embed an image or video corpus once, keep the index on the
 device, answer top-K text→image/video and image→text queries.
 
-The port of the single-device f32 path of `leccr_tpu/serve.py`:
+The port of the single-device path of `leccr_tpu/serve.py`:
 
-    emb = Embedder.from_config(cfg, checkpoint="reference.pth")  # the GPU
+    emb = Embedder.from_checkpoint("out/m30k_fr/config.json")  # the GPU
     index = emb.build_image_index(images_u8, mllm_captions)
     hits = emb.search_texts(["ein mann fährt rad"], index, k=10)
+    index = quantize_index(index)            # int8 rows, one scale each
+    save_index(index, "out/m30k_fr/index")   # a directory; hdfs:// too
+    index = load_index("out/m30k_fr/index")  # onto the GPU
     # a video model: per-frame features, the double-sim ranking
     index = emb.build_video_index(frame_feats, mllm_captions)
     hits = emb.search_texts(["一个男人骑自行车"], index, fusion="minmax")
@@ -19,38 +22,344 @@ Unigram for `text.kind: xlmr`, CLIP's BPE for the captions of
 
 Query batches are padded with "" to `batch_size` and image chunks by
 repeating their last row, as in the JAX package; the `minmax` fusion keeps
-pad queries out of its min/max with a `valid` mask.  Scores are the
+pad queries out of its min/max with a `valid` mask.  f32 rows score by the
 ranker's fixed-order products (`eval.retrieval.pairwise_scores`), so equal
-index rows score bit for bit alike, and the top-k takes equal scores
-lowest index first, as `jax.lax.top_k` does.
+index rows score bit for bit alike.  An int8 index (`quantize_index`:
+symmetric per-row int8, one scale per item over all its slots) scores the
+query batch, quantized the same way, through `torch._int_mm`: int8
+products summed exactly in int32, so equal rows tie there too, then
+dequantized as sum · query scale · row scale, in JAX's order.  The top-k
+takes equal scores lowest index first, as `jax.lax.top_k` does.
+
+`save_index` / `load_index` write and read the JAX package's directory
+format byte for byte (`.npy` arrays, `ids.json`, `manifest.json`), so a
+save of either package loads in the other.  The row-sharded index
+(`shard_index`) waits for the multi-device path (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
+import os
+import shutil
+import tempfile
 from pathlib import Path
-from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from leccr_torch.config import LECCRConfig
+from leccr_torch.config import LECCRConfig, load_config
 from leccr_torch.data.images import load_eval_image, normalize_images
 from leccr_torch.data.tokenizers import make_tokenizers
+from leccr_torch.device import resolve_device
 from leccr_torch.eval.retrieval import pairwise_scores
 from leccr_torch.models.leccr import LECCRModel
 from leccr_torch.models.weights import load_initial_checkpoint, load_jax_params
 
+_SHARDING = ("the row-sharded index comes with the multi-device path "
+             "(ROADMAP §1 item 6)")
+
 
 @dataclasses.dataclass
 class ImageIndex:
-    feats: torch.Tensor  # [N, E] L2-normalized f32, on the device
+    feats: torch.Tensor  # [N, E] L2-normalized, on the device (f32 or int8)
     slots: Optional[torch.Tensor]  # [N, n_q, E] (double-sim fusion)
     ids: List[str]
+    # set by quantize_index(): per-row symmetric-int8 dequant scales
+    # (feats/slots are int8 and score = int8 sum × qscale × row scale)
+    scale: Optional[torch.Tensor] = None  # [N] f32
+    slot_scale: Optional[torch.Tensor] = None  # [N] f32
 
     @property
     def n_valid(self) -> int:
         return len(self.ids)
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale is not None
+
+
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8: q = round(x / s), s = max|row| · (1/127),
+    in f32 and rounded half to even, bit for bit as the JAX package's
+    compiled programs compute it (XLA turns the division by the constant
+    127 into a product by its f32 reciprocal).  Rows are the leading axis;
+    the max runs over every other axis (a [N, K, E] slot bank gets ONE
+    scale per item, so the scale factors out of the max-over-slots).
+    Returns (int8 x, f32 scale [N])."""
+    x = x.float()
+    m = x.abs().amax(dim=tuple(range(1, x.dim())), keepdim=True)
+    scale = m * (1.0 / 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.round(x / safe).to(torch.int8)
+    return q, scale.reshape(x.shape[0])
+
+
+def _int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[M, N] int32 = a @ b.T for int8 a [M, E] and b [N, E], summed
+    exactly by `torch._int_mm`.  Its CUDA shape rules (more than 16 rows
+    in a; E and the product's columns multiples of 8) are met by zero
+    padding, which adds 0 to every sum: a's rows and E are padded, and b's
+    last N % 8 rows go through a second product of 8 rows."""
+    m, e = a.shape
+    n = b.shape[0]
+    if e % 8:
+        a, b = F.pad(a, (0, (-e) % 8)), F.pad(b, (0, (-e) % 8))
+    if m <= 16:
+        a = F.pad(a, (0, 0, 0, 17 - m))
+    n8 = n - n % 8
+    parts = []
+    if n8:
+        parts.append(torch._int_mm(a, b[:n8].t()))
+    if n8 < n:
+        tail = F.pad(b[n8:], (0, 0, 0, 8 - (n - n8)))
+        parts.append(torch._int_mm(a, tail.t())[:, : n - n8])
+    s = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return s[:m]
+
+
+def _int8_scores(q: torch.Tensor, f: torch.Tensor,
+                 fscale: torch.Tensor) -> torch.Tensor:
+    """[B, N] similarity against an int8 index: the query batch quantized
+    on the fly, the int8 products summed in int32, dequantized after."""
+    qq, qs = _quantize_rows(q)
+    return _int8_mm(qq, f).float() * qs[:, None] * fscale[None, :]
+
+
+def _int8_slot_scores(q: torch.Tensor, sl: torch.Tensor,
+                      sscale: torch.Tensor) -> torch.Tensor:
+    """[B, N] max-over-slot similarity against an int8 slot bank [N, K, E]
+    (scored as [N·K, E]); the per-item scale is positive, so it commutes
+    with the max."""
+    qq, qs = _quantize_rows(q)
+    n, k, e = sl.shape
+    c = _int8_mm(qq, sl.reshape(n * k, e)).reshape(-1, n, k).amax(dim=2)
+    return c.float() * qs[:, None] * sscale[None, :]
+
+
+def _feat_scores(q: torch.Tensor, f: torch.Tensor,
+                 fscale: Optional[torch.Tensor]) -> torch.Tensor:
+    return (pairwise_scores(q, f) if fscale is None
+            else _int8_scores(q, f, fscale))
+
+
+def _slot_scores(q: torch.Tensor, sl: torch.Tensor,
+                 sscale: Optional[torch.Tensor]) -> torch.Tensor:
+    if sscale is not None:
+        return _int8_slot_scores(q, sl, sscale)
+    n, k, e = sl.shape
+    return pairwise_scores(q, sl.reshape(n * k, e)).view(
+        q.shape[0], n, k).amax(dim=2)
+
+
+def _search_scores(q: torch.Tensor, index: ImageIndex, valid: torch.Tensor,
+                   fusion: str, alpha: float) -> torch.Tensor:
+    """[B, N] query×index scores, with the slot blend for fusion
+    "raw"/"minmax"."""
+    s = _feat_scores(q, index.feats, index.scale)
+    if fusion == "none":
+        return s
+    c = _slot_scores(q, index.slots, index.slot_scale)
+    if fusion == "raw":
+        return alpha * s + (1.0 - alpha) * c
+
+    # minmax: norm(S) = (S - max S)/(max S - min S) over this query
+    # batch's valid rows (the eval ranker normalizes over the full
+    # matrix, so fused scores are not comparable across batches)
+    def norm(x):
+        hi, lo = x[valid].max(), x[valid].min()
+        return (x - hi) / torch.clamp_min(hi - lo, 1e-12)
+
+    return alpha * norm(s) + (1.0 - alpha) * norm(c)
+
+
+def quantize_index(index: ImageIndex) -> ImageIndex:
+    """Symmetric per-row int8 quantization of an index: 4× less device
+    memory, and the query product runs int8 × int8.  Feature rows are
+    L2-normalized, so per-row scales are tight and the cosine order holds
+    to ~1e-3 of score.  A quantized index is returned as it is."""
+    if index.quantized:
+        return index
+    feats, scale = _quantize_rows(index.feats)
+    slots, slot_scale = (None, None)
+    if index.slots is not None:
+        slots, slot_scale = _quantize_rows(index.slots)
+    return ImageIndex(feats=feats, slots=slots, ids=list(index.ids),
+                      scale=scale, slot_scale=slot_scale)
+
+
+def merge_indexes(a: ImageIndex, b: ImageIndex) -> ImageIndex:
+    """Append `b`'s items to `a` (embed the new items, then merge: nothing
+    existing is embedded again).  Exact for int8 indexes too: the scales
+    are per row, so existing rows keep their bytes and scales.  Both must
+    share a layout (quantization, slots)."""
+    if a.quantized != b.quantized:
+        raise ValueError("cannot merge a quantized index with an fp32 one")
+    if (a.slots is None) != (b.slots is None):
+        raise ValueError("cannot merge a slot-carrying index with a "
+                         "feats-only one")
+    dup = set(a.ids) & set(b.ids)
+    if dup:
+        raise ValueError(f"duplicate ids in merge: {sorted(dup)[:5]} ...")
+
+    def cat(x, y):
+        return None if x is None else torch.cat([x, y])
+
+    return ImageIndex(
+        feats=cat(a.feats, b.feats), slots=cat(a.slots, b.slots),
+        ids=list(a.ids) + list(b.ids), scale=cat(a.scale, b.scale),
+        slot_scale=cat(a.slot_scale, b.slot_scale))
+
+
+def remove_from_index(index: ImageIndex, ids: Sequence[str]) -> ImageIndex:
+    """Drop items by id without embedding anything; unknown ids are an
+    error."""
+    drop = set(ids)
+    unknown = drop - set(index.ids)
+    if unknown:
+        raise ValueError(f"unknown ids: {sorted(unknown)[:5]} ...")
+    keep = np.asarray([i not in drop for i in index.ids], bool)
+    rows = torch.from_numpy(np.nonzero(keep)[0]).to(index.feats.device)
+
+    def take(x):
+        return None if x is None else x.index_select(0, rows)
+
+    return ImageIndex(
+        feats=take(index.feats), slots=take(index.slots),
+        ids=[i for i in index.ids if i not in drop],
+        scale=take(index.scale), slot_scale=take(index.slot_scale))
+
+
+def shard_index(index: ImageIndex, mesh, axis: str = "data") -> ImageIndex:
+    """The row-sharded serving layout of the JAX package: not ported."""
+    raise NotImplementedError(_SHARDING)
+
+
+# optional per-layout arrays a save may or may not carry; the manifest
+# records which ones belong to THIS save, so a load over a re-used
+# directory (a local overwrite, or an hdfs re-sync, which never deletes)
+# cannot pick up a previous save's stale scale.npy or slots.npy
+_INDEX_OPTIONAL = ("slots", "scale", "slot_scale")
+
+
+@contextlib.contextmanager
+def _staged_save_dir(path: str, prefix: str):
+    """The LOCAL directory to write a save into; an hdfs:// destination
+    is staged in a temporary directory and mirrored up only on a clean
+    exit.  Shared by the exact and the IVF index saves."""
+    from leccr_torch.utils import io
+
+    if not path.startswith("hdfs://"):
+        os.makedirs(path, exist_ok=True)
+        yield path
+        return
+    local = tempfile.mkdtemp(prefix=prefix)
+    try:
+        yield local
+        io.makedirs(path)
+        io.sync_dir_to_remote(local, path)
+    finally:
+        shutil.rmtree(local, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _staged_load_dir(path: str, prefix: str):
+    """A LOCAL directory holding the save; an hdfs:// source is staged
+    down, and removed on exit."""
+    from leccr_torch.utils import io
+
+    if not path.startswith("hdfs://"):
+        yield path
+        return
+    local = tempfile.mkdtemp(prefix=prefix)
+    try:
+        io.stage_remote_dir(path, local)
+        yield local
+    finally:
+        shutil.rmtree(local, ignore_errors=True)
+
+
+def _write_array_save(local: str, required: Dict[str, np.ndarray],
+                      optional: Dict[str, Optional[np.ndarray]],
+                      ids: List[str], extra: Dict) -> None:
+    """The directory layout the index families share: the required arrays;
+    each optional array written when present and its stale .npy removed
+    when absent; ids.json; and a manifest naming this save's optional
+    arrays (see _INDEX_OPTIONAL)."""
+    for name, arr in required.items():
+        np.save(os.path.join(local, name + ".npy"), arr)
+    written = []
+    for name, arr in optional.items():
+        p = os.path.join(local, name + ".npy")
+        if arr is not None:
+            np.save(p, arr)
+            written.append(name)
+        elif os.path.exists(p):  # stale file from a previous save
+            os.remove(p)
+    with open(os.path.join(local, "ids.json"), "w") as f:
+        json.dump(list(ids), f)
+    with open(os.path.join(local, "manifest.json"), "w") as f:
+        json.dump({"optional": written, "n": len(ids), **extra}, f)
+
+
+def _host(x: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if x is None else x.cpu().numpy()
+
+
+def save_index(index: ImageIndex, path: str) -> None:
+    """Persist an index (feats, slots, scales, ids), so a serving restart
+    skips the embed pass.  `path` is a directory; hdfs:// goes through
+    `utils.io`."""
+    n = index.n_valid
+    with _staged_save_dir(path, "leccr_index_") as local:
+        _write_array_save(
+            local, {"feats": _host(index.feats[:n])},
+            {name: None if getattr(index, name) is None
+             else _host(getattr(index, name)[:n])
+             for name in _INDEX_OPTIONAL},
+            index.ids, {})
+
+
+def load_index(path: str,
+               device: Optional[Union[str, torch.device]] = None,
+               mesh=None, axis: str = "data") -> ImageIndex:
+    """Load a saved index (this package's or the JAX package's) onto
+    `device` (None = the GPU).  `mesh` (a row-sharded layout) is not
+    ported."""
+    if mesh is not None:
+        raise NotImplementedError(_SHARDING)
+    device = resolve_device(device)
+    with _staged_load_dir(path, "leccr_index_") as local:
+        feats = np.load(os.path.join(local, "feats.npy"))
+        with open(os.path.join(local, "ids.json")) as f:
+            ids = json.load(f)
+        if len(ids) != feats.shape[0]:
+            raise ValueError(
+                f"index corrupt: {len(ids)} ids vs {feats.shape[0]} rows")
+        # the manifest scopes the optional files to THIS save; without one
+        # (a save from before manifests) file presence decides
+        mpath = os.path.join(local, "manifest.json")
+        allowed = None
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                allowed = set(json.load(f)["optional"])
+
+        def opt(name):
+            if allowed is not None and name not in allowed:
+                return None
+            p = os.path.join(local, name + ".npy")
+            return np.load(p) if os.path.exists(p) else None
+
+        arrays = {"feats": feats,
+                  **{name: opt(name) for name in _INDEX_OPTIONAL}}
+    return ImageIndex(ids=list(ids), **{
+        name: None if arr is None else torch.from_numpy(arr).to(device)
+        for name, arr in arrays.items()})
 
 
 def load_params_for_inference(
@@ -92,9 +401,10 @@ def load_params_for_inference(
 def _top_k(scores: torch.Tensor, k: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k largest scores of each row and their columns, equal scores
-    lowest column first (`jax.lax.top_k`'s order)."""
+    lowest column first (`jax.lax.top_k`'s order); copies, so the whole
+    sort is freed."""
     values, idxs = torch.sort(scores, dim=1, descending=True, stable=True)
-    return values[:, :k], idxs[:, :k]
+    return values[:, :k].contiguous(), idxs[:, :k].contiguous()
 
 
 class Embedder:
@@ -127,6 +437,17 @@ class Embedder:
         else:
             model = load_params_for_inference(cfg, checkpoint, device, seed)
         return cls(cfg, model.serve_in_compute_dtype_(), batch_size)
+
+    @classmethod
+    def from_checkpoint(cls, config_path: str,
+                        checkpoint: Optional[str] = None,
+                        batch_size: int = 64,
+                        device: Optional[Union[str, torch.device]] = None
+                        ) -> "Embedder":
+        """`from_config` of the config file at `config_path` (yaml or
+        json, e.g. the config.json a training run wrote)."""
+        return cls.from_config(load_config(config_path), device=device,
+                               batch_size=batch_size, checkpoint=checkpoint)
 
     def _tokens(self, texts: Sequence[str]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -275,29 +596,6 @@ class Embedder:
 
     # ------------------------------------------------------------ search
 
-    def _scores(self, q: torch.Tensor, index: ImageIndex,
-                valid: torch.Tensor, fusion: str,
-                alpha: float) -> torch.Tensor:
-        """[B, N] query×index scores, with the slot blend for fusion
-        "raw"/"minmax"."""
-        s = pairwise_scores(q, index.feats)
-        if fusion == "none":
-            return s
-        n, n_q, e = index.slots.shape
-        c = pairwise_scores(q, index.slots.reshape(n * n_q, e)).view(
-            q.shape[0], n, n_q).amax(dim=2)  # max over slots
-        if fusion == "raw":
-            return alpha * s + (1.0 - alpha) * c
-
-        # minmax: norm(S) = (S - max S)/(max S - min S) over this query
-        # batch's valid rows (the eval ranker normalizes over the full
-        # matrix, so fused scores are not comparable across batches)
-        def norm(x):
-            hi, lo = x[valid].max(), x[valid].min()
-            return (x - hi) / torch.clamp_min(hi - lo, 1e-12)
-
-        return alpha * norm(s) + (1.0 - alpha) * norm(c)
-
     @torch.inference_mode()
     def search_texts(self, queries: Sequence[str], index: ImageIndex,
                      k: int = 10, fusion: str = "none",
@@ -309,7 +607,9 @@ class Embedder:
             raise ValueError(f"unknown fusion {fusion!r}")
         if fusion != "none" and index.slots is None:
             raise ValueError(f"fusion={fusion!r} needs a slot-carrying "
-                             "index (built by build_image_index)")
+                             "index (built by build_image_index/"
+                             "build_video_index, or loaded from a save "
+                             "that included slots.npy)")
         k = min(k, index.n_valid)
         n = len(queries)
         if n == 0:
@@ -322,7 +622,7 @@ class Embedder:
             q = self._embed_texts(queries)
             valid = torch.ones(n, dtype=torch.bool, device=self.device)
         scores, idxs = _top_k(
-            self._scores(q, index, valid, fusion, float(alpha)), k)
+            _search_scores(q, index, valid, fusion, float(alpha)), k)
         scores, idxs = scores[:n].cpu().numpy(), idxs[:n].cpu().numpy()
         return [[(index.ids[j], float(s)) for j, s in zip(row_i, row_s)]
                 for row_i, row_s in zip(idxs, scores)]
@@ -331,10 +631,14 @@ class Embedder:
     def search_images(self, index: ImageIndex, texts: Sequence[str],
                       k: int = 10) -> List[List[Tuple[int, float]]]:
         """image → text retrieval over an embedded text corpus: per indexed
-        item, the top-k (text position, score)."""
+        item, the top-k (text position, score).  An int8 index scores
+        text-side (the quantized operand stays in index position) and
+        transposes: the same [N, T] matrix either way."""
         t = self._embed_texts(texts)
         k = min(k, t.shape[0])
-        scores, idxs = _top_k(pairwise_scores(index.feats, t), k)
+        s = (_int8_scores(t, index.feats, index.scale).T if index.quantized
+             else pairwise_scores(index.feats, t))
+        scores, idxs = _top_k(s, k)
         scores, idxs = scores.cpu().numpy(), idxs.cpu().numpy()
         return [[(int(j), float(s)) for j, s in zip(ri, rs)]
                 for ri, rs in zip(idxs, scores)]

@@ -19,6 +19,7 @@ import torch
 
 from chip_smoke import (
     BF16_K,
+    INT8_CARD_SHAPES,
     WGMMA_OF,
     bf16_k_needed,
     chunk_bwd_masks,
@@ -26,6 +27,7 @@ from chip_smoke import (
     fwd_masks,
     infonce_check,
     infonce_deterministic,
+    int8_matches_cpu,
     path_layout,
     single_masks,
     tc_counts,
@@ -674,3 +676,15 @@ def test_device_prefetch_copies_batches_to_the_card():
                                             torch.device("cuda")):
             seen.append(count)
     assert seen == [0, 1, 2, 3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,e", INT8_CARD_SHAPES)
+def test_int8_serving_on_the_card_equals_the_cpu(b, n, e):
+    """`torch._int_mm`'s CUDA shape rules met by `_int8_mm`'s zero
+    padding: quantization, int8 sums and dequantized scores on the card
+    equal the CPU's bit for bit (and those equal the JAX package's,
+    tests/test_torch_serve_index.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch._int_mm's CUDA path")
+    int8_matches_cpu(b, n, e)

@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_builds_nothing():
             "leccr_torch.utils.io", "leccr_torch.utils.debug",
             "leccr_torch.run", "leccr_torch.data.tokenizers",
             "leccr_torch.data.native_tokenizer", "leccr_torch.models.clip",
-            "leccr_torch.models.convert"} <= set(out["modules"])
+            "leccr_torch.models.convert", "leccr_torch.serve_ann",
+            "leccr_torch.serve_frontend"} <= set(out["modules"])
     assert out["foreign"] == []
     assert out["built"] == []
     assert not out["native_loaded"]

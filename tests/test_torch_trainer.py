@@ -560,13 +560,27 @@ def test_cli_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["--task", "serve"], ["--task", "build_index"],
-    ["--task", "update_index"]])
+    ["--multihost"], ["--devices", "2"],
+    ["--task", "serve", "--devices", "2"]])
 def test_cli_unported_options_raise(tmp_path, args):
+    """Every task runs; the multi-device options (more than one device)
+    wait for ROADMAP §1 item 6."""
     from leccr_torch.run import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--output_dir", str(tmp_path), "--device", "cpu", *args])
+
+
+def test_cli_one_device_passes_the_devices_check(tmp_path):
+    """--devices 1 names the one device the port runs, as the JAX
+    launcher's first local device: the task goes on to its own checks."""
+    from leccr_torch.run import main
+
+    config = str(Path(__file__).resolve().parent.parent / "configs"
+                 / "tiny_synth.yaml")
+    with pytest.raises(SystemExit, match="requires --index"):
+        main(["--task", "serve", "--devices", "1", "--config", config,
+              "--output_dir", str(tmp_path), "--device", "cpu"])
 
 
 def test_cli_checkpoint_from_an_orbax_directory_raises(tmp_path):
