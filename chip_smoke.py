@@ -195,6 +195,39 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    f32, two builds from one seed bit for bit, equal rows tie bit for
    bit; quantize, k-means, pack, calibrate and each search timed, exact
    f32 (`pairwise_scores`) beside `torch.matmul` of the same product.
+16. RandAugment (`randaugment_phase`, after the flagship step): a bs128 x
+   384² batch (uint8 / 255 once, on the host) through the live policy (n
+   = 2, m = 7) on the card and on the CPU from one generator state: each
+   image within 1e-5 of the
+   CPU's (1/255 where an affine op fired); ms per batch and each of the 16
+   ops' ms on the whole batch; then the flagship train step with
+   `data.randaugment: true` (2 warm-up, 3 timed, a profiled step): kernels
+   2/3 FLAGSHIP_STEP_LAUNCHES a step, ms/step and device ms beside phase
+   8's step without it.
+17. the ring (`ring_phase`, after phase 5): `parallel.ring.ring_infonce`
+   (impl "fused": kernels 9-11, the one-process replay of the ranks'
+   schedules) at W = 8 x b_local = 4096, E = 256 (configs/
+   scale_vitl_32k.yaml's 32 768 global negatives), forward and backward:
+   exactly 128 launches of each of kernels 9, 10 and 11 (8 ranks x 8
+   blocks x 2 directions); the loss within 1e-5 of max(1, |x|), the
+   feature gradients within 1e-4 of their largest element and d temp
+   within 1e-4 of max(1, |x|) of `ops.infonce.infonce_loss` on the same
+   32 768 rows; ms of both.
+18. data-parallel (`distributed_phase`, after phase 14): `python -m
+   leccr_torch.run --task itr_caption --multihost` in this process under
+   torchrun's environment for a world of one (NCCL, rank 0) at the
+   flagship's width (configs/multi30k_all.yaml from synthetic files, 2
+   steps at bs128, negatives ring_fused, eval, a checkpoint) beside the
+   same run without --multihost: kernels 2/3 FLAGSHIP_STEP_LAUNCHES a
+   step in both, kernels 9-11 6 a step through the W = 1 ring (0 without
+   the group: one block's ring_fused is the dense loss), kernel 1 7 an
+   eval batch; the train losses within 1e-4 of max(1, |x|) of the run
+   without the group; rank 0's checkpoint; `--devices 2` raises on this
+   one-GPU host.  W > 1 is checked only in the CPU tests (gloo).
+19. the sharded index (`sharded_serve_phase`, inside phase 15): phase
+   15's 1M rows row-sharded 4 ways on cuda:0 (`serve.shard_index`): the
+   top-10 of 64 queries equal the unsharded search's bit for bit, f32 and
+   int8, fusion none and minmax; ms per batch.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -3812,6 +3845,8 @@ def index_scale_phase(card_line: str = "", seed: int = 0):
                     raise AssertionError(f"equal rows scored apart "
                                          f"({fusion}, int8 {idx.quantized})")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        sharded_serve_phase(card_line, index, q8, q, valid)
     gb = lambda *xs: sum(x.numel() * x.element_size() for x in xs) / 1e9  # noqa: E731
     emit("index_scale", card=card_line, rows=n, dim=e, slots=INDEX_SLOTS,
          concepts=INDEX_CONCEPTS, queries=INDEX_QUERIES,
@@ -3830,6 +3865,309 @@ def index_scale_phase(card_line: str = "", seed: int = 0):
          peak_mem_gb=peak_gb)
     del index, q8, ivf, ivf8, feats, slots, arrays, arrays8
     torch.cuda.empty_cache()
+
+
+# the RandAugment check (`randaugment_phase`): the flagship's batch
+RA_BATCH = 128
+RA_RES = 384
+RA_N, RA_M = 2, 7
+RA_AFFINE = {"ShearX", "ShearY", "TranslateX", "TranslateY", "Rotate"}
+
+
+def randaugment_phase(card_line: str, seed: int = 0):
+    """Device RandAugment (`leccr_torch.data.randaugment`) on the card: a
+    bs128 x 384² batch (uint8 / 255 on the host, the same f32 input on
+    both sides) through the live policy (n = 2, m = 7) from one generator
+    state on the card and on the CPU: each image within 1e-5 of the
+    CPU's, within 1/255 where an affine op fired (a resampled point at a
+    pixel's edge); ms per batch (host draws included) and each
+    op's ms on the whole batch (CUDA events, median of 5).  Then the
+    flagship train step with `data.randaugment: true` (2 warm-up, 3 timed
+    steps and a profiled one): kernels 2/3 FLAGSHIP_STEP_LAUNCHES a step.
+    Returns that step's launches."""
+    import torch
+
+    from leccr_torch.config import load_config
+    from leccr_torch.data import randaugment as ra
+
+    g = torch.Generator().manual_seed(seed)
+    u8 = torch.randint(0, 256, (RA_BATCH, RA_RES, RA_RES, 3),
+                       dtype=torch.uint8, generator=g)
+    # one input for both: the card divides by a scalar as a product with
+    # its reciprocal, an ulp off the host's quotient, and a later
+    # Equalize (round(x · 255)) can turn an ulp into a level
+    x_cpu = u8.float() / 255.0
+    x_gpu = x_cpu.cuda()
+    draws = ra.sample_policy(RA_BATCH, RA_N, len(ra.LIVE_POLICY),
+                             torch.Generator().manual_seed(seed + 1))
+    got = ra.apply_policy(x_gpu, draws, RA_M).cpu()
+    want = ra.apply_policy(x_cpu, draws, RA_M)
+    fired = (draws.gate <= 0.5)
+    names = [[ra.LIVE_POLICY[int(j)] for j in row] for row in draws.op]
+    affine = torch.tensor([any(f and n in RA_AFFINE for f, n in zip(fr, nr))
+                           for fr, nr in zip(fired.tolist(), names)])
+    err = (got - want).abs().amax(dim=(1, 2, 3))
+    err_affine = err[affine].max().item() if affine.any() else 0.0
+    err_other = err[~affine].max().item() if (~affine).any() else 0.0
+    if err_other > 1e-5 or err_affine > 1 / 255:
+        raise AssertionError(f"RandAugment on the card differs from the "
+                             f"CPU: {err_other} (no affine op), "
+                             f"{err_affine} (an affine op)")
+    if torch.equal(got, x_cpu):
+        raise AssertionError("RandAugment changed no image")
+    gen = torch.Generator()
+    batch_ms = span_ms(lambda: ra.rand_augment_batch(
+        x_gpu, gen, RA_N, RA_M), 5)
+    signs = draws.sign[:, 0]
+    op_ms = {name: span_ms(lambda fn=fn, name=name: fn(
+        x_gpu, RA_M, draws.centre[:, 0] if name == "Cutout" else signs), 5)
+        for name, fn in ra.OP_BANK.items()}
+    emit("randaugment", card=card_line, batch=RA_BATCH, res=RA_RES,
+         n_ops=RA_N, magnitude=RA_M, ops=list(ra.LIVE_POLICY),
+         applied=int(fired.sum()), images_with_affine=int(affine.sum()),
+         max_abs_err=err_other, max_abs_err_affine=err_affine,
+         tolerance="1e-5; 1/255 where an affine op fired",
+         ms_per_batch=batch_ms, op_ms=op_ms,
+         batch_bytes=x_gpu.numel() * 4)
+    del x_gpu, got
+    torch.cuda.empty_cache()
+    cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+    cfg.data.randaugment = True
+    cfg.data.randaugment_n, cfg.data.randaugment_m = RA_N, RA_M
+    return train_step_phase(cfg, card_line, FLAGSHIP_STEP_LAUNCHES,
+                            phase="train_step_randaugment", warmup=2,
+                            steps=3)
+
+
+# the ring check (`ring_phase`): configs/scale_vitl_32k.yaml's 32k global
+# negatives as 8 ranks' 4096-row blocks at E = 256
+RING_WORLD = 8
+RING_LOCAL = 4096
+RING_DIM = 256
+RING_TEMP = 0.07
+
+
+def _loss_and_grads(fn, a, b, temp):
+    import torch
+
+    x = a.clone().requires_grad_(True)
+    y = b.clone().requires_grad_(True)
+    t = torch.tensor(temp, device=a.device, requires_grad=True)
+    loss = fn(x, y, t)
+    loss.backward()
+    return loss.detach(), x.grad, y.grad, t.grad
+
+
+def ring_phase(card_line: str, seed: int = 0):
+    """The ring InfoNCE replayed in one process (`parallel.ring.
+    ring_infonce`, impl="fused") at W = RING_WORLD x b_local = RING_LOCAL,
+    E = RING_DIM: forward and backward through kernels 9-11, exactly
+    2·W² launches of each (W blocks a rank and direction), held against
+    `ops.infonce.infonce_loss` on the same W·b_local rows (one block):
+    the loss within 1e-5 of max(1, |x|), d feat_a and d feat_b within 1e-4
+    of their largest element, d temp within 1e-4 of max(1, |x|) (kernels
+    9-11's tolerances).  Timed (CUDA events, fwd + bwd, median of 3):
+    the ring and the one-block loss.  Returns the ring's launches of
+    (9, 10, 11)."""
+    import torch
+
+    from leccr_torch.ops import infonce
+    from leccr_torch.parallel.ring import ring_infonce
+
+    n = RING_WORLD * RING_LOCAL
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a, b = (torch.nn.functional.normalize(torch.randn(
+        n, RING_DIM, device="cuda", generator=g), dim=-1) for _ in range(2))
+    idx = torch.arange(n, device="cuda")
+
+    def ring(x, y, t):
+        return ring_infonce(x, y, t, idx, RING_WORLD, "fused")
+
+    def one_block(x, y, t):
+        return infonce.infonce_loss(x, y, t, idx)
+
+    reset_counts()
+    got = _loss_and_grads(ring, a, b, RING_TEMP)
+    torch.cuda.synchronize()
+    launches = tuple(getattr(infonce, c) for c in INFONCE_COUNTERS)
+    want_launches = (2 * RING_WORLD ** 2,) * 3
+    if launches != want_launches:
+        raise AssertionError(f"the ring launched kernels 9-11 {launches}, "
+                             f"want {want_launches}")
+    want = _loss_and_grads(one_block, a, b, RING_TEMP)
+    errs = {
+        "loss": (got[0] - want[0]).abs().item(),
+        "d_feat_a": (got[1] - want[1]).abs().max().item(),
+        "d_feat_b": (got[2] - want[2]).abs().max().item(),
+        "d_temp": (got[3] - want[3]).abs().item()}
+    bounds = {"loss": 1e-5 * max(1.0, want[0].abs().item()),
+              "d_feat_a": 1e-4 * want[1].abs().max().item(),
+              "d_feat_b": 1e-4 * want[2].abs().max().item(),
+              "d_temp": 1e-4 * max(1.0, want[3].abs().item())}
+    if any(errs[k] > bounds[k] for k in errs):
+        raise AssertionError(f"the ring differs from the one-block loss: "
+                             f"{errs}, bounds {bounds}")
+    ring_ms = span_ms(lambda: _loss_and_grads(ring, a, b, RING_TEMP), 3)
+    block_ms = span_ms(lambda: _loss_and_grads(one_block, a, b, RING_TEMP),
+                       3)
+    flops = 3 * 2 * 2 * n * n * RING_DIM  # 2 directions x (stats, dq, dk)
+    emit("ring", card=card_line, world=RING_WORLD, b_local=RING_LOCAL,
+         rows=n, dim=RING_DIM, impl="fused (kernels 9-11), one-process "
+         "replay of the ranks' schedules", launches=dict(zip(
+             INFONCE_COUNTERS, launches)), errors=errs, bounds=bounds,
+         loss=want[0].item(), ring_ms=ring_ms, one_block_ms=block_ms,
+         ring_vs_one_block=ring_ms / block_ms,
+         bound_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+         tflops=flops / ring_ms / 1e9)
+    del a, b, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+# the distributed check (`distributed_phase`): the flagship from synthetic
+# files, 2 steps at bs128 (128 images x 2 captions), 16 eval images
+DIST_OPTIONS = {"data.dataset": "synthetic", "data.synthetic_size": 128,
+                "data.synthetic_captions_per_image": 2,
+                "data.synthetic_eval_images": 16,
+                "train.schedular.epochs": 1, "train.keep_checkpoints": 1,
+                "parallel.negatives": "ring_fused"}
+
+
+def distributed_phase(card_line: str):
+    """`python -m leccr_torch.run --task itr_caption --multihost` in this
+    process under torchrun's environment for a world of one (NCCL, rank
+    0, a free port) at the flagship's width (configs/multi30k_all.yaml,
+    DIST_OPTIONS: 2 steps at bs128, negatives ring_fused, an eval of val +
+    test, a checkpoint), and the same run without --multihost.  With the
+    process group the ITC losses take the ring (`ring_infonce_local` at
+    W = 1: kernels 9-11, 6 launches each a step); without it, ring_fused
+    on one block is the dense loss.  Checks: kernels 2/3
+    FLAGSHIP_STEP_LAUNCHES a step in both, 9-11 as said, kernel 1 7 an
+    eval batch; the logged train losses within 1e-4 of max(1, |x|) of
+    the run without the group (printed to 5 decimals); rank 0's
+    checkpoint and best.json; `--devices 2` on this one-GPU host raises.
+    W > 1 runs only in the CPU tests (gloo): NCCL refuses two ranks on one
+    GPU.  Returns the multihost run's launches of (2..11) and kernel 1's
+    counts."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from leccr_torch import run
+    from leccr_torch.config import load_config
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    env_keys = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+    try:
+        cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+        set_options(cfg, DIST_OPTIONS)
+        cfg.save(str(root / "config.json"))
+        results = {}
+        for mode in ("multihost", "single"):
+            out = root / mode
+            argv = ["--task", "itr_caption", "--config",
+                    str(root / "config.json"), "--output_dir", str(out)]
+            if mode == "multihost":
+                os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                                  MASTER_ADDR="localhost",
+                                  MASTER_PORT=str(run._free_port()))
+                argv.append("--multihost")
+            reset_counts()
+            t0 = time.perf_counter()
+            try:
+                run.main(argv)
+            finally:
+                for key in env_keys:
+                    os.environ.pop(key, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = step_counts()
+            kernel1 = kernel1_counts(f"distributed_phase ({mode})")
+            records = [json.loads(x) for x in
+                       (out / "log.txt").read_text().splitlines()]
+            if not (out / "checkpoints" / "best.json").exists():
+                raise AssertionError(f"{mode}: no checkpoint was written")
+            results[mode] = (launches, kernel1, records[0], wall)
+        steps = 2
+        ring = (6 * steps,) * 3
+        for mode, (launches, _, _, _) in results.items():
+            want = tuple(x * steps for x in FLAGSHIP_STEP_LAUNCHES[:7]) + (
+                ring if mode == "multihost" else (0, 0, 0))
+            if launches != want:
+                raise AssertionError(f"distributed_phase ({mode}) launched "
+                                     f"kernels {launches}, want {want}")
+        got, want = results["multihost"][2], results["single"][2]
+        loss_err = {k: abs(float(got[k]) - float(v)) for k, v in want.items()
+                    if k.startswith("train_loss")}
+        if any(e > 1e-4 * max(1.0, abs(float(want[k])))
+               for k, e in loss_err.items()):
+            raise AssertionError(f"the one-rank run's losses differ: "
+                                 f"{loss_err}")
+        try:
+            run.main(["--task", "itr_caption", "--config",
+                      str(root / "config.json"), "--output_dir",
+                      str(root / "two"), "--devices", "2"])
+        except ValueError as exc:
+            refused = str(exc)
+        else:
+            raise AssertionError("--devices 2 ran on a one-GPU host")
+        emit("distributed", card=card_line, world=1, backend="nccl",
+             negatives="ring_fused", steps=steps,
+             launches={mode: dict(zip(STEP_COUNTERS, r[0]))
+                       for mode, r in results.items()},
+             kernel1={mode: r[1] for mode, r in results.items()},
+             train_losses={mode: {k: v for k, v in r[2].items()
+                                  if k.startswith("train_loss")}
+                           for mode, r in results.items()},
+             loss_err=loss_err, wall_s={m: r[3] for m, r in results.items()},
+             devices_2_refused=refused,
+             note="W > 1 is checked only in the CPU tests (gloo): NCCL "
+                  "refuses two ranks on one GPU")
+        return results["multihost"][0], results["multihost"][1]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+SHARDS = 4
+
+
+def sharded_serve_phase(card_line, index, q8, q, valid, k: int = 10):
+    """The 1M-row index of `index_scale_phase` row-sharded SHARDS ways on
+    cuda:0 (`serve.shard_index`): the sharded top-k (`_sharded_top_k`)
+    equals the unsharded search bit for bit, scores and rows, for f32 and
+    int8, fusion none and minmax; ms per batch of INDEX_QUERIES (median of
+    5) beside the unsharded search's."""
+    import torch
+
+    from leccr_torch.serve import (_search_scores, _sharded_top_k, _top_k,
+                                   shard_index)
+
+    times = {}
+    for name, idx in (("f32", index), ("int8", q8)):
+        t0 = time.perf_counter()
+        sharded = shard_index(idx, ["cuda:0"] * SHARDS)
+        torch.cuda.synchronize()
+        times[f"{name}_shard_s"] = time.perf_counter() - t0
+        for fusion in ("none", "minmax"):
+            want = _top_k(_search_scores(q, idx, valid, fusion, 0.9), k)
+            got = _sharded_top_k(q, sharded, valid, fusion, 0.9, k)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"the sharded search ({name}, "
+                                     f"{fusion}) differs from the "
+                                     f"unsharded one")
+            times[f"{name}_{fusion}_ms"] = span_ms(
+                lambda s=sharded, f=fusion: _sharded_top_k(
+                    q, s, valid, f, 0.9, k), 5)
+        del sharded
+        torch.cuda.empty_cache()
+    emit("sharded_serve", card=card_line, rows=index.n_valid,
+         shards=SHARDS, devices="cuda:0 x 4", queries=q.shape[0], k=k,
+         equal_to_unsharded="bit for bit (f32, int8; none, minmax)",
+         **times)
 
 
 def main() -> int:
@@ -3877,6 +4215,7 @@ def main() -> int:
     chunked = chunked_phase()
     tiled = tiled_phase()
     infonce = infonce_phase()
+    ring_launches = ring_phase(card_line)
     cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
     loss_phase(cfg)
     model_check_phase(cfg)
@@ -3907,6 +4246,7 @@ def main() -> int:
     train_launches = train_step_phase(
         load_config(str(ROOT / "configs" / "multi30k_all.yaml")), card_line,
         FLAGSHIP_STEP_LAUNCHES)
+    ra_launches = randaugment_phase(card_line)
     slice_launches = train_step_phase(
         slice_config(), card_line, SLICE_STEP_LAUNCHES[True],
         phase="slice_train_step", batch=32)
@@ -3932,6 +4272,7 @@ def main() -> int:
         serve_tasks_kernel1 = serve_tasks_phase(card_line, fit_ckpt)
     finally:
         shutil.rmtree(fit_dir, ignore_errors=True)
+    dist_launches, dist_kernel1 = distributed_phase(card_line)
     index_scale_phase(card_line)
 
     def path_sum(key, rows=None, launches=PATH_LAUNCHES):
@@ -3949,7 +4290,8 @@ def main() -> int:
 
     def flash_entry(name, line, direction, launches, slice_launches,
                     hires_launches, large_launches, fit_launches,
-                    ckpt_launches, video_launches, errs):
+                    ckpt_launches, video_launches, ra_launches, dist_launches,
+                    errs):
         rows = [r for r in flash if r["direction"] == direction
                 and r["dtype"] == "bfloat16" and r["shape"] in per_step]
 
@@ -3968,6 +4310,8 @@ def main() -> int:
             "launches_fit": fit_launches,
             "launches_checkpoint": ckpt_launches,
             "launches_video": video_launches,
+            "launches_randaugment_step": ra_launches,
+            "launches_distributed": dist_launches,
             "max_abs_err": max(r["max_abs_err"][e] for r in flash
                                if r["direction"] == direction for e in errs),
             "check": "ok",
@@ -4043,6 +4387,7 @@ def main() -> int:
 
     def infonce_entry(name, line, kernel, launches, errs):
         r = next(r for r in infonce if r["shape"] == "path")
+        at = INFONCE_COUNTERS.index(f"{kernel}_launches")
         per_step = LARGE_STEP_LAUNCHES[STEP_COUNTERS.index(
             f"{kernel}_launches")]
         return {
@@ -4050,6 +4395,8 @@ def main() -> int:
             "source": "leccr_torch/csrc/fused_infonce.cu",
             "replaces": f"leccr_tpu/ops/infonce.py:{line}",
             "launches": launches,
+            "launches_ring": ring_launches[at],
+            "launches_distributed": dist_launches[len(COUNTERS) + at],
             "max_abs_err": max(x["errors"]["abs"][e] for x in infonce
                                for e in errs),
             "check": "ok",
@@ -4080,6 +4427,7 @@ def main() -> int:
         "launches_checkpoint": ckpt_kernel1,
         "launches_video": video_kernel1,
         "launches_serve_tasks": serve_tasks_kernel1,
+        "launches_distributed": dist_kernel1,
         "bodies": sorted({r["body"] for r in bf16 + video_bf16}),
         "max_abs_err": max(r["max_abs_err"] for r in shapes + video_shapes),
         "check": "ok",
@@ -4107,11 +4455,12 @@ def main() -> int:
     }, flash_entry("flash_tower_attention_fwd", 84, "fwd", train_launches[0],
                    slice_launches[0], hires_launches[0], large_launches[0],
                    fit_launches[0], ckpt_launches[0], video_launches[0],
-                   ("out", "lse")),
+                   ra_launches[0], dist_launches[0], ("out", "lse")),
         flash_entry("flash_tower_attention_bwd", 110, "bwd",
                     train_launches[1], slice_launches[1], hires_launches[1],
                     large_launches[1], fit_launches[1], ckpt_launches[1],
-                    video_launches[1], ("dq", "dk", "dv")),
+                    video_launches[1], ra_launches[1], dist_launches[1],
+                    ("dq", "dk", "dv")),
         chunk_entry("flash_chunked_attention_fwd", 429, "fwd",
                     slice_launches[2], SLICE_STEP_LAUNCHES[True][2],
                     ("out", "lse")),

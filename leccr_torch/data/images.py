@@ -140,14 +140,25 @@ def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
 
 def preprocess_train_images(images_u8: torch.Tensor,
                             flip: Optional[torch.Tensor],
-                            randaugment_n: int = 0) -> torch.Tensor:
-    """Device-side train preprocessing: /255, CLIP normalize, then a
-    horizontal flip of the images where flip [B] (bool) is set."""
+                            gen: Optional[torch.Generator] = None,
+                            randaugment_n: int = 0,
+                            randaugment_m: int = 7) -> torch.Tensor:
+    """Device-side train preprocessing: /255, with randaugment_n > 0 the
+    RandAugment policy (`data.randaugment.rand_augment_batch`, n ops at
+    magnitude randaugment_m, drawn from the CPU generator `gen`), CLIP
+    normalize, then a horizontal flip of the images where flip [B] (bool)
+    is set (`leccr_tpu/data/images.py:160-176`)."""
+    x = images_u8.to(torch.float32) / 255.0
     if randaugment_n > 0:
-        raise NotImplementedError(
-            "device RandAugment (randaugment_n > 0) comes with a later "
-            "slice of the port")
-    x = normalize_images(images_u8)
+        if gen is None:
+            raise ValueError("RandAugment (randaugment_n > 0) draws from a "
+                             "generator: pass gen")
+        from leccr_torch.data.randaugment import rand_augment_batch
+
+        x = rand_augment_batch(x, gen, randaugment_n, randaugment_m)
+    mean = torch.from_numpy(CLIP_MEAN).to(x.device)
+    std = torch.from_numpy(CLIP_STD).to(x.device)
+    x = (x - mean) / std
     if flip is not None:
         x = torch.where(flip[:, None, None, None], x.flip(2), x)
     return x

@@ -188,14 +188,24 @@ class TrainLoader:
     """Epoch iterator over numpy batches for the train step.
 
     Yields dicts with keys matching LECCRModel.forward's batch contract
-    plus `idx` ([B] int32) and `flip` ([B] bool)."""
+    plus `idx` ([B] int32) and `flip` ([B] bool).  With `process_count` >
+    1, process `process_index` yields its `batch_size / process_count` rows
+    of each global batch: its share of the epoch's permutation,
+    interleaved (`shard_indices`), as the JAX loader's processes do."""
 
     def __init__(self, dataset, tokenizer, cfg: DataConfig, batch_size: int,
                  num_workers: int = 4, caption_tokenizer=None,
-                 prefetch: int = 2):
+                 prefetch: int = 2, process_count: int = 1,
+                 process_index: int = 0):
+        if batch_size % process_count:
+            raise ValueError(f"batch {batch_size} does not split over "
+                             f"{process_count} processes")
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
+        self.local_batch = batch_size // process_count
+        self.process_count = process_count
+        self.process_index = process_index
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.tokenizer = tokenizer
@@ -245,9 +255,10 @@ class TrainLoader:
         (epoch, its position)).  Decoding runs on a background thread
         pool; a sample that fails to load raises here."""
         idxs = shard_indices(len(self.dataset), epoch, self.cfg.seed,
+                             self.process_count, self.process_index,
                              shuffle=True, drop_last=True)
-        nb = len(idxs) // self.batch_size
-        idxs = idxs[: nb * self.batch_size].reshape(nb, self.batch_size)
+        nb = len(idxs) // self.local_batch
+        idxs = idxs[: nb * self.local_batch].reshape(nb, self.local_batch)
 
         def produce(put):
             with ThreadPoolExecutor(self.num_workers) as pool:
@@ -378,11 +389,22 @@ class EvalLoader:
     `text_batch_size` (the last padded with empty rows), and image (or
     video frames + mask)/caption batches padded to `batch_size` by
     repeating the last row (surplus rows are sliced off after the
-    forward)."""
+    forward).
+
+    With `process_count` > 1 each process gets its contiguous slice of
+    every padded global batch (process-major, as the JAX loader's), and
+    the counts stay global: the trainer all-gathers the embeddings in rank
+    order."""
 
     def __init__(self, dataset, tokenizer, cfg: DataConfig, batch_size: int,
                  text_batch_size: int, caption_tokenizer=None,
-                 num_workers: int = 4):
+                 num_workers: int = 4, process_count: int = 1,
+                 process_index: int = 0):
+        if batch_size % process_count or text_batch_size % process_count:
+            raise ValueError(f"eval batches {batch_size} / {text_batch_size} "
+                             f"do not split over {process_count} processes")
+        self.process_count = process_count
+        self.process_index = process_index
         self.dataset = dataset
         self.tokenizer = tokenizer
         self.caption_tokenizer = caption_tokenizer or tokenizer
@@ -391,8 +413,14 @@ class EvalLoader:
         self.text_batch_size = text_batch_size
         self.num_workers = max(1, num_workers)
 
+    def _local(self, width: int) -> slice:
+        """This process's rows of a global batch of `width` rows."""
+        per = width // self.process_count
+        return slice(self.process_index * per, (self.process_index + 1) * per)
+
     def text_batches(self):
-        """(ids [T, W], mask [T, W], count) per chunk of the split."""
+        """(ids [T, W], mask [T, W], count) per chunk of the split (this
+        process's rows of it; count is the chunk's global count)."""
         texts = self.dataset.texts
         # the split is fixed: tokenize it once and cache on the dataset
         cache = getattr(self.dataset, "_tok_cache", None)
@@ -411,14 +439,16 @@ class EvalLoader:
         if pad_rows:
             ids_all = np.pad(ids_all, ((0, pad_rows), (0, 0)))
             mask_all = np.pad(mask_all, ((0, pad_rows), (0, 0)))
+        loc = self._local(self.text_batch_size)
         for i in range(0, len(texts), self.text_batch_size):
             n = min(self.text_batch_size, len(texts) - i)
             block = slice(i, i + self.text_batch_size)
-            yield ids_all[block], mask_all[block], n
+            yield ids_all[block][loc], mask_all[block][loc], n
 
     def image_batches(self):
-        """(batch dict, count) per chunk of the split's images; decoding
-        runs in a thread pool."""
+        """(batch dict, count) per chunk of the split's images (this
+        process's rows; count is global); decoding runs in a thread
+        pool."""
         n = len(self.dataset)
         feats_width = (_feats_width(self.dataset)
                        if self.cfg.generated_caption_type == "feats" else 0)
@@ -428,6 +458,7 @@ class EvalLoader:
                 count = stop - start
                 rows = list(range(start, stop))
                 rows += [rows[-1]] * (self.batch_size - count)
+                rows = rows[self._local(self.batch_size)]
                 items = list(pool.map(self.dataset.get, rows))
                 caps = [it[1] for it in items]
                 vision = [it[0] for it in items]

@@ -27,29 +27,37 @@ class Generators:
 
     device: dropout bits, on the device the model runs on.
     host: a CPU generator for the per-layer flash-attention seeds, so that
-    drawing a seed never waits on the device."""
+    drawing a seed never waits on the device.
+    aug: a CPU generator for the RandAugment draws (`data.randaugment`),
+    the counterpart of the JAX trainer's fold_in(rng, 7).  A stream of its
+    own, seeded apart: with RandAugment off nothing draws from it, and
+    `device` and `host` draw exactly what they drew without it."""
 
     device: torch.Generator
     host: torch.Generator
+    aug: torch.Generator
 
     @classmethod
     def from_seed(cls, seed: int, device) -> "Generators":
         device = torch.device(device)
-        # another seed for the host stream: on a CPU model both generators
-        # would otherwise be one Mersenne Twister stream twice over
+        # other seeds for the host streams: on a CPU model the generators
+        # would otherwise be one Mersenne Twister stream thrice over
         return cls(torch.Generator(device=device).manual_seed(seed),
-                   torch.Generator().manual_seed(seed ^ 0x5DEECE66D))
+                   torch.Generator().manual_seed(seed ^ 0x5DEECE66D),
+                   torch.Generator().manual_seed(seed ^ 0x2545F4914F6CDD1D))
 
     def flash_seed(self) -> int:
         """One int32 flash-attention seed from [0, 2³¹ − 1)."""
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.host))
 
     def get_state(self):
-        return self.device.get_state(), self.host.get_state()
+        return (self.device.get_state(), self.host.get_state(),
+                self.aug.get_state())
 
     def set_state(self, state) -> None:
         self.device.set_state(state[0])
         self.host.set_state(state[1])
+        self.aug.set_state(state[2])
 
 
 def checkpoint_block(block: Callable[..., Any], gen: Optional[Generators],

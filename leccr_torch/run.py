@@ -53,9 +53,24 @@ checkpoint or in the output dir; a save of the JAX package serves as is.
 A `hdfs://` config is fetched first; a `hdfs://` output dir is staged in a
 local directory, mirrored up after each checkpointed epoch, and pulled
 down on --resume when the local stage is empty.  --device defaults to the
-GPU (it raises when there is none).  --devices 1 is the one device the
-port runs; --multihost and --devices above 1 wait for the multi-device
-path (ROADMAP §1 item 6).
+GPU (it raises when there is none).
+
+Data parallelism (`parallel.mesh.DataMesh`, one process per GPU):
+
+    python -m leccr_torch.run --task itr_caption --devices 4 ...
+    torchrun --nnodes 2 --nproc_per_node 8 -m leccr_torch.run \
+        --task itr_caption --multihost ...
+
+--devices N (0 = every local GPU) above 1 spawns N training processes, one
+per GPU (cuda:r, NCCL), and waits for them; the serving tasks instead
+shard the index over the first N GPUs (`serve --devices N`: the exact
+index row-sharded; build_index and update_index write an unsharded save
+as ever).  With one device the run stays in this process.  --multihost
+joins the world that torchrun's environment describes (RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR / MASTER_PORT); only rank 0 writes config.json,
+logs and checkpoints.  Asking for more GPUs than the host has raises.
+`--device cpu --devices N` runs N gloo processes on the CPU (the tests'
+path).
 """
 
 from __future__ import annotations
@@ -99,12 +114,13 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the GPU; 'cpu' for tests)")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported: the multi-device path (ROADMAP §1 "
-                        "item 6)")
+                   help="join the data-parallel world of torchrun's "
+                        "environment (RANK, WORLD_SIZE, LOCAL_RANK, "
+                        "MASTER_ADDR, MASTER_PORT)")
     p.add_argument("--devices", default=0, type=int,
-                   help="use only the first N local devices (0 = all); "
-                        "above 1 not ported: the multi-device path "
-                        "(ROADMAP §1 item 6)")
+                   help="use the first N local GPUs (0 = all): N training "
+                        "processes, or the serving index sharded over N; "
+                        "with --device cpu, N gloo processes")
     g = p.add_argument_group("serve", "--task serve only")
     g.add_argument("--index", default="",
                    help="saved index dir (serve.save_index or "
@@ -370,9 +386,12 @@ def serve_main(args, cfg) -> None:
               f"C={index.n_clusters}"
               + (" (int8)" if index.quantized else ""), flush=True)
     else:
-        index = load_index(args.index, emb.device)
+        shard_over = getattr(args, "shard_over", None)
+        index = load_index(args.index, emb.device, mesh=shard_over)
         print(f"### index: {index.n_valid} items"
-              + (" (int8)" if index.quantized else ""), flush=True)
+              + (" (int8)" if index.quantized else "")
+              + (f", sharded over {len(shard_over)} devices"
+                 if shard_over else ""), flush=True)
     batcher = DynamicBatcher(emb, index, max_delay=args.max_delay_ms / 1000,
                              max_pending=args.max_pending or None)
     frontend = ServingFrontend(batcher, host=args.host, port=args.port)
@@ -394,12 +413,120 @@ def serve_main(args, cfg) -> None:
         frontend.close()
 
 
+def _on_cpu(args) -> bool:
+    import torch
+
+    return args.device is not None and torch.device(args.device).type == "cpu"
+
+
+def local_devices(args) -> int:
+    """The device count --devices names on this host: N, or with 0 every
+    local GPU (one on the CPU).  More GPUs than the host has raise."""
+    import torch
+
+    if _on_cpu(args):
+        return max(args.devices, 1)
+    have = torch.cuda.device_count()
+    want = args.devices or have
+    if want > have:
+        raise ValueError(f"--devices {args.devices} asks for {want} GPUs; "
+                         f"this host has {have}")
+    return max(want, 1)
+
+
+def serving_devices(args, n: int):
+    """The devices a serving index is sharded over: the first n GPUs (n
+    copies of the CPU with --device cpu); None for one device."""
+    if n <= 1:
+        return None
+    return ["cpu"] * n if _on_cpu(args) else [f"cuda:{i}" for i in range(n)]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(argv, n: int) -> None:
+    """Run this launcher's task in n processes, rank r on cuda:r (or the
+    CPU), as torchrun would: each child gets --multihost and torchrun's
+    environment.  Waits for all; the first failure stops the rest and
+    raises SystemExit naming that rank and its exit code."""
+    import subprocess
+    import sys
+    import time
+
+    port = _free_port()
+    keep, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--devices":
+            skip = True
+        elif not a.startswith("--devices="):
+            keep.append(a)
+    procs = []
+    for rank in range(n):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "WORLD_SIZE": str(n), "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "leccr_torch.run", *keep, "--multihost"],
+            env=env))
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [c for c in codes if c not in (None, 0)]
+            if failed:
+                raise SystemExit(
+                    f"rank {codes.index(failed[0])} of {n} exited with "
+                    f"{failed[0]}")
+            if all(c == 0 for c in codes):
+                return
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
 def main(argv=None) -> None:
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    if args.multihost or args.devices > 1:
-        raise NotImplementedError(
-            "--multihost and --devices above 1 come with the multi-device "
-            "path (ROADMAP §1 item 6)")
+    mesh = None
+    if args.multihost:
+        if args.task in SERVING_TASKS or args.task == "export":
+            raise ValueError(f"--multihost runs the training tasks, not "
+                             f"--task {args.task}")
+        from leccr_torch.parallel.mesh import DataMesh
+
+        mesh = DataMesh.from_env(device="cpu" if _on_cpu(args) else None)
+    else:
+        n = local_devices(args)
+        if n > 1 and args.task not in SERVING_TASKS + ("export",):
+            spawn_ranks(argv, n)
+            return
+        args.shard_over = (serving_devices(args, n) if args.task == "serve"
+                           else None)
+    try:
+        _main(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.destroy()
+
+
+def _main(args, mesh) -> None:
     if args.checkpoint == "null":
         args.checkpoint = ""
     if args.task != "export" and not args.output_dir:
@@ -450,14 +577,15 @@ def main(argv=None) -> None:
                          "(model.vision.kind: temporal) in the config")
 
     Path(cfg.output_dir).mkdir(parents=True, exist_ok=True)
-    cfg.save(os.path.join(cfg.output_dir, "config.json"))
+    if mesh is None or mesh.is_main:
+        cfg.save(os.path.join(cfg.output_dir, "config.json"))
 
     from leccr_torch.train.trainer import Trainer
 
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, device=args.device, mesh=mesh)
     if args.checkpoint:
         trainer.load_initial_checkpoint(args.checkpoint)
-        print(f"### loaded initial checkpoint from {args.checkpoint}")
+        trainer.print(f"### loaded initial checkpoint from {args.checkpoint}")
     trainer.fit(evaluate_only=args.evaluate)
 
 

@@ -33,8 +33,24 @@ takes equal scores lowest index first, as `jax.lax.top_k` does.
 
 `save_index` / `load_index` write and read the JAX package's directory
 format byte for byte (`.npy` arrays, `ids.json`, `manifest.json`), so a
-save of either package loads in the other.  The row-sharded index
-(`shard_index`) waits for the multi-device path (ROADMAP §1 item 6).
+save of either package loads in the other.
+
+The row-sharded layout (`leccr_tpu/serve.py:316-345, 476-566`):
+
+    index = shard_index(index, ["cuda:0", "cuda:1"])   # or one device twice
+    index = load_index("out/m30k_fr/index", mesh=["cuda:0", "cuda:1"])
+
+pads the rows to a multiple of the W devices on the host and sends each
+row range straight to its device (`ImageIndex.shards`; an index larger
+than one device never sits whole on one).  A search embeds the queries
+once, scores each shard with the same fixed-order scores as the unsharded
+index (f32 `pairwise_scores`; int8 through `_int8_scores`, its scales
+sharded like its rows), takes the minmax fusion's max and min over every
+shard (JAX's pmax / pmin), each shard's own top-k (equal scores lowest
+index first, pad rows never), then the global top-k of the candidates in
+shard order: the unsharded search's result bit for bit, ties included.
+`quantize_index`, `merge_indexes` and `remove_from_index` take an
+unsharded index; `save_index` writes a sharded one unsharded.
 """
 
 from __future__ import annotations
@@ -61,19 +77,34 @@ from leccr_torch.eval.retrieval import pairwise_scores
 from leccr_torch.models.leccr import LECCRModel
 from leccr_torch.models.weights import load_initial_checkpoint, load_jax_params
 
-_SHARDING = ("the row-sharded index comes with the multi-device path "
-             "(ROADMAP §1 item 6)")
+_ARRAYS = ("feats", "slots", "scale", "slot_scale")
+
+
+@dataclasses.dataclass
+class IndexShard:
+    """One device's rows of a row-sharded index: rows [offset, offset +
+    rows) of the layout padded to a multiple of the shard count."""
+
+    feats: torch.Tensor
+    slots: Optional[torch.Tensor]
+    scale: Optional[torch.Tensor]
+    slot_scale: Optional[torch.Tensor]
+    offset: int
 
 
 @dataclasses.dataclass
 class ImageIndex:
-    feats: torch.Tensor  # [N, E] L2-normalized, on the device (f32 or int8)
+    feats: Optional[torch.Tensor]  # [N, E] L2-normalized, on the device
+    # (f32 or int8); None when sharded
     slots: Optional[torch.Tensor]  # [N, n_q, E] (double-sim fusion)
     ids: List[str]
     # set by quantize_index(): per-row symmetric-int8 dequant scales
     # (feats/slots are int8 and score = int8 sum × qscale × row scale)
     scale: Optional[torch.Tensor] = None  # [N] f32
     slot_scale: Optional[torch.Tensor] = None  # [N] f32
+    # set by shard_index(): the rows, padded, over W devices (the arrays
+    # above are then None)
+    shards: Optional[List[IndexShard]] = None
 
     @property
     def n_valid(self) -> int:
@@ -81,7 +112,15 @@ class ImageIndex:
 
     @property
     def quantized(self) -> bool:
+        if self.shards is not None:
+            return self.shards[0].scale is not None
         return self.scale is not None
+
+    @property
+    def has_slots(self) -> bool:
+        if self.shards is not None:
+            return self.shards[0].slots is not None
+        return self.slots is not None
 
 
 def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -182,7 +221,10 @@ def quantize_index(index: ImageIndex) -> ImageIndex:
     """Symmetric per-row int8 quantization of an index: 4× less device
     memory, and the query product runs int8 × int8.  Feature rows are
     L2-normalized, so per-row scales are tight and the cosine order holds
-    to ~1e-3 of score.  A quantized index is returned as it is."""
+    to ~1e-3 of score.  A quantized index is returned as it is; quantize
+    before `shard_index`."""
+    if index.shards is not None:
+        raise ValueError("quantize_index before shard_index")
     if index.quantized:
         return index
     feats, scale = _quantize_rows(index.feats)
@@ -197,7 +239,9 @@ def merge_indexes(a: ImageIndex, b: ImageIndex) -> ImageIndex:
     """Append `b`'s items to `a` (embed the new items, then merge: nothing
     existing is embedded again).  Exact for int8 indexes too: the scales
     are per row, so existing rows keep their bytes and scales.  Both must
-    share a layout (quantization, slots)."""
+    share a layout (quantization, slots) and be unsharded."""
+    if a.shards is not None or b.shards is not None:
+        raise ValueError("merge unsharded indexes (shard_index after)")
     if a.quantized != b.quantized:
         raise ValueError("cannot merge a quantized index with an fp32 one")
     if (a.slots is None) != (b.slots is None):
@@ -218,7 +262,9 @@ def merge_indexes(a: ImageIndex, b: ImageIndex) -> ImageIndex:
 
 def remove_from_index(index: ImageIndex, ids: Sequence[str]) -> ImageIndex:
     """Drop items by id without embedding anything; unknown ids are an
-    error."""
+    error.  Unsharded only: re-shard after."""
+    if index.shards is not None:
+        raise ValueError("remove from the unsharded index (re-shard after)")
     drop = set(ids)
     unknown = drop - set(index.ids)
     if unknown:
@@ -235,9 +281,50 @@ def remove_from_index(index: ImageIndex, ids: Sequence[str]) -> ImageIndex:
         scale=take(index.scale), slot_scale=take(index.slot_scale))
 
 
-def shard_index(index: ImageIndex, mesh, axis: str = "data") -> ImageIndex:
-    """The row-sharded serving layout of the JAX package: not ported."""
-    raise NotImplementedError(_SHARDING)
+def _host_arrays(index: ImageIndex) -> Dict[str, Optional[np.ndarray]]:
+    """The index's arrays on the host, its n_valid rows (a sharded index's
+    shards concatenated, the padding dropped)."""
+    n = index.n_valid
+    if index.shards is None:
+        return {name: None if getattr(index, name) is None
+                else getattr(index, name)[:n].cpu().numpy()
+                for name in _ARRAYS}
+    return {name: None if getattr(index.shards[0], name) is None
+            else np.concatenate([getattr(sh, name).cpu().numpy()
+                                 for sh in index.shards])[:n]
+            for name in _ARRAYS}
+
+
+def shard_index(index: ImageIndex,
+                devices: Sequence[Union[str, torch.device]]) -> ImageIndex:
+    """`index` row-sharded over `devices` (W of them; one device may
+    repeat): the rows padded with zeros to a multiple of W on the host,
+    shard i = rows [i·N/W, (i+1)·N/W) sent straight to devices[i], so the
+    whole index never sits on one device.  Every search masks the pad
+    rows."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("shard_index needs at least one device")
+    w = len(devices)
+    host = _host_arrays(index)
+    n = index.n_valid
+    per = -(-n // w)
+
+    def rows(x, i):
+        if x is None:
+            return None
+        part = x[i * per:(i + 1) * per]
+        if part.shape[0] < per:
+            part = np.concatenate(
+                [part, np.zeros((per - part.shape[0],) + x.shape[1:],
+                                x.dtype)])
+        return torch.from_numpy(np.ascontiguousarray(part)).to(devices[i])
+
+    shards = [IndexShard(offset=i * per,
+                         **{name: rows(host[name], i) for name in _ARRAYS})
+              for i in range(w)]
+    return ImageIndex(feats=None, slots=None, ids=list(index.ids),
+                      shards=shards)
 
 
 # optional per-layout arrays a save may or may not carry; the manifest
@@ -314,26 +401,23 @@ def _host(x: Optional[torch.Tensor]) -> Optional[np.ndarray]:
 def save_index(index: ImageIndex, path: str) -> None:
     """Persist an index (feats, slots, scales, ids), so a serving restart
     skips the embed pass.  `path` is a directory; hdfs:// goes through
-    `utils.io`."""
-    n = index.n_valid
+    `utils.io`.  A sharded index is saved unsharded (shard again after
+    the load)."""
+    host = _host_arrays(index)
     with _staged_save_dir(path, "leccr_index_") as local:
         _write_array_save(
-            local, {"feats": _host(index.feats[:n])},
-            {name: None if getattr(index, name) is None
-             else _host(getattr(index, name)[:n])
-             for name in _INDEX_OPTIONAL},
-            index.ids, {})
+            local, {"feats": host["feats"]},
+            {name: host[name] for name in _INDEX_OPTIONAL}, index.ids, {})
 
 
 def load_index(path: str,
                device: Optional[Union[str, torch.device]] = None,
-               mesh=None, axis: str = "data") -> ImageIndex:
+               mesh: Optional[Sequence[Union[str, torch.device]]] = None
+               ) -> ImageIndex:
     """Load a saved index (this package's or the JAX package's) onto
-    `device` (None = the GPU).  `mesh` (a row-sharded layout) is not
-    ported."""
-    if mesh is not None:
-        raise NotImplementedError(_SHARDING)
-    device = resolve_device(device)
+    `device` (None = the GPU), or with `mesh` (a list of devices)
+    row-sharded over them by `shard_index`, straight from the host."""
+    device = resolve_device(device) if mesh is None else None
     with _staged_load_dir(path, "leccr_index_") as local:
         feats = np.load(os.path.join(local, "feats.npy"))
         with open(os.path.join(local, "ids.json")) as f:
@@ -357,6 +441,10 @@ def load_index(path: str,
 
         arrays = {"feats": feats,
                   **{name: opt(name) for name in _INDEX_OPTIONAL}}
+    if mesh is not None:
+        return shard_index(ImageIndex(ids=list(ids), **{
+            name: None if arr is None else torch.from_numpy(arr)
+            for name, arr in arrays.items()}), mesh)
     return ImageIndex(ids=list(ids), **{
         name: None if arr is None else torch.from_numpy(arr).to(device)
         for name, arr in arrays.items()})
@@ -405,6 +493,53 @@ def _top_k(scores: torch.Tensor, k: int
     sort is freed."""
     values, idxs = torch.sort(scores, dim=1, descending=True, stable=True)
     return values[:, :k].contiguous(), idxs[:, :k].contiguous()
+
+
+def _sharded_top_k(q: torch.Tensor, index: ImageIndex, valid: torch.Tensor,
+                   fusion: str, alpha: float, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_top_k(_search_scores(...), k)` of a sharded index, on q's device:
+    each shard scored on its device, the minmax bounds over every shard's
+    live rows, each shard's top-k of its live rows, then the top-k of the
+    candidates in shard order (lowest global row first among equals)."""
+    n = index.n_valid
+    parts = []
+    for sh in index.shards:
+        dev = sh.feats.device
+        qd = q.to(dev)
+        live = (sh.offset + torch.arange(sh.feats.shape[0], device=dev)) < n
+        s = _feat_scores(qd, sh.feats, sh.scale)
+        c = (None if fusion == "none"
+             else _slot_scores(qd, sh.slots, sh.slot_scale))
+        parts.append((s, c, live, valid.to(dev)))
+
+    def bound(x, live, vd, fn, fill):
+        return fn(torch.where(vd[:, None] & live[None, :], x,
+                              torch.full_like(x, fill))).to(q.device)
+
+    if fusion == "minmax":  # the global bounds over every shard (pmax/pmin)
+        bounds = [
+            (torch.stack([bound(p[i], p[2], p[3], torch.amax, -torch.inf)
+                          for p in parts]).amax(),
+             torch.stack([bound(p[i], p[2], p[3], torch.amin, torch.inf)
+                          for p in parts]).amin())
+            for i in (0, 1)]
+    cand_s, cand_i = [], []
+    for sh, (s, c, live, _) in zip(index.shards, parts):
+        if fusion == "raw":
+            s = alpha * s + (1.0 - alpha) * c
+        elif fusion == "minmax":
+            (hs, ls), (hc, lc) = [(h.to(s.device), lo.to(s.device))
+                                  for h, lo in bounds]
+            s = (alpha * ((s - hs) / torch.clamp_min(hs - ls, 1e-12))
+                 + (1.0 - alpha) * ((c - hc) / torch.clamp_min(hc - lc,
+                                                               1e-12)))
+        s = torch.where(live[None, :], s, torch.full_like(s, -torch.inf))
+        vals, local = _top_k(s, min(k, s.shape[1]))
+        cand_s.append(vals.to(q.device))
+        cand_i.append((local + sh.offset).to(q.device))
+    vals, pos = _top_k(torch.cat(cand_s, dim=1), k)
+    return vals, torch.gather(torch.cat(cand_i, dim=1), 1, pos)
 
 
 class Embedder:
@@ -605,7 +740,7 @@ class Embedder:
         the double-sim ranking); alpha weights the feature term."""
         if fusion not in ("none", "raw", "minmax"):
             raise ValueError(f"unknown fusion {fusion!r}")
-        if fusion != "none" and index.slots is None:
+        if fusion != "none" and not index.has_slots:
             raise ValueError(f"fusion={fusion!r} needs a slot-carrying "
                              "index (built by build_image_index/"
                              "build_video_index, or loaded from a save "
@@ -621,8 +756,12 @@ class Embedder:
         else:
             q = self._embed_texts(queries)
             valid = torch.ones(n, dtype=torch.bool, device=self.device)
-        scores, idxs = _top_k(
-            _search_scores(q, index, valid, fusion, float(alpha)), k)
+        if index.shards is not None:
+            scores, idxs = _sharded_top_k(q, index, valid, fusion,
+                                          float(alpha), k)
+        else:
+            scores, idxs = _top_k(
+                _search_scores(q, index, valid, fusion, float(alpha)), k)
         scores, idxs = scores[:n].cpu().numpy(), idxs[:n].cpu().numpy()
         return [[(index.ids[j], float(s)) for j, s in zip(row_i, row_s)]
                 for row_i, row_s in zip(idxs, scores)]
@@ -636,8 +775,17 @@ class Embedder:
         transposes: the same [N, T] matrix either way."""
         t = self._embed_texts(texts)
         k = min(k, t.shape[0])
-        s = (_int8_scores(t, index.feats, index.scale).T if index.quantized
-             else pairwise_scores(index.feats, t))
+
+        def scores_of(feats, scale):
+            td = t.to(feats.device)
+            return (_int8_scores(td, feats, scale).T if scale is not None
+                    else pairwise_scores(feats, td)).to(t.device)
+
+        if index.shards is not None:  # rows by shard, the padding dropped
+            s = torch.cat([scores_of(sh.feats, sh.scale)
+                           for sh in index.shards])[:index.n_valid]
+        else:
+            s = scores_of(index.feats, index.scale)
         scores, idxs = _top_k(s, k)
         scores, idxs = scores.cpu().numpy(), idxs.cpu().numpy()
         return [[(int(j), float(s)) for j, s in zip(ri, rs)]

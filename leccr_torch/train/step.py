@@ -1,13 +1,14 @@
-"""One training step on one device: the port of the train step of
+"""One training step: the port of the train step of
 `leccr_tpu/train/trainer.py` (`_make_train_step` with `_grad_cache_grads`
-and the EMA, without a mesh).
+and the EMA), on one device or as one rank of a data-parallel world.
 
     step = make_train_step(cfg, model, total_steps)
     losses = step(batch, step_no)   # dict of the 10 loss keys, as floats
     values = step.run(batch, step_no)  # the same, a [10] tensor, no sync
 
-Each step builds its random streams from (cfg.train.seed + 17, step_no),
-preprocesses the uint8 images on the device (normalize, per-image flip;
+Each step builds its random streams from (cfg.train.seed + 17, step_no,
+rank), preprocesses the uint8 images on the device (RandAugment when on,
+normalize, per-image flip;
 video frames go in as they are), runs the model forward in training mode,
 computes the loss suite, takes the gradient of the `grad_total` objective
 (the DDP-parity weighting of the JAX trainer; with num_blocks = 1 it
@@ -30,14 +31,32 @@ the towers hold one microbatch's activations at a time.
 
 `parallel.negatives`: `fused` routes the three ITC losses through the
 fused InfoNCE kernels 9-11 (`ops.infonce.infonce_loss`; the [B, B] logits
-never exist).  On one device (num_blocks = 1) `ring` and `ring_fused` are
-the dense losses, as in the JAX trainer, whose ring applies only across
-blocks (trainer.py:342-359); `ring` sets the streaming rows to 256 when the
-config leaves them at 0.  `parallel.stream_loss_block_rows` streams dstl
-and the caption-vision loss in row blocks when it divides a larger batch.
-`parallel.data` must be -1 or 1 (the one card), `parallel.model` 1 and
-`parallel.fsdp` off: DDP, tensor parallelism and FSDP come with the
-multi-device path of the port.
+never exist).  `ring` and `ring_fused` take the ring InfoNCE
+(`parallel.ring`, dense blocks or kernels 9-11) across blocks: over the
+processes of a `mesh`, or replayed in one process at num_blocks > 1, as
+JAX's trainer does on its mesh (trainer.py:342-359); on one block without a
+mesh they are the dense losses.  `ring` sets the streaming rows to 256
+when the config leaves them at 0.  `parallel.stream_loss_block_rows`
+streams dstl and the caption-vision loss in row blocks when it divides a
+larger batch.
+
+Data parallelism (`mesh`, a `parallel.mesh.DataMesh` of W processes, one
+per device; num_blocks = W): each rank runs its own rows through the
+towers; the gathered terms of `grad_total` see the world's batch in rank
+order (`parallel.mesh.all_gather_rows`: each rank's gradient is its rows'
+share), the temperature's cotangent is divided by W (every rank's loss
+graph reads all of it), and after the backward the ranks' gradients are
+summed (`all_reduce_grads`), so the update equals the one-process
+`TrainStep(num_blocks=W)` on the concatenated batch and JAX's on a W-device
+data mesh.  The losses are the same bits on every rank.  Dropout, flash
+seeds and RandAugment draws come from (seed, step, rank[, k]).
+
+`data.randaugment`: the RandAugment policy of `data.randaugment_n` ops at
+magnitude `data.randaugment_m` after /255 (`data.images.
+preprocess_train_images`), drawn from the step's (or each microbatch's)
+`Generators.aug`; video frames skip it.  `parallel.model` > 1 and
+`parallel.fsdp` (tensor parallelism, FSDP) raise: they are the next slice
+of the port.
 """
 
 from __future__ import annotations
@@ -53,27 +72,45 @@ from leccr_torch.models.leccr import LECCRModel, TrainEmbeddings
 from leccr_torch.models.losses import LOSS_KEYS, compute_losses
 from leccr_torch.ops.dropout import Generators
 from leccr_torch.ops.infonce import infonce_loss
+from leccr_torch.parallel.mesh import (
+    DataMesh,
+    all_gather_rows,
+    all_reduce_grads,
+    check_layout,
+    scale_grad,
+)
+from leccr_torch.parallel.ring import ring_infonce, ring_infonce_local
 from leccr_torch.train.optim import build_optimizer, clip_by_global_norm
 from leccr_torch.train.schedule import linear_warmup_decay
 from leccr_torch.utils.debug import assert_all_finite, nan_checks
 
 _U64 = 2 ** 64 - 1
+NEXT_SLICE = "the next slice of the port (ROADMAP §1 item 6)"
 
 
-def step_generators(seed: int, step_no: int, device) -> Generators:
-    """The random streams of step `step_no` of a run seeded with `seed`."""
-    return Generators.from_seed((seed << 32) + step_no, device)
+def _of_rank(seed: int, rank: int) -> int:
+    """A stream seed of `rank`: rank 0 keeps `seed`, so a one-process run
+    draws what it drew before ranks existed."""
+    return seed if rank == 0 else (seed ^ (rank * 0x9E3779B97F4A7C15)) & _U64
 
 
-def microbatch_generators(seed: int, step_no: int, k: int,
-                          device) -> Generators:
-    """The random streams of microbatch `k` of step `step_no` under
-    GradCache: one stream per microbatch, as the JAX trainer folds k into
-    the step's keys (trainer.py:385-390)."""
+def step_generators(seed: int, step_no: int, device,
+                    rank: int = 0) -> Generators:
+    """The random streams of step `step_no` of rank `rank` of a run seeded
+    with `seed`."""
+    return Generators.from_seed(_of_rank((seed << 32) + step_no, rank),
+                                device)
+
+
+def microbatch_generators(seed: int, step_no: int, k: int, device,
+                          rank: int = 0) -> Generators:
+    """The random streams of microbatch `k` of step `step_no` of rank
+    `rank` under GradCache: one stream per microbatch, as the JAX trainer
+    folds k into the step's keys (trainer.py:385-390)."""
     if not 0 <= k < 0xFFFF:
         raise ValueError(f"microbatch {k} out of range")
-    return Generators.from_seed(
-        ((((seed << 32) + step_no) << 16) + k + 1) & _U64, device)
+    return Generators.from_seed(_of_rank(
+        ((((seed << 32) + step_no) << 16) + k + 1) & _U64, rank), device)
 
 
 def grad_total(losses: Dict[str, torch.Tensor], mc: ModelConfig,
@@ -102,6 +139,7 @@ def grad_cache_backward(
     objective: Callable[[TrainEmbeddings],
                         Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
     randaugment_n: int = 0,
+    randaugment_m: int = 7,
 ) -> Dict[str, torch.Tensor]:
     """GradCache (Gao et al., arXiv 2101.06983; `_grad_cache_grads`,
     trainer.py:58-120): the exact gradient of `objective` over the whole
@@ -122,10 +160,10 @@ def grad_cache_backward(
          forward reads the same temp), accumulating into the parameters'
          `.grad`.
 
-    Pass 3 must draw exactly the dropout bits and flash seeds pass 1 drew,
-    or the gradient is of other masks and nothing reports it: each
-    microbatch's generators are set back to their state before pass 1.
-    Returns the losses of pass 2."""
+    Pass 3 must draw exactly the dropout bits, flash seeds and RandAugment
+    draws pass 1 drew, or the gradient is of other masks and images and
+    nothing reports it: each microbatch's generators are set back to their
+    state before pass 1.  Returns the losses of pass 2."""
     m = len(gens)
     b = next(iter(batch.values())).shape[0]
     if b % m:
@@ -141,7 +179,7 @@ def grad_cache_backward(
         if not video:
             mb["vision"] = preprocess_train_images(
                 mb["vision"], None if flip is None else flip[rows[k]],
-                randaugment_n)
+                gens[k].aug, randaugment_n, randaugment_m)
         return model(mb, gens[k])
 
     states = [g.get_state() for g in gens]
@@ -174,20 +212,18 @@ def ema_update_(ema: List[torch.Tensor], params: List[torch.Tensor],
     torch._foreach_add_(ema, [p.float() for p in params], alpha=1 - decay)
 
 
-def check_parallel(cfg: LECCRConfig) -> None:
-    """Raise for a `parallel` layout other than the one card."""
+def check_parallel(cfg: LECCRConfig, world: int = 1) -> None:
+    """Raise for a `parallel` layout the port does not run over `world`
+    data-parallel blocks: tensor parallelism and FSDP, and a
+    `parallel.data` other than -1 or the world."""
     par = cfg.parallel
     if par.model > 1:
         raise NotImplementedError(
             f"parallel.model: {par.model} (tensor parallelism) comes with "
-            "the multi-device path of the port")
+            + NEXT_SLICE)
     if par.fsdp:
-        raise NotImplementedError(
-            "parallel.fsdp comes with the multi-device path of the port")
-    if par.data not in (-1, 1):
-        raise NotImplementedError(
-            f"parallel.data: {par.data} (data parallelism over several "
-            "devices) comes with the multi-device path of the port")
+        raise NotImplementedError("parallel.fsdp comes with " + NEXT_SLICE)
+    check_layout(par, world)
 
 
 class TrainStep:
@@ -196,21 +232,29 @@ class TrainStep:
     `ema` (None, or f32 tensors aligned with `params`)."""
 
     def __init__(self, cfg: LECCRConfig, model: LECCRModel, total_steps: int,
-                 num_blocks: int = 1):
+                 num_blocks: int = 1, mesh: Optional[DataMesh] = None):
         tc, mc = cfg.train, cfg.model
-        check_parallel(cfg)
+        if mesh is not None:
+            if num_blocks not in (1, mesh.world):
+                raise ValueError(f"num_blocks {num_blocks} over a world of "
+                                 f"{mesh.world}")
+            num_blocks = mesh.world
+        check_parallel(cfg, num_blocks)
         negatives = cfg.parallel.negatives
         stream_rows = cfg.parallel.stream_loss_block_rows
         if negatives not in ("gather", "fused", "ring", "ring_fused"):
             raise ValueError(f"unknown negatives: {negatives!r}")
-        if negatives in ("ring", "ring_fused") and num_blocks > 1:
-            raise NotImplementedError(
-                f"negatives: {negatives} over {num_blocks} blocks (the ring "
-                "InfoNCE) comes with the multi-device slice of the port")
         if negatives == "ring" and stream_rows == 0:
             stream_rows = 256  # the JAX trainer's default (trainer.py:344-345)
         self.model, self.mc = model, mc
+        self.mesh = mesh
+        self.rank = mesh.rank if mesh is not None else 0
         self.num_blocks = num_blocks
+        # the ring's block impl, where the ITC losses take the ring
+        self.ring_impl = None
+        if negatives in ("ring", "ring_fused") and (
+                mesh is not None or num_blocks > 1):
+            self.ring_impl = "fused" if negatives == "ring_fused" else "dense"
         # video: frames skip the image preprocessing, and the
         # caption-vision loss is a local (per-block) term
         self.is_video = mc.vision.kind == "temporal"
@@ -231,6 +275,7 @@ class TrainStep:
             self.ema_of_params() if self.ema_decay > 0 else None)
         self.randaugment_n = (cfg.data.randaugment_n if cfg.data.randaugment
                               else 0)
+        self.randaugment_m = cfg.data.randaugment_m
         self.seed = tc.seed + 17
         model.train()
 
@@ -239,7 +284,41 @@ class TrainStep:
         """A fresh EMA: f32 copies of the parameters."""
         return [p.detach().to(torch.float32, copy=True) for p in self.params]
 
+    def _itc_loss_fn(self, local: Optional[Dict[int, torch.Tensor]],
+                     idx_local: torch.Tensor):
+        """The ITC InfoNCE: the ring (over the mesh's processes, taking
+        each gathered feature's local rows from `local`, or replayed over
+        num_blocks), else `infonce_loss` for `fused`, else None (dense)."""
+        impl, mesh = self.ring_impl, self.mesh
+        if impl is None:
+            return self.itc_loss_fn
+        if mesh is None:
+            return lambda a, b, t, i: ring_infonce(a, b, t, i,
+                                                   self.num_blocks, impl)
+        return lambda a, b, t, i: ring_infonce_local(
+            local[id(a)], local[id(b)], t, idx_local, mesh, impl)
+
+    def _world_batch(self, emb: TrainEmbeddings, idx: torch.Tensor):
+        """(the world's embeddings, their ids, {id(gathered feature): this
+        rank's rows}): every per-row field all-gathered in rank order, the
+        temperature with its cotangent divided by the world."""
+        mesh = self.mesh
+        fields = {}
+        for f in dataclasses.fields(TrainEmbeddings):
+            value = getattr(emb, f.name)
+            fields[f.name] = (scale_grad(value, 1.0 / mesh.world)
+                              if f.name == "temp"
+                              else all_gather_rows(value, mesh))
+        local = {id(fields[n]): getattr(emb, n)
+                 for n in ("image_feat", "text_feat_s", "text_feat_t")}
+        return (TrainEmbeddings(**fields), all_gather_rows(idx, mesh),
+                local)
+
     def objective(self, emb: TrainEmbeddings, idx: torch.Tensor):
+        """(grad_total, the losses) of this rank's embeddings and ids."""
+        local, idx_local = None, idx
+        if self.mesh is not None:
+            emb, idx, local = self._world_batch(emb, idx)
         b, mc = idx.shape[0], self.mc
         rows = self.stream_rows
         losses = compute_losses(
@@ -251,7 +330,7 @@ class TrainStep:
             dstl_alpha=mc.dstl_alpha,
             num_blocks=self.num_blocks,
             cv_loss_local=self.is_video,
-            itc_loss_fn=self.itc_loss_fn,
+            itc_loss_fn=self._itc_loss_fn(local, idx_local),
             stream_block_rows=(rows if 0 < rows < b and b % rows == 0
                                else 0))
         return (grad_total(losses, mc, self.num_blocks, self.is_video),
@@ -261,15 +340,18 @@ class TrainStep:
                   step_no: int) -> Dict[str, torch.Tensor]:
         model = self.model
         if self.microbatches > 1:
-            gens = [microbatch_generators(self.seed, step_no, k, model.device)
+            gens = [microbatch_generators(self.seed, step_no, k, model.device,
+                                          self.rank)
                     for k in range(self.microbatches)]
             return grad_cache_backward(
                 model, batch, gens, lambda emb: self.objective(emb, idx),
-                self.randaugment_n)
+                self.randaugment_n, self.randaugment_m)
+        gens = step_generators(self.seed, step_no, model.device, self.rank)
         if not self.is_video:
             batch["vision"] = preprocess_train_images(
-                batch["vision"], batch.pop("flip", None), self.randaugment_n)
-        emb = model(batch, step_generators(self.seed, step_no, model.device))
+                batch["vision"], batch.pop("flip", None), gens.aug,
+                self.randaugment_n, self.randaugment_m)
+        emb = model(batch, gens)
         value, losses = self.objective(emb, idx)
         value.backward()
         return losses
@@ -286,6 +368,8 @@ class TrainStep:
         for p in self.params:  # optax decays a param whose gradient is zero
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.mesh is not None:
+            all_reduce_grads(self.params, self.mesh)
         if self.debug_nans:
             assert_all_finite(losses, "losses")
             assert_all_finite([p.grad for p in self.params], "gradients")
@@ -303,7 +387,8 @@ class TrainStep:
 
 
 def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
-                    num_blocks: int = 1) -> TrainStep:
+                    num_blocks: int = 1,
+                    mesh: Optional[DataMesh] = None) -> TrainStep:
     """A train step over `model` (put in training mode here), with the
     optimizer and scheduler of `cfg.train` for a run of `total_steps`
     optimizer steps; they are the returned step's `optimizer` and
@@ -313,5 +398,6 @@ def make_train_step(cfg: LECCRConfig, model: LECCRModel, total_steps: int,
     for video "vision" f32 frames [B,T,Df] with "vision_mask" bool [B,T];
     "idx" [B],
     "text_ids_s"/"text_mask_s", "text_ids_t"/"text_mask_t", "caption_ids"/
-    "caption_mask" (or "caption_feats"), all on the model's device."""
-    return TrainStep(cfg, model, total_steps, num_blocks)
+    "caption_mask" (or "caption_feats"), all on the model's device; under
+    a `mesh`, this rank's rows."""
+    return TrainStep(cfg, model, total_steps, num_blocks, mesh)

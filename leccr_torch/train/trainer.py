@@ -1,8 +1,10 @@
-"""The training/eval engine (the port of `leccr_tpu/train/trainer.py` for
-one card): epoch loop with per-language retrieval eval, best-checkpoint
-gating, exact mid-epoch resume, the EMA, JSONL logs.
+"""The training/eval engine (the port of `leccr_tpu/train/trainer.py`):
+epoch loop with per-language retrieval eval, best-checkpoint gating, exact
+mid-epoch resume, the EMA, JSONL logs; on one device or as one rank of a
+data-parallel world.
 
     trainer = Trainer(cfg)           # on the GPU; Trainer(cfg, "cpu") for tests
+    trainer = Trainer(cfg, mesh=DataMesh.from_env(cfg.parallel))  # a rank
     trainer.fit()                    # train, eval, checkpoint each epoch
 
 - The train step is `train.step.TrainStep` (towers, interaction, the five
@@ -18,6 +20,14 @@ gating, exact mid-epoch resume, the EMA, JSONL logs.
   eviction.
 - Resume is exact: the epoch and the batch within it come from the step
   counter, and the scheduler from the optimizer's step count.
+- Under a `mesh` (`parallel.mesh.DataMesh`, W processes): each rank loads
+  `batch_size_train / W` rows of each step (`TrainLoader`'s process
+  shard) and the step sums the ranks' gradients (`train.step`); the eval
+  batches round up to a multiple of W, each rank embeds its slice of each
+  and the embeddings are all-gathered in global order, so every rank ranks
+  the whole split and gets the single process's metrics.  Only rank 0
+  prints, logs, writes checkpoints and mirrors to hdfs; then the ranks
+  meet at a barrier.  `resume` loads on every rank.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from leccr_torch.device import resolve_device
 from leccr_torch.eval.retrieval import itm_metrics_from_ranks, retrieval_ranks
 from leccr_torch.models.leccr import LECCRModel
 from leccr_torch.models.losses import LOSS_KEYS as STEP_LOSS_KEYS
+from leccr_torch.parallel.mesh import DataMesh, all_gather_rows
 from leccr_torch.train.checkpoints import CheckpointManager
 from leccr_torch.train.metrics import JSONLLogger, MetricLogger, SmoothedValue
 from leccr_torch.train.schedule import linear_warmup_decay
@@ -55,12 +66,14 @@ LOSS_KEYS = ("loss_itc_vs", "loss_itc_vt", "loss_itc_st", "loss_itc_c",
 _LOSS_INDEX = [STEP_LOSS_KEYS.index(k) for k in LOSS_KEYS]
 
 
-def build_datasets(cfg: LECCRConfig):
+def build_datasets(cfg: LECCRConfig, rank: int = 0):
     """(train_ds, {lang: val_ds}, {lang: test_ds}) in the reference layout
     (dataset/__init__.py:117-162): image datasets, or with `dataset: video`
     the feature-bank video datasets at `model.vision.max_frames`.
     `dataset: synthetic` writes a tiny Multi30K-layout set under
-    `<output_dir>/.synthetic` first and points `cfg.data` at it."""
+    `<output_dir>/.synthetic` first (rank r > 0 of a data-parallel world:
+    the same set, from the same seed, under `.synthetic.rank<r>`, so no
+    two processes write one file) and points `cfg.data` at it."""
     from leccr_torch.data.datasets import (
         ImageEvalDataset,
         ImageTrainDataset,
@@ -79,7 +92,8 @@ def build_datasets(cfg: LECCRConfig):
     if data.dataset == "synthetic":
         from leccr_torch.data.synthetic import make_image_dataset
 
-        root = Path(cfg.output_dir) / ".synthetic"
+        root = Path(cfg.output_dir) / (
+            ".synthetic" + (f".rank{rank}" if rank else ""))
         synth = make_image_dataset(
             str(root), n_train=data.synthetic_size,
             n_eval=data.synthetic_eval_images,
@@ -129,30 +143,47 @@ class TrainState:
 
 class Trainer:
     def __init__(self, cfg: LECCRConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh: Optional[DataMesh] = None):
         """device: None = the GPU (raises when there is none); the tests
-        pass "cpu"."""
+        pass "cpu".  mesh: this process's place in a data-parallel world
+        (its device is the mesh's)."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.world = mesh.world if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        self.is_main = self.rank == 0
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.is_video = cfg.model.vision.kind == "temporal"
-        check_parallel(cfg)
-        self.train_ds, self.val_ds, self.test_ds = build_datasets(cfg)
+        check_parallel(cfg, self.world)
+        # eval batches split over the ranks: sizes round up to a multiple
+        # of the world (trainer.py:203-207)
+        w = self.world
+        cfg.train.batch_size_test = -(-cfg.train.batch_size_test // w) * w
+        cfg.train.batch_size_test_text = (
+            -(-cfg.train.batch_size_test_text // w) * w)
+        self.train_ds, self.val_ds, self.test_ds = build_datasets(cfg,
+                                                                  self.rank)
         # startup summary (reference image_Retrieval_caption.py:345-349)
-        print(f"### Train Files: "
-              f"{[os.path.basename(p) for p in cfg.data.train_file]}")
-        print(f"### Train data {len(self.train_ds)}, batch size "
-              f"{cfg.train.batch_size_train}, device {self.device}")
-        print(f"### Validation: "
-              f"{[(k, len(d)) for k, d in self.val_ds.items()]}")
-        print(f"### Test: {[(k, len(d)) for k, d in self.test_ds.items()]}")
+        self.print(f"### Train Files: "
+                   f"{[os.path.basename(p) for p in cfg.data.train_file]}")
+        self.print(f"### Train data {len(self.train_ds)}, batch size "
+                   f"{cfg.train.batch_size_train}, device {self.device}"
+                   + (f", {w} ranks" if mesh is not None else ""))
+        self.print(f"### Validation: "
+                   f"{[(k, len(d)) for k, d in self.val_ds.items()]}")
+        self.print(f"### Test: "
+                   f"{[(k, len(d)) for k, d in self.test_ds.items()]}")
 
         self.tokenizer, self.caption_tokenizer = make_tokenizers(cfg)
         self.train_loader = TrainLoader(
             self.train_ds, self.tokenizer, cfg.data,
             batch_size=cfg.train.batch_size_train,
             num_workers=cfg.data.num_workers,
-            caption_tokenizer=self.caption_tokenizer)
-        print(f"### Tokenizer: {type(self.tokenizer).__name__} "
+            caption_tokenizer=self.caption_tokenizer,
+            process_count=w, process_index=self.rank)
+        self.print(f"### Tokenizer: {type(self.tokenizer).__name__} "
               f"({'native' if self.train_loader.native else 'Python'}), "
               f"captions: {type(self.caption_tokenizer).__name__}")
         self.steps_per_epoch = self.train_loader.steps_per_epoch()
@@ -164,9 +195,10 @@ class Trainer:
 
         model = LECCRModel(cfg.model, device=self.device,
                            seed=cfg.train.seed)
-        print(f"### Total Params: "
-              f"{sum(p.numel() for p in model.parameters())}")
-        self.state = TrainState(model, TrainStep(cfg, model, total_steps))
+        self.print(f"### Total Params: "
+                   f"{sum(p.numel() for p in model.parameters())}")
+        self.state = TrainState(model, TrainStep(cfg, model, total_steps,
+                                                 mesh=mesh))
         self._ema_model: Optional[LECCRModel] = None
         # id(dataset) -> (dataset, [(device batch, count), ...]); the
         # dataset reference pins the id against reuse.  First-come
@@ -176,12 +208,21 @@ class Trainer:
         self._hdfs_sync_state: dict = {}
         self.ckpt = CheckpointManager(cfg.output_dir,
                                       cfg.train.keep_checkpoints)
-        self.logger = JSONLLogger(cfg.output_dir)
+        self.logger = JSONLLogger(cfg.output_dir, enabled=self.is_main)
         # per train_epoch: {"epoch", "wait_s", "step_s"}, a list each
         # (host clock, per step: the time blocked on its batch, and from
         # asking for its batch to asking for the next, or to the epoch's
         # end after the last loss read-back)
         self.timing: List[Dict[str, Any]] = []
+
+    def print(self, *args, **kwargs) -> None:
+        """print on rank 0; the other ranks stay quiet."""
+        if self.is_main:
+            print(*args, **kwargs)
+
+    def barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def load_initial_checkpoint(self, path: str):
         """Load initial weights (`models.weights.load_initial_checkpoint`:
@@ -199,14 +240,19 @@ class Trainer:
     # ----------------------------------------------------------- epochs
 
     def _save(self, epoch: int, **kwargs) -> None:
+        """Rank 0 writes the checkpoint; every rank then meets the others."""
         state = self.state
+        if not self.is_main:
+            self.barrier()
+            return
         self.ckpt.save(state.step, state.model.state_dict(),
                        state.optimizer.state_dict(), epoch,
                        steps_per_epoch=self.steps_per_epoch, ema=state.ema,
                        **kwargs)
+        self.barrier()
 
     def train_epoch(self, epoch: int, skip_steps: int = 0) -> Dict[str, str]:
-        logger = MetricLogger()
+        logger = MetricLogger(print_fn=self.print)
         logger.add_meter("lr", SmoothedValue(1, "{value:.6f}"))
         for key in LOSS_KEYS:
             logger.add_meter(key, SmoothedValue(1, "{value:.4f}"))
@@ -266,7 +312,7 @@ class Trainer:
         ends = starts[1:] + [time.perf_counter()]
         self.timing.append({"epoch": epoch, "wait_s": waits, "step_s": [
             end - start for start, end in zip(starts, ends)]})
-        print("Averaged stats:", logger)
+        self.print("Averaged stats:", logger)
         return {k: f"{m.global_avg:.5f}" for k, m in logger.meters.items()}
 
     # ------------------------------------------------------------- eval
@@ -327,7 +373,8 @@ class Trainer:
             batch_size=cfg.train.batch_size_test,
             text_batch_size=cfg.train.batch_size_test_text,
             caption_tokenizer=self.caption_tokenizer,
-            num_workers=cfg.data.num_workers)
+            num_workers=cfg.data.num_workers,
+            process_count=self.world, process_index=self.rank)
         model = self.eval_model()
         # texts are pre-tokenized: one upload, then every batch back to
         # back with no host sync; only the last batch holds pad rows
@@ -335,16 +382,29 @@ class Trainer:
         ids = torch.from_numpy(np.stack([t[0] for t in tb])).to(self.device)
         mask = torch.from_numpy(np.stack([t[1] for t in tb])).to(self.device)
         n_txt = sum(t[2] for t in tb)
-        text_embeds = torch.cat([model.embed_texts(ids[i], mask[i])
-                                 for i in range(len(tb))])[:n_txt]
-        feats, slots = [], []
+        text_embeds = self._global_rows(torch.stack(
+            [model.embed_texts(ids[i], mask[i]) for i in range(len(tb))]),
+            n_txt)
+        feats, slots, n_img = [], [], 0
         for batch, count in self._image_batches(loader, dataset):
             if not self.is_video:  # video frames go in as they are
                 batch = {**batch, "vision": normalize_images(batch["vision"])}
             out = model.embed_images(batch)
-            feats.append(out["feat"][:count])
-            slots.append(out["slots"][:count])
-        return torch.cat(feats), torch.cat(slots), text_embeds
+            feats.append(out["feat"])
+            slots.append(out["slots"])
+            n_img += count
+        return (self._global_rows(torch.stack(feats), n_img),
+                self._global_rows(torch.stack(slots), n_img), text_embeds)
+
+    def _global_rows(self, local: torch.Tensor, n: int) -> torch.Tensor:
+        """The split's first n rows from per-batch local rows [nb, b, ...]:
+        every rank's slice of each batch in rank order (the global batch),
+        batches in order, padding rows (at the split's end) dropped."""
+        lead = 2
+        if self.world > 1:  # [W, nb, b, ...] -> [nb, W, b, ...]
+            local = all_gather_rows(local[None], self.mesh).transpose(0, 1)
+            lead = 3
+        return local.reshape(-1, *local.shape[lead:])[:n]
 
     def evaluate(self, dataset) -> Dict[str, float]:
         """Full retrieval eval of one split: embed texts and images (with
@@ -362,7 +422,7 @@ class Trainer:
             fusion=fusion, alpha=self.cfg.train.eval_alpha)
         metrics = itm_metrics_from_ranks(i2t, t2i)
         dt = str(datetime.timedelta(seconds=int(time.time() - t0)))
-        print(f"Evaluation time {dt}")
+        self.print(f"Evaluation time {dt}")
         return metrics
 
     # --------------------------------------------------------------- fit
@@ -402,13 +462,13 @@ class Trainer:
         meta_spe = int(meta["steps_per_epoch"])
         if (meta_spe and meta_spe != self.steps_per_epoch) or (
                 not meta_spe and epoch not in (meta_epoch, meta_epoch + 1)):
-            print("### WARNING: steps_per_epoch changed since the "
-                  "checkpoint; restarting from the next epoch boundary "
-                  "instead of the exact batch")
+            self.print("### WARNING: steps_per_epoch changed since the "
+                       "checkpoint; restarting from the next epoch boundary "
+                       "instead of the exact batch")
             epoch, skip = meta_epoch + 1, 0
             state.step = epoch * self.steps_per_epoch
-        print(f"### resumed from step {step}, epoch {epoch}"
-              + (f" (skipping {skip} consumed batches)" if skip else ""))
+        self.print(f"### resumed from step {step}, epoch {epoch}"
+                   + (f" (skipping {skip} consumed batches)" if skip else ""))
         return epoch, skip
 
     def fit(self, evaluate_only: bool = False) -> Dict[str, Any]:
@@ -436,8 +496,8 @@ class Trainer:
             for language in self.val_ds:
                 val_result = self.evaluate(self.val_ds[language])
                 test_result = self.evaluate(self.test_ds[language])
-                print(f"{language}-val: {val_result}")
-                print(f"{language}-test: {test_result}")
+                self.print(f"{language}-val: {val_result}")
+                self.print(f"{language}-test: {test_result}")
                 sumr_sum += test_result["sumr_sum"]
                 log_stats.update(
                     {f"{language}_val_{k}": v for k, v in val_result.items()})
@@ -457,8 +517,9 @@ class Trainer:
                            metrics={"sumr_sum": sumr_sum}, is_best=is_best)
             if is_best:
                 best, best_epoch = sumr_sum, epoch
-            print(f"best epoch is {best_epoch} and best sumr is {best:.2f}")
-            if cfg.remote_output_dir:
+            self.print(f"best epoch is {best_epoch} and best sumr is "
+                       f"{best:.2f}")
+            if cfg.remote_output_dir and self.is_main:
                 # mirror the output dir (checkpoints, log.txt, config.json)
                 # once the save has landed (reference utils/checkpointer.py
                 # :20-46 uploads per epoch)
@@ -466,7 +527,9 @@ class Trainer:
                 self._sync_outputs()
         self.ckpt.wait()
         self.logger.write({"best_epoch": best_epoch, "best": best})
-        self._sync_outputs()
+        if self.is_main:
+            self._sync_outputs()
+        self.barrier()  # the checkpoints are on disk for every rank
         return last_stats
 
     def _sync_outputs(self) -> None:

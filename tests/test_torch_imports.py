@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_builds_nothing():
             "leccr_torch.run", "leccr_torch.data.tokenizers",
             "leccr_torch.data.native_tokenizer", "leccr_torch.models.clip",
             "leccr_torch.models.convert", "leccr_torch.serve_ann",
-            "leccr_torch.serve_frontend"} <= set(out["modules"])
+            "leccr_torch.serve_frontend", "leccr_torch.data.randaugment",
+            "leccr_torch.parallel.mesh",
+            "leccr_torch.parallel.ring"} <= set(out["modules"])
     assert out["foreign"] == []
     assert out["built"] == []
     assert not out["native_loaded"]

@@ -20,7 +20,11 @@ import pytest
 import torch
 
 from leccr_torch.config import tiny_test_config as torch_tiny_config
-from leccr_torch.data.images import preprocess_train_images
+from leccr_torch.data.images import (
+    CLIP_MEAN,
+    CLIP_STD,
+    preprocess_train_images,
+)
 from leccr_torch.models import losses as port
 from leccr_torch.models.leccr import LECCRModel as TorchLECCR
 from leccr_torch.models.leccr import TrainEmbeddings as TorchEmb
@@ -243,9 +247,25 @@ def test_preprocess_train_images_matches_jax():
     np.testing.assert_allclose(
         preprocess_train_images(torch.from_numpy(images), None).numpy(),
         np.asarray(jax_preprocess(jnp.asarray(images), None)), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="RandAugment"):
+    # RandAugment draws from an explicit generator (its ops are held
+    # against JAX's in tests/test_torch_randaugment.py): after /255, before
+    # the normalization and the flip
+    with pytest.raises(ValueError, match="generator"):
         preprocess_train_images(torch.from_numpy(images), None,
                                 randaugment_n=2)
+    from leccr_torch.data.randaugment import rand_augment_batch
+
+    got = preprocess_train_images(torch.from_numpy(images),
+                                  torch.from_numpy(flip),
+                                  torch.Generator().manual_seed(3), 2, 9)
+    augmented = rand_augment_batch(
+        torch.from_numpy(images).float() / 255.0,
+        torch.Generator().manual_seed(3), 2, 9)
+    want = (augmented - torch.from_numpy(CLIP_MEAN)) / torch.from_numpy(
+        CLIP_STD)
+    want = torch.where(torch.from_numpy(flip)[:, None, None, None],
+                       want.flip(2), want)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("rate", [0.1, 0.5])

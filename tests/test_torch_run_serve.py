@@ -120,17 +120,20 @@ def _request(url, body=None):
         return json.loads(r.read())
 
 
-@pytest.mark.parametrize("kind", ["int8", "ivf"])
+@pytest.mark.parametrize("kind", ["int8", "ivf", "sharded"])
 def test_serve_answers_over_http_until_sigint(tmp_path, kind):
+    """"sharded": the f32 save served with --devices 2, the index
+    row-sharded over two (CPU) devices."""
     d = tmp_path / "index"
-    build = ["--int8"] if kind == "int8" else ["--ivf", "--ivf_clusters",
-                                               "3"]
+    build = {"int8": ["--int8"], "ivf": ["--ivf", "--ivf_clusters", "3"],
+             "sharded": []}[kind]
     _cli(tmp_path, "build_index", "--index", str(d), *build)
     proc = subprocess.Popen(
         [sys.executable, "-m", "leccr_torch.run", "--task", "serve",
          "--config", CONFIG, "--output_dir", str(tmp_path / "run"),
          "--index", str(d), "--port", "0", "--serve_bs", "4", "--device",
-         "cpu"], cwd=str(ROOT), stdout=subprocess.PIPE,
+         "cpu", *(["--devices", "2"] if kind == "sharded" else [])],
+        cwd=str(ROOT), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     killer = threading.Timer(120, proc.kill)
@@ -146,9 +149,10 @@ def test_serve_answers_over_http_until_sigint(tmp_path, kind):
                 seen)
             seen.append(line)
         base = seen[-1].split()[3]
-        assert any(line.startswith("### IVF index:" if kind == "ivf"
-                                   else "### index: 8 items (int8)")
-                   for line in seen)
+        assert any(line.startswith({
+            "ivf": "### IVF index:", "int8": "### index: 8 items (int8)",
+            "sharded": "### index: 8 items, sharded over 2 devices"}[kind])
+            for line in seen)
         assert _request(base + "/healthz") == {"ok": True, "index_size": 8}
         body = {"queries": ["a red dog", "field"], "k": 3}
         if kind == "ivf":

@@ -333,10 +333,12 @@ def test_load_rejects_a_corrupt_save_and_a_mesh(tmp_path):
     (d / "ids.json").write_text(json.dumps(["a", "b"]))
     with pytest.raises(ValueError, match="corrupt"):
         port.load_index(str(d), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.load_index(str(d), "cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.shard_index(index, mesh=object())
+    # a mesh lays the rows out sharded (tests/test_torch_serve_sharded.py);
+    # a corrupt save raises there too, before any row is placed
+    with pytest.raises(ValueError, match="corrupt"):
+        port.load_index(str(d), mesh=["cpu"] * 2)
+    with pytest.raises(ValueError, match="at least one device"):
+        port.shard_index(index, [])
 
 
 def test_save_load_keeps_the_device_and_defaults_to_the_gpu(tmp_path,

@@ -304,15 +304,19 @@ def test_params_to_jax_round_trip():
         torch.testing.assert_close(sd[name], value, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("override", [
-    {"parallel.model": 2}, {"parallel.fsdp": True}, {"parallel.data": 2}])
-def test_unported_train_options_raise(override):
-    """Tensor parallelism, FSDP and data parallelism over several devices
-    come with the multi-device path; the EMA trains
-    (tests/test_torch_trainer.py), `negatives: fused` and GradCache train on
-    one device (tests/test_torch_large_batch_step.py), as do `ring` and
-    `ring_fused` (tests/test_torch_scale_step.py)."""
+@pytest.mark.parametrize("override,error,match", [
+    ({"parallel.model": 2}, NotImplementedError, "next slice"),
+    ({"parallel.fsdp": True}, NotImplementedError, "next slice"),
+    ({"parallel.data": 2}, ValueError, "the world, 1")])
+def test_unported_train_options_raise(override, error, match):
+    """Tensor parallelism and FSDP come with the next slice of the port;
+    data parallelism runs over processes (tests/
+    test_torch_distributed_trainer.py), so `parallel.data` must name the
+    world, here one block.  The EMA trains (tests/test_torch_trainer.py),
+    `negatives: fused` and GradCache train on one device (tests/
+    test_torch_large_batch_step.py), as do `ring` and `ring_fused`
+    (tests/test_torch_scale_step.py)."""
     cfg = torch_tiny_config(**override)
     model = TorchLECCR(cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error, match=match):
         make_train_step(cfg, model, total_steps=10)

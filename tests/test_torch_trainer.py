@@ -559,16 +559,22 @@ def test_cli_without_a_card_raises(tmp_path):
     assert not (tmp_path / "run" / "log.txt").exists()
 
 
-@pytest.mark.parametrize("args", [
-    ["--multihost"], ["--devices", "2"],
-    ["--task", "serve", "--devices", "2"]])
-def test_cli_unported_options_raise(tmp_path, args):
-    """Every task runs; the multi-device options (more than one device)
-    wait for ROADMAP §1 item 6."""
+@pytest.mark.parametrize("override", [{"parallel.model": 2},
+                                      {"parallel.fsdp": True}])
+def test_cli_unported_options_raise(tmp_path, override):
+    """Every task runs, on one device or data-parallel over several
+    (tests/test_torch_run_distributed.py); tensor parallelism and FSDP
+    wait for the next slice of the port (ROADMAP §1 item 6)."""
+    from leccr_torch.config import load_config
     from leccr_torch.run import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--output_dir", str(tmp_path), "--device", "cpu", *args])
+    cfg = load_config(str(ROOT / "configs" / "tiny_synth.yaml"))
+    (key, value), = override.items()
+    setattr(cfg.parallel, key.split(".")[1], value)
+    cfg.save(str(tmp_path / "config.json"))
+    with pytest.raises(NotImplementedError, match="next slice"):
+        main(["--config", str(tmp_path / "config.json"), "--output_dir",
+              str(tmp_path / "run"), "--device", "cpu"])
 
 
 def test_cli_one_device_passes_the_devices_check(tmp_path):
