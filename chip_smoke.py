@@ -228,6 +228,24 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    15's 1M rows row-sharded 4 ways on cuda:0 (`serve.shard_index`): the
    top-10 of 64 queries equal the unsharded search's bit for bit, f32 and
    int8, fusion none and minmax; ms per batch.
+20. tensor parallelism (`tensor_parallel_phase`, last): the model ranks
+   of one data rank replayed in one process (`parallel.tensor.
+   replay_model_ranks`) at full width in bf16 (TP_CASES): the flagship's
+   ViT-B/32 @384 (bs128 x 145) and mBERT-base (bs128 x 128, key padding)
+   at M = 2 and 4 (kernels 2/3), ViT-L/14 @336 (bs32 x 577, kernels 4/5)
+   and @728 (bs8 x 2705, kernels 6-8, head_group(16) = 8 across two
+   ranks) at M = 4.  Each rank's heads through the kernels at its offset
+   and the layer's H, forward and backward at dropout 0.1, against the
+   dense call's heads (bit for bit expected; held to 1e-5 + BF16_K ulps);
+   the masks the kernels apply on rank 1's heads, read back, equal to
+   `keep_mask` / `tile_keep_mask` at the offset and the layer's head
+   group; the ranks' block (mBERT layer at dropout 0.1, CLIP blocks at
+   their rate 0) against the dense block, both bf16, with the f32 dense
+   block as reference: per tensor (output, dx, each parameter's gradient)
+   max |ranks - dense| <= 2 max |dense - f32| + M bf16 ulps of max |f32|;
+   exactly M launches of each of the regime's kernels a replay; rank 0's
+   block alone (collectives as local stand-ins) beside the dense block:
+   device ms (profiler) and event ms.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -766,7 +784,8 @@ def flash_phase(dh: int = 64, seed: int = 1234):
     return results
 
 
-def single_masks(batch, heads, length, dtype, rate, seed, dh=64):
+def single_masks(batch, heads, length, dtype, rate, seed, dh=64,
+                 span=(0, None)):
     """The dropout masks that kernel 2 and kernel 3's two passes apply, read
     back bit for bit ([B, H, L, L] bool, True = kept), one block of dh keys
     (or queries) at a time.  With q = k = 0 every score is 0 and the
@@ -778,13 +797,20 @@ def single_masks(batch, heads, length, dtype, rate, seed, dh=64):
     and ds_ij = p (dp_ij - delta_i) scale, positive exactly where kept, so
     dq[i, d] = round(ds_ij) > 0 there; with g the identity on queries
     [c, c + dh) and q = k = v = 0 the dk/dv pass gives dv[j, d] =
-    round(pd_ij) for i = c + d, nonzero exactly where kept."""
+    round(pd_ij) for i = c + d, nonzero exactly where kept.  span: (h0,
+    H), the heads' offset and the layer's head count (tensor
+    parallelism)."""
+    import functools
+
     import torch
 
-    from leccr_torch.ops.flash_attention import (
-        flash_tower_attention_bwd,
-        flash_tower_attention_fwd,
-    )
+    from leccr_torch.ops import flash_attention as fa
+
+    at = dict(head_offset=span[0], num_heads=span[1])
+    flash_tower_attention_fwd = functools.partial(
+        fa.flash_tower_attention_fwd, **at)
+    flash_tower_attention_bwd = functools.partial(
+        fa.flash_tower_attention_bwd, **at)
 
     shape = (batch, length, heads, dh)
     zeros = path_layout(torch.zeros(shape, dtype=dtype, device="cuda"))
@@ -972,18 +998,25 @@ def chunked_phase(dh: int = 64, seed: int = 1234):
     return results
 
 
-def chunk_bwd_masks(batch, heads, length, dtype, rate, seed, dh=64):
+def chunk_bwd_masks(batch, heads, length, dtype, rate, seed, dh=64,
+                    span=(0, None)):
     """The dropout masks that kernel 5's dq and dk/dv passes apply, read back
     bit for bit ([B, H, Lq, Lk] bool, True = kept), two launch pairs per
     64-row block: with q = 0, k = v = the identity on key block [c, c + 64),
     g = 1 and out = 0 (delta 0), dq[i, d] = ds[i, c + d]; with q = k = v = 0
-    and g the identity on query block c, dv[j, d] = pd[c + d, j]."""
+    and g the identity on query block c, dv[j, d] = pd[c + d, j].  span:
+    as `single_masks`'."""
+    import functools
+
     import torch
 
-    from leccr_torch.ops.flash_attention import (
-        flash_chunked_attention_bwd,
-        flash_chunked_attention_fwd,
-    )
+    from leccr_torch.ops import flash_attention as fa
+
+    at = dict(head_offset=span[0], num_heads=span[1])
+    flash_chunked_attention_bwd = functools.partial(
+        fa.flash_chunked_attention_bwd, **at)
+    flash_chunked_attention_fwd = functools.partial(
+        fa.flash_chunked_attention_fwd, **at)
 
     shape = (batch, length, heads, dh)
     zeros = path_layout(torch.zeros(shape, dtype=dtype, device="cuda"))
@@ -1112,12 +1145,13 @@ def identity_blocks(batch, heads, length, dtype, dh=64):
         yield c, n, path_layout(block)
 
 
-def fwd_masks(fwd, batch, heads, length, dtype, rate, seed, dh=64):
+def fwd_masks(fwd, batch, heads, length, dtype, rate, seed, dh=64,
+              span=(0, None)):
     """The dropout mask that a streamed forward (`fwd`: kernel 4's or 6's
     wrapper) applies, read back bit for bit ([B, H, Lq, Lk] bool, True =
     kept), one 64-key block per launch.  With q = k = 0 every score is 0
     and p = 1/L, so with v the identity on block [c, c + 64) out[i, d] is
-    nonzero exactly where (i, c + d) is kept."""
+    nonzero exactly where (i, c + d) is kept.  span: as `single_masks`'."""
     import torch
 
     zeros = path_layout(torch.zeros((batch, length, heads, dh), dtype=dtype,
@@ -1125,33 +1159,41 @@ def fwd_masks(fwd, batch, heads, length, dtype, rate, seed, dh=64):
     mask = torch.empty((batch, heads, length, length), dtype=torch.bool,
                        device="cuda")
     for c, n, block in identity_blocks(batch, heads, length, dtype, dh):
-        out, _ = fwd(zeros, zeros, block, None, seed, rate)
+        out, _ = fwd(zeros, zeros, block, None, seed, rate,
+                     head_offset=span[0], num_heads=span[1])
         mask[..., c:c + n] = out[..., :n] != 0
     return mask
 
 
-def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64):
+def tiled_masks(batch, heads, length, dtype, rate, seed, dh=64,
+                span=(0, None)):
     """The dropout masks that kernels 6, 7 and 8 apply, read back bit for
     bit ([B, H, Lq, Lk] bool, True = kept), one 64-key (or 64-query) block
     per launch: kernel 6's by `fwd_masks`; kernel 7 with q = 0, k = v =
     the identity on block [c, c + 64), g = 1 and out = 0 (delta 0) gives
     dq[i, d] = ds[i, c + d], and kernel 8 with g the identity on query
-    block c gives dv[j, d] = pd[c + d, j]."""
+    block c gives dv[j, d] = pd[c + d, j].  span: as `single_masks`'."""
+    import functools
+
     import torch
 
-    from leccr_torch.ops.flash_attention import (
-        flash_tiled_attention_dkv,
-        flash_tiled_attention_dq,
-        flash_tiled_attention_fwd,
-    )
+    from leccr_torch.ops import flash_attention as fa
+
+    at = dict(head_offset=span[0], num_heads=span[1])
+    flash_tiled_attention_dkv = functools.partial(
+        fa.flash_tiled_attention_dkv, **at)
+    flash_tiled_attention_dq = functools.partial(
+        fa.flash_tiled_attention_dq, **at)
+    flash_tiled_attention_fwd = functools.partial(
+        fa.flash_tiled_attention_fwd, **at)
 
     shape = (batch, length, heads, dh)
     zeros = path_layout(torch.zeros(shape, dtype=dtype, device="cuda"))
     ones = path_layout(torch.ones(shape, dtype=dtype, device="cuda"))
     _, lse = flash_tiled_attention_fwd(zeros, zeros, zeros, None, seed, rate)
     delta = torch.zeros_like(lse)
-    masks = [fwd_masks(flash_tiled_attention_fwd, batch, heads, length,
-                       dtype, rate, seed, dh)]
+    masks = [fwd_masks(fa.flash_tiled_attention_fwd, batch, heads, length,
+                       dtype, rate, seed, dh, span)]
     masks += [torch.empty((batch, heads, length, length), dtype=torch.bool,
                           device="cuda") for _ in range(2)]
     for c, n, block in identity_blocks(batch, heads, length, dtype, dh):
@@ -4170,6 +4212,312 @@ def sharded_serve_phase(card_line, index, q8, q, valid, k: int = 10):
          **times)
 
 
+# (name, regime, B, H, L, key padding, model counts, blocks) of the tensor-
+# parallel phase: the flagship's ViT-B/32 @384 and mBERT-base at 128 tokens
+# (kernels 2/3; at M = 4, 3 heads a rank), ViT-L/14 @336 (kernels 4/5) and
+# ViT-L/14 @728 (kernels 6-8, head_group(16) = 8 across two ranks of 4)
+TP_CASES = [("flagship-vision", "single", 128, 12, 145, False, (2, 4),
+             ("vit-b",)),
+            ("flagship-text", "single", 128, 12, 128, True, (2, 4),
+             ("mbert",)),
+            ("long-sequence", "chunked", 32, 16, 577, False, (4,),
+             ("vit-l",)),
+            ("high-resolution", "tiled", HIRES_BATCH, 16, HIRES_TOKENS,
+             False, (4,), ("vit-l",))]
+TP_RATE = 0.1
+TP_MASK_BATCH = 2  # the mask read-backs' batch
+TP_ITERS = 10
+# kernels (2, 3, 4, 5, 6, 7, 8) a replayed block launches at M ranks, a
+# forward and a backward: one call of the regime's kernels a rank
+TP_BLOCK_LAUNCHES = {"single": (1, 1, 0, 0, 0, 0, 0),
+                     "chunked": (0, 0, 1, 1, 0, 0, 0),
+                     "tiled": (0, 0, 0, 0, 1, 1, 1)}
+
+
+class _SoloGroup:
+    """One model rank's collectives as local stand-ins, to time a rank's
+    block alone: the reduce keeps the rank's partial (in f32), the gather
+    repeats the rank's slice."""
+
+    def __init__(self, rank, world):
+        self.rank, self.world = rank, world
+
+    def copy(self, x):
+        return x
+
+    def reduce(self, x):
+        return x.float()
+
+    def gather(self, x):
+        import torch
+
+        return torch.cat([x] * self.world, dim=-1)
+
+
+def tp_block(kind, length):
+    """A dense transformer block of `kind` on the card (f32 masters, bf16
+    compute, seeded random weights) and its call(block, x, gen)."""
+    import torch
+
+    from leccr_torch.config import load_config
+    from leccr_torch.models.bert import _BertLayer
+    from leccr_torch.models.clip import CLIP_VARIANTS, _ResidualBlock
+    from leccr_torch.ops.attention import set_compute_dtype
+
+    if kind == "mbert":
+        text = load_config(str(ROOT / "configs" / "multi30k_all.yaml")
+                           ).model.text
+        text.hidden_dropout = text.attention_dropout = TP_RATE
+        block = _BertLayer(text)
+        mask = torch.ones(1, length, dtype=torch.int32, device="cuda")
+
+        def call(blk, x, gen):
+            m = mask.expand(x.shape[0], -1).clone()
+            m[1, length // 3:] = 0
+            return blk(x, m, False, gen)
+    else:
+        var = CLIP_VARIANTS["ViT-B/32" if kind == "vit-b" else "ViT-L/14"]
+        block = _ResidualBlock(var.vision_width, var.vision_heads,
+                               fused=True)
+
+        def call(blk, x, gen):
+            return blk(x, False)  # the flash path; the CLIP tower has no
+            # dropout
+    block = block.cuda()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    with torch.no_grad():  # lecun-normal kernels, LayerNorms near 1
+        for name, p in block.named_parameters():
+            r = torch.randn(p.shape, device="cuda", generator=g)
+            if p.dim() == 2:
+                p.copy_(r * p.shape[1] ** -0.5)
+            elif "ln" in name and name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * r)
+            else:
+                p.copy_(0.02 * r)
+    set_compute_dtype(block, torch.bfloat16)
+    return block, call
+
+
+def tp_kernel_check(name, regime, b, heads, length, padded, world, seed):
+    """Each rank's heads through the kernels at its offset and the layer's
+    H, forward and backward at rate TP_RATE, against the dense call's
+    heads; then the masks the kernels apply on rank 1's heads, read back,
+    against the plain hash at the offset."""
+    import torch
+
+    from leccr_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, grad = (path_layout(torch.randn(
+        (b, length, heads, 64), device="cuda", generator=g,
+        dtype=torch.bfloat16)) for _ in range(4))
+    pad = None
+    if padded:
+        pad = torch.zeros(b, length, dtype=torch.bool, device="cuda")
+        pad[1, length // 3:] = True
+    assert fa.regime(q, k) == regime
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_tower_attention(*leaves, pad, seed, TP_RATE)
+    out.backward(grad)
+    dense = [out.detach()] + [t.grad for t in leaves]
+    local = heads // world
+    worst, bit_equal = 0.0, True
+    for m in range(world):
+        h0 = m * local
+        part = [t.detach()[:, h0:h0 + local].requires_grad_()
+                for t in (q, k, v)]
+        assert fa.regime(part[0], part[1], num_heads=heads) == regime
+        out = fa.flash_tower_attention(*part, pad, seed, TP_RATE, h0, heads)
+        out.backward(grad[:, h0:h0 + local])
+        for got, want in zip([out.detach()] + [t.grad for t in part],
+                             dense):
+            want = want[:, h0:h0 + local]
+            bit_equal &= bool(torch.equal(got, want))
+            err = (got.float() - want.float()).abs()
+            tol = 1e-5 + BF16_K * bf16_ulp(want)
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"{name} at M={world}, rank {m}: a "
+                                     f"local-head result off the dense")
+            worst = max(worst, err.max().item())
+    # the masks of rank 1's heads [h0, h0 + local), read back
+    h0, mb = local, TP_MASK_BATCH
+    if regime == "single":
+        masks = single_masks(mb, local, length, torch.bfloat16, TP_RATE,
+                             seed, span=(h0, heads))
+        want = fa.keep_mask(seed, mb, local, length, length, TP_RATE,
+                            device="cuda", h0=h0) != 0
+    else:
+        hg = (fa.chunk_head_group(heads) if regime == "chunked"
+              else fa.head_group(heads))
+        if regime == "chunked":
+            masks = [fwd_masks(fa.flash_chunked_attention_fwd, mb, local,
+                               length, torch.bfloat16, TP_RATE, seed,
+                               span=(h0, heads))]
+            masks += chunk_bwd_masks(mb, local, length, torch.bfloat16,
+                                     TP_RATE, seed, span=(h0, heads))
+        else:
+            masks = tiled_masks(mb, local, length, torch.bfloat16, TP_RATE,
+                                seed, span=(h0, heads))
+        want = fa.tile_keep_mask(seed, mb, local, length, length, TP_RATE,
+                                 device="cuda", hg=hg, h0=h0) != 0
+    if not all(torch.equal(mk, want) for mk in masks):
+        raise AssertionError(f"{name} at M={world}: the kernels' masks on "
+                             f"heads [{h0}, {h0 + local}) are not the plain "
+                             f"hash at the offset")
+    return {"max_abs_err": worst, "bit_equal": bit_equal,
+            "masks_read_back": len(masks), "mask_heads": [h0, h0 + local]}
+
+
+def tp_block_check(kind, b, length, world, seed):
+    """The ranks' block, replayed (`replay_model_ranks`), against the dense
+    block, both in bf16, forward and backward at dropout TP_RATE (mBERT:
+    its hidden and attention dropout; a CLIP block has none), and the
+    dense block in f32 as the reference: per tensor (the output, dx and
+    every parameter's gradient) max |ranks - dense| <= 2 max |dense - f32|
+    + M ulp_bf16(max |f32|), one bf16 rounding per partial sum on top of
+    twice the bf16 block's own error.  Then the launches of kernels 2-8 in
+    the replay, and rank 0's block alone (its collectives local stand-ins,
+    `_SoloGroup`) beside the dense block, forward + backward: device ms
+    (the profiler's kernel time a call, over TP_ITERS calls) and event ms
+    after a 1 GiB L2 flush (which a small block's host dispatch can
+    exceed: device ms is the layer's time)."""
+    import copy
+
+    import torch
+
+    from leccr_torch.ops.attention import set_compute_dtype
+    from leccr_torch.ops.dropout import Generators
+    from leccr_torch.parallel.tensor import (
+        merge_replay,
+        replay_model_ranks,
+        shard_model,
+    )
+
+    block, call = tp_block(kind, length)
+    width = (block.attention.query.in_features if kind == "mbert"
+             else block.c_fc.in_features)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, length, width), device="cuda", generator=g)
+    gy = torch.randn((b, length, width), device="cuda", generator=g)
+
+    def gens():
+        return Generators.from_seed(seed, "cuda")
+
+    def run(blk, dtype):
+        xi = x.detach().to(dtype).requires_grad_()
+        blk.zero_grad(set_to_none=True)
+        y = call(blk, xi, gens())
+        y.backward(gy.to(y.dtype))
+        return {"y": y.detach().float(), "dx": xi.grad.float(),
+                **{n: p.grad.float() for n, p in blk.named_parameters()}}
+
+    dense = run(block, torch.bfloat16)
+    ref_block = copy.deepcopy(block)
+    set_compute_dtype(ref_block, torch.float32)
+    ref = run(ref_block, torch.float32)
+    del ref_block
+    reset_counts()
+    xi = x.detach().to(torch.bfloat16).requires_grad_()
+    outs, shards = replay_model_ranks(
+        block, world, (xi,), call=lambda s, r, xx: call(s, xx, gens()))
+    outs[0].backward(gy.to(outs[0].dtype))
+    launches = step_counts()[:len(COUNTERS)]
+    got = {"y": outs[0].detach().float(), "dx": xi.grad.float(),
+           **{n: t.float() for n, t in
+              merge_replay(shards, grads=True).items()}}
+    ratio, worst = 0.0, {}
+    for key, want in dense.items():
+        err = (got[key] - want).abs().max().item()
+        noise = (want - ref[key]).abs().max().item()
+        bound = 2 * noise + world * bf16_ulp(
+            ref[key].abs().max()).item()
+        if err > bound:
+            raise AssertionError(f"{kind} block at M={world}: {key} off the "
+                                 f"dense block by {err} > {bound}")
+        ratio = max(ratio, err / bound)
+        if key in ("y", "dx"):
+            worst[key] = {"err": err, "dense_vs_f32": noise,
+                          "bound": bound}
+    del shards, outs
+    solo = shard_model(copy.deepcopy(block), _SoloGroup(0, world))
+    flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+
+    def fwd_bwd(blk):
+        def fn():
+            xi = x.detach().to(torch.bfloat16).requires_grad_()
+            y = call(blk, xi, gens())
+            y.backward(gy.to(y.dtype))
+        return fn
+
+    times = {}
+    for who, blk in (("dense", block), ("rank", solo)):
+        times[f"{who}_block_ms"] = cuda_ms(fwd_bwd(blk), flush_buf.zero_,
+                                           TP_ITERS)
+        times[f"{who}_block_device_ms"], times[f"{who}_top"] = (
+            device_ms_per_call(fwd_bwd(blk), TP_ITERS))
+    del flush_buf
+    return {"kind": kind, "b": b, "l": length, "width": width,
+            "world": world, "launches": list(launches),
+            "y_dx": worst, "worst_err_over_bound": ratio, **times,
+            "rank_over_dense_device": (times["rank_block_device_ms"]
+                                       / times["dense_block_device_ms"])}
+
+
+def device_ms_per_call(fn, iters: int, top: int = 6):
+    """(the device's kernel time a call of fn(), from torch.profiler over
+    `iters` calls after a warm-up (host time not counted); the `top`
+    kernels by time, ms a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in events)
+    if total <= 0:
+        raise AssertionError("the profiler saw no device time")
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return total / 1e3 / iters, [
+        {"name": e.key[:60], "ms": e.self_device_time_total / 1e3 / iters}
+        for e in rows]
+
+
+def tensor_parallel_phase(card_line: str, seed: int = 4321):
+    """Phase 20 (see the docstring): each case's kernels on each rank's
+    heads, the masks at the offset, and the replayed block.  Returns the
+    launches of kernels 2-8 (COUNTERS order) in the block replays."""
+    t0 = time.perf_counter()
+    total = [0] * len(COUNTERS)
+    for name, regime, b, heads, length, padded, worlds, blocks in TP_CASES:
+        for world in worlds:
+            kernels = tp_kernel_check(name, regime, b, heads, length, padded,
+                                      world, seed)
+            rows = []
+            for kind in blocks:
+                row = tp_block_check(kind, b, length, world, seed)
+                want = [world * n for n in TP_BLOCK_LAUNCHES[regime]]
+                if row["launches"] != want:
+                    raise AssertionError(
+                        f"{name} {kind} block at M={world} launched kernels "
+                        f"2-8 {row['launches']}, not {want}")
+                total = [a + n for a, n in zip(total, row["launches"])]
+                rows.append(row)
+            emit("tensor_parallel", case=name, regime=regime,
+                 shape=[b, heads, length, 64], world=world,
+                 heads_per_rank=heads // world, rate=TP_RATE,
+                 kernels=kernels, blocks=rows, card=card_line)
+    emit("tensor_parallel_done", launches=total,
+         wall_s=time.perf_counter() - t0)
+    return total
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -4274,6 +4622,7 @@ def main() -> int:
         shutil.rmtree(fit_dir, ignore_errors=True)
     dist_launches, dist_kernel1 = distributed_phase(card_line)
     index_scale_phase(card_line)
+    tp_launches = tensor_parallel_phase(card_line)
 
     def path_sum(key, rows=None, launches=PATH_LAUNCHES):
         # bf16 at B=64: one embed_images batch, 7 launches
@@ -4415,7 +4764,7 @@ def main() -> int:
                        for x in infonce],
         }
 
-    print(json.dumps({"kernels": [{
+    entries = [{
         "name": "fused_cross_attention",
         "route": "cuda",
         "source": "leccr_torch/csrc/fused_cross_attention.cu",
@@ -4482,7 +4831,12 @@ def main() -> int:
         infonce_entry("infonce_bwd_dk", 229, "dk",
                       large_launches[STEP_COUNTERS.index("dk_launches")],
                       ("dk",)),
-    ]}), flush=True)
+    ]
+    # kernels 2-8 (entries 1-7): their launches in phase 20's replayed
+    # blocks
+    for entry, n in zip(entries[1:1 + len(COUNTERS)], tp_launches):
+        entry["launches_tensor_parallel"] = n
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -167,8 +167,11 @@ size_t ftl_smem_bytes(int which, int dh, int wgmma) {
 
 // Kernel 6.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).
 // strides: 12 element strides, (b, h, l) of q, k, v, out.  lse: [B, H, Lq]
-// f32 out.  hg: heads per dropout head group.  seed/threshold/keep_scale/
-// dropout: the dropout mask (see the head of this file).  vec: 1 when every
+// f32 out.  hg: heads per dropout head group, of the layer's heads.
+// seed/threshold/keep_scale/dropout: the dropout mask (see the head of this
+// file).  h0: the index of the call's first head among the layer's heads
+// (0 unless a tensor-parallel rank holds a slice of them): the mask hashes
+// h0 + h, and hg need not divide the call's heads.  vec: 1 when every
 // staged row starts 16-byte aligned and Dh spans whole 16-byte words (the
 // scalar body's 16-byte loads).  wgmma: 1 takes the wgmma variant (bf16 at
 // Dh = 64; q, k, v with 16-byte aligned rows and outer strides).  Returns
@@ -179,10 +182,10 @@ int ftl_forward(const void* q, const void* k, const void* v,
                 const unsigned char* mask, void* out, float* lse, int dtype,
                 int batch, int heads, int lq, int lk, int dh, int hg,
                 const long long* strides, float scale, unsigned int seed,
-                unsigned int threshold, float keep_scale, int dropout,
+                unsigned int threshold, float keep_scale, int dropout, int h0,
                 int vec, int wgmma, void* stream) {
   Params p = make_params(q, k, v, mask, lse, heads, lq, lk, hg, scale, seed,
-                         threshold, keep_scale, dropout, vec);
+                         threshold, keep_scale, dropout, h0, vec);
   p.out = out;
   p.sq = strides_at(strides, 0);
   p.sk = strides_at(strides, 1);
@@ -203,11 +206,11 @@ int ftl_dq(const void* q, const void* k, const void* v,
            const void* g, void* dq, float* delta, int dtype, int batch,
            int heads, int lq, int lk, int dh, int hg,
            const long long* strides, float scale, unsigned int seed,
-           unsigned int threshold, float keep_scale, int dropout, int vec,
-           int wgmma, int persistent, void* stream) {
+           unsigned int threshold, float keep_scale, int dropout, int h0,
+           int vec, int wgmma, int persistent, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, hg, scale, seed, threshold, keep_scale, dropout,
-                         vec);
+                         h0, vec);
   p.o = o;
   p.g = g;
   p.out = dq;
@@ -229,11 +232,11 @@ int ftl_dkv(const void* q, const void* k, const void* v,
             const void* g, void* dk, void* dv, int dtype, int batch,
             int heads, int lq, int lk, int dh, int hg,
             const long long* strides, float scale, unsigned int seed,
-            unsigned int threshold, float keep_scale, int dropout, int vec,
-            int wgmma, int persistent, void* stream) {
+            unsigned int threshold, float keep_scale, int dropout, int h0,
+            int vec, int wgmma, int persistent, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, hg, scale, seed, threshold, keep_scale, dropout,
-                         vec);
+                         h0, vec);
   p.g = g;
   p.dk = dk;
   p.dv = dv;

@@ -47,6 +47,7 @@ struct Dropout {
   unsigned int threshold;  // keep where hash >= threshold
   float scale;             // 1 / (1 - rate), in f32
   int on;                  // rate > 0
+  int h0;                  // the first head's index among the layer's heads
 };
 
 struct Params {
@@ -111,11 +112,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The dropout factor of element (b, h, i, j) in {0, scale}: the tile hash.
+// The dropout factor of element (b, h, i, j) in {0, scale}: the tile hash,
+// over the head's index among the layer's heads, h0 + h (hg need not
+// divide the heads of the call).
 __device__ __forceinline__ float tile_keep(const Dropout& d, int b, int h,
                                            int hg, int i, int j) {
   const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
-  const unsigned int hi = h / hg, hh = h % hg;
+  const unsigned int ha = (unsigned int)(d.h0 + h);
+  const unsigned int hi = ha / hg, hh = ha % hg;
   const unsigned int qi = i / kTile, kj = j / kTile;
   unsigned int x = hh * (unsigned int)(kTile * kTile) +
                    (unsigned int)(i % kTile) * kTile + (unsigned int)(j % kTile);
@@ -136,8 +140,9 @@ struct TileHash {
   __device__ TileHash(const Dropout& d, int b, int h, int hg)
       : threshold(d.threshold), scale(d.scale) {
     const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
-    base = (unsigned int)(h % hg) * (kTile * kTile) + seed_b * 0x9E3779B9u +
-           (unsigned int)(h / hg) * 0x27D4EB2Fu;
+    const unsigned int ha = (unsigned int)(d.h0 + h);
+    base = (ha % hg) * (kTile * kTile) + seed_b * 0x9E3779B9u +
+           (ha / hg) * 0x27D4EB2Fu;
   }
   __device__ float keep(int i, int j) const {  // i, j >= 0
     unsigned int x = base + (unsigned int)(i % kTile) * kTile +
@@ -562,7 +567,7 @@ Params make_params(const void* q, const void* k, const void* v,
                    const unsigned char* mask, float* lse, int heads, int lq,
                    int lk, int hg, float scale, unsigned int seed,
                    unsigned int threshold, float keep_scale, int dropout,
-                   int vec) {
+                   int h0, int vec) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -574,7 +579,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.lk = lk;
   p.hg = hg;
   p.scale = scale;
-  p.drop = {seed, threshold, keep_scale, dropout};
+  p.drop = {seed, threshold, keep_scale, dropout, h0};
   p.vec = vec;
   return p;
 }

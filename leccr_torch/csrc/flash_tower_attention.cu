@@ -90,6 +90,7 @@ struct Dropout {
   unsigned int threshold;  // keep where hash >= threshold
   float scale;             // 1 / (1 - rate), in f32
   int on;                  // rate > 0
+  int h0;                  // the first head's index among the layer's heads
 };
 
 struct Params {
@@ -151,11 +152,13 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The dropout factor of element (b, h, i, j) in {0, scale}.
+// The dropout factor of element (b, h, i, j) in {0, scale}; the counter
+// takes the head's index among the layer's heads, h0 + h.
 __device__ __forceinline__ float keep_factor(const Dropout& d, int b, int h,
                                              int i, int j, int lq, int lk) {
   const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
-  unsigned int x = (unsigned int)h * ((unsigned int)lq * (unsigned int)lk) +
+  unsigned int x = (unsigned int)(d.h0 + h) *
+                       ((unsigned int)lq * (unsigned int)lk) +
                    (unsigned int)i * (unsigned int)lk + (unsigned int)j;
   x += seed_b * 0x9E3779B9u;
   x = (x ^ (x >> 16)) * 0x85EBCA6Bu;  // murmur3 finalizer
@@ -897,7 +900,7 @@ Params make_params(const void* q, const void* k, const void* v,
                    const unsigned char* mask, float* lse, int heads, int lq,
                    int lk, int rows, float scale, unsigned int seed,
                    unsigned int threshold, float keep_scale, int dropout,
-                   int vec) {
+                   int h0, int vec) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -909,7 +912,7 @@ Params make_params(const void* q, const void* k, const void* v,
   p.lk = lk;
   p.rows = rows;
   p.scale = scale;
-  p.drop = {seed, threshold, keep_scale, dropout};
+  p.drop = {seed, threshold, keep_scale, dropout, h0};
   p.vec = vec;
   return p;
 }
@@ -939,7 +942,9 @@ size_t fta_smem_bytes(int which, int lq, int lk, int dh, int warps) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).  strides: 12
 // element strides, (b, h, l) of q, k, v, out.  lse: [B, H, Lq] f32 out.
 // seed/threshold/keep_scale/dropout: the dropout mask (see the head of this
-// file).  rows: query rows per block; warps: warps per block.  vec: 1 when
+// file).  h0: the index of the call's first head among the layer's heads
+// (0 unless a tensor-parallel rank holds a slice of them): the mask hashes
+// h0 + h.  rows: query rows per block; warps: warps per block.  vec: 1 when
 // every K/V row starts 16-byte aligned and Dh spans whole 16-byte words.
 // Returns cudaGetLastError() after the launch (0 = success), -1 for an
 // unsupported head dim.
@@ -947,10 +952,10 @@ int fta_forward(const void* q, const void* k, const void* v,
                 const unsigned char* mask, void* out, float* lse, int dtype,
                 int batch, int heads, int lq, int lk, int dh,
                 const long long* strides, float scale, unsigned int seed,
-                unsigned int threshold, float keep_scale, int dropout,
+                unsigned int threshold, float keep_scale, int dropout, int h0,
                 int rows, int warps, int vec, void* stream) {
   Params p = make_params(q, k, v, mask, lse, heads, lq, lk, rows, scale, seed,
-                         threshold, keep_scale, dropout, vec);
+                         threshold, keep_scale, dropout, h0, vec);
   p.out = out;
   p.sq = strides_at(strides, 0);
   p.sk = strides_at(strides, 1);
@@ -975,11 +980,11 @@ int fta_backward(const void* q, const void* k, const void* v,
                  void* dq, void* dk, void* dv, float* delta, int dtype,
                  int batch, int heads, int lq, int lk, int dh,
                  const long long* strides, float scale, unsigned int seed,
-                 unsigned int threshold, float keep_scale, int dropout,
+                 unsigned int threshold, float keep_scale, int dropout, int h0,
                  int rows, int warps, int vec, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, rows, scale, seed, threshold, keep_scale,
-                         dropout, vec);
+                         dropout, h0, vec);
   p.g = g;
   p.out = dq;
   p.dk = dk;
@@ -1007,7 +1012,8 @@ int fta_backward(const void* q, const void* k, const void* v,
 // past it).  fta_tc_smem_bytes is the shared
 // memory of launch `which` (0: forward, 1: dq pass, 2: dk/dv pass), which
 // the caller checks against the card's per-block limit.  fta_tc_forward and
-// fta_tc_backward take the arguments of fta_forward and fta_backward less
+// fta_tc_backward take the arguments of fta_forward and fta_backward (h0
+// included) less
 // dtype, dh, rows, warps and vec (a block owns kTcRows = 64 rows).
 size_t fta_tc_smem_bytes(int which, int lq, int lk) {
   return tc_smem(which, lq, lk);
@@ -1018,9 +1024,9 @@ int fta_tc_forward(const void* q, const void* k, const void* v,
                    int batch, int heads, int lq, int lk,
                    const long long* strides, float scale, unsigned int seed,
                    unsigned int threshold, float keep_scale, int dropout,
-                   void* stream) {
+                   int h0, void* stream) {
   Params p = make_params(q, k, v, mask, lse, heads, lq, lk, kTcRows, scale,
-                         seed, threshold, keep_scale, dropout, 1);
+                         seed, threshold, keep_scale, dropout, h0, 1);
   p.out = out;
   p.sq = strides_at(strides, 0);
   p.sk = strides_at(strides, 1);
@@ -1034,10 +1040,10 @@ int fta_tc_backward(const void* q, const void* k, const void* v,
                     void* dq, void* dk, void* dv, float* delta, int batch,
                     int heads, int lq, int lk, const long long* strides,
                     float scale, unsigned int seed, unsigned int threshold,
-                    float keep_scale, int dropout, void* stream) {
+                    float keep_scale, int dropout, int h0, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, kTcRows, scale, seed, threshold, keep_scale,
-                         dropout, 1);
+                         dropout, h0, 1);
   p.g = g;
   p.out = dq;
   p.dk = dk;

@@ -47,6 +47,9 @@ class _BertSelfAttention(nn.Module):
         self.value = Dense(h, h)
         self.out = Dense(h, h)
         self.out_ln = LayerNorm(h, eps=cfg.layer_norm_eps)
+        # (h0, h): the heads this module computes, of num_heads (all of
+        # them, or a tensor-parallel rank's, `parallel.tensor.shard_model`)
+        self.head_span = (0, cfg.num_heads)
 
     def forward(self, hidden: torch.Tensor, attention_mask: torch.Tensor,
                 deterministic: bool = True,
@@ -54,9 +57,10 @@ class _BertSelfAttention(nn.Module):
         cfg = self.cfg
         b, l, width = hidden.shape
         head_dim = width // self.num_heads
+        h0, heads = self.head_span
 
         def split(x):
-            return x.view(b, l, self.num_heads, head_dim).transpose(1, 2)
+            return x.view(b, l, heads, head_dim).transpose(1, 2)
 
         q = split(self.query(hidden))
         k = split(self.key(hidden))
@@ -66,17 +70,19 @@ class _BertSelfAttention(nn.Module):
             seed = gen.flash_seed() if rate > 0.0 else 0
             # padding = 1 - mask, nonzero where mask != 1
             out = flash_tower_attention(q, k, v, attention_mask != 1, seed,
-                                        rate)
+                                        rate, h0, self.num_heads)
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
             bias = 1.0 - attention_mask[:, None, None, :].float()
             scores = scores + (bias * torch.finfo(torch.float32).min).to(
                 scores.dtype)
             probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-            probs = lean_dropout(probs, cfg.attention_dropout, deterministic,
-                                 gen)
+            probs = lean_dropout(
+                probs, cfg.attention_dropout, deterministic, gen,
+                None if heads == self.num_heads
+                else (1, h0 // heads, self.num_heads // heads))
             out = torch.matmul(probs, v)
-        out = self.out(out.transpose(1, 2).reshape(b, l, width))
+        out = self.out(out.transpose(1, 2).reshape(b, l, heads * head_dim))
         out = lean_dropout(out, cfg.hidden_dropout, deterministic, gen)
         return self.out_ln(out + hidden)
 

@@ -114,15 +114,20 @@ class _CLIPAttention(nn.Module):
         self.causal = causal
         self.in_proj = Dense(width, 3 * width)
         self.out_proj = Dense(width, width)
+        # (h0, h): the heads this module computes, of `heads` (all of them,
+        # or a tensor-parallel rank's, `parallel.tensor.shard_model`)
+        self.head_span = (0, heads)
 
     def forward(self, x: torch.Tensor,
                 deterministic: bool = True) -> torch.Tensor:
         b, l, width = x.shape
         head_dim = width // self.heads
-        q, k, v = (t.view(b, l, self.heads, head_dim).transpose(1, 2)
+        h0, h = self.head_span
+        q, k, v = (t.view(b, l, h, head_dim).transpose(1, 2)
                    for t in self.in_proj(x).chunk(3, dim=-1))
         if self.fused and not self.causal and not deterministic:
-            out = flash_tower_attention(q, k, v, None, 0, 0.0)
+            out = flash_tower_attention(q, k, v, None, 0, 0.0, h0,
+                                        self.heads)
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)) / (head_dim ** 0.5)
             if self.causal:
@@ -132,7 +137,7 @@ class _CLIPAttention(nn.Module):
                                             torch.finfo(scores.dtype).min)
             probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
             out = torch.matmul(probs, v)
-        return self.out_proj(out.transpose(1, 2).reshape(b, l, width))
+        return self.out_proj(out.transpose(1, 2).reshape(b, l, h * head_dim))
 
 
 class _ResidualBlock(nn.Module):

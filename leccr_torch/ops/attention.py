@@ -135,6 +135,8 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention(q, k, v, key_padding_mask,
                                         self.dropout, deterministic, gen)
         b, _, lq, _ = out.shape
+        # under tensor parallelism out_proj is row-parallel on this
+        # replicated output (`parallel.tensor`)
         return self.out_proj(out.transpose(1, 2).reshape(b, lq, d_model))
 
 
@@ -146,11 +148,15 @@ class _FFN(nn.Module):
         self.dropout = dropout
         self.linear1 = Dense(d_model, d_model)
         self.linear2 = Dense(d_model, d_model)
+        # (dim, m, M) when linear1 is column-parallel (`parallel.tensor`):
+        # the dropout takes rank m's slice of the whole activation's mask
+        self.dropout_shard = None
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 gen: Optional[Generators] = None) -> torch.Tensor:
         x = F.gelu(self.linear1(x))
-        return self.linear2(lean_dropout(x, self.dropout, deterministic, gen))
+        return self.linear2(lean_dropout(x, self.dropout, deterministic, gen,
+                                         self.dropout_shard))
 
 
 class CrossAttentionBlock(nn.Module):

@@ -15,7 +15,7 @@ draws from these generators: it replays the block's draws in the recompute.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -87,15 +87,30 @@ def checkpoint_block(block: Callable[..., Any], gen: Optional[Generators],
 
 
 def lean_dropout(x: torch.Tensor, rate: float, deterministic: bool,
-                 gen: Generators | None) -> torch.Tensor:
-    """x with elements dropped at `rate` (LeanDropout semantics)."""
+                 gen: Generators | None,
+                 shard: Optional[Tuple[int, int, int]] = None
+                 ) -> torch.Tensor:
+    """x with elements dropped at `rate` (LeanDropout semantics).
+
+    shard = (dim, m, M): x is slice m of M along `dim` of the tensor a
+    one-process run drops (a tensor-parallel rank's features or heads).
+    The bits are drawn for the whole tensor and sliced, so the mask is the
+    one-process run's and the generator advances as it does there; the
+    whole tensor's int32 bits exist for the call (M times x's count)."""
     if deterministic or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     thresh = min(65535, int(round(rate * 65536.0)))
-    bits = torch.randint(0, 65536, x.shape, generator=gen.device,
+    shape = list(x.shape)
+    if shard is not None:
+        dim, m, world = shard
+        shape[dim] *= world
+    bits = torch.randint(0, 65536, shape, generator=gen.device,
                          device=x.device, dtype=torch.int32)
+    if shard is not None:
+        n = x.shape[dim]
+        bits = bits.narrow(dim, m * n, n)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return torch.where(bits >= thresh, x * scale, torch.zeros((), dtype=x.dtype,
                                                               device=x.device))

@@ -53,6 +53,16 @@ For CUDA tensors the wrappers launch the kernels (or raise); for CPU
 tensors they run the plain PyTorch versions (`*_reference`), which do the
 same f32 arithmetic with the same rounding points (the backwards are the
 hand VJPs of the TPU kernels, not autograd through the forward).
+
+Tensor parallelism (`parallel/tensor.py`): a rank holds heads
+[h0, h0 + h) of a layer's H.  Every function here then takes
+`head_offset=h0` and `num_heads=H`: the regime is decided on H (so a local
+h of 4 keeps a ViT-L/14 @336 layer chunked), the masks hash the absolute
+head h0 + h, and the streamed regimes' head group is that of H, which need
+not divide h (it appears in the hash only; no grid or loop groups the
+call's heads by it).  So rank m's output and gradients on its heads equal
+those heads of the dense call.  With h0 = 0 and H = h every call is the
+one it was.
 """
 
 from __future__ import annotations
@@ -139,6 +149,19 @@ def fits_chunked(h: int, lq: int, lk: int, d: int,
     return _chunk_budget(h, lq, lk, d, itemsize) <= 14 * 2 ** 20
 
 
+def _layer_heads(q: torch.Tensor, head_offset: int,
+                 num_heads: Optional[int]) -> Tuple[int, int]:
+    """(h0, H): the absolute index of q's first head and the layer's head
+    count (q's own when `num_heads` is None), checked to hold q's heads."""
+    h = q.shape[1]
+    total = h if num_heads is None else int(num_heads)
+    h0 = int(head_offset)
+    if h0 < 0 or h0 + h > total:
+        raise ValueError(f"heads [{h0}, {h0 + h}) are not among a layer's "
+                         f"{total}")
+    return h0, total
+
+
 def _u32(x: torch.Tensor) -> torch.Tensor:
     return x & 0xFFFFFFFF
 
@@ -151,11 +174,13 @@ def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def keep_mask(seed: int, b: int, h: int, lq: int, lk: int, rate: float,
-              device=None) -> torch.Tensor:
+              device=None, h0: int = 0) -> torch.Tensor:
     """The dropout factor [B, H, Lq, Lk] in {0, 1/(1-rate)} (f32): the hash
     both kernels compute inline, in plain PyTorch (uint32 arithmetic
-    carried in int64)."""
-    ctr = torch.arange(h * lq * lk, dtype=torch.int64, device=device)
+    carried in int64).  h0: the absolute index of the first of the h
+    heads (a tensor-parallel rank's slice of a layer's heads)."""
+    ctr = torch.arange(h0 * lq * lk, (h0 + h) * lq * lk, dtype=torch.int64,
+                       device=device)
     x = _u32(ctr[None, :] + _seed_terms(seed, b, device)[:, None])
     return _keep_factor(x, rate).view(b, h, lq, lk)
 
@@ -180,20 +205,23 @@ def _keep_factor(x: torch.Tensor, rate: float) -> torch.Tensor:
 
 
 def tile_keep_mask(seed: int, b: int, h: int, lq: int, lk: int, rate: float,
-                   device=None, hg: Optional[int] = None) -> torch.Tensor:
+                   device=None, hg: Optional[int] = None,
+                   h0: int = 0) -> torch.Tensor:
     """The streamed kernels' dropout factor [B, H, Lq, Lk] in {0,
     1/(1-rate)} (f32): the JAX interpret-mode tile hash (`_tile_keep_from`)
     of element (b, h, i, j) in head group hi = h // hg (hh = h % hg), query
     tile i // 128 and key tile j // 128, computed in plain PyTorch.  hg:
-    heads per group, `chunk_head_group(h)` (the chunked kernels, the
-    default) or `head_group(h)` (the tiled ones)."""
+    heads per group, `chunk_head_group(H)` (the chunked kernels, the
+    default) or `head_group(H)` (the tiled ones) of the layer's H heads.
+    h0: the absolute index of the first of the h heads; hg need not divide
+    h."""
     if hg is None:
         hg = chunk_head_group(h)
 
     def ar(n):
         return torch.arange(n, dtype=torch.int64, device=device)
 
-    heads, rows, cols = ar(h), ar(lq), ar(lk)
+    heads, rows, cols = ar(h) + h0, ar(lq), ar(lk)
     ctr = ((heads % hg) * CHUNK * CHUNK)[:, None, None] + (
         (rows % CHUNK) * CHUNK)[None, :, None] + (cols % CHUNK)[None, None, :]
     tiles = (_mul_u32(heads // hg, 0x27D4EB2F)[:, None, None]
@@ -219,12 +247,14 @@ def flash_tower_attention_fwd_reference(
     padding_mask: Optional[torch.Tensor],
     seed: int,
     dropout_rate: float = 0.0,
+    head_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the forward kernel.
 
     q: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh]; padding_mask: [B, Lk]
-    (nonzero = padding) or None.  Returns (out [B, H, Lq, Dh] in q's dtype,
-    lse [B, H, Lq] f32)."""
+    (nonzero = padding) or None; head_offset: the absolute index of q's
+    first head.  Returns (out [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq]
+    f32)."""
     s = _scores(q, k, padding_mask)
     smax = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - smax)
@@ -232,7 +262,8 @@ def flash_tower_attention_fwd_reference(
     lse = (smax + torch.log(denom))[..., 0]
     p = p / denom
     if dropout_rate > 0.0:
-        p = p * keep_mask(seed, *p.shape, dropout_rate, device=p.device)
+        p = p * keep_mask(seed, *p.shape, dropout_rate, device=p.device,
+                          h0=head_offset)
     out = torch.matmul(p.to(v.dtype).float(), v.float())
     return out.to(q.dtype), lse
 
@@ -246,6 +277,7 @@ def flash_tower_attention_bwd_reference(
     g: torch.Tensor,
     seed: int,
     dropout_rate: float = 0.0,
+    head_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernel: the TPU kernel's hand
     VJP (probabilities recomputed from lse, the mask regenerated, Σ dp∘p as
@@ -256,7 +288,8 @@ def flash_tower_attention_bwd_reference(
     keep = None
     pd = p
     if dropout_rate > 0.0:
-        keep = keep_mask(seed, *p.shape, dropout_rate, device=p.device)
+        keep = keep_mask(seed, *p.shape, dropout_rate, device=p.device,
+                         h0=head_offset)
         pd = p * keep
     gf = g.float()
     dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), gf)
@@ -279,17 +312,18 @@ def _chunk_scores(q, k, padding_mask):
     return s
 
 
-def _streamed_fwd_reference(q, k, v, padding_mask, seed, dropout_rate, hg):
+def _streamed_fwd_reference(q, k, v, padding_mask, seed, dropout_rate, hg,
+                            h0=0):
     """The streamed regimes' forward (kernels 4 and 6): a loop over 128-key
     tiles with a running max, the unnormalised probabilities rounded to v's
-    dtype per tile, the dropout mask (head group hg) applied after the
-    running sum, −inf key padding.  A row with no key gets out 0 and lse
-    −inf."""
+    dtype per tile, the dropout mask (head group hg, first head h0) applied
+    after the running sum, −inf key padding.  A row with no key gets out 0
+    and lse −inf."""
     b, h, lq, d = q.shape
     lk = k.shape[2]
     scale = 1.0 / (d ** 0.5)
     keep = (tile_keep_mask(seed, b, h, lq, lk, dropout_rate,
-                           device=q.device, hg=hg)
+                           device=q.device, hg=hg, h0=h0)
             if dropout_rate > 0.0 else None)
     qf = q.float()
     m = torch.full((b, h, lq), -math.inf, device=q.device)
@@ -325,6 +359,8 @@ def flash_chunked_attention_fwd_reference(
     padding_mask: Optional[torch.Tensor],
     seed: int,
     dropout_rate: float = 0.0,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the chunked forward kernel (kernel 4): the
     JAX `_chunk_fwd_kernel`'s loop over 128-key tiles with a running max,
@@ -334,12 +370,13 @@ def flash_chunked_attention_fwd_reference(
     Shapes as `flash_tower_attention_fwd_reference`.  Returns (out
     [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq] f32); a row with no key gets
     out 0 and lse −inf."""
+    h0, total = _layer_heads(q, head_offset, num_heads)
     return _streamed_fwd_reference(q, k, v, padding_mask, seed, dropout_rate,
-                                   chunk_head_group(q.shape[1]))
+                                   chunk_head_group(total), h0)
 
 
 def _streamed_grad_terms(q, k, v, padding_mask, lse, delta, g, seed,
-                         dropout_rate, hg):
+                         dropout_rate, hg, h0=0):
     """The streamed regimes' backward terms per (query, key): p = exp(s −
     lse) (0 where s or lse is −inf), pd = p·keep and ds = p·(dp − delta)·
     scale with dp = (g·v)·keep, ds rounded to k's dtype.  Returns (pd, ds)
@@ -351,7 +388,7 @@ def _streamed_grad_terms(q, k, v, padding_mask, lse, delta, g, seed,
     pd = p
     if dropout_rate > 0.0:
         keep = tile_keep_mask(seed, *p.shape, dropout_rate, device=p.device,
-                              hg=hg)
+                              hg=hg, h0=h0)
         pd, dp = p * keep, dp * keep
     ds = p * (dp - delta[..., None]) * (1.0 / (q.shape[-1] ** 0.5))
     return pd, ds.to(k.dtype).float()
@@ -372,6 +409,8 @@ def flash_chunked_attention_bwd_reference(
     g: torch.Tensor,
     seed: int,
     dropout_rate: float = 0.0,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the chunked backward kernel (kernel 5): the
     JAX `_chunk_bwd_kernel`'s hand VJP with delta = rowsum(g·out) from the
@@ -381,9 +420,10 @@ def flash_chunked_attention_bwd_reference(
     order of those f32 sums (the tile mask depends on the element, not the
     tiling), so this version takes whole rows.  Returns (dq, dk, dv)."""
     dt = q.dtype
+    h0, total = _layer_heads(q, head_offset, num_heads)
     pd, ds = _streamed_grad_terms(q, k, v, padding_mask, lse, _delta(out, g),
                                   g, seed, dropout_rate,
-                                  chunk_head_group(q.shape[1]))
+                                  chunk_head_group(total), h0)
     dv = torch.matmul(pd.to(g.dtype).float().transpose(-1, -2), g.float())
     dq = torch.matmul(ds, k.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
@@ -397,6 +437,8 @@ def flash_tiled_attention_fwd_reference(
     padding_mask: Optional[torch.Tensor],
     seed: int,
     dropout_rate: float = 0.0,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the tiled forward kernel (kernel 6): the
     JAX `_tiled_fwd_kernel` over the (q tile, k tile) grid, its m, s and o
@@ -408,44 +450,55 @@ def flash_tiled_attention_fwd_reference(
     absolute indices, so this version takes the unpadded sequences.
     Returns (out [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq] f32); a row
     with no key gets out 0 and lse −inf."""
+    h0, total = _layer_heads(q, head_offset, num_heads)
     return _streamed_fwd_reference(q, k, v, padding_mask, seed, dropout_rate,
-                                   head_group(q.shape[1]))
+                                   head_group(total), h0)
 
 
 def flash_tiled_attention_dq_reference(q, k, v, padding_mask, out, lse, g,
-                                       seed: int, dropout_rate: float = 0.0):
+                                       seed: int, dropout_rate: float = 0.0,
+                                       head_offset: int = 0,
+                                       num_heads: Optional[int] = None):
     """Plain PyTorch version of the tiled dq kernel (kernel 7, JAX
     `_tiled_dq_kernel` with delta = rowsum(g·out) from `_flash_bwd:873`):
     ds rounded to k's dtype, dq summed in f32 over the key tiles and
     rounded once.  A padded query row of the JAX caller has g = 0, hence
     ds = 0.  Returns (dq in q's dtype, delta [B, H, Lq] f32)."""
     delta = _delta(out, g)
+    h0, total = _layer_heads(q, head_offset, num_heads)
     _, ds = _streamed_grad_terms(q, k, v, padding_mask, lse, delta, g, seed,
-                                 dropout_rate, head_group(q.shape[1]))
+                                 dropout_rate, head_group(total), h0)
     return torch.matmul(ds, k.float()).to(q.dtype), delta
 
 
 def flash_tiled_attention_dkv_reference(q, k, v, padding_mask, lse, delta, g,
-                                        seed: int, dropout_rate: float = 0.0):
+                                        seed: int, dropout_rate: float = 0.0,
+                                        head_offset: int = 0,
+                                        num_heads: Optional[int] = None):
     """Plain PyTorch version of the tiled dk/dv kernel (kernel 8, JAX
     `_tiled_dkv_kernel`): pd rounded to g's dtype for dv, ds to q's for dk,
     both summed in f32 over the query tiles and rounded once.  delta: kernel
     7's.  Returns (dk, dv) in k's dtype."""
+    h0, total = _layer_heads(q, head_offset, num_heads)
     pd, ds = _streamed_grad_terms(q, k, v, padding_mask, lse, delta, g, seed,
-                                  dropout_rate, head_group(q.shape[1]))
+                                  dropout_rate, head_group(total), h0)
     dv = torch.matmul(pd.to(g.dtype).float().transpose(-1, -2), g.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_tiled_attention_bwd_reference(q, k, v, padding_mask, out, lse, g,
-                                        seed: int, dropout_rate: float = 0.0):
+                                        seed: int, dropout_rate: float = 0.0,
+                                        head_offset: int = 0,
+                                        num_heads: Optional[int] = None):
     """Plain PyTorch version of the tiled backward (kernels 7 then 8).
     Returns (dq, dk, dv)."""
     dq, delta = flash_tiled_attention_dq_reference(
-        q, k, v, padding_mask, out, lse, g, seed, dropout_rate)
+        q, k, v, padding_mask, out, lse, g, seed, dropout_rate, head_offset,
+        num_heads)
     dk, dv = flash_tiled_attention_dkv_reference(
-        q, k, v, padding_mask, lse, delta, g, seed, dropout_rate)
+        q, k, v, padding_mask, lse, delta, g, seed, dropout_rate,
+        head_offset, num_heads)
     return dq, dk, dv
 
 
@@ -476,12 +529,16 @@ def _check(q, k, v, padding_mask, dropout_rate) -> None:
             raise ValueError("padding_mask must lie on q's device")
 
 
-def regime(q: torch.Tensor, k: torch.Tensor) -> str:
+def regime(q: torch.Tensor, k: torch.Tensor,
+           num_heads: Optional[int] = None) -> str:
     """The JAX dispatch (`_flash_fwd`, `_flash_bwd`): "single" within
     `fits_vmem` (kernels 2/3), "chunked" within `fits_chunked` at q's
     element size (kernels 4/5), "tiled" past both (kernels 6–8).  Both
-    budgets key on max(Lq, Lk) rounded up to 128."""
+    budgets key on max(Lq, Lk) rounded up to 128.  num_heads: the layer's
+    head count H when q holds a slice of its heads (decided on H)."""
     _, h, lq, dh = q.shape
+    if num_heads is not None:
+        h = int(num_heads)
     lk = k.shape[2]
     if fits_vmem(h, lq, lk, dh):
         return "single"
@@ -557,7 +614,7 @@ def _lib() -> ctypes.CDLL:
     if lib.fta_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         f32 = ctypes.c_float
-        drop = [f32, u32, u32, f32, i32]
+        drop = [f32, u32, u32, f32, i32, i32]  # ..., dropout, h0
         tail = drop + [i32, i32, i32, ptr]
         lib.fta_forward.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] + tail
         lib.fta_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] + tail
@@ -590,16 +647,16 @@ def _aligned(tensors, item) -> bool:
                for t in tensors) and tensors[0].shape[-1] * item % 16 == 0
 
 
-def _dropout_args(seed, rate):
+def _dropout_args(seed, rate, h0=0):
     """The kernels' dropout arguments: the seed as uint32, the keep
-    threshold uint32(rate · 2³²), the f32 scale 1/(1−rate), and whether
-    dropout is on."""
+    threshold uint32(rate · 2³²), the f32 scale 1/(1−rate), whether
+    dropout is on, and the absolute index h0 of the call's first head."""
     return (int(seed) & 0xFFFFFFFF, int(rate * 4294967296.0),
             float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32)),
-            int(rate > 0.0))
+            int(rate > 0.0), int(h0))
 
 
-def _prepare(q, k, seed, rate, launches, variant):
+def _prepare(q, k, seed, rate, launches, variant, h0=0):
     """The loaded library, the score scale and the dropout arguments of a
     call, after checking the head dim and the shared memory of each launch
     (0: forward, 1: backward dq pass, 2: backward dk/dv pass) of `variant`
@@ -619,7 +676,7 @@ def _prepare(q, k, seed, rate, launches, variant):
                 f"head in shared memory: launch {which} at Lq={lq}, "
                 f"Lk={lk}, Dh={dh} needs {smem} bytes, more than the "
                 f"{SMEM_PER_BLOCK} a block may use")
-    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
+    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate, h0)
 
 
 def _mask_bytes(padding_mask):
@@ -630,11 +687,11 @@ def _mask_bytes(padding_mask):
             else padding_mask != 0).contiguous()
 
 
-def _launch_fwd(q, k, v, mask, seed, rate):
+def _launch_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     variant = single_block_variant(q, k, v)
-    lib, scale, drop = _prepare(q, k, seed, rate, (0,), variant)
+    lib, scale, drop = _prepare(q, k, seed, rate, (0,), variant, heads[0])
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -661,13 +718,14 @@ def _launch_fwd(q, k, v, mask, seed, rate):
     return out, lse
 
 
-def _launch_bwd(q, k, v, mask, lse, g, seed, rate):
+def _launch_bwd(q, k, v, mask, lse, g, seed, rate, heads=(0, None)):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     if g.stride(-1) != 1:
         g = g.contiguous()
     variant = single_block_variant(q, k, v, g)
-    lib, scale, drop = _prepare(q, k, seed, rate, (1, 2), variant)
+    lib, scale, drop = _prepare(q, k, seed, rate, (1, 2), variant,
+                                heads[0])
     dq = _heads_last(b, lq, h, dh, q)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
@@ -703,11 +761,13 @@ def _device_check(t: torch.Tensor) -> None:
         raise ValueError(f"no flash_tower_attention kernel for {t.device}")
 
 
-def _check_single_block(q, k) -> None:
-    """Kernels 2/3 take only the shapes within `fits_vmem`: past it the
-    JAX package takes its chunked kernels, whose padding and dropout mask
-    differ."""
+def _check_single_block(q, k, num_heads=None) -> None:
+    """Kernels 2/3 take only the shapes within `fits_vmem` (at the layer's
+    head count): past it the JAX package takes its chunked kernels, whose
+    padding and dropout mask differ."""
     _, h, lq, dh = q.shape
+    if num_heads is not None:
+        h = int(num_heads)
     if not fits_vmem(h, lq, k.shape[2], dh):
         raise ValueError(
             f"flash_tower_attention_fwd/_bwd (kernels 2/3) at H={h}, "
@@ -726,51 +786,60 @@ def _check_grad_inputs(q, lse, g) -> None:
 
 # The four runners below take checked inputs and a bool padding mask (from
 # `_mask_bytes`): CPU tensors run the plain version, CUDA ones the kernel.
-def _single_fwd(q, k, v, mask, seed, rate):
+# `heads` = (head_offset, num_heads), checked by `_layer_heads`.
+def _single_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     if q.device.type == "cpu":
-        return flash_tower_attention_fwd_reference(q, k, v, mask, seed, rate)
+        return flash_tower_attention_fwd_reference(q, k, v, mask, seed, rate,
+                                                   heads[0])
     _device_check(q)
-    return _launch_fwd(q, k, v, mask, seed, rate)
+    return _launch_fwd(q, k, v, mask, seed, rate, heads)
 
 
-def _single_bwd(q, k, v, mask, lse, g, seed, rate):
+def _single_bwd(q, k, v, mask, lse, g, seed, rate, heads=(0, None)):
     if q.device.type == "cpu":
         return flash_tower_attention_bwd_reference(q, k, v, mask, lse, g,
-                                                   seed, rate)
+                                                   seed, rate, heads[0])
     _device_check(q)
-    return _launch_bwd(q, k, v, mask, lse, g, seed, rate)
+    return _launch_bwd(q, k, v, mask, lse, g, seed, rate, heads)
 
 
 def flash_tower_attention_fwd(q, k, v, padding_mask, seed: int,
-                              dropout_rate: float = 0.0):
+                              dropout_rate: float = 0.0,
+                              head_offset: int = 0,
+                              num_heads: Optional[int] = None):
     """The forward kernel (kernel 2) on CUDA tensors, its plain version on
     CPU tensors: (out [B, H, Lq, Dh] in [B, Lq, H, Dh] storage, lse
     [B, H, Lq] f32).  Arguments as `flash_tower_attention`; shapes within
     `fits_vmem` only."""
     _check(q, k, v, padding_mask, dropout_rate)
-    _check_single_block(q, k)
+    heads = _layer_heads(q, head_offset, num_heads)
+    _check_single_block(q, k, heads[1])
     return _single_fwd(q, k, v, _mask_bytes(padding_mask), seed,
-                       dropout_rate)
+                       dropout_rate, heads)
 
 
 def flash_tower_attention_bwd(q, k, v, padding_mask, lse, g, seed: int,
-                              dropout_rate: float = 0.0):
+                              dropout_rate: float = 0.0,
+                              head_offset: int = 0,
+                              num_heads: Optional[int] = None):
     """The backward kernel (kernel 3, two launches) on CUDA tensors, its
     plain version on CPU tensors: (dq, dk, dv), each [B, H, L, Dh] in
     [B, L, H, Dh] storage.  g: d(out), any strides with a unit last one."""
     _check(q, k, v, padding_mask, dropout_rate)
-    _check_single_block(q, k)
+    heads = _layer_heads(q, head_offset, num_heads)
+    _check_single_block(q, k, heads[1])
     _check_grad_inputs(q, lse, g)
     return _single_bwd(q, k, v, _mask_bytes(padding_mask), lse.contiguous(),
-                       g, seed, dropout_rate)
+                       g, seed, dropout_rate, heads)
 
 
 def _chunk_lib() -> ctypes.CDLL:
     lib = _build.load(_CHUNK_LIB)
     if lib.fca_chunk_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, ptr]
-        # ..., vec, wgmma, stream
+        tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32,
+                i32, ptr]
+        # ..., dropout, h0, vec, wgmma, stream
         lib.fca_chunk_forward.argtypes = ([ptr] * 6 + [i32] * 7 + tail[:-1]
                                           + [i32, ptr])
         lib.fca_chunk_backward.argtypes = ([ptr] * 11 + [i32] * 7 + tail[:-1]
@@ -784,7 +853,7 @@ def _chunk_lib() -> ctypes.CDLL:
     return lib
 
 
-def _chunk_prepare(q, seed, rate, launches, wgmma):
+def _chunk_prepare(q, seed, rate, launches, wgmma, h0=0):
     """As `_prepare`, for the chunked kernels, whose shared memory depends
     on the head dim and `wgmma` (the launches on their wgmma variant)."""
     lib = _chunk_lib()
@@ -798,22 +867,23 @@ def _chunk_prepare(q, seed, rate, launches, wgmma):
             raise ValueError(f"flash_chunked_attention launch {which} at "
                              f"Dh={dh} needs {smem} bytes of shared memory, "
                              f"more than the {SMEM_PER_BLOCK} a block may use")
-    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
+    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate, h0)
 
 
-def _launch_chunk_fwd(q, k, v, mask, seed, rate):
+def _launch_chunk_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v), q.element_size())
     wgmma = tiled_variant(q, k, v) == "wgmma"
-    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,), wgmma)
+    h0, total = _layer_heads(q, *heads)
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (0,), wgmma, h0)
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     _kernel_call(lib.fca_chunk_forward, "flash_chunked_attention forward", q,
                  k, v, mask, out, lse, _DTYPES[q.dtype], b, h, lq, lk, dh,
-                 chunk_head_group(h), strides, scale, *drop, int(vec),
+                 chunk_head_group(total), strides, scale, *drop, int(vec),
                  int(wgmma))
     flash_tower_attention.chunk_fwd_launches += 1
     if wgmma:
@@ -821,14 +891,16 @@ def _launch_chunk_fwd(q, k, v, mask, seed, rate):
     return out, lse
 
 
-def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
+def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate,
+                      heads=(0, None)):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     if g.stride(-1) != 1:
         g = g.contiguous()
     vec = _aligned((q, k, v, g), q.element_size())
     wgmma = tiled_variant(q, k, v, g, out) == "wgmma"
-    lib, scale, drop = _chunk_prepare(q, seed, rate, (1, 2), wgmma)
+    h0, total = _layer_heads(q, *heads)
+    lib, scale, drop = _chunk_prepare(q, seed, rate, (1, 2), wgmma, h0)
     dq = _heads_last(b, lq, h, dh, q)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
@@ -838,7 +910,7 @@ def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
         *g.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
     _kernel_call(lib.fca_chunk_backward, "flash_chunked_attention backward",
                  q, k, v, mask, out, lse, g, dq, dk, dv, delta,
-                 _DTYPES[q.dtype], b, h, lq, lk, dh, chunk_head_group(h),
+                 _DTYPES[q.dtype], b, h, lq, lk, dh, chunk_head_group(total),
                  strides, scale, *drop, int(vec), int(wgmma))
     flash_tower_attention.chunk_bwd_launches += 1
     if wgmma:
@@ -846,33 +918,39 @@ def _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
     return dq, dk, dv
 
 
-def _chunk_fwd(q, k, v, mask, seed, rate):
+def _chunk_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     if q.device.type == "cpu":
-        return flash_chunked_attention_fwd_reference(q, k, v, mask, seed, rate)
+        return flash_chunked_attention_fwd_reference(q, k, v, mask, seed, rate,
+                                                     *heads)
     _device_check(q)
-    return _launch_chunk_fwd(q, k, v, mask, seed, rate)
+    return _launch_chunk_fwd(q, k, v, mask, seed, rate, heads)
 
 
-def _chunk_bwd(q, k, v, mask, out, lse, g, seed, rate):
+def _chunk_bwd(q, k, v, mask, out, lse, g, seed, rate, heads=(0, None)):
     if q.device.type == "cpu":
         return flash_chunked_attention_bwd_reference(q, k, v, mask, out, lse,
-                                                     g, seed, rate)
+                                                     g, seed, rate, *heads)
     _device_check(q)
-    return _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate)
+    return _launch_chunk_bwd(q, k, v, mask, out, lse, g, seed, rate, heads)
 
 
 def flash_chunked_attention_fwd(q, k, v, padding_mask, seed: int,
-                                dropout_rate: float = 0.0):
+                                dropout_rate: float = 0.0,
+                                head_offset: int = 0,
+                                num_heads: Optional[int] = None):
     """The chunked forward kernel (kernel 4) on CUDA tensors, its plain
     version on CPU tensors: (out [B, H, Lq, Dh] in [B, Lq, H, Dh] storage,
     lse [B, H, Lq] f32).  Arguments as `flash_tower_attention`; any length
     (the kernel streams 128-key tiles)."""
     _check(q, k, v, padding_mask, dropout_rate)
-    return _chunk_fwd(q, k, v, _mask_bytes(padding_mask), seed, dropout_rate)
+    return _chunk_fwd(q, k, v, _mask_bytes(padding_mask), seed, dropout_rate,
+                      _layer_heads(q, head_offset, num_heads))
 
 
 def flash_chunked_attention_bwd(q, k, v, padding_mask, out, lse, g,
-                                seed: int, dropout_rate: float = 0.0):
+                                seed: int, dropout_rate: float = 0.0,
+                                head_offset: int = 0,
+                                num_heads: Optional[int] = None):
     """The chunked backward kernel (kernel 5, two launches) on CUDA
     tensors, its plain version on CPU tensors: (dq, dk, dv), each
     [B, H, L, Dh] in [B, L, H, Dh] storage.  out, lse: the forward's
@@ -881,17 +959,18 @@ def flash_chunked_attention_bwd(q, k, v, padding_mask, out, lse, g,
     _check_grad_inputs(q, lse, g)
     _check_out(q, out)
     return _chunk_bwd(q, k, v, _mask_bytes(padding_mask), out,
-                      lse.contiguous(), g, seed, dropout_rate)
+                      lse.contiguous(), g, seed, dropout_rate,
+                      _layer_heads(q, head_offset, num_heads))
 
 
 def _tiled_lib() -> ctypes.CDLL:
     lib = _build.load(_TILED_LIB)
     if lib.ftl_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        # ..., vec, wgmma, stream; the backward passes: ..., vec, wgmma,
-        # persistent, stream
+        # ..., dropout, h0, vec, wgmma, stream; the backward passes: ...,
+        # vec, wgmma, persistent, stream
         tail = [ptr, ctypes.c_float, u32, u32, ctypes.c_float, i32, i32, i32,
-                ptr]
+                i32, ptr]
         bwd_tail = tail[:-1] + [i32, ptr]
         lib.ftl_forward.argtypes = [ptr] * 6 + [i32] * 7 + tail
         lib.ftl_dq.argtypes = [ptr] * 9 + [i32] * 7 + bwd_tail
@@ -905,7 +984,7 @@ def _tiled_lib() -> ctypes.CDLL:
     return lib
 
 
-def _tiled_prepare(q, seed, rate, which, wgmma):
+def _tiled_prepare(q, seed, rate, which, wgmma, h0=0):
     """The loaded library, the score scale and the dropout arguments of one
     tiled launch (0: kernel 6, 1: kernel 7, 2: kernel 8), after checking the
     head dim and the launch's shared memory (`wgmma`: on its wgmma
@@ -920,7 +999,7 @@ def _tiled_prepare(q, seed, rate, which, wgmma):
         raise ValueError(f"flash_tiled_attention launch {which} at Dh={dh} "
                          f"needs {smem} bytes of shared memory, more than "
                          f"the {SMEM_PER_BLOCK} a block may use")
-    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate)
+    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate, h0)
 
 
 # the streamed libraries' own (negative) return codes
@@ -944,19 +1023,21 @@ def _kernel_call(fn, what, *args):
         raise RuntimeError(f"{what} kernel launch failed: {why}")
 
 
-def _launch_tiled_fwd(q, k, v, mask, seed, rate):
+def _launch_tiled_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     vec = _aligned((q, k, v), q.element_size())
     wgmma = tiled_variant(q, k, v) == "wgmma"
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 0, wgmma)
+    h0, total = _layer_heads(q, *heads)
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 0, wgmma, h0)
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
     _kernel_call(lib.ftl_forward, "flash_tiled_attention forward", q, k, v,
                  mask, out, lse, _DTYPES[q.dtype], b, h, lq, lk, dh,
-                 head_group(h), strides, scale, *drop, int(vec), int(wgmma))
+                 head_group(total), strides, scale, *drop, int(vec),
+                 int(wgmma))
     flash_tower_attention.tiled_fwd_launches += 1
     if wgmma:
         flash_tower_attention.tiled_fwd_wgmma_launches += 1
@@ -964,7 +1045,7 @@ def _launch_tiled_fwd(q, k, v, mask, seed, rate):
 
 
 def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate,
-                     persistent=None):
+                     persistent=None, heads=(0, None)):
     """Kernel 7; `persistent` (None: TILED_BWD_PERSISTENT) picks the wgmma
     passes' grid, which chip_smoke.py times both ways."""
     if persistent is None:
@@ -973,7 +1054,8 @@ def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate,
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
     wgmma = tiled_variant(q, k, v, g, out) == "wgmma"
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 1, wgmma)
+    h0, total = _layer_heads(q, *heads)
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 1, wgmma, h0)
     dq = _heads_last(b, lq, h, dh, q)
     delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 18)(
@@ -981,8 +1063,8 @@ def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate,
         *g.stride()[:3], *dq.stride()[:3])
     _kernel_call(lib.ftl_dq, "flash_tiled_attention dq", q, k, v, mask, out,
                  lse, g, dq, delta, _DTYPES[q.dtype], b, h, lq, lk, dh,
-                 head_group(h), strides, scale, *drop, int(vec), int(wgmma),
-                 int(persistent))
+                 head_group(total), strides, scale, *drop, int(vec),
+                 int(wgmma), int(persistent))
     flash_tower_attention.tiled_dq_launches += 1
     if wgmma:
         flash_tower_attention.tiled_dq_wgmma_launches += 1
@@ -990,7 +1072,7 @@ def _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate,
 
 
 def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate,
-                      persistent=None):
+                      persistent=None, heads=(0, None)):
     """Kernel 8; `persistent` as `_launch_tiled_dq`'s."""
     if persistent is None:
         persistent = TILED_BWD_PERSISTENT
@@ -998,7 +1080,8 @@ def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate,
     lk = k.shape[2]
     vec = _aligned((q, k, v, g), q.element_size())
     wgmma = tiled_variant(q, k, v, g) == "wgmma"
-    lib, scale, drop = _tiled_prepare(q, seed, rate, 2, wgmma)
+    h0, total = _layer_heads(q, *heads)
+    lib, scale, drop = _tiled_prepare(q, seed, rate, 2, wgmma, h0)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
     strides = (ctypes.c_longlong * 18)(
@@ -1006,42 +1089,45 @@ def _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate,
         *dk.stride()[:3], *dv.stride()[:3])
     _kernel_call(lib.ftl_dkv, "flash_tiled_attention dk/dv", q, k, v, mask,
                  lse, delta, g, dk, dv, _DTYPES[q.dtype], b, h, lq, lk, dh,
-                 head_group(h), strides, scale, *drop, int(vec), int(wgmma),
-                 int(persistent))
+                 head_group(total), strides, scale, *drop, int(vec),
+                 int(wgmma), int(persistent))
     flash_tower_attention.tiled_dkv_launches += 1
     if wgmma:
         flash_tower_attention.tiled_dkv_wgmma_launches += 1
     return dk, dv
 
 
-def _tiled_fwd(q, k, v, mask, seed, rate):
+def _tiled_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     if q.device.type == "cpu":
-        return flash_tiled_attention_fwd_reference(q, k, v, mask, seed, rate)
+        return flash_tiled_attention_fwd_reference(q, k, v, mask, seed, rate,
+                                                   *heads)
     _device_check(q)
-    return _launch_tiled_fwd(q, k, v, mask, seed, rate)
+    return _launch_tiled_fwd(q, k, v, mask, seed, rate, heads)
 
 
-def _tiled_dq(q, k, v, mask, out, lse, g, seed, rate):
+def _tiled_dq(q, k, v, mask, out, lse, g, seed, rate, heads=(0, None)):
     if q.device.type == "cpu":
         return flash_tiled_attention_dq_reference(q, k, v, mask, out, lse, g,
-                                                  seed, rate)
+                                                  seed, rate, *heads)
     _device_check(q)
-    return _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate)
+    return _launch_tiled_dq(q, k, v, mask, out, lse, g, seed, rate,
+                            heads=heads)
 
 
-def _tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate):
+def _tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate, heads=(0, None)):
     if q.device.type == "cpu":
         return flash_tiled_attention_dkv_reference(q, k, v, mask, lse, delta,
-                                                   g, seed, rate)
+                                                   g, seed, rate, *heads)
     _device_check(q)
-    return _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate)
+    return _launch_tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate,
+                             heads=heads)
 
 
-def _tiled_bwd(q, k, v, mask, out, lse, g, seed, rate):
+def _tiled_bwd(q, k, v, mask, out, lse, g, seed, rate, heads=(0, None)):
     if g.stride(-1) != 1:
         g = g.contiguous()
-    dq, delta = _tiled_dq(q, k, v, mask, out, lse, g, seed, rate)
-    dk, dv = _tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate)
+    dq, delta = _tiled_dq(q, k, v, mask, out, lse, g, seed, rate, heads)
+    dk, dv = _tiled_dkv(q, k, v, mask, lse, delta, g, seed, rate, heads)
     return dq, dk, dv
 
 
@@ -1054,17 +1140,22 @@ def _check_out(q, out) -> None:
 
 
 def flash_tiled_attention_fwd(q, k, v, padding_mask, seed: int,
-                              dropout_rate: float = 0.0):
+                              dropout_rate: float = 0.0,
+                              head_offset: int = 0,
+                              num_heads: Optional[int] = None):
     """The tiled forward kernel (kernel 6) on CUDA tensors, its plain
     version on CPU tensors: (out [B, H, Lq, Dh] in [B, Lq, H, Dh] storage,
     lse [B, H, Lq] f32).  Arguments as `flash_tower_attention`; any
     length."""
     _check(q, k, v, padding_mask, dropout_rate)
-    return _tiled_fwd(q, k, v, _mask_bytes(padding_mask), seed, dropout_rate)
+    return _tiled_fwd(q, k, v, _mask_bytes(padding_mask), seed, dropout_rate,
+                      _layer_heads(q, head_offset, num_heads))
 
 
 def flash_tiled_attention_dq(q, k, v, padding_mask, out, lse, g, seed: int,
-                             dropout_rate: float = 0.0):
+                             dropout_rate: float = 0.0,
+                             head_offset: int = 0,
+                             num_heads: Optional[int] = None):
     """The tiled dq kernel (kernel 7) on CUDA tensors, its plain version on
     CPU tensors: (dq [B, H, Lq, Dh] in [B, Lq, H, Dh] storage, delta
     [B, H, Lq] f32 = rowsum(g·out), which kernel 8 takes).  out, lse: the
@@ -1075,11 +1166,14 @@ def flash_tiled_attention_dq(q, k, v, padding_mask, out, lse, g, seed: int,
     if g.stride(-1) != 1:
         raise ValueError("g needs a contiguous last (feature) dim")
     return _tiled_dq(q, k, v, _mask_bytes(padding_mask), out,
-                     lse.contiguous(), g, seed, dropout_rate)
+                     lse.contiguous(), g, seed, dropout_rate,
+                     _layer_heads(q, head_offset, num_heads))
 
 
 def flash_tiled_attention_dkv(q, k, v, padding_mask, lse, delta, g,
-                              seed: int, dropout_rate: float = 0.0):
+                              seed: int, dropout_rate: float = 0.0,
+                              head_offset: int = 0,
+                              num_heads: Optional[int] = None):
     """The tiled dk/dv kernel (kernel 8) on CUDA tensors, its plain version
     on CPU tensors: (dk, dv), each [B, H, Lk, Dh] in [B, Lk, H, Dh]
     storage.  delta: kernel 7's [B, H, Lq] f32."""
@@ -1091,11 +1185,14 @@ def flash_tiled_attention_dkv(q, k, v, padding_mask, lse, delta, g,
     if g.stride(-1) != 1:
         raise ValueError("g needs a contiguous last (feature) dim")
     return _tiled_dkv(q, k, v, _mask_bytes(padding_mask), lse.contiguous(),
-                      delta.contiguous(), g, seed, dropout_rate)
+                      delta.contiguous(), g, seed, dropout_rate,
+                      _layer_heads(q, head_offset, num_heads))
 
 
 def flash_tiled_attention_bwd(q, k, v, padding_mask, out, lse, g, seed: int,
-                              dropout_rate: float = 0.0):
+                              dropout_rate: float = 0.0,
+                              head_offset: int = 0,
+                              num_heads: Optional[int] = None):
     """The tiled backward (kernel 7, then kernel 8) on CUDA tensors, the
     plain versions on CPU tensors: (dq, dk, dv), each [B, H, L, Dh] in
     [B, L, H, Dh] storage.  g: any strides with a unit last one."""
@@ -1103,7 +1200,8 @@ def flash_tiled_attention_bwd(q, k, v, padding_mask, out, lse, g, seed: int,
     _check_grad_inputs(q, lse, g)
     _check_out(q, out)
     return _tiled_bwd(q, k, v, _mask_bytes(padding_mask), out,
-                      lse.contiguous(), g, seed, dropout_rate)
+                      lse.contiguous(), g, seed, dropout_rate,
+                      _layer_heads(q, head_offset, num_heads))
 
 
 # per regime: the forward runner and the backward runner; the streamed
@@ -1116,9 +1214,9 @@ _RUNNERS = {"single": (_single_fwd, _single_bwd),
 
 class _FlashTowerAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, rate, kind):
-        ctx.seed, ctx.rate, ctx.kind = seed, rate, kind
-        out, lse = _RUNNERS[kind][0](q, k, v, mask, seed, rate)
+    def forward(ctx, q, k, v, mask, seed, rate, kind, heads):
+        ctx.seed, ctx.rate, ctx.kind, ctx.heads = seed, rate, kind, heads
+        out, lse = _RUNNERS[kind][0](q, k, v, mask, seed, rate, heads)
         if kind == "single":
             ctx.save_for_backward(q, k, v, mask, lse)
         else:
@@ -1129,8 +1227,8 @@ class _FlashTowerAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, mask, lse, *out = ctx.saved_tensors
         grads = _RUNNERS[ctx.kind][1](q, k, v, mask, *out, lse, g, ctx.seed,
-                                      ctx.rate)
-        return (*grads, None, None, None, None)
+                                      ctx.rate, ctx.heads)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_tower_attention(
@@ -1140,6 +1238,8 @@ def flash_tower_attention(
     padding_mask: Optional[torch.Tensor],
     seed: int,
     dropout_rate: float = 0.0,
+    head_offset: int = 0,
+    num_heads: Optional[int] = None,
 ) -> torch.Tensor:
     """softmax((q kᵀ)/√d + mask) with dropout, times v: fused tower
     attention with a fused backward.
@@ -1150,7 +1250,11 @@ def flash_tower_attention(
     rate 0).  Returns [B, H, Lq, Dh] in q's dtype, in [B, Lq, H, Dh]
     storage.  Shapes within `fits_vmem` take kernels 2/3, longer ones
     within `fits_chunked` kernels 4/5, longer ones still kernels 6–8 (see
-    `regime`).  Without a gradient to take (torch.no_grad, or no input that
+    `regime`).  head_offset / num_heads: q holds heads [head_offset,
+    head_offset + h) of a layer's num_heads (a tensor-parallel rank's
+    heads; the default is all of them): the regime, the head group and the
+    mask are the layer's, so the result is those heads of the whole
+    layer's call.  Without a gradient to take (torch.no_grad, or no input that
     requires grad) it runs the forward alone and saves nothing.
     `flash_tower_attention.fwd_launches` / `.bwd_launches` count the
     launches of kernels 2/3 (`.tc_fwd_launches` / `.tc_bwd_launches` those
@@ -1164,10 +1268,12 @@ def flash_tower_attention(
     _check(q, k, v, padding_mask, dropout_rate)
     mask = _mask_bytes(padding_mask)
     seed, rate = int(seed), float(dropout_rate)
-    kind = regime(q, k)
+    heads = _layer_heads(q, head_offset, num_heads)
+    kind = regime(q, k, heads[1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashTowerAttention.apply(q, k, v, mask, seed, rate, kind)
-    return _RUNNERS[kind][0](q, k, v, mask, seed, rate)[0]
+        return _FlashTowerAttention.apply(q, k, v, mask, seed, rate, kind,
+                                          heads)
+    return _RUNNERS[kind][0](q, k, v, mask, seed, rate, heads)[0]
 
 
 flash_tower_attention.fwd_launches = 0

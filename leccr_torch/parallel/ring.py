@@ -23,7 +23,9 @@ labels from duplicate ids with their global counts included.
   −g·Σ(dq_raw·q)/temp².
 
 `ring_infonce_local` runs inside a process group (`parallel.mesh.DataMesh`)
-on local shards.  Its value is the global loss, the same bits on every
+on local shards, round the data ranks of one model rank (the data group:
+under tensor parallelism every model rank of a data rank runs the same
+ring on the same rows).  Its value is the global loss, the same bits on every
 rank, and each rank's gradient is the derivative of that loss by its own
 inputs: its feature shards, and the temperature (replicated: the ranks'
 cotangents are summed in rank order, as JAX's shard_map transpose psums
@@ -54,12 +56,13 @@ IMPLS = ("dense", "fused")
 
 def _rotate(tensors: Sequence[torch.Tensor], mesh: DataMesh,
             step: int = 1) -> List[torch.Tensor]:
-    """Each rank's tensors sent to rank + step and replaced by rank −
-    step's (one batch of point-to-point ops)."""
-    if mesh.world == 1:
+    """Each rank's tensors sent to data rank + step and replaced by data
+    rank − step's (one batch of point-to-point ops; the peers are named by
+    their global ranks)."""
+    if mesh.data_world == 1:
         return list(tensors)
-    dst = (mesh.rank + step) % mesh.world
-    src = (mesh.rank - step) % mesh.world
+    dst = mesh.data_peer(mesh.data_rank + step)
+    src = mesh.data_peer(mesh.data_rank - step)
     outs = [torch.empty_like(t) for t in tensors]
     ops = []
     for tag, (t, o) in enumerate(zip(tensors, outs)):
@@ -114,9 +117,9 @@ def _dense_half(q: torch.Tensor, idx_q: torch.Tensor, inv_temp,
 def _p2p_blocks(k, idx_k, mesh: DataMesh):
     """The blocks a rank meets: its own, then world − 1 rotations."""
     k = k.view_as(k)  # one entry node, as `_dense_half`'s q
-    for i in range(mesh.world):
+    for i in range(mesh.data_world):
         yield k, idx_k
-        if i < mesh.world - 1:
+        if i < mesh.data_world - 1:
             k = _Rotate.apply(k, mesh)
             idx_k = _rotate([idx_k], mesh)[0]
 
@@ -178,12 +181,12 @@ class _FusedHalf(torch.autograd.Function):
         inv_temp = 1.0 / temp
         dq_raw = torch.zeros_like(q)
         dk = torch.zeros_like(k)
-        for i in range(mesh.world):
+        for i in range(mesh.data_world):
             dq_b, dk_b = infonce_bwd_raw(q, k, idx_q, idx_k, inv_temp, lse,
                                          pc)
             dq_raw = dq_raw + dq_b
             dk = dk + dk_b
-            if i < mesh.world - 1:
+            if i < mesh.data_world - 1:
                 k, idx_k, dk = _rotate([k, idx_k, dk], mesh)
             else:  # the last hop brings each dk home
                 dk = _rotate([dk], mesh)[0]
@@ -193,9 +196,9 @@ class _FusedHalf(torch.autograd.Function):
 
 def _rotating(k, idx_k, mesh: DataMesh):
     """The blocks a rank meets in the fused forward, without autograd."""
-    for i in range(mesh.world):
+    for i in range(mesh.data_world):
         yield k, idx_k
-        if i < mesh.world - 1:
+        if i < mesh.data_world - 1:
             k, idx_k = _rotate([k, idx_k], mesh)
 
 
@@ -257,13 +260,13 @@ def _check(impl: str, feat_a: torch.Tensor, feat_b: torch.Tensor) -> None:
 def ring_infonce_local(feat_a: torch.Tensor, feat_b: torch.Tensor,
                        temp: torch.Tensor, idx: Optional[torch.Tensor],
                        mesh: DataMesh, impl: str = "dense") -> torch.Tensor:
-    """Bidirectional soft-label InfoNCE of the world's batch from this
-    rank's shards feat_a, feat_b [b, E] and ids idx [b] (None: rank·b +
-    arange(b)), around the ring of `mesh`."""
+    """Bidirectional soft-label InfoNCE of the data ranks' batch from this
+    rank's shards feat_a, feat_b [b, E] and ids idx [b] (None: data_rank ·
+    b + arange(b)), around the ring of `mesh`'s data group."""
     _check(impl, feat_a, feat_b)
     b = feat_a.shape[0]
     if idx is None:
-        idx = mesh.rank * b + torch.arange(b, device=feat_a.device)
+        idx = mesh.data_rank * b + torch.arange(b, device=feat_a.device)
     temp = sum_grad(torch.as_tensor(temp, dtype=torch.float32,
                                     device=feat_a.device), mesh)
     if impl == "dense":
@@ -275,7 +278,7 @@ def ring_infonce_local(feat_a: torch.Tensor, feat_b: torch.Tensor,
     else:
         loss_a = _FusedHalf.apply(feat_a, feat_b, idx, idx, temp, mesh)
         loss_b = _FusedHalf.apply(feat_b, feat_a, idx, idx, temp, mesh)
-    return rank_sum(loss_a + loss_b, mesh) / (2.0 * b * mesh.world)
+    return rank_sum(loss_a + loss_b, mesh) / (2.0 * b * mesh.data_world)
 
 
 class _FanOut(torch.autograd.Function):

@@ -70,7 +70,11 @@ joins the world that torchrun's environment describes (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR / MASTER_PORT); only rank 0 writes config.json,
 logs and checkpoints.  Asking for more GPUs than the host has raises.
 `--device cpu --devices N` runs N gloo processes on the CPU (the tests'
-path).
+path).  A config's `parallel.model` = M > 1 (tensor parallelism,
+`parallel.tensor`) lays the N processes out as N / M data ranks × M
+model ranks; M must divide N.  The serving tasks and export take no model
+axis (the JAX package's serving takes none): they run such a config dense
+on one device.
 """
 
 from __future__ import annotations

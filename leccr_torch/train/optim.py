@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, Iterable, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -149,14 +149,35 @@ def build_optimizer(
     return optimizer, scheduler
 
 
-def clip_by_global_norm(params: Iterable[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float,
+                        sharded: Sequence[torch.Tensor] = (),
+                        group: Optional[Any] = None) -> torch.Tensor:
     """optax.clip_by_global_norm on the .grad of params, without a host
     sync: grads are scaled by max_norm / norm where norm ≥ max_norm.
-    Returns the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    Returns the norm.
+
+    Under tensor parallelism (`sharded`: the params of `params` that hold
+    a slice; `group`: the model group, `parallel.tensor`) the norm is the
+    whole model's, JAX's global norm over the sharded arrays: the slices'
+    squares summed over the model group, the replicated params' counted
+    once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+
+    def norm_of(gs):
+        return torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in gs]))
+
+    if group is None or not sharded:
+        norm = norm_of(grads)
+    else:
+        ids = {id(p) for p in sharded}
+        local = [p.grad for p in params if id(p) in ids]
+        replicated = [p.grad for p in params if id(p) not in ids]
+        squares = group.sum(norm_of(local).square())
+        if replicated:
+            squares = squares + norm_of(replicated).square()
+        norm = squares.sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:

@@ -51,12 +51,28 @@ summed (`all_reduce_grads`), so the update equals the one-process
 data mesh.  The losses are the same bits on every rank.  Dropout, flash
 seeds and RandAugment draws come from (seed, step, rank[, k]).
 
+Tensor parallelism (`parallel.model` = M > 1; the mesh's model groups):
+the model is sharded in place (`parallel.tensor.shard_model`) before the
+optimizer is built, so the optimizer, the EMA and `mu_dtype` step each
+rank's slices.  Every model rank of data rank d draws the random streams
+of d, so the replicated activations get one dropout mask, and a sharded
+activation takes its slice of the one-process mask (`lean_dropout`'s
+shard); the flash kernels take each rank's head offset.  The data axis
+is the mesh's data group: the gathered negatives, the ring, the
+temperature's 1/W and the gradient sum are over the data ranks, and every
+model rank of a data rank computes the same losses on the same rows.
+After the backward, the column-parallel biases' gradients are summed over
+the model group (`sum_column_bias_grads`), every gradient over the data
+group, and the clip norm counts each slice once (`clip_by_global_norm`).
+So a step at data D × model M equals the one-process
+`TrainStep(num_blocks=D)` on the same global batch within f32 sum-order
+noise, with the same dropout bits.
+
 `data.randaugment`: the RandAugment policy of `data.randaugment_n` ops at
 magnitude `data.randaugment_m` after /255 (`data.images.
 preprocess_train_images`), drawn from the step's (or each microbatch's)
-`Generators.aug`; video frames skip it.  `parallel.model` > 1 and
-`parallel.fsdp` (tensor parallelism, FSDP) raise: they are the next slice
-of the port.
+`Generators.aug`; video frames skip it.  `parallel.fsdp` (FSDP) raises:
+it is the next slice of the port.
 """
 
 from __future__ import annotations
@@ -80,12 +96,17 @@ from leccr_torch.parallel.mesh import (
     scale_grad,
 )
 from leccr_torch.parallel.ring import ring_infonce, ring_infonce_local
+from leccr_torch.parallel.tensor import (
+    shard_model,
+    sharded_params,
+    sum_column_bias_grads,
+)
 from leccr_torch.train.optim import build_optimizer, clip_by_global_norm
 from leccr_torch.train.schedule import linear_warmup_decay
 from leccr_torch.utils.debug import assert_all_finite, nan_checks
 
 _U64 = 2 ** 64 - 1
-NEXT_SLICE = "the next slice of the port (ROADMAP §1 item 6)"
+NEXT_SLICE = "the next slice of the port (ROADMAP §1 item 2)"
 
 
 def _of_rank(seed: int, rank: int) -> int:
@@ -214,15 +235,12 @@ def ema_update_(ema: List[torch.Tensor], params: List[torch.Tensor],
 
 def check_parallel(cfg: LECCRConfig, world: int = 1) -> None:
     """Raise for a `parallel` layout the port does not run over `world`
-    data-parallel blocks: tensor parallelism and FSDP, and a
-    `parallel.data` other than -1 or the world."""
+    processes (or one-process blocks): FSDP, and a layout the world cannot
+    hold (`parallel.mesh.check_layout`)."""
     par = cfg.parallel
-    if par.model > 1:
-        raise NotImplementedError(
-            f"parallel.model: {par.model} (tensor parallelism) comes with "
-            + NEXT_SLICE)
     if par.fsdp:
-        raise NotImplementedError("parallel.fsdp comes with " + NEXT_SLICE)
+        raise NotImplementedError("parallel.fsdp (FSDP) comes with "
+                                  + NEXT_SLICE)
     check_layout(par, world)
 
 
@@ -235,11 +253,22 @@ class TrainStep:
                  num_blocks: int = 1, mesh: Optional[DataMesh] = None):
         tc, mc = cfg.train, cfg.model
         if mesh is not None:
-            if num_blocks not in (1, mesh.world):
-                raise ValueError(f"num_blocks {num_blocks} over a world of "
-                                 f"{mesh.world}")
-            num_blocks = mesh.world
-        check_parallel(cfg, num_blocks)
+            if num_blocks not in (1, mesh.data_world):
+                raise ValueError(f"num_blocks {num_blocks} over a data axis "
+                                 f"of {mesh.data_world}")
+            num_blocks = mesh.data_world
+            check_parallel(cfg, mesh.world)
+            if mesh.model_world != cfg.parallel.model:
+                raise ValueError(f"parallel.model: {cfg.parallel.model} on "
+                                 f"a mesh of model {mesh.model_world}")
+        else:
+            check_parallel(cfg, num_blocks)
+            if cfg.parallel.model > 1:
+                raise ValueError(f"parallel.model: {cfg.parallel.model} runs "
+                                 "over processes: pass a DataMesh")
+        if mesh is not None and mesh.model_world > 1 and getattr(
+                model, "tp_group", None) is None:
+            shard_model(model, mesh)
         negatives = cfg.parallel.negatives
         stream_rows = cfg.parallel.stream_loss_block_rows
         if negatives not in ("gather", "fused", "ring", "ring_fused"):
@@ -248,7 +277,7 @@ class TrainStep:
             stream_rows = 256  # the JAX trainer's default (trainer.py:344-345)
         self.model, self.mc = model, mc
         self.mesh = mesh
-        self.rank = mesh.rank if mesh is not None else 0
+        self.rank = mesh.data_rank if mesh is not None else 0
         self.num_blocks = num_blocks
         # the ring's block impl, where the ITC losses take the ring
         self.ring_impl = None
@@ -299,14 +328,15 @@ class TrainStep:
             local[id(a)], local[id(b)], t, idx_local, mesh, impl)
 
     def _world_batch(self, emb: TrainEmbeddings, idx: torch.Tensor):
-        """(the world's embeddings, their ids, {id(gathered feature): this
-        rank's rows}): every per-row field all-gathered in rank order, the
-        temperature with its cotangent divided by the world."""
+        """(the data ranks' embeddings, their ids, {id(gathered feature):
+        this rank's rows}): every per-row field all-gathered in data-rank
+        order, the temperature with its cotangent divided by the data
+        world."""
         mesh = self.mesh
         fields = {}
         for f in dataclasses.fields(TrainEmbeddings):
             value = getattr(emb, f.name)
-            fields[f.name] = (scale_grad(value, 1.0 / mesh.world)
+            fields[f.name] = (scale_grad(value, 1.0 / mesh.data_world)
                               if f.name == "temp"
                               else all_gather_rows(value, mesh))
         local = {id(fields[n]): getattr(emb, n)
@@ -369,12 +399,15 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.mesh is not None:
+            sum_column_bias_grads(self.model)
             all_reduce_grads(self.params, self.mesh)
         if self.debug_nans:
             assert_all_finite(losses, "losses")
             assert_all_finite([p.grad for p in self.params], "gradients")
         if self.grad_clip > 0.0:
-            clip_by_global_norm(self.params, self.grad_clip)
+            clip_by_global_norm(self.params, self.grad_clip,
+                                sharded_params(self.model),
+                                getattr(self.model, "tp_group", None))
         self.optimizer.step()
         self.scheduler.step()
         if self.ema is not None:

@@ -20,14 +20,21 @@ data-parallel world.
   eviction.
 - Resume is exact: the epoch and the batch within it come from the step
   counter, and the scheduler from the optimizer's step count.
-- Under a `mesh` (`parallel.mesh.DataMesh`, W processes): each rank loads
-  `batch_size_train / W` rows of each step (`TrainLoader`'s process
-  shard) and the step sums the ranks' gradients (`train.step`); the eval
-  batches round up to a multiple of W, each rank embeds its slice of each
-  and the embeddings are all-gathered in global order, so every rank ranks
-  the whole split and gets the single process's metrics.  Only rank 0
-  prints, logs, writes checkpoints and mirrors to hdfs; then the ranks
+- Under a `mesh` (`parallel.mesh.DataMesh`, W = D data × M model
+  processes): each data rank loads `batch_size_train / D` rows of each
+  step (`TrainLoader`'s process shard; a model group reads the same rows)
+  and the step sums the data ranks' gradients (`train.step`); the eval
+  batches round up to a multiple of D, each data rank embeds its slice of
+  each and the embeddings are all-gathered in global order, so every rank
+  ranks the whole split and gets the single process's metrics.  Only rank
+  0 prints, logs, writes checkpoints and mirrors to hdfs; then the ranks
   meet at a barrier.  `resume` loads on every rank.
+- With M > 1 the model (and the EMA's eval model) is sharded over the
+  model group (`parallel.tensor`).  A checkpoint holds the dense state in
+  the one-process format: the parameters, the Adam moments and the EMA
+  gathered over the model group (`gather_state`); a resume or an initial
+  checkpoint loads the dense weights on every rank and takes the rank's
+  slices.
 """
 
 from __future__ import annotations
@@ -56,6 +63,15 @@ from leccr_torch.eval.retrieval import itm_metrics_from_ranks, retrieval_ranks
 from leccr_torch.models.leccr import LECCRModel
 from leccr_torch.models.losses import LOSS_KEYS as STEP_LOSS_KEYS
 from leccr_torch.parallel.mesh import DataMesh, all_gather_rows
+from leccr_torch.parallel.tensor import (
+    gather_optimizer_state,
+    gather_state,
+    gather_tensors,
+    load_dense_state,
+    shard_model,
+    shard_optimizer_state,
+    shard_tensors,
+)
 from leccr_torch.train.checkpoints import CheckpointManager
 from leccr_torch.train.metrics import JSONLLogger, MetricLogger, SmoothedValue
 from leccr_torch.train.schedule import linear_warmup_decay
@@ -150,27 +166,32 @@ class Trainer:
         (its device is the mesh's)."""
         self.cfg = cfg
         self.mesh = mesh
-        self.world = mesh.world if mesh is not None else 1
-        self.rank = mesh.rank if mesh is not None else 0
-        self.is_main = self.rank == 0
+        if mesh is not None:
+            mesh.use_layout(cfg.parallel)
+        # the data axis: the loaders' shards and the eval's row split
+        self.world = mesh.data_world if mesh is not None else 1
+        self.rank = mesh.data_rank if mesh is not None else 0
+        self.is_main = mesh is None or mesh.is_main
         self.device = (mesh.device if mesh is not None
                        else resolve_device(device))
         self.is_video = cfg.model.vision.kind == "temporal"
-        check_parallel(cfg, self.world)
+        check_parallel(cfg, mesh.world if mesh is not None else 1)
         # eval batches split over the ranks: sizes round up to a multiple
         # of the world (trainer.py:203-207)
         w = self.world
         cfg.train.batch_size_test = -(-cfg.train.batch_size_test // w) * w
         cfg.train.batch_size_test_text = (
             -(-cfg.train.batch_size_test_text // w) * w)
-        self.train_ds, self.val_ds, self.test_ds = build_datasets(cfg,
-                                                                  self.rank)
+        self.train_ds, self.val_ds, self.test_ds = build_datasets(
+            cfg, mesh.rank if mesh is not None else 0)
         # startup summary (reference image_Retrieval_caption.py:345-349)
         self.print(f"### Train Files: "
                    f"{[os.path.basename(p) for p in cfg.data.train_file]}")
         self.print(f"### Train data {len(self.train_ds)}, batch size "
                    f"{cfg.train.batch_size_train}, device {self.device}"
-                   + (f", {w} ranks" if mesh is not None else ""))
+                   + ("" if mesh is None else f", {w} ranks"
+                      if mesh.model_world == 1 else
+                      f", {w} data × {mesh.model_world} model ranks"))
         self.print(f"### Validation: "
                    f"{[(k, len(d)) for k, d in self.val_ds.items()]}")
         self.print(f"### Test: "
@@ -231,7 +252,15 @@ class Trainer:
         EMA restarts from the loaded weights.  Returns the ImportReport."""
         from leccr_torch.models.weights import load_initial_checkpoint
 
-        report = load_initial_checkpoint(path, self.state.model)
+        model = self.state.model
+        if getattr(model, "tp_group", None) is None:
+            report = load_initial_checkpoint(path, model)
+        else:  # into the dense model, then each rank's slices
+            dense = LECCRModel(self.cfg.model, device=self.device)
+            dense.load_state_dict(gather_state(model))
+            report = load_initial_checkpoint(path, dense)
+            load_dense_state(model, dense.state_dict())
+            del dense
         train_step = self.state.train_step
         if train_step.ema is not None:
             train_step.ema = train_step.ema_of_params()
@@ -240,14 +269,21 @@ class Trainer:
     # ----------------------------------------------------------- epochs
 
     def _save(self, epoch: int, **kwargs) -> None:
-        """Rank 0 writes the checkpoint; every rank then meets the others."""
+        """Rank 0 writes the checkpoint (the dense state, gathered over the
+        model group); every rank then meets the others."""
         state = self.state
+        model = state.model
+        model_state = gather_state(model)
+        opt_state = gather_optimizer_state(model, state.optimizer)
+        ema = state.ema
+        if ema is not None:
+            names = [n for n, _ in model.named_parameters()]
+            ema = list(gather_tensors(model, dict(zip(names, ema))).values())
         if not self.is_main:
             self.barrier()
             return
-        self.ckpt.save(state.step, state.model.state_dict(),
-                       state.optimizer.state_dict(), epoch,
-                       steps_per_epoch=self.steps_per_epoch, ema=state.ema,
+        self.ckpt.save(state.step, model_state, opt_state, epoch,
+                       steps_per_epoch=self.steps_per_epoch, ema=ema,
                        **kwargs)
         self.barrier()
 
@@ -337,6 +373,8 @@ class Trainer:
             return self.state.model
         if self._ema_model is None:
             self._ema_model = LECCRModel(self.cfg.model, device=self.device)
+            if getattr(self.state.model, "tp_group", None) is not None:
+                shard_model(self._ema_model, self.mesh)
         with torch.no_grad():
             torch._foreach_copy_(list(self._ema_model.parameters()),
                                  self.state.ema)
@@ -441,8 +479,13 @@ class Trainer:
         dropped when the EMA is off."""
         model_state, opt_state, ema, meta = self.ckpt.restore()
         state = self.state
-        state.model.load_state_dict(model_state)
-        state.optimizer.load_state_dict(opt_state)
+        load_dense_state(state.model, model_state)
+        state.optimizer.load_state_dict(shard_optimizer_state(
+            state.model, state.optimizer, opt_state))
+        if ema is not None:  # the rank's slices of a dense EMA
+            names = [n for n, _ in state.model.named_parameters()]
+            ema = list(shard_tensors(state.model,
+                                     dict(zip(names, ema))).values())
         step = int(meta["step"])
         train_step = state.train_step
         # the schedule is a function of the optimizer's step count

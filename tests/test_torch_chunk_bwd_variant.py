@@ -40,7 +40,8 @@ def test_step_views_take_the_wgmma_backward(monkeypatch):
     runs the wgmma passes."""
     seen = []
 
-    def record(q, k, v, mask, out, lse, g, seed, rate):
+    def record(q, k, v, mask, out, lse, g, seed, rate, heads):
+        assert heads == (0, HEADS)  # a dense block's: all the layer's heads
         seen.append((regime(q, k), tiled_variant(q, k, v, g, out), q.dtype))
         return tuple(torch.zeros_like(t) for t in (q, k, v))
 

@@ -32,6 +32,7 @@ from chip_smoke import (
     single_masks,
     tc_counts,
     tiled_masks,
+    tp_kernel_check,
     wgmma_counts,
     wgmma_launched,
 )
@@ -399,6 +400,23 @@ def test_chunked_kernels_match_plain_versions(shape, dtype, dh):
                                    out=want_out)
         for name, (got, want) in pairs.items():
             assert bf16_k_needed(got, want, scales[name]) <= BF16_K, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime,heads,length,world", [
+    ("single", 12, 145, 4), ("chunked", 16, 577, 4),
+    ("tiled", 16, 2705, 4), ("tiled", 12, 2705, 4)])
+def test_kernels_on_a_rank_heads_equal_the_dense_heads(regime, heads, length,
+                                                       world):
+    """Tensor parallelism: each rank's heads through kernels 2-8 at its
+    offset and the layer's H (dropout 0.1) equal the dense call's heads
+    bit for bit, and the masks on rank 1's heads, read back, are the plain
+    hash at the offset (head_group(16) = 8 and head_group(12) = 6 span two
+    ranks of 4 and 3 heads)."""
+    _needs_card()
+    checks = tp_kernel_check("test", regime, 2, heads, length, False, world,
+                             seed=11)
+    assert checks["bit_equal"]
 
 
 @pytest.mark.cuda

@@ -33,8 +33,11 @@ def test_step_views_take_the_wgmma_forward(monkeypatch, length, want_regime):
     runs the wgmma body."""
     seen = []
 
-    def record(q, k, v, mask, seed, rate):
-        seen.append((regime(q, k), tiled_variant(q, k, v), q.dtype))
+    def record(q, k, v, mask, seed, rate, head_offset, num_heads):
+        # a dense block's call spans all of the layer's heads
+        assert (head_offset, num_heads) == (0, HEADS)
+        seen.append((regime(q, k, num_heads), tiled_variant(q, k, v),
+                     q.dtype))
         return torch.zeros_like(q)
 
     monkeypatch.setattr(clip, "flash_tower_attention", record)

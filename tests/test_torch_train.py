@@ -305,14 +305,14 @@ def test_params_to_jax_round_trip():
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ({"parallel.model": 2}, NotImplementedError, "next slice"),
+    ({"parallel.model": 2}, ValueError, "must divide the world, 1"),
     ({"parallel.fsdp": True}, NotImplementedError, "next slice"),
     ({"parallel.data": 2}, ValueError, "the world, 1")])
 def test_unported_train_options_raise(override, error, match):
-    """Tensor parallelism and FSDP come with the next slice of the port;
-    data parallelism runs over processes (tests/
-    test_torch_distributed_trainer.py), so `parallel.data` must name the
-    world, here one block.  The EMA trains (tests/test_torch_trainer.py),
+    """FSDP comes with the next slice of the port; data and tensor
+    parallelism run over processes (tests/test_torch_distributed_trainer.py,
+    tests/test_torch_tensor_parallel_ranks.py), so `parallel.data` must
+    name the world, here one block, and `parallel.model` must divide it.  The EMA trains (tests/test_torch_trainer.py),
     `negatives: fused` and GradCache train on one device (tests/
     test_torch_large_batch_step.py), as do `ring` and `ring_fused`
     (tests/test_torch_scale_step.py)."""

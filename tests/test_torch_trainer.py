@@ -563,8 +563,10 @@ def test_cli_without_a_card_raises(tmp_path):
                                       {"parallel.fsdp": True}])
 def test_cli_unported_options_raise(tmp_path, override):
     """Every task runs, on one device or data-parallel over several
-    (tests/test_torch_run_distributed.py); tensor parallelism and FSDP
-    wait for the next slice of the port (ROADMAP §1 item 6)."""
+    (tests/test_torch_run_distributed.py); tensor parallelism runs over
+    processes whose count the model count divides (tests/
+    test_torch_tensor_parallel_run.py), so on one device it raises; FSDP
+    waits for the next slice of the port (ROADMAP §1 item 2)."""
     from leccr_torch.config import load_config
     from leccr_torch.run import main
 
@@ -572,7 +574,10 @@ def test_cli_unported_options_raise(tmp_path, override):
     (key, value), = override.items()
     setattr(cfg.parallel, key.split(".")[1], value)
     cfg.save(str(tmp_path / "config.json"))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    error, match = ((ValueError, "must divide the world, 1")
+                    if key == "parallel.model"
+                    else (NotImplementedError, "next slice"))
+    with pytest.raises(error, match=match):
         main(["--config", str(tmp_path / "config.json"), "--output_dir",
               str(tmp_path / "run"), "--device", "cpu"])
 
@@ -606,7 +611,7 @@ def test_cli_checkpoint_from_an_orbax_directory_raises(tmp_path):
 
 @pytest.mark.parametrize("overrides,error", [
     ({"parallel.fsdp": True}, NotImplementedError),
-    ({"parallel.model": 2}, NotImplementedError)])
+    ({"parallel.model": 2}, ValueError)])
 def test_trainer_unported_options_raise(tmp_path, overrides, error):
     with pytest.raises(error):
         port_trainer.Trainer(_cfg(port_tiny_config, tmp_path, **overrides),

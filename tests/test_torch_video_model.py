@@ -13,7 +13,11 @@ weights (numpy-seeded, every parameter moved off its init):
     `grad_total` (the caption-vision loss local, trainer.py:421-431)
     followed by `tx.update`, in tests/test_torch_train.py's measure:
     losses atol 1e-5, gradients atol 1e-4, parameters atol 1e-6 where the
-    gradient is above f32 noise and within 2·lr elsewhere.
+    gradient is above f32 noise and within 2·lr elsewhere.  The rows of
+    `cproj.weight` whose output channel is ill-conditioned for the cv
+    means' normalization (its norm over the slots below `COND_NORM` in
+    some batch row) are held to a bound of their conditioning instead
+    (`cproj_row_bounds`), and at most `MAX_ILL_CHANNELS` rows may be.
 """
 
 import jax
@@ -44,6 +48,11 @@ from leccr_tpu.train.schedule import linear_warmup_decay
 
 ATOL = 1e-5
 LR = 1e-3
+# cproj output channels whose norm over the slots falls below COND_NORM in
+# some batch row get a gradient bound of their conditioning; no more than
+# MAX_ILL_CHANNELS of the 512 may (7 do on this data)
+COND_NORM = 0.02
+MAX_ILL_CHANNELS = 8
 B, T, L, DF = 6, 6, 16, 512
 VIDEO = {"model.vision.kind": "temporal", "model.vision.frame_feat_dim": DF,
          "model.vision.num_layers": 1, "model.vision.num_heads": 8,
@@ -255,9 +264,36 @@ def jax_video_step(video_setup):
     return jax.tree.map(np.asarray, step(params))
 
 
+@pytest.fixture(scope="module")
+def cproj_row_bounds(video_setup, jax_video_step):
+    """The gradient bound of each row c of `cproj.weight`, from the JAX
+    side.  The cv means normalize x = cproj(ori_slots) [B, n, D] over the
+    n slots.  Where a channel's norm ‖x_bc‖ over the slots is small, the
+    normalization's Jacobian (I − yyᵀ)/‖x‖ turns sum-order noise δ in x
+    into a relative change of up to 3δ/‖x‖ in the gradient reaching x, and
+    so in the row's gradient.  δ_c is one f32 rounding of the terms'
+    magnitude sum, eps · max_bs Σ_i |ori_bsi · W_ic|.  A row whose channel
+    has min_b ‖x_bc‖ < COND_NORM is held to 1e-4 + 3 δ_c / ‖x_c‖ ·
+    max|∂W_c|; every other row to 1e-4."""
+    cfg, model, params, batch, inputs = video_setup
+    _, want_grads, _ = jax_video_step
+    emb = model.apply({"params": params}, inputs)
+    ori = np.asarray(emb.ori_slots, np.float32)
+    kernel = np.asarray(params["cproj"]["kernel"], np.float32)  # [in, out]
+    x = ori @ kernel + np.asarray(params["cproj"]["bias"], np.float32)
+    norm = np.linalg.norm(x, axis=1).min(axis=0)  # [out]
+    delta = np.finfo(np.float32).eps * np.einsum(
+        "bsi,io->bso", np.abs(ori), np.abs(kernel)).max(axis=(0, 1))
+    grad = np.abs(np.asarray(want_grads["cproj"]["kernel"])).max(axis=0)
+    ill = norm < COND_NORM
+    assert ill.sum() <= MAX_ILL_CHANNELS, np.nonzero(ill)[0]
+    bound = np.where(ill, 1e-4 + 3 * delta / norm * grad, 1e-4)
+    return torch.from_numpy(bound.astype(np.float32))[:, None]
+
+
 @pytest.mark.parametrize("microbatches", [1, 2])
 def test_video_train_step_matches_jax(video_setup, jax_video_step,
-                                      microbatches):
+                                      cproj_row_bounds, microbatches):
     """Also through GradCache (2 microbatches: the same gradient)."""
     _, _, params, batch, _ = video_setup
     want_losses, want_grads, want_params = jax_video_step
@@ -274,8 +310,12 @@ def test_video_train_step_matches_jax(video_setup, jax_video_step,
     grads = params_from_jax(want_grads, cfg.model)
     after = params_from_jax(want_params, cfg.model)
     for name, p in model.named_parameters():
-        torch.testing.assert_close(p.grad, grads[name], rtol=0, atol=1e-4,
-                                   msg=name)
+        if name == "cproj.weight":
+            over = (p.grad - grads[name]).abs() > cproj_row_bounds
+            assert not over.any(), (name, over.nonzero()[:5])
+        else:
+            torch.testing.assert_close(p.grad, grads[name], rtol=0,
+                                       atol=1e-4, msg=name)
         signal = grads[name].abs() > 1e-4
         diff = (p.detach() - after[name]).abs()
         assert diff.where(signal, 0).max().item() <= 1e-6, name
