@@ -175,7 +175,12 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    then build_video_index of 256 videos and search_texts(minmax); then
    `--task build_index` of the test split from the run's checkpoint
    (kernel 1 7 a batch of 64, key tiles only) and search_texts(minmax)
-   on the loaded save.
+   on the loaded save.  Then configs/vatex.yaml's model uncut (1024-d
+   frames, so Dh = 128: kernel 1's small bodies), bf16: one embed_images
+   batch of 64 videos (32 frames, some padded; 200-token captions), each
+   of its 7 kernel 1 calls held to the plain version on the same inputs
+   with phase 2's bf16 tolerance (`vatex_check`; few-queries and few-keys
+   bodies only).
 14. serving tasks (`serve_tasks_phase`): configs/multi30k_all.yaml's
    model from fit's last checkpoint over a synthetic Multi30K test split
    of 1000 images, through `leccr_torch.run.main`: `--task build_index`
@@ -246,6 +251,29 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    exactly M launches of each of the regime's kernels a replay; rank 0's
    block alone (collectives as local stand-ins) beside the dense block:
    device ms (profiler) and event ms.
+21. FSDP (`fsdp_phase`, last): `parallel.fsdp` on one card through
+   `parallel.fsdp.LocalDataGroup` (D = FSDP_BLOCKS data ranks' shards
+   stacked on the device, gathered at use, gradients sliced).  (a)
+   configs/multi30k_all.yaml uncut (ViT-B/32 @384 + mBERT-base, bf16 on
+   f32 masters, bs128, kernels 2/3): 2 steps of `TrainStep(num_blocks=4)`
+   at the default floor beside the same steps without FSDP: losses,
+   parameters and Adam moments bit for bit; kernels 2/3
+   FLAGSHIP_STEP_LAUNCHES a step; a rank's bytes of parameters plus
+   moments against the dense state's, the sharded and replicated
+   parameter counts, and the step's device ms (profiler) beside the step
+   without FSDP.  (b) configs/scale_vitl_32k.yaml's model at full width
+   (ViT-L/14 @336 + XLM-R-large, remat, ring_fused, GradCache 2, FSDP)
+   at num_blocks 4 without the model axis, cut to bs32 (the config's
+   32 768 rows need 8+ cards) and to 8-row loss blocks (its 256 would
+   leave a 32-row batch unstreamed): 2 steps beside the steps without
+   FSDP (at the first, the first caption cross-attention's key bias has
+   an exactly zero gradient: the query slots start at zero), losses,
+   parameters and moments bit for bit, finite losses, every parameter
+   moved;
+   kernels 9-11 launched, as many times as without FSDP; device ms and
+   peak memory.  Both parts run under torch's deterministic algorithms
+   (the CUDA embedding backward's sum over a repeated index varies run to
+   run otherwise: the token-type table's, 1 index x 16 384 rows).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -3002,6 +3030,7 @@ def video_phase(card_line: str = "", seed: int = 0):
         if r["body"] != "key_tiles":
             raise AssertionError(f"kernel 1 at the video shape {r['lq']}x"
                                  f"{r['lk']} took the {r['body']} body")
+    vatex_kernel1 = vatex_check(card_line, seed)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_video_"))
     try:
         cfg = load_config(str(ROOT / "configs" / "msrvtt.yaml"))
@@ -3257,9 +3286,83 @@ def video_phase(card_line: str = "", seed: int = 0):
              batch=cfg.train.batch_size_train, **fields)
         return shapes, launches, {"fit": fit_kernel1, "eval": eval_kernel1,
                                   "serve": serve_kernel1,
-                                  "build_index": build_kernel1}
+                                  "build_index": build_kernel1,
+                                  "vatex": vatex_kernel1}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+VATEX_VIDEOS = 64  # configs/vatex.yaml's batch_size_test
+
+
+def vatex_check(card_line: str, seed: int = 0) -> dict:
+    """One embed_images batch of configs/vatex.yaml's model, uncut, bf16 on
+    f32 masters (1024-d frames at 8 heads: Dh = 128, kernel 1's small
+    bodies): every kernel 1 call of the batch held to its plain version on
+    the same inputs with kernel_phase's bf16 tolerance (every element
+    within 1e-5 + 1 bf16 ulp).  Returns kernel 1's counts."""
+    import torch
+
+    from leccr_torch.config import load_config
+    from leccr_torch.models.leccr import LECCRModel
+    from leccr_torch.ops import attention
+    from leccr_torch.ops.fused_cross_attention import (
+        fused_cross_attention_reference,
+    )
+
+    cfg = load_config(str(ROOT / "configs" / "vatex.yaml"))
+    mcfg = cfg.model
+    model = LECCRModel(mcfg, device="cuda", seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    n, frames = VATEX_VIDEOS, mcfg.vision.max_frames
+    length = cfg.data.max_tokens
+    valid = torch.randint(1, frames + 1, (n, 1), device="cuda", generator=g)
+    valid[0] = frames
+    words = torch.randint(1, length + 1, (n, 1), device="cuda", generator=g)
+    words[0] = length
+    caption_mask = (torch.arange(length, device="cuda")[None] < words).int()
+    batch = {
+        "vision": torch.randn((n, frames, mcfg.vision.frame_feat_dim),
+                              device="cuda", generator=g),
+        "vision_mask": torch.arange(frames, device="cuda")[None] < valid,
+        "caption_ids": torch.randint(1, mcfg.text.vocab_size, (n, length),
+                                     device="cuda", generator=g)
+        * caption_mask,
+        "caption_mask": caption_mask,
+    }
+    kernel, calls = attention.fused_cross_attention, []
+
+    def checked(q, k, v, pad=None):
+        out = kernel(q, k, v, pad)
+        want = fused_cross_attention_reference(q, k, v, pad)
+        diff = (out.float() - want.float()).abs()
+        calls.append({"lq": q.shape[2], "lk": k.shape[2], "dh": q.shape[3],
+                      "max_abs_err": diff.max().item(),
+                      "ok": bool((diff <= 1e-5 + bf16_ulp(want)).all())})
+        return out
+
+    reset_counts()
+    attention.fused_cross_attention = checked
+    try:
+        out = model.embed_images(batch)
+    finally:
+        attention.fused_cross_attention = kernel
+    counts = kernel1_counts("the vatex embed_images batch")
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in ("feat", "slots"))
+    if (counts["all"] != launches_per_batch(cfg) or len(calls) != counts["all"]
+            or not finite or not all(c["ok"] for c in calls)):
+        raise AssertionError(f"vatex embed_images: kernel 1 {counts}, calls "
+                             f"{calls}, finite {finite}")
+    emit("vatex_check", card=card_line, config="configs/vatex.yaml",
+         dtype=mcfg.dtype, videos=n, frames=frames, caption_tokens=length,
+         kernel1=counts, calls=calls,
+         max_abs_err=max(c["max_abs_err"] for c in calls),
+         tolerance="every element within 1e-5 + 1 bf16 ulp of the plain "
+                   "version",
+         params=sum(p.numel() for p in model.parameters()))
+    del model
+    torch.cuda.empty_cache()
+    return counts
 
 
 SERVE_IMAGES = 1000  # Multi30K's test2016
@@ -4463,17 +4566,22 @@ def tp_block_check(kind, b, length, world, seed):
                                        / times["dense_block_device_ms"])}
 
 
-def device_ms_per_call(fn, iters: int, top: int = 6):
+def device_ms_per_call(fn, iters: int, top: int = 6, warm: bool = True,
+                       host: bool = True):
     """(the device's kernel time a call of fn(), from torch.profiler over
-    `iters` calls after a warm-up (host time not counted); the `top`
-    kernels by time, ms a call)."""
+    `iters` calls after a warm-up (`warm`; host time not counted); the
+    `top` kernels by time, ms a call).  host=False traces the device
+    alone (less to record for a call of many launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -4515,6 +4623,217 @@ def tensor_parallel_phase(card_line: str, seed: int = 4321):
                  kernels=kernels, blocks=rows, card=card_line)
     emit("tensor_parallel_done", launches=total,
          wall_s=time.perf_counter() - t0)
+    return total
+
+
+FSDP_BLOCKS = 4  # the one-process data ranks of phase 21
+FSDP_SCALE_BATCH = 32
+FSDP_SCALE_OPTIONS = {"parallel.model": 1, "parallel.fsdp": True,
+                      "train.grad_cache_microbatches": 2,
+                      "parallel.stream_loss_block_rows": 8,
+                      "train.batch_size_train": FSDP_SCALE_BATCH}
+
+
+def fsdp_run(cfg, batch: int, steps: int, fsdp: bool, seed: int = 0,
+             iters: int = 1):
+    """`steps` train steps of `TrainStep(num_blocks=FSDP_BLOCKS)` on one
+    batch (bf16 compute on f32 masters), with `parallel.fsdp` = fsdp, then
+    the step's device time over `iters` more steps under the profiler.  Returns a dict: the losses, the dense parameters and Adam
+    moments (by parameter name) after the checked steps, kernels 2-11's
+    launches in them, the parameters that did not move, the run's peak
+    memory in those steps (past what was allocated before it), device ms,
+    and for FSDP a rank's bytes of parameters plus moments."""
+    import copy
+
+    import torch
+
+    from leccr_torch.models.leccr import LECCRModel
+    from leccr_torch.parallel.tensor import (
+        _param_names,
+        gather_optimizer_state,
+        gather_state,
+    )
+    from leccr_torch.train.step import make_train_step
+
+    cfg = copy.deepcopy(cfg)
+    cfg.parallel.fsdp = fsdp
+    cfg.train.schedular.num_warmup_steps = 0
+    cfg.train.optimizer.lr = 1e-5
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # e.g. an earlier run's results
+    t0 = time.perf_counter()
+    model = LECCRModel(cfg.model, device="cuda", seed=seed)
+    step = make_train_step(cfg, model, total_steps=10000,
+                           num_blocks=FSDP_BLOCKS)
+    data = train_batch(cfg, batch, 64, seed + 5)
+    start = [p.detach().clone() for p in step.params]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    losses = [step(data, i) for i in range(steps)]
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0 - build_s
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    launches, tc = step_counts(), tc_counts()
+    named = {id(p): n for n, p in model.named_parameters()}
+    unmoved = sorted(named[id(p)] for p, s in zip(step.params, start)
+                     if torch.equal(p.detach(), s))
+    del start
+    names = _param_names(model, step.optimizer)
+    out = {"losses": losses, "launches": launches, "tc": tc,
+           "unmoved": unmoved,
+           "params": {k: v.clone() for k, v in gather_state(model).items()},
+           "moments": {names[i]: {k: v.clone() for k, v in entry.items()
+                                  if k != "step"}
+                       for i, entry in gather_optimizer_state(
+                           model, step.optimizer)["state"].items()},
+           "peak_mem_gb": peak_gb}
+    state = getattr(model, "fsdp", None)
+    if state is not None:
+        names = {id(p): n for n, p in model.named_parameters()}
+        rank = dense = 0
+        for p in step.params:
+            held = [p] + [v for k, v in step.optimizer.state[p].items()
+                          if k != "step" and torch.is_tensor(v)]
+            nbytes = sum(t.numel() * t.element_size() for t in held)
+            dense += nbytes
+            rank += (nbytes // FSDP_BLOCKS if names[id(p)] in state.dims
+                     else nbytes)
+        out.update(rank_state_bytes=rank, dense_state_bytes=dense,
+                   rank_share=rank / dense, sharded_params=len(state.dims),
+                   replicated_params=len(step.params) - len(state.dims))
+    t0 = time.perf_counter()
+    out["device_ms"], out["top"] = device_ms_per_call(
+        lambda: step(data, steps), iters, warm=False, host=False)
+    out["wall_s"] = {"build": build_s, "steps": steps_s,
+                     "profiled": time.perf_counter() - t0}
+    del model, step, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_diff(got: dict, want: dict) -> dict:
+    """{tensor: max |got - want|} over the parameters ("name") and Adam
+    moments ("name#key") that are not bit for bit equal, and "losses" when
+    those differ."""
+    import torch
+
+    out = {}
+    pairs = [(n, got["params"][n], v) for n, v in want["params"].items()]
+    pairs += [(f"{n}#{k}", got["moments"][n][k], v)
+              for n, entry in want["moments"].items()
+              for k, v in entry.items()]
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            out[name] = (a.float() - b.float()).abs().max().item()
+    if got["losses"] != want["losses"]:
+        out["losses"] = max(abs(got["losses"][i][k] - v)
+                            for i, row in enumerate(want["losses"])
+                            for k, v in row.items())
+    return out
+
+
+def fsdp_check(what: str, dense: dict, fsdp: dict) -> None:
+    """FSDP's step against the step without it: losses, parameters and
+    Adam moments bit for bit."""
+    diff = fsdp_diff(fsdp, dense)
+    if diff:
+        raise AssertionError(f"{what}: FSDP differs from the step without "
+                             f"it in {len(diff)} tensors: {diff}")
+
+
+def fsdp_phase(card_line: str):
+    """Phase 21 (see the docstring), under deterministic algorithms: the
+    CUDA embedding backward sums a heavily repeated index (the token-type
+    table's) in an order that varies run to run otherwise, so the step
+    without FSDP would not reproduce itself.  Returns the launches of
+    kernels 2-11 (STEP_COUNTERS order): (a)'s of kernels 2/3, (b)'s of
+    kernels 9-11."""
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _fsdp_phase(card_line)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _fsdp_phase(card_line: str):
+    from leccr_torch.config import load_config
+
+    t0 = time.perf_counter()
+    # (a) the flagship, uncut
+    cfg = load_config(str(ROOT / "configs" / "multi30k_all.yaml"))
+    dense = fsdp_run(cfg, 128, 2, False)
+    fsdp = fsdp_run(cfg, 128, 2, True)
+    fsdp_check("the flagship", dense, fsdp)
+    want = tuple(2 * n for n in FLAGSHIP_STEP_LAUNCHES)
+    if fsdp["launches"] != want or dense["launches"] != want or (
+            fsdp["tc"] != want[:2]):
+        raise AssertionError(f"the flagship launched kernels 2-11 "
+                             f"{fsdp['launches']} (tensor-core {fsdp['tc']})"
+                             f" under FSDP, {dense['launches']} without, "
+                             f"want {want}")
+    flagship = {k: fsdp[k] for k in (
+        "rank_state_bytes", "dense_state_bytes", "rank_share",
+        "sharded_params", "replicated_params", "device_ms", "peak_mem_gb",
+        "top", "wall_s")}
+    flagship.update(dense_device_ms=dense["device_ms"],
+                    dense_peak_mem_gb=dense["peak_mem_gb"],
+                    fsdp_over_dense_device=(fsdp["device_ms"]
+                                            / dense["device_ms"]),
+                    launches=dict(zip(STEP_COUNTERS, fsdp["launches"])),
+                    losses_last=fsdp["losses"][-1])
+    emit("fsdp_flagship", card=card_line, config="configs/multi30k_all.yaml",
+         batch=128, num_blocks=FSDP_BLOCKS, steps=2,
+         fsdp_min_size=cfg.parallel.fsdp_min_size, bit_for_bit=True,
+         deterministic_algorithms=True, **flagship)
+    launches = fsdp["launches"][:2]
+    del dense, fsdp
+    flagship_s = time.perf_counter() - t0
+
+    # (b) the scale composition without the model axis
+    cfg = load_config(str(ROOT / "configs" / "scale_vitl_32k.yaml"))
+    set_options(cfg, FSDP_SCALE_OPTIONS)
+    # 2 steps: at the first, the first caption cross-attention's key bias
+    # has an exactly zero gradient (the query slots start at zero) and no
+    # weight decay
+    dense = fsdp_run(cfg, FSDP_SCALE_BATCH, 2, False)
+    fsdp = fsdp_run(cfg, FSDP_SCALE_BATCH, 2, True)
+    infonce = slice(len(COUNTERS), len(STEP_COUNTERS))
+    finite = all(math.isfinite(v) for row in fsdp["losses"]
+                 for v in row.values())
+    if not finite or fsdp["unmoved"]:
+        raise AssertionError(f"the scale step: finite losses {finite}, "
+                             f"unmoved under FSDP {fsdp['unmoved']}, "
+                             f"without {dense['unmoved']}")
+    fsdp_check("the scale step", dense, fsdp)
+    if (fsdp["launches"] != dense["launches"]
+            or not all(fsdp["launches"][infonce])
+            or any(fsdp["launches"][:len(COUNTERS)])):
+        raise AssertionError(f"the scale step launched kernels 2-11 "
+                             f"{fsdp['launches']} under FSDP, "
+                             f"{dense['launches']} without")
+    emit("fsdp_scale", card=card_line, config="configs/scale_vitl_32k.yaml",
+         cuts={"batch": FSDP_SCALE_BATCH, "parallel.model": 1,
+               "parallel.stream_loss_block_rows": 8},
+         num_blocks=FSDP_BLOCKS, steps=2, bit_for_bit=True,
+         deterministic_algorithms=True,
+         losses=fsdp["losses"], device_ms=fsdp["device_ms"],
+         dense_device_ms=dense["device_ms"],
+         peak_mem_gb=fsdp["peak_mem_gb"],
+         dense_peak_mem_gb=dense["peak_mem_gb"],
+         rank_share=fsdp["rank_share"],
+         sharded_params=fsdp["sharded_params"],
+         replicated_params=fsdp["replicated_params"],
+         launches=dict(zip(STEP_COUNTERS, fsdp["launches"])), top=fsdp["top"],
+         wall_s=fsdp["wall_s"], dense_wall_s=dense["wall_s"])
+    total = launches + (0,) * (len(COUNTERS) - 2) + fsdp["launches"][infonce]
+    emit("fsdp_done", launches=dict(zip(STEP_COUNTERS, total)),
+         flagship_s=flagship_s, wall_s=time.perf_counter() - t0)
     return total
 
 
@@ -4623,6 +4942,7 @@ def main() -> int:
     dist_launches, dist_kernel1 = distributed_phase(card_line)
     index_scale_phase(card_line)
     tp_launches = tensor_parallel_phase(card_line)
+    fsdp_launches = fsdp_phase(card_line)
 
     def path_sum(key, rows=None, launches=PATH_LAUNCHES):
         # bf16 at B=64: one embed_images batch, 7 launches
@@ -4836,6 +5156,9 @@ def main() -> int:
     # blocks
     for entry, n in zip(entries[1:1 + len(COUNTERS)], tp_launches):
         entry["launches_tensor_parallel"] = n
+    # kernels 2/3 and 9-11: their launches in phase 21's FSDP steps
+    for at in (0, 1, 7, 8, 9):
+        entries[1 + at]["launches_fsdp"] = fsdp_launches[at]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

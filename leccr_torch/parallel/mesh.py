@@ -28,8 +28,8 @@ the gradient sum); `model_rank` / `model_world` the tensor-parallel axis
 `parallel.model` = 1 the data axis is the world and `group` the default
 group, as before tensor parallelism.  `partition_spec` is JAX's
 `param_partition_spec` with `params_shardings`' divisibility rule, on the
-port's parameters.  FSDP is the next slice of the port:
-`train.step.check_parallel` raises for it.
+port's parameters.  FSDP (`parallel.fsdp`) cuts parameters over the data
+group too: `parallel/fsdp.py`.
 
 Each rank keeps its local rows: the JAX package's `host_local_to_global` /
 `shard_batch` have no counterpart.
@@ -46,7 +46,7 @@ The collectives the trainer and the ring share:
   (an all-gather and one local sum: the same bits on every rank, and the
   bits of the one-process replay).
 - `all_reduce_grads(params, mesh)`: each gradient summed over the data
-  group.
+  group (FSDP's shards are not passed: their gradients arrive summed).
 """
 
 from __future__ import annotations

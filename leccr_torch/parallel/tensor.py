@@ -466,9 +466,12 @@ def _assemble(layout, parts: Sequence[torch.Tensor]) -> torch.Tensor:
 def gather_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
     """{parameter name: tensor shaped as the rank's parameter} -> the same
-    tensors at the dense shape (a collective over the model group: every
-    model rank calls it and gets them).  Unsharded names come back as they
-    are."""
+    tensors at the dense shape (a collective over the data group under
+    FSDP, `parallel.fsdp`, then over the model group: every rank calls it
+    and gets them).  Unsharded names come back as they are."""
+    fsdp = getattr(model, "fsdp", None)
+    if fsdp is not None:  # the data ranks' shards first
+        tensors = fsdp.gather_tensors(tensors)
     group = getattr(model, "tp_group", None)
     if group is None:
         return dict(tensors)
@@ -481,18 +484,18 @@ def gather_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor]
 def shard_tensors(model: nn.Module, tensors: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
     """The inverse of `gather_tensors`: dense tensors -> the rank's
-    slices (no collective)."""
+    slices, the model group's and then the data group's (no
+    collective)."""
     group = getattr(model, "tp_group", None)
-    if group is None:
-        return dict(tensors)
-    layouts = _layouts(model)
-    out = {}
-    for name, t in tensors.items():
-        if name in layouts:
-            dim, index, _ = layouts[name]
-            t = t.index_select(dim, index[group.rank].to(t.device))
-        out[name] = t
-    return out
+    out = dict(tensors)
+    if group is not None:
+        layouts = _layouts(model)
+        for name, t in tensors.items():
+            if name in layouts:
+                dim, index, _ = layouts[name]
+                out[name] = t.index_select(dim, index[group.rank].to(t.device))
+    fsdp = getattr(model, "fsdp", None)
+    return out if fsdp is None else fsdp.shard_tensors(out)
 
 
 def merge_replay(shards: Sequence[nn.Module], grads: bool = False
@@ -519,8 +522,8 @@ def merge_replay(shards: Sequence[nn.Module], grads: bool = False
 
 
 def gather_state(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The dense state_dict of a sharded model (every model rank calls it
-    and gets it); the model's own state_dict when it is not sharded."""
+    """The dense state_dict of a sharded model (every rank calls it and
+    gets it); the model's own state_dict when it is not sharded."""
     return gather_tensors(model, model.state_dict())
 
 
@@ -556,10 +559,10 @@ def _map_optimizer_state(model, optimizer, state, fn):
 def gather_optimizer_state(model: nn.Module,
                            optimizer: torch.optim.Optimizer) -> Dict:
     """The optimizer's state_dict with every moment at its dense
-    parameter's shape (a collective over the model group), the format of
-    a one-process run's."""
+    parameter's shape (a collective over the data and model groups), the
+    format of a one-process run's."""
     state = optimizer.state_dict()
-    if getattr(model, "tp_group", None) is None:
+    if not is_sharded(model):
         return state
     return _map_optimizer_state(model, optimizer, state,
                                 lambda t: gather_tensors(model, t))
@@ -569,7 +572,7 @@ def shard_optimizer_state(model: nn.Module, optimizer: torch.optim.Optimizer,
                           state: Dict) -> Dict:
     """A dense optimizer state_dict (`gather_optimizer_state`'s) cut to
     this rank's slices, for `optimizer.load_state_dict`."""
-    if getattr(model, "tp_group", None) is None:
+    if not is_sharded(model):
         return state
     return _map_optimizer_state(model, optimizer, state,
                                 lambda t: shard_tensors(model, t))
@@ -583,15 +586,24 @@ def sum_column_bias_grads(model: nn.Module) -> None:
     if group is None:
         return
     for mod in model.modules():
-        if isinstance(mod, ColumnParallelDense) and mod.bias is not None \
-                and mod.bias.grad is not None:
-            mod.bias.grad.copy_(group.sum(mod.bias.grad))
+        bias = mod._parameters.get("bias")  # the shard itself under FSDP
+        if isinstance(mod, ColumnParallelDense) and bias is not None \
+                and bias.grad is not None:
+            bias.grad.copy_(group.sum(bias.grad))
 
 
 def sharded_params(model: nn.Module) -> List[nn.Parameter]:
-    """The parameters that hold a slice (the others are replicated)."""
-    return [mod.weight for mod in model.modules()
+    """The parameters that hold a model slice (the others are replicated
+    over the model group)."""
+    return [mod._parameters["weight"] for mod in model.modules()
             if isinstance(mod, _SHARDED)]
+
+
+def is_sharded(model: nn.Module) -> bool:
+    """Whether the model holds slices: over the model group
+    (`shard_model`) or the data group (`parallel.fsdp.shard_fsdp`)."""
+    return (getattr(model, "tp_group", None) is not None
+            or getattr(model, "fsdp", None) is not None)
 
 
 # ------------------------------------------------------------ the replay

@@ -151,7 +151,9 @@ def build_optimizer(
 
 def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float,
                         sharded: Sequence[torch.Tensor] = (),
-                        group: Optional[Any] = None) -> torch.Tensor:
+                        group: Optional[Any] = None,
+                        data_sharded: Sequence[torch.Tensor] = (),
+                        data_group: Optional[Any] = None) -> torch.Tensor:
     """optax.clip_by_global_norm on the .grad of params, without a host
     sync: grads are scaled by max_norm / norm where norm ≥ max_norm.
     Returns the norm.
@@ -160,7 +162,9 @@ def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float,
     a slice; `group`: the model group, `parallel.tensor`) the norm is the
     whole model's, JAX's global norm over the sharded arrays: the slices'
     squares summed over the model group, the replicated params' counted
-    once."""
+    once.  Under FSDP over processes (`data_sharded`: the params that hold
+    a data shard; `data_group`: the data group, `parallel.fsdp`) the
+    shards' squares are summed over the data group as well."""
     params = [p for p in params if p.grad is not None]
     grads = [p.grad for p in params]
 
@@ -168,18 +172,34 @@ def clip_by_global_norm(params: Iterable[torch.Tensor], max_norm: float,
         return torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g.float()) for g in gs]))
 
-    if group is None or not sharded:
+    if (group is None or not sharded) and (data_group is None
+                                           or not data_sharded):
         norm = norm_of(grads)
     else:
-        ids = {id(p) for p in sharded}
-        local = [p.grad for p in params if id(p) in ids]
-        replicated = [p.grad for p in params if id(p) not in ids]
-        squares = group.sum(norm_of(local).square())
-        if replicated:
-            squares = squares + norm_of(replicated).square()
-        norm = squares.sqrt()
+        norm = _sharded_norm(params, norm_of, set(map(id, sharded)), group,
+                             set(map(id, data_sharded)), data_group)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:
         g.mul_(scale.to(g.dtype))
     return norm
+
+
+def _sharded_norm(params, norm_of, model_ids, group, data_ids, data_group):
+    """The global norm of the params' gradients, each held whole, as a
+    model slice, as a data shard or as both: the squares of each kind
+    summed over the groups that split it."""
+    kinds: Dict[Tuple[bool, bool], list] = {}
+    for p in params:
+        key = (id(p) in model_ids and group is not None,
+               id(p) in data_ids and data_group is not None)
+        kinds.setdefault(key, []).append(p.grad)
+    total = torch.zeros((), device=params[0].grad.device)
+    for (by_model, by_data), grads in sorted(kinds.items()):
+        squares = norm_of(grads).square()
+        if by_model:
+            squares = group.sum(squares)
+        if by_data:
+            squares = data_group.sum(squares)
+        total = total + squares
+    return total.sqrt()

@@ -68,11 +68,23 @@ So a step at data D × model M equals the one-process
 `TrainStep(num_blocks=D)` on the same global batch within f32 sum-order
 noise, with the same dropout bits.
 
+FSDP (`parallel.fsdp`; `parallel.fsdp.shard_fsdp`): after the model
+axis, each parameter of at least `parallel.fsdp_min_size` elements is cut
+over the data ranks by the JAX layout, before the optimizer is built, so
+the Adam moments (and `mu_dtype`'s bf16 first moment) and the EMA are
+kept per shard.  The weights are gathered at use and the gradients
+reduce-scattered, so those parameters' gradients arrive summed over the
+data ranks: `all_reduce_grads` skips them, and the clip norm counts each
+data shard once.  Over a mesh the group is the data group; in one process
+at num_blocks = D > 1 it is `LocalDataGroup(D)` (the D shards stacked on
+one device), and the step equals the step without FSDP bit for bit when
+the clip is off (the flagship's).  At one data rank FSDP shards nothing,
+as in the JAX package.
+
 `data.randaugment`: the RandAugment policy of `data.randaugment_n` ops at
 magnitude `data.randaugment_m` after /255 (`data.images.
 preprocess_train_images`), drawn from the step's (or each microbatch's)
-`Generators.aug`; video frames skip it.  `parallel.fsdp` (FSDP) raises:
-it is the next slice of the port.
+`Generators.aug`; video frames skip it.
 """
 
 from __future__ import annotations
@@ -95,6 +107,12 @@ from leccr_torch.parallel.mesh import (
     check_layout,
     scale_grad,
 )
+from leccr_torch.parallel.fsdp import (
+    LocalDataGroup,
+    ProcessDataGroup,
+    fsdp_params,
+    shard_fsdp,
+)
 from leccr_torch.parallel.ring import ring_infonce, ring_infonce_local
 from leccr_torch.parallel.tensor import (
     shard_model,
@@ -106,7 +124,6 @@ from leccr_torch.train.schedule import linear_warmup_decay
 from leccr_torch.utils.debug import assert_all_finite, nan_checks
 
 _U64 = 2 ** 64 - 1
-NEXT_SLICE = "the next slice of the port (ROADMAP §1 item 2)"
 
 
 def _of_rank(seed: int, rank: int) -> int:
@@ -234,14 +251,9 @@ def ema_update_(ema: List[torch.Tensor], params: List[torch.Tensor],
 
 
 def check_parallel(cfg: LECCRConfig, world: int = 1) -> None:
-    """Raise for a `parallel` layout the port does not run over `world`
-    processes (or one-process blocks): FSDP, and a layout the world cannot
-    hold (`parallel.mesh.check_layout`)."""
-    par = cfg.parallel
-    if par.fsdp:
-        raise NotImplementedError("parallel.fsdp (FSDP) comes with "
-                                  + NEXT_SLICE)
-    check_layout(par, world)
+    """Raise for a `parallel` layout that `world` processes (or
+    one-process blocks) cannot hold (`parallel.mesh.check_layout`)."""
+    check_layout(cfg.parallel, world)
 
 
 class TrainStep:
@@ -269,6 +281,11 @@ class TrainStep:
         if mesh is not None and mesh.model_world > 1 and getattr(
                 model, "tp_group", None) is None:
             shard_model(model, mesh)
+        if cfg.parallel.fsdp and getattr(model, "fsdp", None) is None:
+            group = (LocalDataGroup(num_blocks) if mesh is None else
+                     ProcessDataGroup(mesh.data_rank, mesh.data_world,
+                                      mesh.group))
+            shard_fsdp(model, group, cfg.parallel.fsdp_min_size)
         negatives = cfg.parallel.negatives
         stream_rows = cfg.parallel.stream_loss_block_rows
         if negatives not in ("gather", "fused", "ring", "ring_fused"):
@@ -300,6 +317,13 @@ class TrainStep:
             lr_mult_paths=tuple(tc.optimizer.lr_mult_paths),
             frozen_paths=("clip_text_tower",))
         self.params = list(model.parameters())
+        # FSDP's shards over processes: their gradients arrive summed
+        fsdp = getattr(model, "fsdp", None)
+        self.data_sharded = ([] if fsdp is None or fsdp.group.local
+                             else fsdp_params(model))
+        self.data_group = fsdp.group if self.data_sharded else None
+        ids = {id(p) for p in self.data_sharded}
+        self.reduced = [p for p in self.params if id(p) not in ids]
         self.ema: Optional[List[torch.Tensor]] = (
             self.ema_of_params() if self.ema_decay > 0 else None)
         self.randaugment_n = (cfg.data.randaugment_n if cfg.data.randaugment
@@ -400,14 +424,15 @@ class TrainStep:
                 p.grad = torch.zeros_like(p)
         if self.mesh is not None:
             sum_column_bias_grads(self.model)
-            all_reduce_grads(self.params, self.mesh)
+            all_reduce_grads(self.reduced, self.mesh)
         if self.debug_nans:
             assert_all_finite(losses, "losses")
             assert_all_finite([p.grad for p in self.params], "gradients")
         if self.grad_clip > 0.0:
             clip_by_global_norm(self.params, self.grad_clip,
                                 sharded_params(self.model),
-                                getattr(self.model, "tp_group", None))
+                                getattr(self.model, "tp_group", None),
+                                self.data_sharded, self.data_group)
         self.optimizer.step()
         self.scheduler.step()
         if self.ema is not None:

@@ -30,11 +30,16 @@ data-parallel world.
   0 prints, logs, writes checkpoints and mirrors to hdfs; then the ranks
   meet at a barrier.  `resume` loads on every rank.
 - With M > 1 the model (and the EMA's eval model) is sharded over the
-  model group (`parallel.tensor`).  A checkpoint holds the dense state in
+  model group (`parallel.tensor`); with `parallel.fsdp` over D > 1 data
+  ranks, over the data group too (`parallel.fsdp`: each rank keeps its
+  shard of every large parameter, of its Adam moments and of its EMA, and
+  the train and eval models gather the weights at use; the eval ranks
+  embed the replicated run's rows).  A checkpoint holds the dense state in
   the one-process format: the parameters, the Adam moments and the EMA
-  gathered over the model group (`gather_state`); a resume or an initial
-  checkpoint loads the dense weights on every rank and takes the rank's
-  slices.
+  gathered over the data group, then the model group (`gather_state`); a
+  resume or an initial checkpoint loads the dense weights on every rank
+  and takes the rank's slices, so a run resumes on another layout, with
+  or without FSDP.
 """
 
 from __future__ import annotations
@@ -62,11 +67,13 @@ from leccr_torch.device import resolve_device
 from leccr_torch.eval.retrieval import itm_metrics_from_ranks, retrieval_ranks
 from leccr_torch.models.leccr import LECCRModel
 from leccr_torch.models.losses import LOSS_KEYS as STEP_LOSS_KEYS
+from leccr_torch.parallel.fsdp import shard_fsdp
 from leccr_torch.parallel.mesh import DataMesh, all_gather_rows
 from leccr_torch.parallel.tensor import (
     gather_optimizer_state,
     gather_state,
     gather_tensors,
+    is_sharded,
     load_dense_state,
     shard_model,
     shard_optimizer_state,
@@ -253,7 +260,7 @@ class Trainer:
         from leccr_torch.models.weights import load_initial_checkpoint
 
         model = self.state.model
-        if getattr(model, "tp_group", None) is None:
+        if not is_sharded(model):
             report = load_initial_checkpoint(path, model)
         else:  # into the dense model, then each rank's slices
             dense = LECCRModel(self.cfg.model, device=self.device)
@@ -270,7 +277,7 @@ class Trainer:
 
     def _save(self, epoch: int, **kwargs) -> None:
         """Rank 0 writes the checkpoint (the dense state, gathered over the
-        model group); every rank then meets the others."""
+        data and model groups); every rank then meets the others."""
         state = self.state
         model = state.model
         model_state = gather_state(model)
@@ -373,8 +380,12 @@ class Trainer:
             return self.state.model
         if self._ema_model is None:
             self._ema_model = LECCRModel(self.cfg.model, device=self.device)
-            if getattr(self.state.model, "tp_group", None) is not None:
+            trained = self.state.model
+            if getattr(trained, "tp_group", None) is not None:
                 shard_model(self._ema_model, self.mesh)
+            if getattr(trained, "fsdp", None) is not None:
+                shard_fsdp(self._ema_model, trained.fsdp.group,
+                           trained.fsdp.min_size)
         with torch.no_grad():
             torch._foreach_copy_(list(self._ema_model.parameters()),
                                  self.state.ema)

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_and_builds_nothing():
             "leccr_torch.models.convert", "leccr_torch.serve_ann",
             "leccr_torch.serve_frontend", "leccr_torch.data.randaugment",
             "leccr_torch.parallel.mesh", "leccr_torch.parallel.ring",
-            "leccr_torch.parallel.tensor"} <= set(out["modules"])
+            "leccr_torch.parallel.tensor",
+            "leccr_torch.parallel.fsdp"} <= set(out["modules"])
     assert out["foreign"] == []
     assert out["built"] == []
     assert not out["native_loaded"]

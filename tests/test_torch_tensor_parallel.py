@@ -399,10 +399,16 @@ def test_layouts_the_world_cannot_hold_raise():
         check_layout(ParallelConfig(data=4, model=2), 4)
     with pytest.raises(ValueError, match="dcn_data=4"):
         check_layout(ParallelConfig(data=-1, model=2, dcn_data=4), 4)
-    cfg = port_tiny_config(**{"parallel.fsdp": True})
-    with pytest.raises(NotImplementedError,
-                       match="FSDP.*next slice.*ROADMAP §1 item 2"):
-        make_train_step(cfg, LECCRModel(cfg.model, device="cpu"), 10)
+    # FSDP builds: over two one-process data blocks it shards the model
+    cfg = port_tiny_config(**{"parallel.fsdp": True,
+                              "parallel.fsdp_min_size": 1})
+    model = LECCRModel(cfg.model, device="cpu")
+    make_train_step(cfg, model, 10, num_blocks=2)
+    assert len(model.fsdp.dims) > 10
+    with pytest.raises(ValueError, match="runs over processes"):
+        cfg.parallel.model = 2
+        make_train_step(cfg, LECCRModel(cfg.model, device="cpu"), 10,
+                        num_blocks=2)
     cfg = port_tiny_config(**{"parallel.model": 2})
     with pytest.raises(ValueError, match="runs over processes"):
         make_train_step(cfg, LECCRModel(cfg.model, device="cpu"), 10,

@@ -306,17 +306,25 @@ def test_params_to_jax_round_trip():
 
 @pytest.mark.parametrize("override,error,match", [
     ({"parallel.model": 2}, ValueError, "must divide the world, 1"),
-    ({"parallel.fsdp": True}, NotImplementedError, "next slice"),
+    ({"parallel.fsdp": True}, None, None),
     ({"parallel.data": 2}, ValueError, "the world, 1")])
 def test_unported_train_options_raise(override, error, match):
-    """FSDP comes with the next slice of the port; data and tensor
-    parallelism run over processes (tests/test_torch_distributed_trainer.py,
-    tests/test_torch_tensor_parallel_ranks.py), so `parallel.data` must
-    name the world, here one block, and `parallel.model` must divide it.  The EMA trains (tests/test_torch_trainer.py),
-    `negatives: fused` and GradCache train on one device (tests/
-    test_torch_large_batch_step.py), as do `ring` and `ring_fused`
-    (tests/test_torch_scale_step.py)."""
+    """Data and tensor parallelism run over processes (tests/
+    test_torch_distributed_trainer.py, tests/
+    test_torch_tensor_parallel_ranks.py), so `parallel.data` must name the
+    world, here one block, and `parallel.model` must divide it.  FSDP
+    builds and steps (error None): on one data rank it shards nothing, as
+    in the JAX package (tests/test_torch_fsdp*.py run it over ranks).  The
+    EMA trains (tests/test_torch_trainer.py), `negatives: fused` and
+    GradCache train on one device (tests/test_torch_large_batch_step.py),
+    as do `ring` and `ring_fused` (tests/test_torch_scale_step.py)."""
     cfg = torch_tiny_config(**override)
     model = TorchLECCR(cfg.model, device="cpu")
+    if error is None:
+        step = make_train_step(cfg, model, total_steps=10)
+        assert getattr(model, "fsdp", None) is None
+        losses = step(_torch_batch(_batch(cfg)), 0)
+        assert all(np.isfinite(v) for v in losses.values())
+        return
     with pytest.raises(error, match=match):
         make_train_step(cfg, model, total_steps=10)

@@ -24,6 +24,7 @@ recurrence (rtol 2e-6) and across resumes that turn it on and off; the
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -566,20 +567,26 @@ def test_cli_unported_options_raise(tmp_path, override):
     (tests/test_torch_run_distributed.py); tensor parallelism runs over
     processes whose count the model count divides (tests/
     test_torch_tensor_parallel_run.py), so on one device it raises; FSDP
-    waits for the next slice of the port (ROADMAP §1 item 2)."""
+    trains on one device, where it shards nothing, as in the JAX package
+    (over ranks: tests/test_torch_fsdp_ranks.py)."""
     from leccr_torch.config import load_config
     from leccr_torch.run import main
 
     cfg = load_config(str(ROOT / "configs" / "tiny_synth.yaml"))
     (key, value), = override.items()
     setattr(cfg.parallel, key.split(".")[1], value)
+    cfg.train.schedular.epochs = 1
     cfg.save(str(tmp_path / "config.json"))
-    error, match = ((ValueError, "must divide the world, 1")
-                    if key == "parallel.model"
-                    else (NotImplementedError, "next slice"))
-    with pytest.raises(error, match=match):
-        main(["--config", str(tmp_path / "config.json"), "--output_dir",
-              str(tmp_path / "run"), "--device", "cpu"])
+    args = ["--config", str(tmp_path / "config.json"), "--output_dir",
+            str(tmp_path / "run"), "--device", "cpu"]
+    if key == "parallel.fsdp":
+        main(args)
+        records = _records(tmp_path / "run")
+        assert [r.get("epoch") for r in records] == [0, None]
+        assert math.isfinite(float(records[0]["train_loss_itc_vs"]))
+        return
+    with pytest.raises(ValueError, match="must divide the world, 1"):
+        main(args)
 
 
 def test_cli_one_device_passes_the_devices_check(tmp_path):
@@ -610,12 +617,22 @@ def test_cli_checkpoint_from_an_orbax_directory_raises(tmp_path):
 
 
 @pytest.mark.parametrize("overrides,error", [
-    ({"parallel.fsdp": True}, NotImplementedError),
+    ({"parallel.fsdp": True}, None),
     ({"parallel.model": 2}, ValueError)])
 def test_trainer_unported_options_raise(tmp_path, overrides, error):
+    """`parallel.model: 2` raises on one process; FSDP builds and steps
+    (on one data rank it shards nothing, as in the JAX package)."""
+    cfg = _cfg(port_tiny_config, tmp_path, **overrides)
+    if error is None:
+        trainer = port_trainer.Trainer(cfg, device="cpu")
+        assert getattr(trainer.state.model, "fsdp", None) is None
+        batch = next(iter(trainer.train_loader.epoch(0)))
+        values = trainer.state.train_step.run(
+            {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
+        assert bool(torch.isfinite(values).all())
+        return
     with pytest.raises(error):
-        port_trainer.Trainer(_cfg(port_tiny_config, tmp_path, **overrides),
-                             device="cpu")
+        port_trainer.Trainer(cfg, device="cpu")
 
 
 def test_debug_nans_checks_each_step():
