@@ -36,32 +36,26 @@
 // backward's 345 GFLOP.
 //
 // What the design does about it: every input is read from device memory
-// once per block, and the [L, L] scores, probabilities, masks and dp never
-// leave the SM.  One block takes one (b, h) and a tile of rows and stages
-// the other side's two [L, Dh] operands of that head in shared memory.  The
-// backward is two launches: one per query tile (delta, then dq), one per
-// key tile (dk and dv, recomputing p from lse), so no block writes what
-// another reads and nothing needs atomics.  Loads take the innermost stride
-// 1 and any outer strides, so the caller passes head-split views without a
-// transpose copy.  Two variants, chosen by the caller from the shapes before
-// the launch (ops/flash_attention.py, single_block_variant):
-// - tensor cores (`*_tc_kernel`), bf16 at Dh = 64 with 16-byte aligned
-//   rows, every call of the train steps: a block is 4 warps of 16 rows; the
-//   head's operands are staged as bf16 by cp.async (rows of 72 bf16, so
-//   ldmatrix reads are free of bank conflicts), the products run on mma.sync
-//   m16n8k16 with f32 accumulators, and each warp holds its rows as A
-//   fragments and its sums as C fragments in registers, sweeping the staged
-//   rows 32 at a time.  The row's exact max and sum come before any p is
-//   rounded, and its delta before any ds: the forward holds the warp's
-//   whole score rows in registers (one product q kᵀ and one exp per score;
-//   up to 192 keys, past which the caller takes the scalar kernels), and
-//   the dq pass sweeps the keys twice (delta = sum dp p; then ds and ds k),
-//   recomputing the scores on the tensor cores rather than holding two
-//   rows of them.
+// once, and the [L, L] scores, probabilities, masks and dp never leave the
+// SM.  Loads take the innermost stride 1 and any outer strides, so the
+// caller passes head-split views without a transpose copy.  Two variants,
+// chosen by the caller from the shapes before the launch
+// (ops/flash_attention.py, single_block_variant):
+// - Hopper (`single_fwd_wgmma_kernel`, `single_bwd_wgmma_kernel`), bf16 at
+//   Dh = 64 with TMA-eligible views and Lk <= 192, every call of the train
+//   steps: persistent blocks walk the (b, h) heads; each head's K and V are
+//   loaded once by TMA (128-byte swizzled 64-row boxes, zero-filled past Lk)
+//   while the previous head is computed, query tiles of 64 rows stream
+//   through a TMA ring, and the products run on wgmma with f32 accumulators
+//   in registers.  The forward holds a tile's whole score rows (the keys
+//   rounded up to 16), so each row's exact max and sum come before any p is
+//   rounded; the backward is one launch and one pass of 5 products a tile
+//   (Sᵀ, dPᵀ, dV, dK, dQ), its delta summed over every key inside the block.
 //   A product of two bf16 values is exact in f32, so only the order of the
-//   f32 sums differs from the scalar bodies; the roundings to
-//   bf16 (p, pd, ds, the outputs) sit at the same points, and scores stay
-//   f32 with expf, so f32 min on a padded key never meets an overflow;
+//   f32 sums and exp2.approx (two ulps) on the scaled exponent differ from
+//   the scalar bodies; the roundings to bf16 (p, pd, ds, the outputs) sit at
+//   the same points.  The design of each kernel is stated at its definition;
+//   the layouts are in flash_single_layout.h;
 // - scalar f32 FMA, for f32 (TF32 would break its 1e-5 tolerance), other
 //   head dims and unaligned views: operands staged as f32 (rows padded by
 //   one float, so lanes that walk different rows at the same feature hit
@@ -77,7 +71,8 @@
 
 #include <type_traits>
 
-#include "tensor_core.cuh"
+#include "flash_single_layout.h"
+#include "hopper.cuh"
 
 namespace {
 
@@ -454,362 +449,6 @@ __global__ void bwd_dkv_kernel(Params p) {
   }
 }
 
-// ------------------------------------------------ tensor-core kernels
-// bf16 at Dh = 64 with 16-byte aligned rows.  Each thread owns rows g and
-// g + 8 of its warp's 16 (g = lane / 4, t = lane % 4): element e of an
-// n-tile's C fragment lies in row g + 8 (e >> 1), column 8 nt + 2t + (e & 1).
-// The staged side is swept in chunks of kChunk rows (keys, or queries in the
-// dk/dv pass); rows past its length are staged as zeros and rounded up to a
-// whole chunk, and the per-key code below keeps them out of every sum.
-constexpr int kTcWarps = 4;             // warps of a block
-constexpr int kTcRows = 16 * kTcWarps;  // rows a block owns (= ROWS)
-constexpr int kChunk = 32;              // staged rows per sweep step
-constexpr int kNT = kChunk / 8;         // n-tiles of a chunk
-constexpr int kKS = kTcDim / 16;        // k-steps over the head dim
-constexpr int kNF = kTcDim / 8;         // n-tiles over the head dim
-
-// a key's code: a real key, a padded one (scores f32 min), or a staged row
-// past Lk, which exists only because the chunk is rounded up: no key at all
-constexpr unsigned char kRealKey = 0, kPaddedKey = 1, kNoKey = 2;
-
-__host__ __device__ constexpr int round_chunk(int n) {
-  return (n + kChunk - 1) / kChunk * kChunk;
-}
-
-// All of the block's threads start copying rows [0, rows) of a [n, 64] head
-// matrix (row stride `stride`) into `dst` (row-major, pitch kRowPitch); rows
-// at or past n become zeros.
-__device__ __forceinline__ void stage_head(const bf16* src, long long stride,
-                                           int n, int rows, bf16* dst) {
-  constexpr int per_row = kTcDim / 8;
-  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
-    const int r = e / per_row, c = (e % per_row) * 8;
-    const bool valid = r < n;
-    cp_async16(dst + r * kRowPitch + c, src + (valid ? r * stride : 0) + c,
-               valid);
-  }
-}
-
-// The head (b, h)'s K and V, all round_chunk(Lk) rows, and each key's code.
-// Shared memory: K, V [round_chunk(Lk)][kRowPitch] bf16, then the codes.
-__device__ __forceinline__ void stage_keys(const Params& p, int b, int h,
-                                           bf16* ks, bf16* vs,
-                                           unsigned char* code) {
-  const int lkc = round_chunk(p.lk);
-  stage_head(static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h, p.sk.l,
-             p.lk, lkc, ks);
-  stage_head(static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h, p.sv.l,
-             p.lk, lkc, vs);
-  cp_async_commit();
-  for (int j = threadIdx.x; j < lkc; j += blockDim.x)
-    code[j] = j >= p.lk ? kNoKey
-              : p.mask && p.mask[(long long)b * p.lk + j] ? kPaddedKey
-                                                          : kRealKey;
-}
-
-// The f32 score of product `acc` for a key of code `c`: scaled, or f32 min
-// for a padded key.
-__device__ __forceinline__ float score(float acc, unsigned char c,
-                                      float scale) {
-  return c == kPaddedKey ? -FLT_MAX : acc * scale;
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int n = 0; n < N; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-}
-
-// Rows r of a warp's 16 as bf16 pairs from C fragments: row row0 + g + 8 r,
-// features 8 nf + 2t and 8 nf + 2t + 1 of a head matrix at `dst` (row
-// stride `stride`); rows at or past n are not written.
-__device__ __forceinline__ void store_rows(const float (&acc)[kNF][4],
-                                           bf16* dst, long long stride,
-                                           int row0, int n) {
-  const int lane = threadIdx.x % kWarp, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + g + 8 * r;
-    if (i < n)
-#pragma unroll
-      for (int nf = 0; nf < kNF; ++nf)
-        *reinterpret_cast<uint32_t*>(dst + i * stride + 8 * nf + 2 * t) =
-            pack(acc[nf][2 * r], acc[nf][2 * r + 1]);
-  }
-}
-
-// The forward (kernel 2): one block per (b, h, kTcRows query rows), for
-// Lk <= NC kChunk.  The warp's whole score rows stay in registers: one
-// product q kᵀ and one exp per score, the row's exact max and sum before any
-// p is rounded.
-template <int NC>
-__global__ void __launch_bounds__(kTcWarps* kWarp) fwd_tc_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  const int lkc = round_chunk(p.lk);
-  bf16* ks = reinterpret_cast<bf16*>(smem_tc);
-  bf16* vs = ks + lkc * kRowPitch;
-  unsigned char* code = reinterpret_cast<unsigned char*>(vs + lkc * kRowPitch);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
-  const int row0 = blockIdx.y * kTcRows + warp * 16;
-
-  stage_keys(p, b, h, ks, vs, code);
-  uint32_t qa[kKS][4];
-  load_a(static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.l,
-         row0, p.lq, qa);
-  cp_async_wait<0>();
-  __syncthreads();
-  if (row0 >= p.lq) return;  // warp-uniform, and no barrier follows
-
-  // the scores, -inf for keys past Lk (so exp gives them 0 and the max,
-  // taken over at least one real or padded key, never sees them)
-  float s[NC][kNT][4], m[2] = {-FLT_MAX, -FLT_MAX}, sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    zero(s[c]);
-    mma_nt<kNT, kKS>(s[c], qa, ks + c * kChunk * kRowPitch);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const unsigned char k = code[c * kChunk + 8 * nt + 2 * t + (e & 1)];
-        s[c][nt][e] = k == kNoKey ? -INFINITY
-                                  : score(s[c][nt][e], k, p.scale);
-        m[e >> 1] = fmaxf(m[e >> 1], s[c][nt][e]);
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) m[r] = quad_max(m[r]);
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[c][nt][e] = expf(s[c][nt][e] - m[e >> 1]);
-        sum[e >> 1] += s[c][nt][e];
-      }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] = quad_sum(sum[r]);
-    const int i = row0 + g + 8 * r;
-    if (i < p.lq && t == 0)
-      p.lse[((long long)b * p.heads + h) * p.lq + i] = m[r] + logf(sum[r]);
-  }
-  // p = exp(s - max) / sum times keep, rounded; out += round(p) v
-  float o[kNF][4];
-  zero(o);
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float pj = s[c][nt][e] / sum[r];
-        if (p.drop.on)
-          pj *= keep_factor(p.drop, b, h, row0 + g + 8 * r,
-                            c * kChunk + 8 * nt + 2 * t + (e & 1), p.lq, p.lk);
-        s[c][nt][e] = pj;
-      }
-    uint32_t pa[kNT / 2][4];  // round(p) as A fragments over the chunk's keys
-    c_to_a<kNT / 2>(s[c], pa);
-    mma_nn<kNF, kNT / 2>(o, pa, vs + c * kChunk * kRowPitch);
-  }
-  store_rows(o, static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h, p.so.l,
-             row0, p.lq);
-}
-
-// The backward's dq pass (kernel 3, first launch): one block per (b, h,
-// kTcRows query rows); writes delta for the dk/dv pass.
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    bwd_dq_tc_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  const int lkc = round_chunk(p.lk);
-  bf16* ks = reinterpret_cast<bf16*>(smem_tc);
-  bf16* vs = ks + lkc * kRowPitch;
-  unsigned char* code = reinterpret_cast<unsigned char*>(vs + lkc * kRowPitch);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
-  const int row0 = blockIdx.y * kTcRows + warp * 16;
-  const long long rows = ((long long)b * p.heads + h) * p.lq;
-
-  stage_keys(p, b, h, ks, vs, code);
-  uint32_t qa[kKS][4], ga[kKS][4];
-  load_a(static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.l,
-         row0, p.lq, qa);
-  load_a(static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h, p.sg.l,
-         row0, p.lq, ga);
-  float lse[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row0 + g + 8 * r;
-    lse[r] = i < p.lq ? p.lse[rows + i] : 0.f;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (row0 >= p.lq) return;
-
-  // sweep 1: delta = sum_j dp p over the keys, from the unrounded p
-  float delta[2] = {0.f, 0.f};
-  for (int c0 = 0; c0 < lkc; c0 += kChunk) {
-    float s[kNT][4], dp[kNT][4];
-    zero(s);
-    zero(dp);
-    mma_nt<kNT, kKS>(s, qa, ks + c0 * kRowPitch);
-    mma_nt<kNT, kKS>(dp, ga, vs + c0 * kRowPitch);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, j = c0 + 8 * nt + 2 * t + (e & 1);
-        const unsigned char c = code[j];
-        if (c != kNoKey) {
-          const float pij = expf(score(s[nt][e], c, p.scale) - lse[r]);
-          float dpv = dp[nt][e];
-          if (p.drop.on)
-            dpv *= keep_factor(p.drop, b, h, row0 + g + 8 * r, j, p.lq, p.lk);
-          delta[r] = fmaf(dpv, pij, delta[r]);
-        }
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    delta[r] = quad_sum(delta[r]);
-    const int i = row0 + g + 8 * r;
-    if (i < p.lq && t == 0) p.delta[rows + i] = delta[r];
-  }
-  // sweep 2: ds = round(p (dp - delta) scale); dq += ds k
-  float dq[kNF][4];
-  zero(dq);
-  for (int c0 = 0; c0 < lkc; c0 += kChunk) {
-    float s[kNT][4], dp[kNT][4];
-    zero(s);
-    zero(dp);
-    mma_nt<kNT, kKS>(s, qa, ks + c0 * kRowPitch);
-    mma_nt<kNT, kKS>(dp, ga, vs + c0 * kRowPitch);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, j = c0 + 8 * nt + 2 * t + (e & 1);
-        const unsigned char c = code[j];
-        float ds = 0.f;
-        if (c != kNoKey) {
-          const float pij = expf(score(s[nt][e], c, p.scale) - lse[r]);
-          float dpv = dp[nt][e];
-          if (p.drop.on)
-            dpv *= keep_factor(p.drop, b, h, row0 + g + 8 * r, j, p.lq, p.lk);
-          ds = pij * (dpv - delta[r]) * p.scale;
-        }
-        s[nt][e] = ds;
-      }
-    uint32_t dsa[kNT / 2][4];  // round(ds) as A fragments over the keys
-    c_to_a<kNT / 2>(s, dsa);
-    mma_nn<kNF, kNT / 2>(dq, dsa, ks + c0 * kRowPitch);
-  }
-  store_rows(dq, static_cast<bf16*>(p.out) + b * p.so.b + h * p.so.h, p.so.l,
-             row0, p.lq);
-}
-
-// The backward's dk/dv pass (kernel 3, second launch): one block per (b, h,
-// kTcRows key rows), sweeping the queries.  Shared memory: Q, G
-// [round_chunk(Lq)][kRowPitch] bf16, then lse and delta [round_chunk(Lq)].
-__global__ void __launch_bounds__(kTcWarps* kWarp)
-    bwd_dkv_tc_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  const int lqc = round_chunk(p.lq);
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
-  bf16* gs = qs + lqc * kRowPitch;
-  float* lse_s = reinterpret_cast<float*>(gs + lqc * kRowPitch);
-  float* delta_s = lse_s + lqc;
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
-  const int row0 = blockIdx.y * kTcRows + warp * 16;
-  const long long rows = ((long long)b * p.heads + h) * p.lq;
-
-  stage_head(static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h, p.sq.l,
-             p.lq, lqc, qs);
-  stage_head(static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h, p.sg.l,
-             p.lq, lqc, gs);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < lqc; i += blockDim.x) {
-    lse_s[i] = i < p.lq ? p.lse[rows + i] : 0.f;
-    delta_s[i] = i < p.lq ? p.delta[rows + i] : 0.f;
-  }
-  uint32_t ka[kKS][4], va[kKS][4];
-  load_a(static_cast<const bf16*>(p.k) + b * p.sk.b + h * p.sk.h, p.sk.l,
-         row0, p.lk, ka);
-  load_a(static_cast<const bf16*>(p.v) + b * p.sv.b + h * p.sv.h, p.sv.l,
-         row0, p.lk, va);
-  bool padded[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int j = row0 + g + 8 * r;
-    padded[r] = j < p.lk && p.mask && p.mask[(long long)b * p.lk + j];
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (row0 >= p.lk) return;
-
-  float dk[kNF][4], dv[kNF][4];
-  zero(dk);
-  zero(dv);
-  for (int c0 = 0; c0 < lqc; c0 += kChunk) {
-    float s[kNT][4], dp[kNT][4];  // transposed: rows = keys, columns = queries
-    zero(s);
-    zero(dp);
-    mma_nt<kNT, kKS>(s, ka, qs + c0 * kRowPitch);
-    mma_nt<kNT, kKS>(dp, va, gs + c0 * kRowPitch);
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, i = c0 + 8 * nt + 2 * t + (e & 1);
-        float pd = 0.f, ds = 0.f;
-        if (i < p.lq) {
-          const float sv = padded[r] ? -FLT_MAX : s[nt][e] * p.scale;
-          const float pij = expf(sv - lse_s[i]);
-          float dpv = dp[nt][e];
-          pd = pij;
-          if (p.drop.on) {
-            const float keep = keep_factor(p.drop, b, h, i, row0 + g + 8 * r,
-                                           p.lq, p.lk);
-            pd *= keep;
-            dpv *= keep;
-          }
-          ds = pij * (dpv - delta_s[i]) * p.scale;
-        }
-        dp[nt][e] = pd;
-        s[nt][e] = ds;
-      }
-    uint32_t pda[kNT / 2][4], dsa[kNT / 2][4];  // round(pd), round(ds)
-    c_to_a<kNT / 2>(dp, pda);
-    c_to_a<kNT / 2>(s, dsa);
-    mma_nn<kNF, kNT / 2>(dv, pda, gs + c0 * kRowPitch);
-    mma_nn<kNF, kNT / 2>(dk, dsa, qs + c0 * kRowPitch);
-  }
-  store_rows(dk, static_cast<bf16*>(p.dk) + b * p.sdk.b + h * p.sdk.h,
-             p.sdk.l, row0, p.lk);
-  store_rows(dv, static_cast<bf16*>(p.dv) + b * p.sdv.b + h * p.sdv.h,
-             p.sdv.l, row0, p.lk);
-}
-
-// Shared-memory bytes of each tensor-core launch (0: forward, 1: dq pass,
-// 2: dk/dv pass): two staged [round_chunk(L)][kRowPitch] bf16 operands, then
-// a code byte per key or lse and delta per query.
-size_t tc_smem(int which, int lq, int lk) {
-  const size_t operands = 2 * (size_t)kRowPitch * sizeof(bf16);
-  if (which == 2)
-    return (size_t)round_chunk(lq) * (operands + 2 * sizeof(float));
-  return (size_t)round_chunk(lk) * (operands + 1);
-}
-
 // Shared-memory bytes of each kernel for (lq, lk, DH, warps).
 size_t fwd_smem(int lk, int dh, int warps) {
   return sizeof(float) * (2 * (size_t)round4(lk * (dh + 1)) +
@@ -855,32 +494,739 @@ int backward(const Params& p, int batch, int warps, cudaStream_t s) {
                 bwd_dkv_smem(p.lq, DH, warps), s, p);
 }
 
-// The forward's register-resident score rows: Lk <= 192 (the caller's rule).
-constexpr int kMaxKeyChunks = 6;
+// ------------------------------------------------ Hopper kernels (wgmma)
+// bf16 at Dh = 64 with TMA-eligible views, Lk <= kSbMaxBoxes * 64 = 192
+// (the caller's rule): every call of the train steps.  Layouts in
+// flash_single_layout.h; the building blocks (wgmma, TMA, mbarriers) in
+// hopper.cuh.  Keys past Lk come from TMA's zero fill and are no keys at
+// all (kNoKey: excluded from the max and the sums, p = 0); masked keys score
+// f32 min (kPaddedKey: p = exp(f32 min - m), which is 1 in a row whose every
+// key is masked and 0 otherwise).
+constexpr float kNeg = -FLT_MAX;  // a masked key's score
+constexpr unsigned char kRealKey = 0, kPaddedKey = 1, kNoKey = 2;
 
-int tc_forward(const Params& p, int batch, cudaStream_t s) {
-  const dim3 grid(batch * p.heads, (p.lq + kTcRows - 1) / kTcRows);
-  const size_t smem = tc_smem(0, p.lq, p.lk);
-  switch (round_chunk(p.lk) / kChunk) {
-    case 1: return launch(fwd_tc_kernel<1>, grid, kTcWarps, smem, s, p);
-    case 2: return launch(fwd_tc_kernel<2>, grid, kTcWarps, smem, s, p);
-    case 3: return launch(fwd_tc_kernel<3>, grid, kTcWarps, smem, s, p);
-    case 4: return launch(fwd_tc_kernel<4>, grid, kTcWarps, smem, s, p);
-    case 5: return launch(fwd_tc_kernel<5>, grid, kTcWarps, smem, s, p);
-    case kMaxKeyChunks:
-      return launch(fwd_tc_kernel<kMaxKeyChunks>, grid, kTcWarps, smem, s, p);
+// The tensor maps of q, k, v and g (the backward's d(out)), each
+// [B, H, L, 64] in boxes of 64 rows, and the number of heads B * H.
+struct SbMaps {
+  CUtensorMap q, k, v, g;
+  int items;
+};
+
+// keep_factor's hash for the elements of one head: the counter
+// (h0 + h) Lq Lk + i Lk + j plus the example's seed term, murmur3-finalised;
+// kept where it is >= the threshold.
+struct SbHash {
+  unsigned int base;
+  __device__ SbHash(const Dropout& d, int b, int h, int lq, int lk) {
+    const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
+    base = (unsigned int)(d.h0 + h) * ((unsigned int)lq * (unsigned int)lk) +
+           seed_b * 0x9E3779B9u;
   }
-  return -1;  // more keys than the score rows hold
+  __device__ bool kept(int i, int j, int lk, unsigned int threshold) const {
+    unsigned int x =
+        base + (unsigned int)i * (unsigned int)lk + (unsigned int)j;
+    x = (x ^ (x >> 16)) * 0x85EBCA6Bu;  // murmur3 finalizer
+    x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+    x ^= x >> 16;
+    return x >= threshold;
+  }
+};
+
+// Item n of a persistent block: the head blockIdx.x + n gridDim.x, as (b, h).
+struct SbHead {
+  int b, h;
+  __device__ SbHead(int n, int heads) {
+    const int item = blockIdx.x + n * gridDim.x;
+    b = item / heads;
+    h = item % heads;
+  }
+};
+
+// The heads a persistent block walks: items blockIdx.x, blockIdx.x +
+// gridDim.x, ... below `items`.
+__device__ __forceinline__ int sb_heads(int items) {
+  return (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 }
 
-int tc_backward(const Params& p, int batch, cudaStream_t s) {
-  const dim3 grid_q(batch * p.heads, (p.lq + kTcRows - 1) / kTcRows);
-  int rc = launch(bwd_dq_tc_kernel, grid_q, kTcWarps, tc_smem(1, p.lq, p.lk),
-                  s, p);
+// --------------------------------------------------------------- kernel 2
+// The forward, for Lk <= 16 NKS keys (NKS = ceil(Lk / 16)).  A persistent
+// block of one producer warpgroup and two consumer warpgroups walks its
+// heads; the tiles of 64 query rows of all of them form one stream, and
+// consumer w takes the stream's tiles w, w + 2, ...
+// - the producer warp loads each head's K and V once by TMA (NKB boxes of 64
+//   rows each, zero-filled past Lk) into one of kKvBufs head buffers, with
+//   the keys' padding bits beside it, then the head's Q tiles into a ring of
+//   kSbQStages stages.  A head buffer is reused once both consumers are past
+//   every tile of its head.
+// - a consumer issues S = Q·Kᵀ over the head's keys rounded up to 16 (n64
+//   products for whole boxes, one n16/n32/n48 for the last), releases its Q
+//   stage, takes each row's exact max over its keys and then p = exp2(s·c -
+//   m·log2(e)) (c = scale·log2(e); m, in natural-log units, is the raw max
+//   times scale, so masked keys' f32 min is never scaled), their sum l, lse
+//   = m + log l, and p·(1/l)·keep rounded to bf16 as the register A operand
+//   of O = P·V (NKS products, V read MN-major).  Dropout and masking are
+//   tested once a tile, not once a score.
+// - rows past Lq compute on the zero fill and store nothing.
+template <int NKS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    single_fwd_wgmma_kernel(__grid_constant__ const SbMaps maps,
+                            const Params p) {
+  constexpr int NKB = (NKS + 3) / 4;  // 64-key boxes
+  constexpr int TAIL = NKS % 4;       // 16-key steps of a partial last box
+  using L = SbFwdLayout<NKB>;
+  const SmemBase sb = smem_base();
+  const uint32_t bar = sb.base + L::kBar;
+  auto kv_full = [&](int x) { return bar + 8 * x; };
+  auto kv_empty = [&](int x) { return bar + 8 * (L::kKvBufs + x); };
+  auto q_full = [&](int s) { return bar + 8 * (2 * L::kKvBufs + s); };
+  auto q_empty = [&](int s) {
+    return bar + 8 * (2 * L::kKvBufs + kSbQStages + s);
+  };
+  auto k_box = [&](int x, int c) {
+    return sb.base + x * L::kKv + c * kSbBox;
+  };
+  auto v_box = [&](int x, int c) { return k_box(x, c) + NKB * kSbBox; };
+  auto q_tile = [&](int s) { return sb.base + L::kQ + s * kSbBox; };
+  auto pad_words = [&](int x) {
+    return reinterpret_cast<uint32_t*>(sb.ptr + L::kPad +
+                                       x * L::kPadWords * 4);
+  };
+  if (threadIdx.x == 0) {
+    for (int x = 0; x < L::kKvBufs; ++x) {
+      mbar_init(kv_full(x), 1);
+      mbar_init(kv_empty(x), kWgConsumers * kWarpgroup / kWarp);
+    }
+    for (int s = 0; s < kSbQStages; ++s) {
+      mbar_init(q_full(s), 1);
+      mbar_init(q_empty(s), kWarpgroup / kWarp);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int n_qt = (p.lq + kWgRows - 1) / kWgRows;
+  const int n_heads = sb_heads(maps.items), n_tiles = n_heads * n_qt;
+
+  if (threadIdx.x < kWarpgroup) {  // ------------------------- producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x >= kWarp) return;
+    const int lane = threadIdx.x;
+    for (int n = 0, t = 0; n < n_heads; ++n) {
+      const SbHead hd(n, p.heads);
+      const int x = n % L::kKvBufs;
+      mbar_wait(kv_empty(x), ((n / L::kKvBufs) & 1) ^ 1);
+      const unsigned char* mask =
+          p.mask ? p.mask + (long long)hd.b * p.lk : nullptr;
+      uint32_t bits[2 * NKB], any = 0u;
+#pragma unroll
+      for (int w = 0; w < 2 * NKB; ++w) {
+        const int j = 32 * w + lane;
+        bits[w] = __ballot_sync(0xffffffffu, mask && j < p.lk && mask[j]);
+        any |= bits[w];
+      }
+      if (lane == 0) {
+        uint32_t* words = pad_words(x);
+#pragma unroll
+        for (int w = 0; w < 2 * NKB; ++w) words[w] = bits[w];
+        words[L::kPadWords - 1] = any;
+        mbar_arrive_expect_tx(kv_full(x), 2 * NKB * kSbBox);
+#pragma unroll
+        for (int c = 0; c < NKB; ++c) {
+          tma_load_rows(&maps.k, k_box(x, c), kv_full(x), c * kWgRows, hd.h,
+                        hd.b);
+          tma_load_rows(&maps.v, v_box(x, c), kv_full(x), c * kWgRows, hd.h,
+                        hd.b);
+        }
+      }
+      for (int qt = 0; qt < n_qt; ++qt, ++t) {
+        const int s = t % kSbQStages;
+        mbar_wait(q_empty(s), ((t / kSbQStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(q_full(s), kSbBox);
+          tma_load_rows(&maps.q, q_tile(s), q_full(s), qt * kWgRows, hd.h,
+                        hd.b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();  // ------------------------------ consumers
+  const int wg = threadIdx.x / kWarpgroup - 1, t = threadIdx.x % kWarpgroup;
+  const int lane = t % kWarp;
+  const Frag f{t / kWarp, lane >> 2, lane & 3};
+  const float c = p.scale * kLog2e;
+  // the last 16-key step, the only one that can hold keys past Lk: box
+  // kEdgeBox, 8-key groups kEdgeN and kEdgeN + 1
+  constexpr int kEdgeBox = (NKS - 1) / 4, kEdgeN = 2 * ((NKS - 1) % 4);
+  int released = 0;  // heads this warpgroup is past
+  for (int u = wg; u < n_tiles; u += kWgConsumers) {
+    const int n = u / n_qt, qt = u % n_qt, s = u % kSbQStages;
+    const int x = n % L::kKvBufs;
+    for (; released < n; ++released) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty(released % L::kKvBufs));
+    }
+    const SbHead hd(n, p.heads);
+    mbar_wait(kv_full(x), (n / L::kKvBufs) & 1);
+    mbar_wait(q_full(s), (u / kSbQStages) & 1);
+
+    float sc[NKB][32];  // S, then P: box c's 64 keys
+    const uint32_t qs = opaque(q_tile(s)), kb = opaque(k_box(x, 0));
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < NKB; ++cb)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint64_t a = kmajor_desc(qs, k);
+        const uint64_t b = kmajor_desc(kb + cb * kSbBox, k);
+        if (cb < NKB - 1 || TAIL == 0)
+          WgmmaSS<64>::run<0, 0>(sc[cb], a, b, k);
+        else
+          WgmmaSS<16 * (TAIL == 0 ? 4 : TAIL)>::template run<0, 0>(sc[cb], a,
+                                                                   b, k);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < NKB; ++cb)  // the tail box's live registers only
+#pragma unroll
+      for (int e = 0; e < (cb < NKB - 1 || TAIL == 0 ? 32 : 8 * TAIL); ++e)
+        asm volatile("" : "+f"(sc[cb][e])::"memory");
+    __syncwarp();
+    if (lane == 0) mbar_arrive(q_empty(s));  // Q is read
+
+    const uint32_t* words = pad_words(x);
+    const int i0 = qt * kWgRows;
+    const SbHash hash(p.drop, hd.b, hd.h, p.lq, p.lk);
+    float m[2], inv[2];
+    // P of the tile from S: masking and dropout are tested once a tile
+    auto softmax = [&](auto drop, auto padded) {
+      uint32_t w[2 * NKB];
+      if constexpr (decltype(padded)::value)
+#pragma unroll
+        for (int z = 0; z < 2 * NKB; ++z) w[z] = words[z] >> (2 * f.q);
+      // code of element e of 8-key group n in box cb
+      auto code = [&](int cb, int n, int e) {
+        unsigned char k = kRealKey;
+        if constexpr (decltype(padded)::value)
+          if ((w[2 * cb + (n >> 2)] >> (8 * (n & 3) + (e & 1))) & 1u)
+            k = kPaddedKey;
+        if (cb == kEdgeBox && (n >> 1) == (kEdgeN >> 1) &&
+            64 * cb + f.col(n, e) >= p.lk)
+          k = kNoKey;
+        return k;
+      };
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int cb = 0; cb < NKB; ++cb)
+#pragma unroll
+        for (int n = 0; n < (cb < NKB - 1 || TAIL == 0 ? 8 : 2 * TAIL); ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& v = sc[cb][4 * n + e];
+            if (code(cb, n, e) != kRealKey) v = -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], v);
+          }
+      float bias[2], l[2] = {0.f, 0.f};
+      bool real[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        real[r] = mx[r] > -INFINITY;  // a row with a key that is not masked
+        m[r] = real[r] ? mx[r] * p.scale : kNeg;
+        bias[r] = real[r] ? m[r] * kLog2e : 0.f;
+      }
+#pragma unroll
+      for (int cb = 0; cb < NKB; ++cb)
+#pragma unroll
+        for (int n = 0; n < (cb < NKB - 1 || TAIL == 0 ? 8 : 2 * TAIL); ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            float& v = sc[cb][4 * n + e];
+            float pv = exp2_approx(fmaf(v, c, -bias[r]));  // 0 from -inf
+            if constexpr (decltype(padded)::value)
+              if (!real[r]) pv = code(cb, n, e) == kPaddedKey ? 1.f : 0.f;
+            l[r] += pv;
+            v = pv;
+          }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = quad_sum(l[r]);
+        inv[r] = 1.f / l[r];
+        m[r] += logf(l[r]);  // lse
+      }
+#pragma unroll
+      for (int cb = 0; cb < NKB; ++cb)
+#pragma unroll
+        for (int n = 0; n < (cb < NKB - 1 || TAIL == 0 ? 8 : 2 * TAIL); ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pv = sc[cb][4 * n + e] * inv[e >> 1];
+            if constexpr (decltype(drop)::value)
+              pv = hash.kept(i0 + f.row(e), 64 * cb + f.col(n, e), p.lk,
+                             p.drop.threshold)
+                       ? pv * p.drop.scale
+                       : 0.f;
+            sc[cb][4 * n + e] = pv;
+          }
+    };
+    const bool any = words[L::kPadWords - 1] != 0u;
+    if (p.drop.on) {
+      if (any)
+        softmax(std::true_type(), std::true_type());
+      else
+        softmax(std::true_type(), std::false_type());
+    } else {
+      if (any)
+        softmax(std::false_type(), std::true_type());
+      else
+        softmax(std::false_type(), std::false_type());
+    }
+    const long long rows = ((long long)hd.b * p.heads + hd.h) * p.lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + f.row(2 * r);
+      if (f.q == 0 && i < p.lq) p.lse[rows + i] = m[r];
+    }
+
+    // O = round(P)·V over the NKS 16-key steps
+    uint32_t a[NKS][4];
+#pragma unroll
+    for (int k = 0; k < NKS; ++k) acc_to_a(sc[k / 4], k % 4, a[k]);
+    float o[32];  // the first product overwrites it
+    const uint32_t vb = opaque(v_box(x, 0));
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < NKS; ++k)
+      wgmma_rs<1>(o, a[k], mnmajor_desc(vb + (k / 4) * kSbBox, k % 4), k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    fence_a(a);
+    store_rows(o, static_cast<bf16*>(p.out) + hd.b * p.so.b + hd.h * p.so.h,
+               p.so.l, i0, p.lq, f);
+  }
+  for (; released < n_heads; ++released) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_empty(released % L::kKvBufs));
+  }
+}
+
+// --------------------------------------------------------------- kernel 3
+// The backward in one pass and one launch, 5 products a tile: a persistent
+// block of NW consumer warpgroups (NW = ceil(Lk / 64)) walks its heads;
+// warpgroup w owns the head's keys [64 w, 64 w + 64).  K and V stay in shared
+// memory for the head (two head buffers, so the next head's loads overlap
+// this one's work), and dK and dV are summed in registers over the head's
+// query tiles and stored once.  Thread 0 streams the (Q, dO) tiles of 64
+// queries of all the block's heads through a ring of kStages stages by TMA,
+// kStages - 1 tiles ahead, and K and V a head ahead: a stage or
+// head buffer is reloaded after the barrier that follows the last products
+// reading it, so no empty barriers are needed.  Per query tile, in
+// sub-tiles of CW queries (CW = 32 at NW = 3, where 168 registers do not
+// hold dK, dV, Sᵀ and dPᵀ of 64 queries beside the rest; else 64):
+// - Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (rows: the warpgroup's keys), once;
+// - p = exp2(s·c - lse·log2(e)) for real keys (the masked keys' p =
+//   exp(f32 min - lse) comes from the side row, so f32 min is never
+//   scaled), dp·keep with the keep bit hashed once and kept in a register,
+//   and each warp's sums of dp·p over its keys for each query;
+// - delta = sum over the whole row (every key is in the block): the sums
+//   of the 4 NW warps through shared memory, added in a fixed order;
+// - ds = round(p (dp - delta) scale) and pd = round(p keep), the register A
+//   operands of dK += dSᵀ·Q and dV += Pdᵀ·dO, issued with the next
+//   sub-tile's Sᵀ and dPᵀ; dSᵀ also goes to shared memory, where, once
+//   every sub-tile's is there, dQ = dS·K (A read MN-major from the dSᵀ
+//   tiles) is taken over all of the head's keys and written complete: by
+//   warpgroup 0 at NW = 1, in two 32-column halves by warpgroups 0 and 1
+//   otherwise (at NW = 3 warpgroup 2 repeats warpgroup 1's half and stores
+//   nothing, so that every warpgroup issues the same products).
+// No atomics: a deterministic result.
+template <int NW>
+__global__ void __launch_bounds__(NW* kWarpgroup, NW == 1 ? 2 : 1)
+    single_bwd_wgmma_kernel(__grid_constant__ const SbMaps maps,
+                            const Params p) {
+  using L = SbBwdLayout<NW>;
+  constexpr int kThreads = NW * kWarpgroup;
+  constexpr int kDqCols = NW == 1 ? 64 : 32;  // dQ columns of a warpgroup
+  constexpr int CW = NW == 3 ? 32 : 64;       // queries of a sub-tile
+  constexpr int SUB = 64 / CW, KS = CW / 16;  // sub-tiles; their k-steps
+  const SmemBase sb = smem_base();
+  const uint32_t bar = sb.base + L::kBar;
+  auto kv_full = [&](int x) { return bar + 8 * x; };
+  auto full = [&](int s) { return bar + 8 * (L::kKvBufs + s); };
+  auto k_box = [&](int x, int w) {
+    return sb.base + x * L::kKv + w * kSbBox;
+  };
+  auto q_tile = [&](int s) { return sb.base + L::kStage + 2 * s * kSbBox; };
+  float* side = reinterpret_cast<float*>(sb.ptr + L::kSide);
+  float* partials = reinterpret_cast<float*>(sb.ptr + L::kPart);
+  float* delta_s = reinterpret_cast<float*>(sb.ptr + L::kDelta);
+  if (threadIdx.x == 0) {
+    for (int x = 0; x < L::kKvBufs; ++x) mbar_init(kv_full(x), 1);
+    for (int s = 0; s < L::kStages; ++s) mbar_init(full(s), 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int n_qt = (p.lq + kWgRows - 1) / kWgRows;
+  const int n_heads = sb_heads(maps.items), n_tiles = n_heads * n_qt;
+  // thread 0's loads: head n's K and V into buffer n % kKvBufs; tile u's Q
+  // and dO into stage u % kStages
+  auto load_kv = [&](int n) {
+    const SbHead hd(n, p.heads);
+    const int x = n % L::kKvBufs;
+    mbar_arrive_expect_tx(kv_full(x), 2 * NW * kSbBox);
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      tma_load_rows(&maps.k, k_box(x, w), kv_full(x), w * kWgRows, hd.h,
+                    hd.b);
+      tma_load_rows(&maps.v, k_box(x, w) + NW * kSbBox, kv_full(x),
+                    w * kWgRows, hd.h, hd.b);
+    }
+  };
+  auto load_tile = [&](int u) {
+    const SbHead hd(u / n_qt, p.heads);
+    const int s = u % L::kStages, row = (u % n_qt) * kWgRows;
+    mbar_arrive_expect_tx(full(s), 2 * kSbBox);
+    tma_load_rows(&maps.q, q_tile(s), full(s), row, hd.h, hd.b);
+    tma_load_rows(&maps.g, q_tile(s) + kSbBox, full(s), row, hd.h, hd.b);
+  };
+  if (threadIdx.x == 0) {
+    for (int n = 0; n < L::kKvBufs - 1 && n < n_heads; ++n) load_kv(n);
+    for (int u = 0; u < L::kStages && u < n_tiles; ++u) load_tile(u);
+  }
+
+  const int wg = threadIdx.x / kWarpgroup, t = threadIdx.x % kWarpgroup;
+  const int lane = t % kWarp;
+  const Frag f{t / kWarp, lane >> 2, lane & 3};
+  const float c = p.scale * kLog2e;
+  float* lse2_row = side + wg * 2 * kWgRows;  // this warpgroup's side rows
+  float* pp_row = lse2_row + kWgRows;
+  float* part_row = partials + (wg * 4 + f.warp) * kWgRows;
+  // the codes of this thread's two keys for head n, 2 bits each
+  auto key_codes = [&](int n) {
+    const SbHead hd(n, p.heads);
+    int codes = 0;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = wg * kWgRows + f.row(2 * r);
+      const int k = j >= p.lk ? kNoKey
+                    : p.mask && p.mask[(long long)hd.b * p.lk + j]
+                        ? kPaddedKey
+                        : kRealKey;
+      codes |= k << (2 * r);
+    }
+    return codes;
+  };
+  int code = 0, next_code = key_codes(0);
+  float dk[32], dv[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+
+  for (int u = 0; u < n_tiles; ++u) {
+    const int n = u / n_qt, qt = u % n_qt, s = u % L::kStages;
+    const int x = n % L::kKvBufs;
+    const SbHead hd(n, p.heads);
+    const int i0 = qt * kWgRows;
+    if (qt == 0) {  // a new head: its keys' codes were loaded a head ago
+      code = next_code;
+      if (n + 1 < n_heads) next_code = key_codes(n + 1);
+    }
+    // this tile's lse, read while the first products run: rows past Lq get
+    // lse2 = +inf and pp = 0, so their p is 0 (threads t and t + 64 write
+    // the same values)
+    const int r_own = t % kWgRows, i_own = i0 + r_own;
+    const bool has_row = i_own < p.lq;
+    const float lse_own =
+        has_row ? p.lse[((long long)hd.b * p.heads + hd.h) * p.lq + i_own]
+                : 0.f;
+    mbar_wait(kv_full(x), (n / L::kKvBufs) & 1);
+    mbar_wait(full(s), (u / L::kStages) & 1);
+
+    float st[CW / 2], dpt[CW / 2];  // Sᵀ, dPᵀ of a sub-tile: rows the
+    uint32_t apd[KS][4], ads[KS][4];  // warpgroup's keys, columns queries
+    float dq[kDqCols / 2];
+    // Sᵀ and dPᵀ over the queries of sub-tile sub
+    auto issue_sdp = [&](int sub) {
+      const uint32_t kw = opaque(k_box(x, wg));
+      const uint32_t qs = opaque(q_tile(s)) + sub * CW * 128;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        WgmmaSS<CW>::template run<0, 0>(st, kmajor_desc(kw, k),
+                                        kmajor_desc(qs, k), k);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        WgmmaSS<CW>::template run<0, 0>(dpt, kmajor_desc(kw + NW * kSbBox, k),
+                                        kmajor_desc(qs + kSbBox, k), k);
+    };
+    // dV += Pdᵀ·dO and dK += dSᵀ·Q over the queries of sub-tile sub
+    auto issue_dvdk = [&](int sub) {
+      const uint32_t qs = opaque(q_tile(s));
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_rs<1>(dv, apd[k], mnmajor_desc(qs + kSbBox, sub * KS + k));
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_rs<1>(dk, ads[k], mnmajor_desc(qs, sub * KS + k));
+    };
+    // dQ = dS·K over the head's keys: this warpgroup's columns
+    const int dq_col0 = NW == 1 ? 0 : 32 * (wg < 1 ? wg : 1);
+    auto issue_dq = [&] {
+      const uint32_t d0 = opaque(sb.base + L::kDs);
+      const uint32_t k0 = opaque(k_box(x, 0) + 2 * dq_col0);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          WgmmaSS<kDqCols>::template run<1, 1>(
+              dq, mnmajor_desc(d0 + w * kSbBox, k),
+              mnmajor_desc(k0 + w * kSbBox, k), w + k);
+    };
+
+    wgmma_fence();
+    issue_sdp(0);
+    wgmma_commit();
+    lse2_row[r_own] = has_row ? lse_own * kLog2e : INFINITY;
+    pp_row[r_own] = has_row ? exp2_approx((kNeg - lse_own) * kLog2e) : 0.f;
+    named_sync(4 + wg, kWarpgroup);
+    wgmma_wait<0>();
+    fence_acc(st);
+    fence_acc(dpt);
+
+    const SbHash hash(p.drop, hd.b, hd.h, p.lq, p.lk);
+#pragma unroll
+    for (int sub = 0; sub < SUB; ++sub) {
+      const int c0 = sub * CW;  // the sub-tile's first column
+      // pass 1: p, dp·keep, the keep bits, and the warp's sums of dp·p
+      // over its 16 keys for each query (reduced over the lanes g as soon
+      // as a column pair is done; lane g = 0 writes them)
+      uint32_t kept = 0xFFFFFFFFu;  // bit 4 n + e
+      auto pass1 = [&](auto drop) {
+#pragma unroll
+        for (int n = 0; n < CW / 8; ++n) {
+          const int col = c0 + f.col(n, 0);
+          const float2 l2 = *reinterpret_cast<const float2*>(lse2_row + col);
+          const float2 pp2 = *reinterpret_cast<const float2*>(pp_row + col);
+          float part[2] = {0.f, 0.f};  // columns col and col + 1
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kc = (code >> (e & 2)) & 3;  // row e >> 1's code
+            float pv = exp2_approx(
+                fmaf(st[4 * n + e], c, -((e & 1) ? l2.y : l2.x)));
+            pv = kc == kRealKey     ? pv
+                 : kc == kPaddedKey ? ((e & 1) ? pp2.y : pp2.x)
+                                    : 0.f;
+            float dpk = dpt[4 * n + e];
+            if constexpr (decltype(drop)::value) {
+              if (hash.kept(i0 + col + (e & 1), wg * kWgRows + f.row(e),
+                            p.lk, p.drop.threshold)) {
+                dpk *= p.drop.scale;
+              } else {
+                dpk = 0.f;
+                kept &= ~(1u << (4 * n + e));
+              }
+            }
+            part[e & 1] = fmaf(dpk, pv, part[e & 1]);
+            st[4 * n + e] = pv;
+            dpt[4 * n + e] = dpk;
+          }
+#pragma unroll
+          for (int z = 0; z < 2; ++z) {  // over the lanes g of the warp
+            part[z] += __shfl_xor_sync(0xffffffffu, part[z], 4);
+            part[z] += __shfl_xor_sync(0xffffffffu, part[z], 8);
+            part[z] += __shfl_xor_sync(0xffffffffu, part[z], 16);
+          }
+          if (f.g == 0)
+            *reinterpret_cast<float2*>(part_row + col) =
+                make_float2(part[0], part[1]);
+        }
+      };
+      if (p.drop.on)
+        pass1(std::true_type());
+      else
+        pass1(std::false_type());
+      named_sync(1, kThreads);
+      // every warpgroup is past the products of tile u - 1: its stage and,
+      // at a head's first tile, the buffer of head n - 1 may be reloaded
+      if (sub == 0 && threadIdx.x == 0) {
+        if (u >= 1 && u - 1 + L::kStages < n_tiles)
+          load_tile(u - 1 + L::kStages);
+        if (qt == 0 && n + L::kKvBufs - 1 < n_heads)
+          load_kv(n + L::kKvBufs - 1);
+      }
+      if (threadIdx.x < CW) {
+        float d = 0.f;
+#pragma unroll
+        for (int z = 0; z < 4 * NW; ++z)
+          d += partials[z * kWgRows + c0 + threadIdx.x];
+        delta_s[c0 + threadIdx.x] = d;
+      }
+      named_sync(2, kThreads);
+
+      // pass 2: ds and pd, rounded into the A operands; dSᵀ to shared
+      // memory: row = key (16 warp + g + 8 (z & 1)), 16-byte chunk
+      // (c0 + 16 k) / 8 + (z >> 1) at chunk ^ (row % 8) (the 128-byte
+      // swizzle), 4 bytes per q
+#pragma unroll
+      for (int n = 0; n < CW / 8; ++n) {
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(delta_s + c0 + f.col(n, 0));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = st[4 * n + e];
+          dpt[4 * n + e] =
+              pv * (dpt[4 * n + e] - ((e & 1) ? d2.y : d2.x)) * p.scale;
+          st[4 * n + e] = (kept >> (4 * n + e)) & 1u
+                              ? (p.drop.on ? pv * p.drop.scale : pv)
+                              : 0.f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < KS; ++k) {
+        acc_to_a(st, k, apd[k]);
+        acc_to_a(dpt, k, ads[k]);
+      }
+      uint8_t* ds_ptr = sb.ptr + L::kDs + wg * kSbBox;
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int row = 16 * f.warp + f.g + 8 * (z & 1);
+          const int chunk = c0 / 8 + 2 * k + (z >> 1);
+          *reinterpret_cast<uint32_t*>(ds_ptr + row * 128 +
+                                       ((chunk ^ (row & 7)) << 4) +
+                                       4 * f.q) = ads[k][z];
+        }
+      if (sub + 1 < SUB) {  // this sub-tile's dV, dK with the next's Sᵀ, dPᵀ
+        wgmma_fence();
+        issue_dvdk(sub);
+        issue_sdp(sub + 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(st);
+        fence_acc(dpt);
+      } else {  // the last: its dV, dK and, with every dSᵀ written, dQ
+        fence_proxy_async();
+        named_sync(3, kThreads);
+        wgmma_fence();
+        issue_dvdk(sub);
+        issue_dq();
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(dq);
+      }
+      fence_acc(dv);
+      fence_acc(dk);
+      fence_a(apd);
+      fence_a(ads);
+    }
+
+    if (NW != 3 || wg < 2) {  // warpgroup 2 repeats warpgroup 1's half
+      bf16* dst = static_cast<bf16*>(p.out) + hd.b * p.so.b + hd.h * p.so.h +
+                  dq_col0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + f.row(2 * r);
+        if (i < p.lq)
+#pragma unroll
+          for (int n = 0; n < kDqCols / 8; ++n)
+            *reinterpret_cast<uint32_t*>(dst + i * p.so.l + f.col(n, 0)) =
+                pack(dq[4 * n + 2 * r], dq[4 * n + 2 * r + 1]);
+      }
+    }
+    if (qt == n_qt - 1) {  // the head's last tile: dK and dV are complete
+      store_rows(dk, static_cast<bf16*>(p.dk) + hd.b * p.sdk.b +
+                         hd.h * p.sdk.h,
+                 p.sdk.l, wg * kWgRows, p.lk, f);
+      store_rows(dv, static_cast<bf16*>(p.dv) + hd.b * p.sdv.b +
+                         hd.h * p.sdv.h,
+                 p.sdv.l, wg * kWgRows, p.lk, f);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk[e] = dv[e] = 0.f;
+    }
+  }
+}
+
+// Host: the tensor maps of a launch (q, k, v; g for the backward) from
+// Params' strides.  Returns 0 or a negative code of hopper.cuh's encoding.
+int sb_maps(SbMaps* maps, const Params& p, int batch, bool backward) {
+  int rc = encode_rows_map(&maps->q, p.q, batch, p.heads, p.lq, p.sq.b,
+                           p.sq.h, p.sq.l);
+  if (rc == 0)
+    rc = encode_rows_map(&maps->k, p.k, batch, p.heads, p.lk, p.sk.b, p.sk.h,
+                         p.sk.l);
+  if (rc == 0)
+    rc = encode_rows_map(&maps->v, p.v, batch, p.heads, p.lk, p.sv.b, p.sv.h,
+                         p.sv.l);
+  if (rc == 0 && backward)
+    rc = encode_rows_map(&maps->g, p.g, batch, p.heads, p.lq, p.sg.b, p.sg.h,
+                         p.sg.l);
+  maps->items = batch * p.heads;
+  return rc;
+}
+
+// A persistent launch of `kernel`: as many blocks as fit on the card at
+// once (at most one per head).
+template <class Kernel>
+int sb_launch(Kernel kernel, int threads, size_t smem, const SbMaps& maps,
+              const Params& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms <= 0 || per_sm <= 0) return (int)cudaErrorInvalidConfiguration;
+  const int grid = maps.items < sms * per_sm ? maps.items : sms * per_sm;
+  kernel<<<grid, threads, smem, stream>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+template <int NKS>
+int sb_forward_at(const SbMaps& maps, const Params& p, cudaStream_t s) {
+  return sb_launch(single_fwd_wgmma_kernel<NKS>, kWgThreads,
+                   SbFwdLayout<(NKS + 3) / 4>::kBytes, maps, p, s);
+}
+
+int sb_forward(const Params& p, int batch, cudaStream_t s) {
+  SbMaps maps;
+  const int rc = sb_maps(&maps, p, batch, false);
   if (rc != 0) return rc;
-  const dim3 grid_k(batch * p.heads, (p.lk + kTcRows - 1) / kTcRows);
-  return launch(bwd_dkv_tc_kernel, grid_k, kTcWarps, tc_smem(2, p.lq, p.lk),
-                s, p);
+  switch ((p.lk + 15) / 16) {
+    case 1: return sb_forward_at<1>(maps, p, s);
+    case 2: return sb_forward_at<2>(maps, p, s);
+    case 3: return sb_forward_at<3>(maps, p, s);
+    case 4: return sb_forward_at<4>(maps, p, s);
+    case 5: return sb_forward_at<5>(maps, p, s);
+    case 6: return sb_forward_at<6>(maps, p, s);
+    case 7: return sb_forward_at<7>(maps, p, s);
+    case 8: return sb_forward_at<8>(maps, p, s);
+    case 9: return sb_forward_at<9>(maps, p, s);
+    case 10: return sb_forward_at<10>(maps, p, s);
+    case 11: return sb_forward_at<11>(maps, p, s);
+    case 12: return sb_forward_at<12>(maps, p, s);
+  }
+  return kBadVariant;  // more keys than the score rows hold
+}
+
+template <int NW>
+int sb_backward_at(const SbMaps& maps, const Params& p, cudaStream_t s) {
+  return sb_launch(single_bwd_wgmma_kernel<NW>, NW * kWarpgroup,
+                   SbBwdLayout<NW>::kBytes, maps, p, s);
+}
+
+int sb_backward(const Params& p, int batch, cudaStream_t s) {
+  SbMaps maps;
+  const int rc = sb_maps(&maps, p, batch, true);
+  if (rc != 0) return rc;
+  switch (sb_boxes(p.lk)) {
+    case 1: return sb_backward_at<1>(maps, p, s);
+    case 2: return sb_backward_at<2>(maps, p, s);
+    case 3: return sb_backward_at<3>(maps, p, s);
+  }
+  return kBadVariant;
 }
 
 // Calls fn(std::integral_constant<int, DH>) for the runtime head dim; -1 for
@@ -1007,48 +1353,48 @@ int fta_backward(const void* q, const void* k, const void* v,
   });
 }
 
-// The tensor-core kernels: bf16 at Dh = 64, every staged row (K and V; Q and
-// G for the backward) 16-byte aligned, Lk <= 192 (fta_tc_forward returns -1
-// past it).  fta_tc_smem_bytes is the shared
-// memory of launch `which` (0: forward, 1: dq pass, 2: dk/dv pass), which
-// the caller checks against the card's per-block limit.  fta_tc_forward and
-// fta_tc_backward take the arguments of fta_forward and fta_backward (h0
-// included) less
-// dtype, dh, rows, warps and vec (a block owns kTcRows = 64 rows).
-size_t fta_tc_smem_bytes(int which, int lq, int lk) {
-  return tc_smem(which, lq, lk);
+// The Hopper kernels: bf16 at Dh = 64, q, k, v (and g for the backward)
+// TMA-eligible (16-byte aligned base, unit feature stride, 16-byte multiple
+// outer strides), Lk <= 192 (kBadVariant past it).  fta_wgmma_smem_bytes is
+// the dynamic shared memory of launch `which` (0: forward, 1: backward) at
+// Lk keys, within a block's limit at every Lk (flash_single_layout.h).
+// fta_wgmma_forward and fta_wgmma_backward take the arguments of
+// fta_forward and fta_backward (h0 included) less dtype, dh, rows, warps and
+// vec, and the backward less delta (one pass: delta never leaves the SM).
+// Each is one launch of a persistent grid.
+size_t fta_wgmma_smem_bytes(int which, int lk) {
+  return sb_smem_bytes(which, lk);
 }
 
-int fta_tc_forward(const void* q, const void* k, const void* v,
-                   const unsigned char* mask, void* out, float* lse,
-                   int batch, int heads, int lq, int lk,
-                   const long long* strides, float scale, unsigned int seed,
-                   unsigned int threshold, float keep_scale, int dropout,
-                   int h0, void* stream) {
-  Params p = make_params(q, k, v, mask, lse, heads, lq, lk, kTcRows, scale,
+int fta_wgmma_forward(const void* q, const void* k, const void* v,
+                      const unsigned char* mask, void* out, float* lse,
+                      int batch, int heads, int lq, int lk,
+                      const long long* strides, float scale,
+                      unsigned int seed, unsigned int threshold,
+                      float keep_scale, int dropout, int h0, void* stream) {
+  Params p = make_params(q, k, v, mask, lse, heads, lq, lk, kWgRows, scale,
                          seed, threshold, keep_scale, dropout, h0, 1);
   p.out = out;
   p.sq = strides_at(strides, 0);
   p.sk = strides_at(strides, 1);
   p.sv = strides_at(strides, 2);
   p.so = strides_at(strides, 3);
-  return tc_forward(p, batch, static_cast<cudaStream_t>(stream));
+  return sb_forward(p, batch, static_cast<cudaStream_t>(stream));
 }
 
-int fta_tc_backward(const void* q, const void* k, const void* v,
-                    const unsigned char* mask, const float* lse, const void* g,
-                    void* dq, void* dk, void* dv, float* delta, int batch,
-                    int heads, int lq, int lk, const long long* strides,
-                    float scale, unsigned int seed, unsigned int threshold,
-                    float keep_scale, int dropout, int h0, void* stream) {
+int fta_wgmma_backward(const void* q, const void* k, const void* v,
+                       const unsigned char* mask, const float* lse,
+                       const void* g, void* dq, void* dk, void* dv, int batch,
+                       int heads, int lq, int lk, const long long* strides,
+                       float scale, unsigned int seed, unsigned int threshold,
+                       float keep_scale, int dropout, int h0, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
-                         lk, kTcRows, scale, seed, threshold, keep_scale,
+                         lk, kWgRows, scale, seed, threshold, keep_scale,
                          dropout, h0, 1);
   p.g = g;
   p.out = dq;
   p.dk = dk;
   p.dv = dv;
-  p.delta = delta;
   p.sq = strides_at(strides, 0);
   p.sk = strides_at(strides, 1);
   p.sv = strides_at(strides, 2);
@@ -1056,7 +1402,7 @@ int fta_tc_backward(const void* q, const void* k, const void* v,
   p.so = strides_at(strides, 4);
   p.sdk = strides_at(strides, 5);
   p.sdv = strides_at(strides, 6);
-  return tc_backward(p, batch, static_cast<cudaStream_t>(stream));
+  return sb_backward(p, batch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -100,31 +100,19 @@ __device__ __forceinline__ void wgmma_wait() {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
 
-// d (+)= A·B, m64n64k16, bf16 operands, f32 accumulators; A and B from
-// shared memory by descriptor; accumulate = 0 overwrites d.  TRANS_B: B is
-// MN-major (the tile's rows are contracted).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      LECCR_WGMMA_D32_LIST ", %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : LECCR_WGMMA_D32(d)
-      : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
-}
-
-// d += A·B, m64n64k16, A (64 x 16) from registers as four bf16x2 words
-// (mma.sync's A fragment per warp), B from shared memory.
+// d (+)= A·B, m64n64k16, A (64 x 16) from registers as four bf16x2 words
+// (mma.sync's A fragment per warp), B from shared memory; accumulate = 0
+// overwrites d.
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4], uint64_t b) {
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       LECCR_WGMMA_D32_LIST ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : LECCR_WGMMA_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
         "n"(TRANS_B));
 }
 
@@ -156,6 +144,60 @@ __device__ __forceinline__ void wgmma_ss128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A·B, m64nNk16 for N = 16, 32, 48 or 64, both operands from shared
+// memory by descriptor, into the first N / 2 registers of d; TA / TB: A / B
+// is MN-major (its tile's rows are contracted).  The single-block kernels'
+// products over a head's keys rounded up to 16 (the scores' tail box) and
+// over half of Dh (dQ split between two warpgroups).
+template <int N>
+struct WgmmaSS;
+
+#define LECCR_D8(d, o)                                                      \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),              \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define LECCR_WGMMA_SS_N(N, LIST, IA, IB, IACC, ITA, ITB, ...)              \
+  template <>                                                               \
+  struct WgmmaSS<N> {                                                       \
+    template <int TA, int TB, int M>                                        \
+    static __device__ __forceinline__ void run(float (&d)[M], uint64_t a,   \
+                                               uint64_t b, int accumulate) { \
+      static_assert(M >= N / 2, "accumulator narrower than the product");   \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" IACC ", 0;\n"                \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " LIST  \
+          ", %" IA ", %" IB ", p, 1, 1, %" ITA ", %" ITB ";\n}\n"           \
+          : __VA_ARGS__                                                     \
+          : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));             \
+    }                                                                       \
+  };
+
+LECCR_WGMMA_SS_N(16, "{%0, %1, %2, %3, %4, %5, %6, %7}", "8", "9", "10",
+                 "11", "12", LECCR_D8(d, 0))
+LECCR_WGMMA_SS_N(32,
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+                 "%13, %14, %15}",
+                 "16", "17", "18", "19", "20", LECCR_D8(d, 0),
+                 LECCR_D8(d, 8))
+LECCR_WGMMA_SS_N(48,
+                 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+                 "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}",
+                 "24", "25", "26", "27", "28", LECCR_D8(d, 0),
+                 LECCR_D8(d, 8), LECCR_D8(d, 16))
+LECCR_WGMMA_SS_N(64, LECCR_WGMMA_D32_LIST, "32", "33", "34", "35", "36",
+                 LECCR_D8(d, 0), LECCR_D8(d, 8), LECCR_D8(d, 16),
+                 LECCR_D8(d, 24))
+
+#undef LECCR_D8
+#undef LECCR_WGMMA_SS_N
+
+// d (+)= A·B, m64n64k16, bf16 operands, f32 accumulators; A and B from
+// shared memory by descriptor; accumulate = 0 overwrites d.  TRANS_B: B is
+// MN-major (the tile's rows are contracted).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  WgmmaSS<64>::run<0, TRANS_B>(d, a, b, accumulate);
+}
 #undef LECCR_WGMMA_D32
 #undef LECCR_WGMMA_D32_LIST
 #undef LECCR_WGMMA_D64
@@ -252,6 +294,12 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Orders this thread's earlier shared-memory writes before later reads of
+// the async proxy (a wgmma operand written with st.shared).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // x, which the compiler must take as new wherever this stands: a
@@ -481,6 +529,15 @@ int encode_rows_map(CUtensorMap* map, const void* base, int batch, int heads,
                     int len, long long sb, long long sh, long long sl) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return kNoEncoder;
+  // The encoder is not a runtime-API call: it refuses the map on a thread
+  // that no runtime call has yet bound to the device's context, as PyTorch's
+  // autograd worker thread can be in a fresh process.  cudaFree(nullptr)
+  // binds it, once a thread.
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
   const cuuint64_t dims[4] = {64, (cuuint64_t)len, (cuuint64_t)heads,
                               (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)sl * 2, (cuuint64_t)sh * 2,

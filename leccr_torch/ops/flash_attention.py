@@ -37,11 +37,12 @@ murmur3 finalizer, keep where the hash ≥ uint32(rate · 2³²), scaled by
 bit for bit (the TPU's hardware bits are another stream, which nothing
 reproduces).
 
-Kernels 2/3 have two bodies (`single_block_variant`): tensor cores
-(mma.sync) for bf16 at Dh = 64 with 16-byte aligned rows, every call of
-the train steps, and scalar f32 FMA for f32, other head dims and unaligned
-views.  The streamed forwards (kernels 4 and 6) and the tiled backward
-(kernels 7/8) likewise (`tiled_variant`): warp-specialised wgmma bodies fed
+Kernels 2/3 have two bodies (`single_block_variant`): Hopper ones
+(wgmma and TMA, persistent; the backward one launch of one pass) for bf16
+at Dh = 64 with TMA-eligible views and at most TC_MAX_KEYS keys, every
+call of the train steps, and scalar f32 FMA for f32, other head dims,
+unaligned views and longer keys.  The streamed forwards (kernels 4 and
+6) and the tiled backward (kernels 7/8) likewise (`tiled_variant`): warp-specialised wgmma bodies fed
 by TMA for bf16 at Dh = 64 with 16-byte aligned rows and outer strides,
 the scalar bodies otherwise; the chunked backward (kernel 5) runs the same
 wgmma passes as kernels 7/8 for the same views, at its own head group,
@@ -81,10 +82,8 @@ _TILED_LIB = "flash_tiled_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG = torch.finfo(torch.float32).min
 WARPS = 8  # warps per scalar block; each owns one row at a time
-ROWS = 64  # rows of one block's tile (a tensor-core block: 4 warps of 16)
-TC_CHUNK = 32  # staged rows a tensor-core kernel sweeps at a time
-TC_PITCH = 72  # bf16 per staged row of a tensor-core kernel
-TC_MAX_KEYS = 192  # keys whose scores the tensor-core forward holds per row
+ROWS = 64  # query rows of one scalar block's tile
+TC_MAX_KEYS = 192  # keys whose scores the Hopper forward holds per row
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a Hopper block may use
 # The grid of kernels 7/8's wgmma passes: persistent (a block per SM walking
 # the 128-row items) or one block per item.  Fixed from both schedules'
@@ -547,36 +546,23 @@ def regime(q: torch.Tensor, k: torch.Tensor,
     return "tiled"
 
 
-def tc_smem_bytes(which: int, lq: int, lk: int) -> int:
-    """Shared memory of tensor-core launch `which` (0: forward, 1: dq pass,
-    2: dk/dv pass), as `fta_tc_smem_bytes` computes it: the head's two
-    staged [L, 64] bf16 operands (rows rounded up to TC_CHUNK, TC_PITCH
-    apart), then a byte per key or lse and delta (f32) per query."""
-    operands = 2 * TC_PITCH * 2
-    if which == 2:
-        return _round_up(lq, TC_CHUNK) * (operands + 8)
-    return _round_up(lk, TC_CHUNK) * (operands + 1)
-
-
 def single_block_variant(q: torch.Tensor, k: torch.Tensor,
                          *others: torch.Tensor) -> str:
     """Which body kernels 2/3 run a call on, from the shapes alone:
-    "tc" (tensor cores) for bf16 at Dh = 64 when q, k and `others` (v; g
-    for the backward) have 16-byte aligned rows, Lk ≤ TC_MAX_KEYS (every
-    train-step call: 168 keys is the longest self-attention within
-    `fits_vmem` at 12 heads) and every launch's staged operands fit a
-    block's shared memory; "scalar" otherwise (f32, whose 1e-5 tolerance
-    TF32 would break, other head dims, unaligned views and longer keys,
-    where the scalar kernels raise if their shared memory does not fit)."""
-    _, _, lq, dh = q.shape
+    "wgmma" (the Hopper kernels) for bf16 at Dh = 64 when q, k and
+    `others` (v; g for the backward) are all `tma_eligible` and Lk ≤
+    TC_MAX_KEYS (every train-step call: 168 keys is the longest
+    self-attention within `fits_vmem` at 12 heads; queries stream, so Lq is
+    free); "scalar" otherwise (f32, whose 1e-5 tolerance TF32 would break,
+    other head dims, views TMA cannot read and longer keys, where the
+    scalar kernels raise if their shared memory does not fit)."""
+    dh = q.shape[-1]
     lk = k.shape[2]
     if q.dtype != torch.bfloat16 or dh != 64 or lk > TC_MAX_KEYS:
         return "scalar"
-    if not _aligned((q, k, *others), q.element_size()):
+    if not all(tma_eligible(t) for t in (q, k, *others)):
         return "scalar"
-    if max(tc_smem_bytes(w, lq, lk) for w in (0, 1, 2)) > SMEM_PER_BLOCK:
-        return "scalar"
-    return "tc"
+    return "wgmma"
 
 
 _TMA_MAX_STRIDE = 2 ** 40  # bytes: a TMA map's outer strides stay below
@@ -618,16 +604,16 @@ def _lib() -> ctypes.CDLL:
         tail = drop + [i32, i32, i32, ptr]
         lib.fta_forward.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] + tail
         lib.fta_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] + tail
-        tc_tail = [i32] * 4 + [ptr] + drop + [ptr]
-        lib.fta_tc_forward.argtypes = [ptr] * 6 + tc_tail
-        lib.fta_tc_backward.argtypes = [ptr] * 10 + tc_tail
-        for fn in (lib.fta_forward, lib.fta_backward, lib.fta_tc_forward,
-                   lib.fta_tc_backward):
+        wgmma_tail = [i32] * 4 + [ptr] + drop + [ptr]
+        lib.fta_wgmma_forward.argtypes = [ptr] * 6 + wgmma_tail
+        lib.fta_wgmma_backward.argtypes = [ptr] * 9 + wgmma_tail
+        for fn in (lib.fta_forward, lib.fta_backward, lib.fta_wgmma_forward,
+                   lib.fta_wgmma_backward):
             fn.restype = i32
         lib.fta_smem_bytes.argtypes = [i32] * 5
         lib.fta_smem_bytes.restype = ctypes.c_size_t
-        lib.fta_tc_smem_bytes.argtypes = [i32] * 3
-        lib.fta_tc_smem_bytes.restype = ctypes.c_size_t
+        lib.fta_wgmma_smem_bytes.argtypes = [i32] * 2
+        lib.fta_wgmma_smem_bytes.restype = ctypes.c_size_t
         lib.fta_supported_dim.argtypes = [i32]
         lib.fta_supported_dim.restype = i32
     return lib
@@ -656,11 +642,13 @@ def _dropout_args(seed, rate, h0=0):
             int(rate > 0.0), int(h0))
 
 
-def _prepare(q, k, seed, rate, launches, variant, h0=0):
+def _prepare(q, k, seed, rate, launches, h0=0):
     """The loaded library, the score scale and the dropout arguments of a
-    call, after checking the head dim and the shared memory of each launch
-    (0: forward, 1: backward dq pass, 2: backward dk/dv pass) of `variant`
-    ("tc" or "scalar")."""
+    call, after checking the head dim and the shared memory of each of the
+    scalar kernels' `launches` (0: forward, 1: backward dq pass, 2:
+    backward dk/dv pass; none on the "wgmma" variant, whose shared memory
+    fits a block at every key count it takes: csrc/flash_single_layout.h
+    asserts it)."""
     lib = _lib()
     _, _, lq, dh = q.shape
     lk = k.shape[2]
@@ -668,8 +656,7 @@ def _prepare(q, k, seed, rate, launches, variant, h0=0):
         raise ValueError(f"flash_tower_attention kernels are compiled for "
                          f"Dh in (16, 32, 64, 128), not {dh}")
     for which in launches:
-        smem = (lib.fta_tc_smem_bytes(which, lq, lk) if variant == "tc"
-                else lib.fta_smem_bytes(which, lq, lk, dh, WARPS))
+        smem = lib.fta_smem_bytes(which, lq, lk, dh, WARPS)
         if smem > SMEM_PER_BLOCK:
             raise ValueError(
                 f"flash_tower_attention stages two [L, Dh] operands of one "
@@ -687,11 +674,21 @@ def _mask_bytes(padding_mask):
             else padding_mask != 0).contiguous()
 
 
+def _views(**tensors) -> str:
+    """Shape, element strides and base alignment of each view, for the
+    message of a launch that failed (codes -10 and -11 are the TMA map
+    encoder's: not found, refused)."""
+    return ", ".join(f"{n} {tuple(t.shape)} strides {t.stride()} "
+                     f"base % 16 = {t.data_ptr() % 16}"
+                     for n, t in tensors.items())
+
+
 def _launch_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     variant = single_block_variant(q, k, v)
-    lib, scale, drop = _prepare(q, k, seed, rate, (0,), variant, heads[0])
+    lib, scale, drop = _prepare(q, k, seed, rate,
+                                () if variant == "wgmma" else (0,), heads[0])
     out = _heads_last(b, lq, h, dh, q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -701,9 +698,9 @@ def _launch_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
             lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if variant == "tc":
-            rc = lib.fta_tc_forward(*head, b, h, lq, lk, strides, scale,
-                                    *drop, stream)
+        if variant == "wgmma":
+            rc = lib.fta_wgmma_forward(*head, b, h, lq, lk, strides, scale,
+                                       *drop, stream)
         else:
             vec = _aligned((k, v), q.element_size())
             rc = lib.fta_forward(*head, _DTYPES[q.dtype], b, h, lq, lk, dh,
@@ -711,9 +708,10 @@ def _launch_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
                                  int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"flash_tower_attention forward kernel launch "
-                           f"({variant}) failed: CUDA error {rc}")
+                           f"({variant}) failed: CUDA error {rc}; "
+                           f"{_views(q=q, k=k, v=v)}")
     flash_tower_attention.fwd_launches += 1
-    if variant == "tc":
+    if variant == "wgmma":
         flash_tower_attention.tc_fwd_launches += 1
     return out, lse
 
@@ -724,34 +722,37 @@ def _launch_bwd(q, k, v, mask, lse, g, seed, rate, heads=(0, None)):
     if g.stride(-1) != 1:
         g = g.contiguous()
     variant = single_block_variant(q, k, v, g)
-    lib, scale, drop = _prepare(q, k, seed, rate, (1, 2), variant,
+    wgmma = variant == "wgmma"
+    lib, scale, drop = _prepare(q, k, seed, rate, () if wgmma else (1, 2),
                                 heads[0])
     dq = _heads_last(b, lq, h, dh, q)
     dk = _heads_last(b, lk, h, dh, k)
     dv = _heads_last(b, lk, h, dh, v)
-    delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 21)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
         *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            delta.data_ptr())
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if variant == "tc":
-            rc = lib.fta_tc_backward(*head, b, h, lq, lk, strides, scale,
-                                     *drop, stream)
+        if wgmma:
+            rc = lib.fta_wgmma_backward(*head, b, h, lq, lk, strides, scale,
+                                        *drop, stream)
         else:
+            # delta: the scalar dq pass's scratch for its dk/dv pass
+            delta = torch.empty((b, h, lq), dtype=torch.float32,
+                                device=q.device)
             vec = _aligned((q, k, v, g), q.element_size())
-            rc = lib.fta_backward(*head, _DTYPES[q.dtype], b, h, lq, lk, dh,
-                                  strides, scale, *drop, ROWS, WARPS,
-                                  int(vec), stream)
+            rc = lib.fta_backward(*head, delta.data_ptr(), _DTYPES[q.dtype],
+                                  b, h, lq, lk, dh, strides, scale, *drop,
+                                  ROWS, WARPS, int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"flash_tower_attention backward kernel launch "
-                           f"({variant}) failed: CUDA error {rc}")
+                           f"({variant}) failed: CUDA error {rc}; "
+                           f"{_views(q=q, k=k, v=v, g=g)}")
     flash_tower_attention.bwd_launches += 1
-    if variant == "tc":
+    if wgmma:
         flash_tower_attention.tc_bwd_launches += 1
     return dq, dk, dv
 
@@ -822,7 +823,8 @@ def flash_tower_attention_bwd(q, k, v, padding_mask, lse, g, seed: int,
                               dropout_rate: float = 0.0,
                               head_offset: int = 0,
                               num_heads: Optional[int] = None):
-    """The backward kernel (kernel 3, two launches) on CUDA tensors, its
+    """The backward kernel (kernel 3: one launch on the Hopper variant, two
+    on the scalar one) on CUDA tensors, its
     plain version on CPU tensors: (dq, dk, dv), each [B, H, L, Dh] in
     [B, L, H, Dh] storage.  g: d(out), any strides with a unit last one."""
     _check(q, k, v, padding_mask, dropout_rate)
@@ -1258,7 +1260,7 @@ def flash_tower_attention(
     requires grad) it runs the forward alone and saves nothing.
     `flash_tower_attention.fwd_launches` / `.bwd_launches` count the
     launches of kernels 2/3 (`.tc_fwd_launches` / `.tc_bwd_launches` those
-    of them on the tensor-core variant), `.chunk_fwd_launches` /
+    of them on the Hopper variant, "wgmma"), `.chunk_fwd_launches` /
     `.chunk_bwd_launches` those of kernels 4/5 (a backward's two launches
     count once; `.chunk_fwd_wgmma_launches` / `.chunk_bwd_wgmma_launches`
     those of kernels 4 and 5 on the wgmma variant), and `.tiled_fwd_launches` / `.tiled_dq_launches` /

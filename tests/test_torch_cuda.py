@@ -301,25 +301,30 @@ def test_flash_kernels_match_plain_versions(shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,heads,lq,lk,aligned", [
-    (4, 12, 1, 1, True), (4, 12, 17, 17, True), (4, 12, 145, 145, True),
-    (4, 12, 168, 168, True), (16, 12, 64, 64, True), (2, 1, 700, 64, True),
-    (2, 2, 300, 300, True), (16, 12, 64, 64, False)],
-    ids=["L1", "L17", "L145", "L168", "text", "q700-k64", "L300-h2",
+    *((4, 12, n, n, True) for n in (1, 17, 63, 64, 65, 128, 145, 168, 192)),
+    (16, 12, 64, 64, True), (2, 1, 700, 64, True), (2, 1, 800, 64, True),
+    (2, 3, 64, 145, True), (2, 2, 300, 300, True), (16, 12, 64, 64, False)],
+    ids=["L1", "L17", "L63", "L64", "L65", "L128", "L145", "L168", "L192",
+         "text", "q700-k64", "q800-k64", "q64-k145", "L300-h2",
          "text-unaligned"])
 def test_single_block_variants_match_plain_versions(batch, heads, lq, lk,
                                                     aligned):
     """Kernels 2/3 in bf16 at heads of 64 against their plain versions, with
     key padding, a fully padded row and dropout 0.1, each on the variant
-    single_block_variant names: the tensor-core one at 12 heads at ragged
-    lengths up to the longest within fits_vmem (168; a chunk of 32 keys is
-    rounded up past Lk, and those keys must count for nothing), at the text
-    shape and at 700 queries against 64 keys (22 query chunks in the dk/dv
-    pass); the scalar one past the tensor-core forward's 192 keys (2 heads,
-    300 tokens) and for the text shape with its rows 2 bytes off 16-byte
-    alignment.  Tolerances as test_flash_kernels_match_plain_versions (lse
-    atol 1e-5; out and grads within 1e-5 + BF16_K bf16 ulps of their term
-    sums)."""
+    single_block_variant names: the Hopper one (wgmma and TMA) at 12 heads
+    at ragged lengths around its 16-key steps and 64-key boxes up to its
+    192 keys, at the text shape,
+    at 700 and 800 queries against 64 keys (queries stream) and 64 against
+    145; the scalar one past the 192 keys (2 heads, 300 tokens) and for
+    the text shape with its rows 2 bytes off 16-byte alignment.  Through
+    the public wrappers, and past fits_vmem (12 heads at 169-192 keys)
+    through the runners they call after that check.  Two calls give the
+    same bits.  Tolerances as test_flash_kernels_match_plain_versions
+    (lse atol 1e-5; out and grads within 1e-5 + BF16_K bf16 ulps of their
+    term sums)."""
     _needs_card()
+    from leccr_torch.ops import flash_attention as fa
+
     rate = 0.1
     g = torch.Generator(device="cuda").manual_seed(lq + lk)
     q, k, v, grad = (path_layout(torch.randn(
@@ -328,14 +333,35 @@ def test_single_block_variants_match_plain_versions(batch, heads, lq, lk,
     pad = torch.rand(batch, lk, device="cuda", generator=g) < 0.3
     pad[0] = True  # a fully padded row: the mean of v over the Lk keys
     pad[1] = False
-    tc = aligned and lk <= 192
-    assert single_block_variant(q, k, v, grad) == ("tc" if tc else "scalar")
+    hopper = aligned and lk <= 192
+    assert single_block_variant(q, k, v, grad) == (
+        "wgmma" if hopper else "scalar")
     seed = 77
+    if fa.fits_vmem(heads, lq, lk, 64):
+        def fwd():
+            return flash_tower_attention_fwd(q, k, v, pad, seed, rate)
+
+        def bwd(lse):
+            return flash_tower_attention_bwd(q, k, v, pad, lse, grad, seed,
+                                             rate)
+    else:
+        mask = fa._mask_bytes(pad)
+
+        def fwd():
+            return fa._single_fwd(q, k, v, mask, seed, rate)
+
+        def bwd(lse):
+            return fa._single_bwd(q, k, v, mask, lse, grad, seed, rate)
+    assert fa.fits_vmem(heads, lq, lk, 64) == (lk <= 168 or heads < 12)
     before = tc_counts()
-    out, lse = flash_tower_attention_fwd(q, k, v, pad, seed, rate)
-    grads = flash_tower_attention_bwd(q, k, v, pad, lse, grad, seed, rate)
+    out, lse = fwd()
+    grads = bwd(lse)
     launched = tuple(a - b for a, b in zip(tc_counts(), before))
-    assert launched == ((1, 1) if tc else (0, 0))
+    assert launched == ((1, 1) if hopper else (0, 0))
+    out2, lse2 = fwd()
+    grads2 = bwd(lse)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
     want_out, want_lse = flash_tower_attention_fwd_reference(
         q, k, v, pad, seed, rate)
     want_grads = flash_tower_attention_bwd_reference(
@@ -351,9 +377,45 @@ def test_single_block_variants_match_plain_versions(batch, heads, lq, lk,
 
 
 @pytest.mark.cuda
+def test_single_block_vision_shape_fully_padded():
+    """The vision shape [128, 12, 145, 64] with key padding and a fully
+    padded row at rate 0 (every key of example 0 masked: out is the mean of
+    v, lse f32 min, the backward's p 1 on every key) on the Hopper kernels,
+    within the tolerances above; and the library's shared-memory figure
+    of each Hopper launch fits a block at every key count they take."""
+    _needs_card()
+    from leccr_torch.ops import flash_attention as fa
+
+    q, k, v, grad, pad = _flash_inputs(128, 145, torch.bfloat16, True)
+    assert single_block_variant(q, k, v, grad) == "wgmma"
+    out, lse = flash_tower_attention_fwd(q, k, v, pad, 5, 0.0)
+    grads = flash_tower_attention_bwd(q, k, v, pad, lse, grad, 5, 0.0)
+    want_out, want_lse = flash_tower_attention_fwd_reference(
+        q, k, v, pad, 5, 0.0)
+    want_grads = flash_tower_attention_bwd_reference(
+        q, k, v, pad, want_lse, grad, 5, 0.0)
+    torch.cuda.synchronize()
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+    assert torch.allclose(out[0].float(), v[0].float().mean(1, keepdim=True)
+                          .expand_as(out[0]), atol=1e-2)
+    pairs = {"out": (out, want_out),
+             **dict(zip(("dq", "dk", "dv"), zip(grads, want_grads)))}
+    scales = flash_term_scales(q, k, v, pad, want_lse, grad, 5, 0.0)
+    for name, (got, want) in pairs.items():
+        assert torch.isfinite(got).all(), name
+        assert bf16_k_needed(got, want, scales[name]) <= BF16_K, name
+    lib = fa._lib()
+    for lk in range(1, 193):
+        for which in (0, 1):
+            assert 0 < lib.fta_wgmma_smem_bytes(which, lk) <= (
+                fa.SMEM_PER_BLOCK)
+
+
+@pytest.mark.cuda
 def test_single_block_masks_are_the_plain_hash():
-    """The dropout masks that kernel 2 and kernel 3's two passes apply, read
-    back bit for bit over three key blocks (145 tokens), equal keep_mask."""
+    """The dropout masks that kernel 2 and kernel 3 apply (read back
+    through its dq and its dv), bit for bit over three key blocks (145
+    tokens), equal keep_mask."""
     _needs_card()
     want = keep_mask(7, 2, 12, 145, 145, 0.2, device="cuda") != 0
     for got in single_masks(2, 12, 145, torch.bfloat16, 0.2, 7):
@@ -420,6 +482,92 @@ def test_kernels_on_a_rank_heads_equal_the_dense_heads(regime, heads, length,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch,heads,length,rate,masked", [
+    (128, 12, 145, 0.0, False), (256, 12, 64, 0.1, True),
+    (4, 12, 145, 0.1, True), (4, 12, 17, 0.1, True),
+    (4, 12, 100, 0.1, True)],
+    ids=["vision", "text", "L145", "L17", "L100"])
+def test_single_block_kernels_read_no_stale_memory(batch, heads, length,
+                                                   rate, masked):
+    """Kernels 2/3 on the Hopper variant give the same bits when the
+    caching allocator's free memory, where their outputs land, holds NaN,
+    1e30 or -3 first: every output element is written, and nothing
+    uninitialized (shared memory past the zero fill, a scratch row) is
+    read."""
+    _needs_card()
+    from leccr_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(length)
+    q, k, v, grad = (path_layout(torch.randn(
+        batch, length, heads, 64, device="cuda", generator=g).to(
+            torch.bfloat16)) for _ in range(4))
+    pad = None
+    if masked:
+        pad = torch.rand(batch, length, device="cuda", generator=g) < 0.3
+        pad[0] = True
+    mask = fa._mask_bytes(pad)
+    assert single_block_variant(q, k, v, grad) == "wgmma"
+
+    def call():
+        out, lse = fa._single_fwd(q, k, v, mask, 9, rate)
+        return [out, lse, *fa._single_bwd(q, k, v, mask, lse, grad, 9, rate)]
+
+    want = [t.clone() for t in call()]
+    for fill in (float("nan"), 1e30, -3.0):
+        junk = torch.empty(2 ** 28, device="cuda").fill_(fill)
+        del junk  # its blocks go back to the cache, poisoned
+        got = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), fill
+        del got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime,heads,length", [
+    ("single", 12, 145), ("chunked", 16, 577), ("tiled", 16, 2705)])
+def test_wgmma_kernels_launch_from_a_fresh_thread(regime, heads, length):
+    """Kernels 2-8 on their wgmma variant launched, forward and backward,
+    from a thread that no CUDA runtime call has bound to the device's
+    context yet, as PyTorch's autograd worker thread can be in a fresh
+    process: the TMA map encoder (cuTensorMapEncodeTiled, outside the
+    runtime API) refused their maps there
+    (launch error -11) until the launchers bound the context first.  The
+    thread's results equal the main thread's bit for bit."""
+    import threading
+
+    from leccr_torch.ops import flash_attention as fa
+
+    _needs_card()
+    q, k, v, grad, pad = _flash_inputs(2, length, torch.bfloat16, True,
+                                       heads=heads)
+    assert fa.regime(q, k) == regime
+    assert tiled_variant(q, k, v, grad) == "wgmma"
+
+    def step():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_tower_attention(*leaves, pad, 3, 0.1)
+        out.backward(grad)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    step()  # outputs of these sizes go back to the cache, so the thread's
+    want = step()  # allocations make no runtime call that would bind it
+    got, errors = [], []
+
+    def work():
+        try:
+            got.extend(step())
+        except Exception as exc:  # reported on the main thread, below
+            errors.append(exc)
+
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join(timeout=300)
+    assert not worker.is_alive() and not errors, errors
+    torch.cuda.synchronize()
+    assert len(got) == 4 and all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
 def test_flash_launch_counters():
     """One forward launch per call, one backward per backward (its two
     launches count once; the tiled dq and dk/dv launches count on their own
@@ -444,7 +592,7 @@ def test_flash_launch_counters():
         torch.cuda.synchronize()
         assert tuple(getattr(flash_tower_attention, c) - b
                      for c, b in zip(counters, before)) == want
-        # bf16 at Dh = 64: every single-block launch is a tensor-core one,
+        # bf16 at Dh = 64: every single-block launch is a wgmma one,
         # every launch of kernels 4, 6, 7, 8 a wgmma one
         assert tuple(a - b for a, b in zip(tc_counts(), before_tc)) == want[:2]
         assert wgmma_launched(before_wgmma, *(want[i] for i in WGMMA_OF))

@@ -9,6 +9,8 @@ sides round p (and ds) to bf16 and f32 noise can land a rounding the other
 way.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -250,12 +252,14 @@ def _path_view(b, h, length, d=64, dtype=torch.bfloat16, offset=0):
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: s[0])
 def test_path_shapes_take_the_tensor_core_variant(shape):
     """Every call of kernels 2/3 that the train steps make (chip_smoke's
-    FLASH_SHAPES, in bf16 and the towers' layout) runs on tensor cores."""
+    FLASH_SHAPES, in bf16 and the towers' layout) runs on the Hopper
+    kernels (wgmma and TMA): the views are TMA-eligible."""
     _, b, h, length, *_ = shape
     q, k, v, g = (_path_view(b, h, length) for _ in range(4))
     assert fits_vmem(h, length, length, 64)
-    assert single_block_variant(q, k, v) == "tc"
-    assert single_block_variant(q, k, v, g) == "tc"
+    assert all(port.tma_eligible(t) for t in (q, k, v, g))
+    assert single_block_variant(q, k, v) == "wgmma"
+    assert single_block_variant(q, k, v, g) == "wgmma"
 
 
 @pytest.mark.parametrize("case", ["f32", "dh32", "row_stride", "offset"])
@@ -274,30 +278,56 @@ def test_other_calls_take_the_scalar_variant(case):
     assert single_block_variant(k, q, k) == "scalar"
 
 
+def test_views_tma_cannot_read_take_the_scalar_variant():
+    """A view whose rows are 16-byte aligned but which TMA cannot read (a
+    batch broadcast by expand: outer stride 0) takes the scalar kernels,
+    on either side of the call; its materialised copy takes the Hopper
+    ones."""
+    q = _path_view(2, 12, 64)
+    k = _path_view(1, 12, 64).expand(2, -1, -1, -1)
+    assert k.stride(0) == 0 and not port.tma_eligible(k)
+    assert port._aligned((q, k), 2)
+    assert single_block_variant(q, k, k) == "scalar"
+    assert single_block_variant(k, q, q) == "scalar"
+    assert single_block_variant(q, q, q, k) == "scalar"
+    assert single_block_variant(q, k.contiguous(), q) == "wgmma"
+
+
+@pytest.mark.parametrize("lk", [1, 17, 64, 65, 145, 192, 193])
+def test_key_count_alone_bounds_the_hopper_variant(lk):
+    """Against 64 queries, every key count up to TC_MAX_KEYS (192) takes
+    the Hopper kernels and 193 the scalar ones: their shared memory fits a
+    block at every key count they take (csrc/flash_single_layout.h asserts
+    it at build time), so no other figure decides."""
+    q, k = _path_view(2, 12, 64), _path_view(2, 12, lk)
+    want = "wgmma" if lk <= port.TC_MAX_KEYS else "scalar"
+    assert port.TC_MAX_KEYS == 192
+    assert single_block_variant(q, k, k) == want
+    assert single_block_variant(q, k, k, q) == want
+
+
 @pytest.mark.parametrize("heads", [12, 2])
 def test_longest_single_block_length_takes_a_variant(heads):
     """The longest self-attention length within fits_vmem takes a variant
-    without raising: 168 at 12 heads, within the tensor-core forward's 192
-    keys and a block's shared memory, the tensor-core one; 469 at 2 heads,
-    past those 192 keys, the scalar one (which raises at launch where its
-    shared memory does not fit, as it did before the tensor-core kernels);
-    so do cross shapes past either kernel's limit."""
+    without raising: 168 at 12 heads, within the Hopper kernels' 192 keys,
+    the Hopper one; 469 at 2 heads, past those
+    192 keys, the scalar one (which raises at launch where its shared
+    memory does not fit); so do cross shapes past the keys' limit."""
     longest = max(n for n in range(1, 1000) if fits_vmem(heads, n, n, 64))
     assert not fits_vmem(heads, longest + 1, longest + 1, 64)
     q = _path_view(1, heads, longest)
-    want = "tc" if longest <= port.TC_MAX_KEYS else "scalar"
+    want = "wgmma" if longest <= port.TC_MAX_KEYS else "scalar"
     assert (longest, single_block_variant(q, q, q, q)) == (
         {12: 168, 2: 469}[heads], want)
-    if want == "tc":
-        assert max(port.tc_smem_bytes(w, longest, longest)
-                   for w in range(3)) <= port.SMEM_PER_BLOCK
     lk = max(n for n in range(1, 8000) if fits_vmem(1, 1, n, 64))
     q, k = _path_view(1, 1, 1), _path_view(1, 1, lk)
     assert single_block_variant(q, k, k) == "scalar"
-    # many queries against few keys: the dk/dv pass stages every query row,
-    # 296 bytes each, so 768 fit a block and 800 do not
+    # many queries against few keys: the queries stream through the Hopper
+    # kernels, whose shared memory depends on the keys alone, so 800 take
+    # them as 768 do (the mma.sync dk/dv pass staged every query row and
+    # sent 800 to the scalar kernels)
     k = _path_view(1, 1, 64)
-    for lq, want in ((768, "tc"), (800, "scalar")):
+    for lq, want in ((768, "wgmma"), (800, "wgmma")):
         q = _path_view(1, 1, lq)
         assert fits_vmem(1, lq, 64, 64)
         assert single_block_variant(q, k, k) == want
@@ -343,7 +373,7 @@ def test_bf16_plain_versions_match_interpret_at_flagship_width():
 
 def test_profiled_kernel_names_map_to_their_kernels():
     """chip_smoke's profile sums kernels 2/3 by their function names, the
-    scalar variant's (templates) and the tensor-core one's alike, kernels
+    scalar variant's and the Hopper one's (templates) alike, kernels
     4-8 in their scalar and wgmma variants (kernel 5's and kernels 7/8's
     wrappers of the shared wgmma passes apart), kernels 9-11 with their
     merge passes, and keeps kernels 4-11 and library kernels apart."""
@@ -351,12 +381,15 @@ def test_profiled_kernel_names_map_to_their_kernels():
     names = {
         f"void {ns}::fwd_kernel<__nv_bfloat16, 64>({ns}::Params)":
             "single_fwd",
-        f"void {ns}::fwd_tc_kernel({ns}::Params)": "single_fwd",
+        f"void {ns}::single_fwd_wgmma_kernel<10>({ns}::SbMaps, "
+        f"{ns}::Params)": "single_fwd",
         f"void {ns}::bwd_dq_kernel<float, 64>({ns}::Params)": "single_bwd",
         f"void {ns}::bwd_dkv_kernel<__nv_bfloat16, 32>({ns}::Params)":
             "single_bwd",
-        f"void {ns}::bwd_dq_tc_kernel({ns}::Params)": "single_bwd",
-        f"void {ns}::bwd_dkv_tc_kernel({ns}::Params)": "single_bwd",
+        f"void {ns}::single_bwd_wgmma_kernel<3>({ns}::SbMaps, "
+        f"{ns}::Params)": "single_bwd",
+        f"void {ns}::single_bwd_wgmma_kernel<1>({ns}::SbMaps, "
+        f"{ns}::Params)": "single_bwd",
         f"void {ns}::chunk_fwd_wgmma_kernel({ns}::FwdMaps, {ns}::Params)":
             "chunked",
         f"void {ns}::chunk_bwd_dq_wgmma_kernel({ns}::WgMaps, {ns}::Params)":

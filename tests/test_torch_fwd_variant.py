@@ -124,3 +124,38 @@ def test_ptxas_report_reads_registers_and_spills():
     assert got["tiled_fwd_wgmma_kernel"] is None
     assert got["tiled_dkv_wgmma_kernel"] is None
     assert got["chunk_bwd_dq_wgmma_kernel"] is None
+
+
+_SINGLE_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec4723single_bwd_wgmma_kernelILi3EEEvNS_6SbMapsENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec4723single_bwd_wgmma_kernelILi3EEEvNS_6SbMapsENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 158 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec4723single_fwd_wgmma_kernelILi12EEEvNS_6SbMapsENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec4723single_fwd_wgmma_kernelILi12EEEvNS_6SbMapsENS_6ParamsE
+    16 bytes stack frame, 12 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec4723single_fwd_wgmma_kernelILi1EEEvNS_6SbMapsENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec4723single_fwd_wgmma_kernelILi1EEEvNS_6SbMapsENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec477fwd_kernelI13__nv_bfloat16Li64EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__b67557a4_24_flash_tower_attention_cu_3500ec477fwd_kernelI13__nv_bfloat16Li64EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
+"""
+
+
+def test_ptxas_instances_reads_every_instantiation():
+    """chip_smoke.ptxas_instances reports kernels 2/3's Hopper kernels per
+    instantiation (keyed by their int template argument), with registers
+    and spill bytes, and leaves out the scalar kernels."""
+    got = chip_smoke.ptxas_instances(_SINGLE_PTXAS_LOG,
+                                     chip_smoke.SINGLE_WGMMA_KERNELS)
+    assert got == {
+        "single_bwd_wgmma_kernel<3>": {
+            "registers": 158, "spill_stores": 0, "spill_loads": 0},
+        "single_fwd_wgmma_kernel<12>": {
+            "registers": 168, "spill_stores": 12, "spill_loads": 32},
+        "single_fwd_wgmma_kernel<1>": {
+            "registers": 168, "spill_stores": 0, "spill_loads": 0}}
