@@ -171,18 +171,21 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    the Python ones (texts/s).
 13. video (`video_phase`): configs/msrvtt.yaml's model uncut (temporal
    tower over 4096-d frames, mBERT-base, caption interaction 3/2/2 at
-   width 4096, so Dh = 512; bf16 on f32 masters).  Kernel 1's key-tiles
-   body against its plain version at the video shapes (VIDEO_SHAPES timed
-   beside the bound and SDPA, VIDEO_EDGE_SHAPES checked; phase 2's
+   width 4096, so Dh = 512; bf16 on f32 masters).  Kernel 1's wide-head
+   bodies against their plain version at the video shapes (VIDEO_SHAPES
+   timed beside the bound and SDPA, two calls bit for bit,
+   VIDEO_EDGE_SHAPES checked, and a row whose first key split or first
+   warp's key range is all padded, `wide_padded_range_checks`; phase 2's
    tolerances), then `python -m leccr_torch.run --task vtr_caption` on a
    synthetic MSR-VTT-layout set (512 clips, 4 steps at bs128; val and
    test of 1000 videos x 5 captions): kernels 2/3 VIDEO_STEP_LAUNCHES a
    step, all on the wgmma variant, kernel 1 7 launches an eval batch on the
-   key-tiles body only; the test split's double-sim ranks equal a dense
-   count; ms/step, peak memory, embed_texts / embed_images / ranking s;
+   wide-head bodies only (5 key ranges, 2 query rows a batch); the test
+   split's double-sim ranks equal a dense count; ms/step, peak memory,
+   embed_texts / embed_images / ranking s;
    then build_video_index of 256 videos and search_texts(minmax); then
    `--task build_index` of the test split from the run's checkpoint
-   (kernel 1 7 a batch of 64, key tiles only) and search_texts(minmax)
+   (kernel 1 7 a batch of 64, wide bodies only) and search_texts(minmax)
    on the loaded save.  Then configs/vatex.yaml's model uncut (1024-d
    frames, so Dh = 128: kernel 1's small bodies), bf16: one embed_images
    batch of 64 videos (32 frames, some padded; 200-token captions), each
@@ -310,14 +313,25 @@ PATH_LAUNCHES = {(4, 200): 3, (145, 4): 2, (4, 145): 2}  # per embed_images
 # key, the few-keys body's last Lk and the first past it
 EDGE_SHAPES = [(1, 200), (145, 1), (145, 16), (145, 17)]
 # the video model's (configs/msrvtt.yaml: 4096-d frames at 8 heads, Dh =
-# 512) embed_images calls, all on the key-tiles body: (slots, caption tokens
-# at max_tokens), (frames, slots), (slots, frames); checked only: the
-# 64- and 128-token buckets (past the general body's 52 keys at Dh = 512)
-# and the edges of its 16-key and 16-row tiles
+# 512) embed_images calls, on the two wide-head bodies: (slots, caption
+# tokens at max_tokens) and (slots, frames) on wide key ranges, (frames,
+# slots) on wide query rows; checked only: the 64- and 128-token buckets
+# (past the general body's 52 keys at Dh = 512), one key, the bodies'
+# edges (2 and 3 keys, 4-row groups, 32-row blocks), key counts that no
+# split or warp range divides, and 3-16 keys over 3 to 145 rows (a warp's
+# own rows)
 VIDEO_DH = 512
 VIDEO_SHAPES = [(2, 200), (32, 2), (2, 32)]
 VIDEO_PATH_LAUNCHES = {(2, 200): 3, (32, 2): 2, (2, 32): 2}
-VIDEO_EDGE_SHAPES = [(2, 64), (2, 128), (1, 1), (17, 33), (32, 16)]
+VIDEO_BODIES = {(2, 200): "wide_key_ranges", (32, 2): "wide_query_rows",
+                (2, 32): "wide_key_ranges"}
+VIDEO_EDGE_SHAPES = [(2, 64), (2, 128), (1, 1), (17, 33), (32, 16),
+                     (2, 33), (2, 199), (2, 1), (33, 17), (32, 3), (145, 4),
+                     (3, 16)]
+# (B, Lq, Lk) of `wide_padded_range_checks`: the path's batch (one split:
+# the first warp's range padded) and 2 videos (16 heads: the keys split
+# over blocks, the first split padded)
+WIDE_PADDED_CASES = [(64, 2, 200), (2, 2, 200), (2, 2, 33), (2, 5, 199)]
 # the video phase's cuts of configs/msrvtt.yaml (widths uncut): synthetic
 # frame features, 512 training clips with one caption each (4 steps at
 # bs128, one epoch), 1000 videos x 5 captions a split (msrvtt10ktest has
@@ -487,6 +501,78 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
 
 
+def kernel1_within(diff, want):
+    """(ok, tolerance) of kernel 1's |got - want| against its plain
+    version's `want`: f32 max abs err <= 1e-5, bf16 every element within
+    1e-5 + 1 bf16 ulp of `want`."""
+    import torch
+
+    if want.dtype == torch.float32:
+        return diff.max().item() <= 1e-5, "max abs err <= 1e-5"
+    return (bool((diff <= 1e-5 + bf16_ulp(want)).all()),
+            "every element within 1e-5 + 1 bf16 ulp")
+
+
+def wide_padded_range_checks(heads: int = 8, dh: int = VIDEO_DH):
+    """Kernel 1's wide key-ranges body at WIDE_PADDED_CASES (B, Lq, Lk), in
+    the path's layout, bf16 and f32: batch row 0 has the keys of its first
+    split padded (of the first warp's range where the call runs one split)
+    and no other key, row 1 every key, the others none.  Out within
+    `kernel1_within` of the plain version, row 1 the mean of v, two calls
+    bit for bit; each row with the call's splits (`wide_splits`)."""
+    import torch
+
+    from leccr_torch.ops.fused_cross_attention import (
+        WIDE_WARPS,
+        fused_body,
+        fused_cross_attention,
+        fused_cross_attention_reference,
+        wide_splits,
+    )
+
+    results = []
+    for batch, lq, lk in WIDE_PADDED_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device="cuda").manual_seed(batch * lk + lq)
+            q, k, v = (torch.randn(batch, n, heads, dh, device="cuda",
+                                   generator=g).to(dtype).transpose(1, 2)
+                       for n in (lq, lk, lk))
+            if fused_body(lq, lk, dh, q.element_size(),
+                          True) != "wide_key_ranges":
+                raise AssertionError(f"{lq}x{lk} is not a key-ranges shape")
+            splits, split_keys = wide_splits(batch * heads, lq, lk, dh,
+                                             dtype, q.device)
+            span = split_keys if splits > 1 else -(-lk // WIDE_WARPS)
+            if span >= lk:
+                raise AssertionError(f"{batch}x{lq}x{lk}: one range holds "
+                                     f"every key ({splits} splits)")
+            pad = torch.zeros(batch, lk, dtype=torch.bool, device="cuda")
+            pad[0, :span] = True
+            pad[1] = True
+            got = fused_cross_attention(q, k, v, pad)
+            want = fused_cross_attention_reference(q, k, v, pad)
+            diff = (got.float() - want.float()).abs()
+            ok, tol = kernel1_within(diff, want)
+            mean_v = v[1].float().mean(dim=1, keepdim=True).expand(-1, lq, -1)
+            mean_err = (got[1].float() - mean_v).abs().max().item()
+            if (not ok or mean_err > 1e-2 or not torch.isfinite(got).all()
+                    or not torch.equal(fused_cross_attention(q, k, v, pad),
+                                       got)):
+                raise AssertionError(
+                    f"kernel 1 with a padded key range at {batch}x{lq}x{lk} "
+                    f"{dtype}: err {diff.max().item()}, mean of v off by "
+                    f"{mean_err}, {splits} splits of {split_keys} keys")
+            results.append({"batch": batch, "lq": lq, "lk": lk,
+                            "dtype": str(dtype).split(".")[-1],
+                            "padded_keys": span, "splits": splits,
+                            "split_keys": split_keys,
+                            "max_abs_err": diff.max().item(),
+                            "padded_row_vs_mean_v": mean_err,
+                            "tolerance": tol, "two_calls": "bit for bit"})
+            emit("video_kernel_padded_range", dh=dh, **results[-1])
+    return results
+
+
 def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64,
                  shapes=tuple(SHAPES), edges=tuple(EDGE_SHAPES),
                  phase: str = "kernel"):
@@ -538,18 +624,17 @@ def kernel_phase(batch: int = 64, heads: int = 8, dh: int = 64,
             mean_err = (got[0].float() - mean_v).abs().max().item()
             if mean_err > 1e-2:
                 raise AssertionError("fully padded row is not the mean of v")
-            if dtype == torch.float32:
-                ok, tol = err <= 1e-5, "max abs err <= 1e-5"
-            else:
-                ok = bool((diff <= 1e-5 + bf16_ulp(want)).all())
-                tol = "every element within 1e-5 + 1 bf16 ulp"
+            ok, tol = kernel1_within(diff, want)
             if not ok:
                 raise AssertionError(f"kernel disagrees with its plain "
                                      f"version at {lq}x{lk} {dtype}: {err}")
+            if not torch.equal(fused_cross_attention(q, k, v, pad), got):
+                raise AssertionError(f"kernel 1 at {lq}x{lk} {dtype}: two "
+                                     f"calls differ")
             name = str(dtype).split(".")[-1]
             row = {"lq": lq, "lk": lk, "dtype": name, "body": body,
                    "max_abs_err": err, "padded_row_vs_mean_v": mean_err,
-                   "tolerance": tol}
+                   "tolerance": tol, "two_calls": "bit for bit"}
             if not timed:
                 emit(f"{phase}_edge_vs_plain", dh=dh, **row)
                 continue
@@ -656,7 +741,8 @@ def kernel1_counts(what: str, bodies=("few_queries", "few_keys")) -> dict:
     """Kernel 1's launches since reset_counts(), all and by body; `what`
     (a path) must have launched each of `bodies` and no other (the image
     model's embed_images shapes: the few-queries and few-keys bodies, never
-    the general one; the video model's: the key-tiles body)."""
+    the general one; the video model's: the wide-head bodies, whose exact
+    counts `video_kernel1_counts` checks)."""
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
 
     by_body = fused_cross_attention.launches_by_body
@@ -664,6 +750,22 @@ def kernel1_counts(what: str, bodies=("few_queries", "few_keys")) -> dict:
     if (any((by_body[b] > 0) != (b in bodies) for b in by_body)
             or counts["all"] != sum(by_body.values())):
         raise AssertionError(f"{what} launched kernel 1's bodies {counts}")
+    return counts
+
+
+def video_kernel1_counts(what: str, cfg, batches: int) -> dict:
+    """`kernel1_counts` of `what`, `batches` embed_images batches of the
+    video model: per batch its caption_ca_layer calls (slots, caption
+    tokens) and caption_interaction_layer (slots, frames) calls on wide key
+    ranges, caption_interaction_layer (frames, slots) calls on wide query
+    rows, exactly."""
+    counts = kernel1_counts(what, tuple(sorted(set(VIDEO_BODIES.values()))))
+    inter = cfg.model.caption_interaction_layer
+    want = {"wide_key_ranges": (cfg.model.caption_ca_layer + inter) * batches,
+            "wide_query_rows": inter * batches}
+    if any(counts[b] != n for b, n in want.items()):
+        raise AssertionError(f"{what} launched kernel 1's bodies {counts}, "
+                             f"want {want}")
     return counts
 
 
@@ -2097,6 +2199,7 @@ _KERNEL_NAME = re.compile(r"(?:^|::|\s)(\w+)[<(]")
 _PTXAS_FN = re.compile(r"(?:Compiling entry function '|Function properties "
                        r"for )([\w$]+)")
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
@@ -2128,6 +2231,38 @@ def ptxas_report(log: str, names) -> dict:
 
 
 _MANGLED_INT_ARGS = re.compile(r"ILi(\d+)E")
+# kernel 1's wide-head kernels, and the instantiations the build must show:
+# key ranges by (dtype, rows a warp), the split merge and query rows by
+# dtype
+FCA_WIDE_KERNELS = ("fca_wide_key_ranges_kernel", "fca_wide_merge_kernel",
+                    "fca_wide_query_rows_kernel")
+FCA_WIDE_INSTANCES = 8
+_MANGLED_DTYPE = {"I13__nv_bfloat16": "bf16", "If": "f32"}
+
+
+def fca_wide_instances(log: str) -> dict:
+    """`ptxas_functions` of every compiled instantiation of
+    FCA_WIDE_KERNELS and its "stack_frame" bytes, keyed
+    "name<dtype[,rows]>" from the mangled name."""
+    stacks, current = {}, None
+    for line in log.splitlines():
+        match, stack = _PTXAS_FN.search(line), _PTXAS_STACK.search(line)
+        if match:
+            current = match.group(1)
+        elif current is not None and stack:
+            stacks[current] = int(stack.group(1))
+    found = {}
+    for mangled, report in ptxas_functions(log).items():
+        for name in FCA_WIDE_KERNELS:
+            if name not in mangled:
+                continue
+            args = mangled[mangled.index(name) + len(name):]
+            dtype = next(d for p, d in _MANGLED_DTYPE.items()
+                         if args.startswith(p))
+            rows = re.match(r"I(?:13__nv_bfloat16|f)Li(\d+)E", args)
+            found[f"{name}<{dtype}{',' + rows.group(1) if rows else ''}>"] = {
+                **report, "stack_frame": stacks.get(mangled)}
+    return found
 
 
 def ptxas_instances(log: str, names) -> dict:
@@ -3085,10 +3220,11 @@ def video_phase(card_line: str = "", seed: int = 0):
     over 4096-d frames (1 layer, 8 heads, 32 frames), mBERT-base (119 547 x
     768, 12 layers), 2 slots, caption interaction 3/2/2 at width 4096 (Dh =
     512), bf16 on f32 masters.  Cut only in data and length (VIDEO_*):
-    1. kernel 1 on its key-tiles body against its plain version at
-       VIDEO_SHAPES (timed beside its bound, the plain version and SDPA)
-       and VIDEO_EDGE_SHAPES, bf16 and f32, with key padding and a fully
-       padded row (`kernel_phase`);
+    1. kernel 1 on its wide-head bodies against its plain version at
+       VIDEO_SHAPES (timed beside its bound, the plain version and SDPA;
+       two calls bit for bit) and VIDEO_EDGE_SHAPES, bf16 and f32, with key
+       padding and a fully padded row (`kernel_phase`), and with a padded
+       first key split or warp range (`wide_padded_range_checks`);
     2. `python -m leccr_torch.run --task vtr_caption` on a derived yaml
        over a synthetic MSR-VTT-layout set that the port's
        `make_video_dataset` writes in a temporary directory (removed
@@ -3096,7 +3232,8 @@ def video_phase(card_line: str = "", seed: int = 0):
        (1000 videos x 5 captions each) and the epoch's checkpoint.
        Kernels 2/3 must launch VIDEO_STEP_LAUNCHES a step (all on the
        wgmma variant) and kernel 1 launches_per_batch() an eval
-       batch, on its key-tiles body only; finite losses and sumR;
+       batch, on its wide bodies only (`video_kernel1_counts`); finite
+       losses and sumR;
     3. the test split evaluated again with embed_texts, embed_images and
        the ranker timed alone (the images from the eval device cache), its
        minmax ranks equal a dense count over the same block products
@@ -3105,10 +3242,10 @@ def video_phase(card_line: str = "", seed: int = 0):
     4. an Embedder at the same widths (seeded random weights) indexes
        VIDEO_SERVE_VIDEOS videos of 2-32 frames (`build_video_index`) and
        answers 5 queries with fusion="minmax": kernel 1 launches_per_batch()
-       an index batch on its key-tiles body; each hit's rank and score
+       an index batch on its wide bodies; each hit's rank and score
        agree with a dense count of the same scores;
     5. `--task build_index` of the test split from the run's checkpoint:
-       kernel 1 launches_per_batch() a batch of 64, key-tiles body only; the
+       kernel 1 launches_per_batch() a batch of 64, wide bodies only; the
        save loaded back answers search_texts(fusion="minmax").
     Returns (kernel 1 rows at the video shapes, kernel 2/3 launches of 2,
     kernel 1 counts of 2-5)."""
@@ -3138,9 +3275,10 @@ def video_phase(card_line: str = "", seed: int = 0):
                           edges=tuple(VIDEO_EDGE_SHAPES),
                           phase="video_kernel")
     for r in shapes:
-        if r["body"] != "key_tiles":
+        if r["body"] != VIDEO_BODIES[(r["lq"], r["lk"])]:
             raise AssertionError(f"kernel 1 at the video shape {r['lq']}x"
                                  f"{r['lk']} took the {r['body']} body")
+    wide_padded_range_checks()
     vatex_kernel1 = vatex_check(card_line, seed)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_video_"))
     try:
@@ -3208,13 +3346,14 @@ def video_phase(card_line: str = "", seed: int = 0):
         run_s = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches, tc = step_counts(), tc_counts()
-        fit_kernel1 = kernel1_counts("the video fit's evals", ("key_tiles",))
         tr = seen["trainer"]
         steps = tr.state.step
         bs_test = cfg.train.batch_size_test
         eval_batches = sum(math.ceil(len(ds) / bs_test)
                            for split in (tr.val_ds, tr.test_ds)
                            for ds in split.values())
+        fit_kernel1 = video_kernel1_counts("the video fit's evals", cfg,
+                                           eval_batches)
         want = tuple(n * steps for n in VIDEO_STEP_LAUNCHES)
         if (steps != VIDEO_TRAIN_CLIPS // cfg.train.batch_size_train
                 or launches != want or tc != launches[:2]):
@@ -3263,7 +3402,8 @@ def video_phase(card_line: str = "", seed: int = 0):
             del model.embed_texts, model.embed_images
             trainer_module.retrieval_ranks = ranker
         eval_s = time.perf_counter() - t0
-        eval_kernel1 = kernel1_counts("the video eval", ("key_tiles",))
+        eval_kernel1 = video_kernel1_counts(
+            "the video eval", cfg, math.ceil(len(tr.test_ds[lang]) / bs_test))
         if any(step_counts()):
             raise AssertionError("the video eval launched training kernels")
         img, img_slots, txt = tr.embed_split(ds)
@@ -3328,8 +3468,9 @@ def video_phase(card_line: str = "", seed: int = 0):
         t0 = time.perf_counter()
         hits = emb.search_texts(queries, index, k=10, fusion="minmax")
         search_s = time.perf_counter() - t0
-        serve_kernel1 = kernel1_counts("video serving", ("key_tiles",))
         n_batches = math.ceil(VIDEO_SERVE_VIDEOS / emb.batch_size)
+        serve_kernel1 = video_kernel1_counts("video serving", serve_cfg,
+                                             n_batches)
         if serve_kernel1["all"] != launches_per_batch(serve_cfg) * n_batches:
             raise AssertionError(f"video serving launched kernel 1 "
                                  f"{serve_kernel1}")
@@ -3361,8 +3502,9 @@ def video_phase(card_line: str = "", seed: int = 0):
         run.main(["--task", "build_index", "--config", str(derived),
                   "--output_dir", str(out), "--index", str(tmp / "index")])
         build_s = time.perf_counter() - t0
-        build_kernel1 = kernel1_counts("video build_index", ("key_tiles",))
         n_batches = math.ceil(len(ds) / 64)
+        build_kernel1 = video_kernel1_counts("video build_index", cfg,
+                                             n_batches)
         if build_kernel1["all"] != launches_per_batch(cfg) * n_batches:
             raise AssertionError(f"video build_index launched kernel 1 "
                                  f"{build_kernel1}")
@@ -5050,6 +5192,18 @@ def main() -> int:
                 for r in single_ptxas.values()):
             raise AssertionError(f"kernels 2/3 spill or are missing from "
                                  f"ptxas' report: {single_ptxas}")
+    # and every instantiation of kernel 1's wide-head kernels (4 key
+    # ranges, 2 merges, 2 query rows): no spill and no stack frame
+    wide_ptxas = {}
+    if _build.build_info["fused_cross_attention"][1]:
+        wide_ptxas = fca_wide_instances(
+            _build.build_info["fused_cross_attention"][1])
+        if len(wide_ptxas) != FCA_WIDE_INSTANCES or not all(
+                r.get("spill_stores") == r.get("spill_loads")
+                == r.get("stack_frame") == 0 for r in wide_ptxas.values()):
+            raise AssertionError(f"kernel 1's wide bodies spill, use a stack "
+                                 f"frame or are missing from ptxas' report: "
+                                 f"{wide_ptxas}")
     emit("build", kernels=list(KERNEL_LIBS),
          wall_s=time.perf_counter() - t0,
          nvcc_s={n: _build.build_info[n][0] for n in KERNEL_LIBS},
@@ -5058,7 +5212,7 @@ def main() -> int:
                            if "ptxas info    : Used" in ln})
                 for n in KERNEL_LIBS},
          wgmma_ptxas=wgmma_ptxas, infonce_ptxas=infonce_ptxas,
-         single_ptxas=single_ptxas)
+         single_ptxas=single_ptxas, fca_wide_ptxas=wide_ptxas)
 
     shapes = kernel_phase()
     flash = flash_phase()
@@ -5295,7 +5449,8 @@ def main() -> int:
         "video": {
             "timed_as": "bf16, B=64, Dh=512 (configs/msrvtt.yaml): "
                         "3x(2,200) + 2x(32,2) + 2x(2,32), the 7 launches "
-                        "of one video embed_images batch, key-tiles body, "
+                        "of one video embed_images batch, wide key ranges "
+                        "at (2,200) and (2,32), wide query rows at (32,2), "
                         "L2 flushed",
             **{key: path_sum(key, video_bf16, VIDEO_PATH_LAUNCHES)
                for key in ("ms", "plain_ms", "bound_ms", "library_ms")},

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels have no CPU mode.
 
 The fused cross-attention kernel (eval; its few-queries, few-keys,
-key-tiles and general bodies), the single-block flash tower-attention kernels 2/3, the
+wide key-ranges, wide query-rows and general bodies), the single-block flash tower-attention kernels 2/3, the
 chunked kernels 4/5 and the tiled kernels 6/7/8 (training, forward and
 backward; 4-8 on their wgmma variant in bf16, the backward passes on their
 persistent schedule), and the fused InfoNCE kernels 9-11 against their
@@ -21,6 +21,7 @@ from chip_smoke import (
     BF16_K,
     INT8_CARD_SHAPES,
     WGMMA_OF,
+    WIDE_PADDED_CASES,
     bf16_k_needed,
     chunk_bwd_masks,
     flash_term_scales,
@@ -35,6 +36,7 @@ from chip_smoke import (
     tp_kernel_check,
     wgmma_counts,
     wgmma_launched,
+    wide_padded_range_checks,
 )
 from leccr_torch.ops import infonce
 from leccr_torch.ops.flash_attention import (
@@ -148,29 +150,40 @@ def test_kernel_bodies_match_plain_version(lq, lk, aligned, body, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lq,lk,dh", [
-    (2, 200, 512), (32, 2, 512), (2, 32, 512), (1, 1, 512), (17, 33, 512),
-    (4, 16, 512), (5, 17, 256), (2, 200, 136)])
+@pytest.mark.parametrize("batch,lq,lk,dh", [
+    (8, 2, 200, 512), (8, 32, 2, 512), (8, 2, 32, 512), (8, 1, 1, 512),
+    (8, 17, 33, 512), (8, 4, 16, 512), (8, 5, 17, 256), (8, 2, 200, 136),
+    (8, 2, 33, 512), (8, 2, 199, 512), (8, 2, 1, 512), (8, 33, 17, 512),
+    (8, 32, 3, 512), (8, 33, 1, 512), (64, 2, 200, 512), (64, 145, 2, 512),
+    (8, 145, 4, 512), (8, 3, 16, 512), (8, 32, 16, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_key_tiles_body_matches_plain_version(lq, lk, dh, dtype):
-    """The key-tiles body (wide heads) at the video model's shapes (Dh =
-    512: slots x caption tokens, frames x slots, slots x frames) and the
-    edges of its tiles (one key; 16, 17 and 33 keys; 17 rows: two row
-    tiles), B=8, H=8, head-split views, a fully padded row (the mean of
-    v): f32 atol 1e-5, bf16 atol 1e-5 plus 1 bf16 ulp of the output."""
+def test_wide_bodies_match_plain_version(batch, lq, lk, dh, dtype):
+    """The wide-head bodies at the video model's shapes (Dh = 512: slots x
+    caption tokens and slots x frames on key ranges, frames x slots on
+    query rows) and their edges (one key; 2 and 3 keys; 16 and 17 keys;
+    key counts that no split or warp range divides; 17, 32 and 33 rows;
+    3-16 keys over 3 to 145 rows, where a warp takes rows of its own),
+    H=8, head-split
+    views, a fully padded row (the mean of v), at 8 videos (keys split
+    over blocks) and 64 (one split): f32 atol 1e-5, bf16 atol 1e-5 plus 1
+    bf16 ulp of the output; one launch of the body `fused_body` names,
+    two calls bit for bit."""
     _needs_card()
     g = torch.Generator(device="cuda").manual_seed(lq * 13 + lk + dh)
-    q, k, v = (torch.randn(8, n, 8, dh, device="cuda", generator=g)
+    q, k, v = (torch.randn(batch, n, 8, dh, device="cuda", generator=g)
                .to(dtype).transpose(1, 2) for n in (lq, lk, lk))
-    pad = torch.rand(8, lk, device="cuda", generator=g) < 0.3
+    pad = torch.rand(batch, lk, device="cuda", generator=g) < 0.3
     pad[0] = True
     pad[1] = False
-    assert fused_body(lq, lk, dh, q.element_size(), True) == "key_tiles"
+    body = fused_body(lq, lk, dh, q.element_size(), True)
+    assert body == ("wide_query_rows" if lk <= 2 else "wide_key_ranges")
     before = dict(fused_cross_attention.launches_by_body)
-    got = fused_cross_attention(q, k, v, pad).float()
+    got = fused_cross_attention(q, k, v, pad)
     assert {n: c - before[n] for n, c in
             fused_cross_attention.launches_by_body.items()
-            if c != before[n]} == {"key_tiles": 1}
+            if c != before[n]} == {body: 1}
+    assert torch.equal(fused_cross_attention(q, k, v, pad), got)
+    got = got.float()
     want = fused_cross_attention_reference(q, k, v, pad).float()
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
@@ -180,6 +193,20 @@ def test_key_tiles_body_matches_plain_version(lq, lk, dh, dtype):
         assert (got - want).abs().max().item() <= 1e-5
     else:
         assert ((got - want).abs() <= 1e-5 + _bf16_ulp(want)).all()
+
+
+@pytest.mark.cuda
+def test_wide_key_ranges_padded_split_and_range():
+    """The wide key-ranges body where a row's first key split (2 videos:
+    the keys split over blocks) or its first warp's key range (64 videos:
+    one split) is all padded and its other keys are not, at ragged key
+    counts (33, 199), bf16 and f32: within kernel 1's tolerances of the
+    plain version, a fully padded row the mean of v, two calls bit for
+    bit (`chip_smoke.wide_padded_range_checks`)."""
+    _needs_card()
+    rows = wide_padded_range_checks()
+    assert len(rows) == 2 * len(WIDE_PADDED_CASES)
+    assert {r["splits"] > 1 for r in rows} == {True, False}
 
 
 @pytest.mark.cuda

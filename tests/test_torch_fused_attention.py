@@ -5,12 +5,15 @@ Shapes are the three (Lq, Lk) pairs of the embed_images path scaled down:
 (n_queries, caption tokens), (visual tokens, n_queries) and
 (n_queries, visual tokens), the edges of the kernel's bodies (one
 query, one key, 16 and 17 keys), and the video model's head dim Dh = 512
-(the key-tiles body's) at its slots, frames and caption tokens.  Tolerances: f32 atol 1e-5 (the same f32
-math, summed in another order); bf16 inputs the same 1e-5 plus 1 bf16 ulp
+(the wide bodies') at its slots, frames and caption tokens, with the
+wide key-ranges body's split-and-merge rule in plain form
+(`wide_split_reference`) where a whole split is padded.  Tolerances: f32
+atol 1e-5 (the same f32 math, summed in another order); bf16 inputs the
+same 1e-5 plus 1 bf16 ulp
 of the output (both sides round an f32 result to bf16 once, so f32 noise
 can move it by one ulp).  Also the shape rule that picks the body
-(`fused_body`); the bodies themselves run only on the card
-(tests/test_torch_cuda.py).
+(`fused_body`) and the key-split plan (`wide_split_plan`); the bodies
+themselves run only on the card (tests/test_torch_cuda.py).
 """
 
 import jax.numpy as jnp
@@ -20,9 +23,16 @@ import torch
 
 from leccr_torch.ops.fused_cross_attention import (
     FEW,
+    WIDE_BLOCK_ROWS,
+    WIDE_MIN_WARP_KEYS,
+    WIDE_SPLIT_MIN_WALK,
+    WIDE_WARPS,
     fused_body,
     fused_cross_attention,
     fused_cross_attention_reference,
+    wide_rows,
+    wide_split_plan,
+    wide_split_reference,
 )
 from leccr_tpu.ops.pallas_attention import \
     fused_cross_attention as jax_fused_cross_attention
@@ -123,23 +133,27 @@ def test_reference_matches_pallas_at_body_edges(lq, lk, dtype):
     (145, 4, 64, 2, False, "general"),
     (145, 4, 48, 2, True, "general"),       # 6 chunks of 16 bytes a row
     (4, 200, 16, 2, True, "general"),       # 2 chunks
-    (4, 200, 256, 2, True, "key_tiles"),    # 32 chunks: a wide head
+    (4, 200, 256, 2, True, "wide_key_ranges"),  # 32 chunks: a wide head
     (145, 4, 12, 2, True, "general"),       # rows of 24 bytes
-    (2, 200, 512, 2, True, "key_tiles"),    # the video model: slots x caption
-    (32, 2, 512, 2, True, "key_tiles"),     # frames x slots
-    (2, 32, 512, 2, True, "key_tiles"),     # slots x frames
-    (2, 32, 512, 4, True, "key_tiles"),
+    (2, 200, 512, 2, True, "wide_key_ranges"),  # video: slots x caption
+    (32, 2, 512, 2, True, "wide_query_rows"),   # frames x slots
+    (2, 32, 512, 2, True, "wide_key_ranges"),   # slots x frames
+    (2, 32, 512, 4, True, "wide_key_ranges"),
+    (32, 1, 512, 4, True, "wide_query_rows"),   # the query-rows body's keys
+    (32, 3, 512, 2, True, "wide_key_ranges"),   # one past them
+    (32, 16, 512, 2, True, "wide_key_ranges"),
     (4, 200, 128, 4, True, "general"),      # f32 Dh = 128: 32 chunks
-    (4, 200, 136, 2, True, "key_tiles"),
+    (4, 200, 136, 2, True, "wide_key_ranges"),
     (2, 200, 512, 2, False, "general"),     # an unaligned view
-    (2, 200, 1024, 2, True, "general"),     # past the key-tiles body
+    (2, 200, 1024, 2, True, "general"),     # past the wide bodies
 ])
 def test_body_chooser(lq, lk, dh, item, aligned, want):
     """The body from the shapes alone: the image model's embed_images
     shapes take the few-queries and few-keys bodies, the video model's (Dh
-    = 512) the key-tiles one; the class edges (16 queries or keys in, 17
-    out), unaligned views, heads past 512 and rows of other than 4, 8 or
-    16 chunks of 16 bytes up to Dh = 128 go to the general one."""
+    = 512) the wide ones (query rows for up to 2 keys, its slots, key
+    ranges otherwise); the class edges (16 queries or keys in, 17 out),
+    unaligned views, heads past 512 and rows of other than 4, 8 or 16
+    chunks of 16 bytes up to Dh = 128 go to the general one."""
     assert fused_body(lq, lk, dh, item, aligned) == want
 
 
@@ -149,7 +163,8 @@ def test_cpu_wrapper_counts_no_body():
     before = dict(fused_cross_attention.launches_by_body)
     fused_cross_attention(q, k, v, pad)
     assert fused_cross_attention.launches_by_body == before
-    assert set(before) == {"general", "few_queries", "few_keys", "key_tiles"}
+    assert set(before) == {"general", "few_queries", "few_keys",
+                           "wide_key_ranges", "wide_query_rows"}
 
 
 def test_no_mask_matches_pallas():
@@ -217,9 +232,8 @@ def test_wrapper_rejects_bad_inputs(case):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reference_matches_pallas_at_dh_512(lq, lk, dtype):
     """The plain version against the Pallas kernel (interpret mode) at the
-    video model's Dh = 512 (what the key-tiles body computes), with a
-    fully padded row (the mean of v) and key padding across several
-    16-key tiles; B = 2, H = 2."""
+    video model's Dh = 512 (what the wide bodies compute), with a fully
+    padded row (the mean of v) and key padding; B = 2, H = 2."""
     rs = np.random.RandomState(lq * 41 + lk)
     q, k, v = (rs.randn(2, 2, n, 512).astype(np.float32)
                for n in (lq, lk, lk))
@@ -243,3 +257,107 @@ def test_reference_matches_pallas_at_dh_512(lq, lk, dtype):
             got[0], np.broadcast_to(mean_v, got[0].shape), rtol=0, atol=1e-5)
     else:
         assert (np.abs(got - want) <= 1e-5 + _bf16_ulp(want)).all()
+
+
+@pytest.mark.parametrize("heads,lq,lk,sms,per_sm", [
+    (512, 2, 200, 132, 4), (512, 2, 32, 132, 4), (16, 2, 200, 132, 4),
+    (16, 2, 33, 132, 4), (8, 2, 1, 132, 4), (8, 2, 7, 132, 4),
+    (16, 5, 199, 132, 2), (1, 1, 4097, 132, 4), (3, 17, 33, 8, 1),
+    (100, 2, 200, 132, 4), (300, 2, 200, 132, 4), (8, 4, 100000, 132, 2)])
+def test_wide_split_plan_covers_every_key(heads, lq, lk, sms, per_sm):
+    """Every key lies in exactly one split and no split is empty; a split
+    leaves each of a block's warps WIDE_MIN_WARP_KEYS keys unless there is
+    one split, and one split leaves them more than WIDE_SPLIT_MIN_WALK;
+    the grid never needs more waves than one split's would."""
+    splits, keys = wide_split_plan(heads, lq, lk, sms, per_sm)
+    assert splits >= 1 and keys >= 1
+    assert (splits - 1) * keys < lk <= splits * keys
+    if splits > 1:
+        assert keys >= WIDE_WARPS * WIDE_MIN_WARP_KEYS
+        assert -(-lk // WIDE_WARPS) > WIDE_SPLIT_MIN_WALK
+    groups = heads * -(-lq // wide_rows(lq))
+    slots = sms * per_sm
+    waves = -(-groups * splits // slots)
+    assert waves <= -(-groups // slots)
+
+
+@pytest.mark.parametrize("lq,lk", [(2, 200), (32, 2), (2, 32)])
+def test_wide_grid_at_the_video_path_shapes(lq, lk):
+    """At the video model's shapes (B = 64, H = 8) on 132 SMs the grid runs
+    in one whole wave: the key-ranges body (4 blocks an SM at 2 rows a
+    warp, the card's occupancy calculator's figure in chip_smoke's grid
+    lines) in one split, the query-rows body in 32-row blocks, each filling
+    over 3/4 of the card's slots and never past them."""
+    heads, slots = 64 * 8, 132 * 4
+    if fused_body(lq, lk, 512, 2, True) == "wide_key_ranges":
+        splits, keys = wide_split_plan(heads, lq, lk, 132, 4)
+        assert (splits, keys) == (1, lk)  # B·H alone fills the card
+        blocks = heads * splits * -(-lq // wide_rows(lq))
+    else:
+        blocks = heads * -(-lq // WIDE_BLOCK_ROWS)
+    assert 3 * slots <= 4 * blocks <= 4 * slots
+
+
+def test_wide_split_plan_splits_only_where_the_heads_leave_slots_empty():
+    """One split where B·H alone fills the card (the path's 512 heads, and
+    400) and where one split leaves a warp at most 8 keys (Lk ≤ 32); keys
+    split over blocks where a few videos leave most of it idle (2 videos:
+    16 heads; 1 video: 8), each warp keeping 2 keys."""
+    assert wide_split_plan(512, 2, 200, 132, 4) == (1, 200)
+    assert wide_split_plan(400, 2, 200, 132, 4) == (1, 200)
+    assert wide_split_plan(16, 2, 200, 132, 4) == (25, 8)
+    assert wide_split_plan(8, 2, 200, 132, 4) == (25, 8)
+    assert wide_split_plan(16, 2, 33, 132, 4) == (3, 11)
+    assert wide_split_plan(16, 2, 32, 132, 4) == (1, 32)
+    assert wide_split_plan(64, 2, 32, 132, 4) == (1, 32)
+    assert wide_split_plan(64, 2, 200, 132, 4) == (8, 25)
+
+
+@pytest.mark.parametrize("lq,lk,splits,keys,padding", [
+    (2, 40, 5, 8, "first_split"), (2, 33, 3, 11, "first_split"),
+    (2, 33, 3, 11, "last_split"), (5, 199, 8, 25, "ragged"),
+    (2, 40, 5, 8, "all"), (3, 17, 1, 17, "first_range")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_split_merge_matches_pallas(lq, lk, splits, keys, padding,
+                                         dtype):
+    """The key-ranges body's split-and-merge rule (`wide_split_reference`)
+    against the Pallas kernel (interpret mode) at Dh = 512, B = 2, H = 2:
+    a row whose first (or last) split is all padded and the rest not, a
+    split count that does not divide the keys, a fully padded row (the
+    mean of v: every split weighs 1) and one split with its first warp's
+    range padded; the plain version agrees too.  f32 atol 1e-5, bf16 1e-5
+    plus 1 bf16 ulp."""
+    rs = np.random.RandomState(lq * 7 + lk + splits)
+    q, k, v = (rs.randn(2, 2, n, 512).astype(np.float32)
+               for n in (lq, lk, lk))
+    pad = rs.rand(2, lk) < 0.3
+    pad[1] = True  # every key padded
+    pad[0] = False
+    span = -(-keys // WIDE_WARPS) if padding == "first_range" else keys
+    if padding in ("first_split", "first_range"):
+        pad[0, :span] = True
+    elif padding == "last_split":
+        pad[0, (splits - 1) * keys:] = True
+    elif padding == "all":
+        pad[0] = True
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want = np.asarray(jax_fused_cross_attention(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(pad),
+        True)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    tpad = torch.from_numpy(pad)
+    got = wide_split_reference(tq, tk, tv, tpad, splits, keys)
+    plain = fused_cross_attention_reference(tq, tk, tv, tpad)
+    assert got.dtype == tdt and got.shape == (2, 2, lq, 512)
+    mean_v = tv[1].float().mean(dim=1, keepdim=True).numpy()
+    for out in (got, plain):
+        out = out.float().numpy()
+        assert np.isfinite(out).all()
+        if dtype == "float32":
+            np.testing.assert_allclose(out, want, rtol=0, atol=1e-5)
+            np.testing.assert_allclose(
+                out[1], np.broadcast_to(mean_v, out[1].shape), rtol=0,
+                atol=1e-5)
+        else:
+            assert (np.abs(out - want) <= 1e-5 + _bf16_ulp(want)).all()

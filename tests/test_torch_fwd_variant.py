@@ -3,7 +3,7 @@ views that the long-sequence and high-resolution steps' CLIP tower builds
 take the wgmma body (`tiled_variant`), other dtypes, head dims and
 unaligned views the scalar one, and CPU tensors count no launch.  Also
 chip_smoke's reading of ptxas' report, which holds every wgmma kernel to
-0 spill bytes.  The kernels themselves run only on the card
+0 spill bytes (and kernel 1's wide kernels to 0 stack bytes too).  The kernels themselves run only on the card
 (tests/test_torch_cuda.py).
 """
 
@@ -159,3 +159,43 @@ def test_ptxas_instances_reads_every_instantiation():
             "registers": 168, "spill_stores": 12, "spill_loads": 32},
         "single_fwd_wgmma_kernel<1>": {
             "registers": 168, "spill_stores": 0, "spill_loads": 0}}
+
+
+_WIDE_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e26fca_wide_key_ranges_kernelI13__nv_bfloat16Li2EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e26fca_wide_key_ranges_kernelI13__nv_bfloat16Li2EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e26fca_wide_key_ranges_kernelIfLi4EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e26fca_wide_key_ranges_kernelIfLi4EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 203 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e26fca_wide_query_rows_kernelI13__nv_bfloat16EEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e26fca_wide_query_rows_kernelI13__nv_bfloat16EEvNS_6ParamsE
+    64 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e21fca_wide_merge_kernelIfEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e21fca_wide_merge_kernelIfEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e21fca_few_keys_kernelI13__nv_bfloat16Li8EEEvNS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN57_GLOBAL__N__6144b613_24_fused_cross_attention_cu_0677d72e21fca_few_keys_kernelI13__nv_bfloat16Li8EEEvNS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers
+"""
+
+
+def test_fca_wide_instances_reads_every_instantiation():
+    """chip_smoke.fca_wide_instances reports kernel 1's wide kernels per
+    instantiation, keyed by dtype (and rows a warp for key ranges), with
+    registers, spill bytes and the stack frame (a local array the build
+    phase refuses), and leaves out the other bodies."""
+    got = chip_smoke.fca_wide_instances(_WIDE_PTXAS_LOG)
+    clean = {"spill_stores": 0, "spill_loads": 0, "stack_frame": 0}
+    assert got == {
+        "fca_wide_key_ranges_kernel<bf16,2>": {"registers": 120, **clean},
+        "fca_wide_key_ranges_kernel<f32,4>": {"registers": 203, **clean},
+        "fca_wide_query_rows_kernel<bf16>": {
+            "registers": 56, **clean, "stack_frame": 64},
+        "fca_wide_merge_kernel<f32>": {"registers": 32, **clean},
+    }
