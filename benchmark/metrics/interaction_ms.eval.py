@@ -1,0 +1,9 @@
+"""Device ms one eval spends in `model.interact`, the caption projection and
+the three cross-attentions: the spans' start-to-end stream time, summed
+over the first traced eval."""
+
+from benchmark.metrics._spans import eval_ms
+
+
+def read(run):
+    return eval_ms(run, "model.interact")

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from leccr_torch.device import resolve_device
+from leccr_torch.utils.tracing import span
 
 _FUSIONS = ("none", "raw", "minmax")
 
@@ -94,6 +95,14 @@ def retrieval_ranks(
         raise ValueError(f"unknown fusion {fusion!r}")
     if fusion != "none" and slots is None:
         raise ValueError(f"fusion={fusion!r} needs slots")
+    with span("eval.rank"):
+        return _ranks(img_embeds, txt_embeds, txt2img, img2txt, slots,
+                      fusion, alpha, block, device)
+
+
+def _ranks(img_embeds, txt_embeds, txt2img, img2txt, slots, fusion: str,
+           alpha: float, block: int, device):
+    """`retrieval_ranks` past its argument checks."""
     if isinstance(img_embeds, torch.Tensor):
         device = img_embeds.device
     else:

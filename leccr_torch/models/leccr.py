@@ -48,6 +48,7 @@ from leccr_torch.ops.attention import (
     set_compute_dtype,
 )
 from leccr_torch.ops.dropout import Generators
+from leccr_torch.utils.tracing import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -195,15 +196,18 @@ class LECCRModel(nn.Module):
                       gen: Optional[Generators] = None) -> torch.Tensor:
         """Image [B,H,W,3] -> [B, 1+G², Dv]; video frames [B,T,Df] with
         their valid mask [B,T] -> [B,T,Dv]."""
-        if self.cfg.vision.kind == "temporal":
-            return self.vision_tower(vision, vision_mask, deterministic, gen)
-        return self.vision_tower(vision, deterministic)
+        with span("model.vision"):
+            if self.cfg.vision.kind == "temporal":
+                return self.vision_tower(vision, vision_mask, deterministic,
+                                         gen)
+            return self.vision_tower(vision, deterministic)
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor, deterministic: bool = True,
                     gen: Optional[Generators] = None) -> torch.Tensor:
-        return self.text_encoder(input_ids, attention_mask,
-                                 deterministic=deterministic, gen=gen)
+        with span("model.text"):
+            return self.text_encoder(input_ids, attention_mask,
+                                     deterministic=deterministic, gen=gen)
 
     def encode_caption(
         self,
@@ -220,16 +224,18 @@ class LECCRModel(nn.Module):
         one with its dropout), the counterpart of the JAX package's
         stop_gradient.  The CLIP caption encoder's padding is
         `caption_ids == 0`."""
-        if caption_feats is not None:
-            return (caption_feats.to(self.compute_dtype).detach(),
-                    ~caption_mask.bool())
-        with torch.no_grad():
-            if self.clip_text_tower is not None:
-                _, hidden = self.clip_text_tower(caption_ids)
-                return hidden, caption_ids == 0
-            hidden = self.text_encoder(caption_ids, caption_mask,
-                                       deterministic=deterministic, gen=gen)
-        return hidden, ~caption_mask.bool()
+        with span("model.caption"):
+            if caption_feats is not None:
+                return (caption_feats.to(self.compute_dtype).detach(),
+                        ~caption_mask.bool())
+            with torch.no_grad():
+                if self.clip_text_tower is not None:
+                    _, hidden = self.clip_text_tower(caption_ids)
+                    return hidden, caption_ids == 0
+                hidden = self.text_encoder(caption_ids, caption_mask,
+                                           deterministic=deterministic,
+                                           gen=gen)
+            return hidden, ~caption_mask.bool()
 
     # ------------------------------------------------- caption interaction
 
@@ -246,17 +252,19 @@ class LECCRModel(nn.Module):
         """Returns (fused_vision [B,L,Dv], fused_slots [B,n,Dv],
         ori_slots [B,n,Dv]).  fused=True runs the eval attention cores as
         the fused cross-attention kernel."""
-        b = vision_embeds.shape[0]
-        queries = self.queries.to(vision_embeds.dtype).expand(b, -1, -1)
-        cap = self.caption_proj(caption_embeds)
-        ori_slots = self.crossattn_query(queries, cap, caption_padding_mask,
-                                         fused, deterministic, gen)
-        fused_vision = self.crossattn(vision_embeds, ori_slots, None, fused,
-                                      deterministic, gen)
-        fused_slots = self.crossattn2(ori_slots, vision_embeds,
-                                      vision_padding_mask, fused,
-                                      deterministic, gen)
-        return fused_vision, fused_slots, ori_slots
+        with span("model.interact"):
+            b = vision_embeds.shape[0]
+            queries = self.queries.to(vision_embeds.dtype).expand(b, -1, -1)
+            cap = self.caption_proj(caption_embeds)
+            ori_slots = self.crossattn_query(queries, cap,
+                                             caption_padding_mask, fused,
+                                             deterministic, gen)
+            fused_vision = self.crossattn(vision_embeds, ori_slots, None,
+                                          fused, deterministic, gen)
+            fused_slots = self.crossattn2(ori_slots, vision_embeds,
+                                          vision_padding_mask, fused,
+                                          deterministic, gen)
+            return fused_vision, fused_slots, ori_slots
 
     # ------------------------------------------------------------ features
 

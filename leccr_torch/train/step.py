@@ -4,7 +4,7 @@ and the EMA), on one device or as one rank of a data-parallel world.
 
     step = make_train_step(cfg, model, total_steps)
     losses = step(batch, step_no)   # dict of the 10 loss keys, as floats
-    values = step.run(batch, step_no)  # the same, a [10] tensor, no sync
+    values = step.run(batch, step_no)  # the same, a [10] tensor, not read back
 
 Each step builds its random streams from (cfg.train.seed + 17, step_no,
 rank), preprocesses the uint8 images on the device (RandAugment when on,
@@ -122,6 +122,7 @@ from leccr_torch.parallel.tensor import (
 from leccr_torch.train.optim import build_optimizer, clip_by_global_norm
 from leccr_torch.train.schedule import linear_warmup_decay
 from leccr_torch.utils.debug import assert_all_finite, nan_checks
+from leccr_torch.utils.tracing import span
 
 _U64 = 2 ** 64 - 1
 
@@ -213,12 +214,13 @@ def grad_cache_backward(
     video = "vision_mask" in inputs
 
     def forward(k: int) -> TrainEmbeddings:
-        mb = {key: v[rows[k]] for key, v in inputs.items()}
-        if not video:
-            mb["vision"] = preprocess_train_images(
-                mb["vision"], None if flip is None else flip[rows[k]],
-                gens[k].aug, randaugment_n, randaugment_m)
-        return model(mb, gens[k])
+        with span("train.forward"):
+            mb = {key: v[rows[k]] for key, v in inputs.items()}
+            if not video:
+                mb["vision"] = preprocess_train_images(
+                    mb["vision"], None if flip is None else flip[rows[k]],
+                    gens[k].aug, randaugment_n, randaugment_m)
+            return model(mb, gens[k])
 
     states = [g.get_state() for g in gens]
     with torch.no_grad():
@@ -228,8 +230,10 @@ def grad_cache_backward(
                   else torch.cat([getattr(e, n) for e in embs]))
               .detach().requires_grad_(True) for n in names}
     del embs
-    value, losses = objective(TrainEmbeddings(**fields))
-    value.backward()
+    with span("train.loss"):
+        value, losses = objective(TrainEmbeddings(**fields))
+    with span("train.backward"):
+        value.backward()
     cots = {n: f.grad for n, f in fields.items() if f.grad is not None}
     del fields
     for k in range(m):
@@ -237,7 +241,9 @@ def grad_cache_backward(
         emb = forward(k)
         pairs = [(getattr(emb, n), g / m if n == "temp" else g[rows[k]])
                  for n, g in cots.items() if getattr(emb, n).requires_grad]
-        torch.autograd.backward([t for t, _ in pairs], [g for _, g in pairs])
+        with span("train.backward"):
+            torch.autograd.backward([t for t, _ in pairs],
+                                    [g for _, g in pairs])
     return {key: v.detach() for key, v in losses.items()}
 
 
@@ -401,24 +407,40 @@ class TrainStep:
                 model, batch, gens, lambda emb: self.objective(emb, idx),
                 self.randaugment_n, self.randaugment_m)
         gens = step_generators(self.seed, step_no, model.device, self.rank)
-        if not self.is_video:
-            batch["vision"] = preprocess_train_images(
-                batch["vision"], batch.pop("flip", None), gens.aug,
-                self.randaugment_n, self.randaugment_m)
-        emb = model(batch, gens)
-        value, losses = self.objective(emb, idx)
-        value.backward()
+        with span("train.forward"):
+            if not self.is_video:
+                batch["vision"] = preprocess_train_images(
+                    batch["vision"], batch.pop("flip", None), gens.aug,
+                    self.randaugment_n, self.randaugment_m)
+            emb = model(batch, gens)
+        with span("train.loss"):
+            value, losses = self.objective(emb, idx)
+        with span("train.backward"):
+            value.backward()
         return losses
 
     def run(self, batch: Dict[str, torch.Tensor], step_no: int
             ) -> torch.Tensor:
         """One step; the losses as a [len(LOSS_KEYS)] f32 tensor on the
-        device (no host sync unless train.debug_nans)."""
-        batch = dict(batch)
-        idx = batch.pop("idx")
-        self.optimizer.zero_grad(set_to_none=True)
-        with nan_checks(self.debug_nans):
-            losses = self._backward(batch, idx, step_no)
+        device, not read back (unless train.debug_nans).  Spans:
+        `train.step` around the call, `train.forward`, `train.loss`,
+        `train.backward` and `train.optimizer` inside it
+        (`utils.tracing`)."""
+        with span("train.step"):
+            batch = dict(batch)
+            idx = batch.pop("idx")
+            self.optimizer.zero_grad(set_to_none=True)
+            with nan_checks(self.debug_nans):
+                losses = self._backward(batch, idx, step_no)
+            with span("train.optimizer"):
+                self._update(losses)
+            return torch.stack([losses[k].detach().float()
+                                for k in LOSS_KEYS])
+
+    def _update(self, losses: Dict[str, torch.Tensor]) -> None:
+        """After the backward: the gradient sums over a mesh, the checks of
+        `train.debug_nans`, the clip, the optimizer and scheduler steps and
+        the EMA."""
         for p in self.params:  # optax decays a param whose gradient is zero
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -437,7 +459,6 @@ class TrainStep:
         self.scheduler.step()
         if self.ema is not None:
             ema_update_(self.ema, self.params, self.ema_decay)
-        return torch.stack([losses[k].detach().float() for k in LOSS_KEYS])
 
     def __call__(self, batch: Dict[str, torch.Tensor], step_no: int
                  ) -> Dict[str, float]:
