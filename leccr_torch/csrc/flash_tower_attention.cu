@@ -81,7 +81,9 @@ struct Strides {
 };
 
 struct Dropout {
-  unsigned int seed;       // the call's int32 seed, as uint32
+  const unsigned int* seed;  // the call's int32 seed, as uint32, in device
+                             // memory (read only where on): the same launch
+                             // serves every step of a replayed CUDA graph
   unsigned int threshold;  // keep where hash >= threshold
   float scale;             // 1 / (1 - rate), in f32
   int on;                  // rate > 0
@@ -147,11 +149,18 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The dropout factor of element (b, h, i, j) in {0, scale}; the counter
-// takes the head's index among the layer's heads, h0 + h.
-__device__ __forceinline__ float keep_factor(const Dropout& d, int b, int h,
+// The call's seed, read from its device slot where dropout is on.
+__device__ __forceinline__ unsigned int seed_of(const Dropout& d) {
+  return d.on ? __ldg(d.seed) : 0u;
+}
+
+// The dropout factor of element (b, h, i, j) in {0, scale} under `seed`
+// (seed_of(d)); the counter takes the head's index among the layer's heads,
+// h0 + h.
+__device__ __forceinline__ float keep_factor(const Dropout& d,
+                                             unsigned int seed, int b, int h,
                                              int i, int j, int lq, int lk) {
-  const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
+  const unsigned int seed_b = seed + (unsigned int)b * 0x9E3779B9u;
   unsigned int x = (unsigned int)(d.h0 + h) *
                        ((unsigned int)lq * (unsigned int)lk) +
                    (unsigned int)i * (unsigned int)lk + (unsigned int)j;
@@ -222,6 +231,7 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 template <typename T, int DH>
 __global__ void fwd_kernel(Params p) {
   extern __shared__ float smem[];
+  const unsigned int seed = seed_of(p.drop);
   const int lq = p.lq, lk = p.lk, ld = DH + 1;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n_warps = blockDim.x / kWarp;
@@ -268,7 +278,7 @@ __global__ void fwd_kernel(Params p) {
       p.lse[((long long)b * p.heads + h) * lq + i] = m + logf(sum);
     for (int j = lane; j < lk; j += kWarp) {
       float pj = srow[j] / sum;
-      if (p.drop.on) pj *= keep_factor(p.drop, b, h, i, j, lq, lk);
+      if (p.drop.on) pj *= keep_factor(p.drop, seed, b, h, i, j, lq, lk);
       srow[j] = round_to(pj, T());
     }
     __syncwarp();  // srow is read by every lane below
@@ -297,6 +307,7 @@ __global__ void fwd_kernel(Params p) {
 template <typename T, int DH>
 __global__ void bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
+  const unsigned int seed = seed_of(p.drop);
   const int lq = p.lq, lk = p.lk, ld = DH + 1;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n_warps = blockDim.x / kWarp;
@@ -337,7 +348,7 @@ __global__ void bwd_dq_kernel(Params p) {
       if (pad[j]) s = -FLT_MAX;
       const float pj = expf(s - lse);
       float dp = dot<DH>(grow, vs + j * ld);
-      if (p.drop.on) dp *= keep_factor(p.drop, b, h, i, j, lq, lk);
+      if (p.drop.on) dp *= keep_factor(p.drop, seed, b, h, i, j, lq, lk);
       prow[j] = pj;
       dsrow[j] = dp;
       partial = fmaf(dp, pj, partial);
@@ -372,6 +383,7 @@ __global__ void bwd_dq_kernel(Params p) {
 template <typename T, int DH>
 __global__ void bwd_dkv_kernel(Params p) {
   extern __shared__ float smem[];
+  const unsigned int seed = seed_of(p.drop);
   const int lq = p.lq, lk = p.lk, ld = DH + 1;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int mat = round4(lq * ld);
@@ -415,7 +427,7 @@ __global__ void bwd_dkv_kernel(Params p) {
       float dp = dot<DH>(vrow, gs + i * ld);
       float pd = pij;
       if (p.drop.on) {
-        const float keep = keep_factor(p.drop, b, h, i, j, lq, lk);
+        const float keep = keep_factor(p.drop, seed, b, h, i, j, lq, lk);
         pd *= keep;
         dp *= keep;
       }
@@ -514,11 +526,16 @@ struct SbMaps {
 
 // keep_factor's hash for the elements of one head: the counter
 // (h0 + h) Lq Lk + i Lk + j plus the example's seed term, murmur3-finalised;
-// kept where it is >= the threshold.
+// kept where it is >= the threshold.  `seed` is the call's (seed_of), which
+// thread 0 copies to shared memory before the block's first barrier: read
+// there at a static address it costs no address registers, and the forward
+// reads it only where its last loop over the scores needs the hash (at the
+// head's start the base would be live where the registers are fullest).
 struct SbHash {
   unsigned int base;
-  __device__ SbHash(const Dropout& d, int b, int h, int lq, int lk) {
-    const unsigned int seed_b = d.seed + (unsigned int)b * 0x9E3779B9u;
+  __device__ SbHash(const Dropout& d, unsigned int seed, int b, int h, int lq,
+                    int lk) {
+    const unsigned int seed_b = seed + (unsigned int)b * 0x9E3779B9u;
     base = (unsigned int)(d.h0 + h) * ((unsigned int)lq * (unsigned int)lk) +
            seed_b * 0x9E3779B9u;
   }
@@ -574,6 +591,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   constexpr int NKB = (NKS + 3) / 4;  // 64-key boxes
   constexpr int TAIL = NKS % 4;       // 16-key steps of a partial last box
   using L = SbFwdLayout<NKB>;
+  __shared__ unsigned int sb_seed;
   const SmemBase sb = smem_base();
   const uint32_t bar = sb.base + L::kBar;
   auto kv_full = [&](int x) { return bar + 8 * x; };
@@ -601,6 +619,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       mbar_init(q_empty(s), kWarpgroup / kWarp);
     }
     mbar_init_fence();
+    sb_seed = seed_of(p.drop);
   }
   __syncthreads();
   const int n_qt = (p.lq + kWgRows - 1) / kWgRows;
@@ -697,7 +716,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
     const uint32_t* words = pad_words(x);
     const int i0 = qt * kWgRows;
-    const SbHash hash(p.drop, hd.b, hd.h, p.lq, p.lk);
     float m[2], inv[2];
     // P of the tile from S: masking and dropout are tested once a tile
     auto softmax = [&](auto drop, auto padded) {
@@ -756,6 +774,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         inv[r] = 1.f / l[r];
         m[r] += logf(l[r]);  // lse
       }
+      const SbHash hash(p.drop, sb_seed, hd.b, hd.h, p.lq, p.lk);
 #pragma unroll
       for (int cb = 0; cb < NKB; ++cb)
 #pragma unroll
@@ -847,6 +866,7 @@ __global__ void __launch_bounds__(NW* kWarpgroup, NW == 1 ? 2 : 1)
     single_bwd_wgmma_kernel(__grid_constant__ const SbMaps maps,
                             const Params p) {
   using L = SbBwdLayout<NW>;
+  __shared__ unsigned int sb_seed;
   constexpr int kThreads = NW * kWarpgroup;
   constexpr int kDqCols = NW == 1 ? 64 : 32;  // dQ columns of a warpgroup
   constexpr int CW = NW == 3 ? 32 : 64;       // queries of a sub-tile
@@ -866,6 +886,7 @@ __global__ void __launch_bounds__(NW* kWarpgroup, NW == 1 ? 2 : 1)
     for (int x = 0; x < L::kKvBufs; ++x) mbar_init(kv_full(x), 1);
     for (int s = 0; s < L::kStages; ++s) mbar_init(full(s), 1);
     mbar_init_fence();
+    sb_seed = seed_of(p.drop);
   }
   __syncthreads();
   const int n_qt = (p.lq + kWgRows - 1) / kWgRows;
@@ -993,7 +1014,7 @@ __global__ void __launch_bounds__(NW* kWarpgroup, NW == 1 ? 2 : 1)
     fence_acc(st);
     fence_acc(dpt);
 
-    const SbHash hash(p.drop, hd.b, hd.h, p.lq, p.lk);
+    const SbHash hash(p.drop, sb_seed, hd.b, hd.h, p.lq, p.lk);
 #pragma unroll
     for (int sub = 0; sub < SUB; ++sub) {
       const int c0 = sub * CW;  // the sub-tile's first column
@@ -1244,7 +1265,7 @@ int by_dim(int dh, Fn fn) {
 
 Params make_params(const void* q, const void* k, const void* v,
                    const unsigned char* mask, float* lse, int heads, int lq,
-                   int lk, int rows, float scale, unsigned int seed,
+                   int lk, int rows, float scale, const unsigned int* seed,
                    unsigned int threshold, float keep_scale, int dropout,
                    int h0, int vec) {
   Params p = {};
@@ -1288,16 +1309,20 @@ size_t fta_smem_bytes(int which, int lq, int lk, int dh, int warps) {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out share it).  strides: 12
 // element strides, (b, h, l) of q, k, v, out.  lse: [B, H, Lq] f32 out.
 // seed/threshold/keep_scale/dropout: the dropout mask (see the head of this
-// file).  h0: the index of the call's first head among the layer's heads
-// (0 unless a tensor-parallel rank holds a slice of them): the mask hashes
-// h0 + h.  rows: query rows per block; warps: warps per block.  vec: 1 when
-// every K/V row starts 16-byte aligned and Dh spans whole 16-byte words.
+// file); seed points at the call's uint32 seed in device memory, read by
+// the kernel (so a CUDA graph replays the launch under each step's seed),
+// and may be null where dropout is off.  h0: the index of the call's first
+// head among the layer's heads (0 unless a tensor-parallel rank holds a
+// slice of them): the mask hashes h0 + h.  rows: query rows per block;
+// warps: warps per block.  vec: 1 when every K/V row starts 16-byte aligned
+// and Dh spans whole 16-byte words.
 // Returns cudaGetLastError() after the launch (0 = success), -1 for an
 // unsupported head dim.
 int fta_forward(const void* q, const void* k, const void* v,
                 const unsigned char* mask, void* out, float* lse, int dtype,
                 int batch, int heads, int lq, int lk, int dh,
-                const long long* strides, float scale, unsigned int seed,
+                const long long* strides, float scale,
+                const unsigned int* seed,
                 unsigned int threshold, float keep_scale, int dropout, int h0,
                 int rows, int warps, int vec, void* stream) {
   Params p = make_params(q, k, v, mask, lse, heads, lq, lk, rows, scale, seed,
@@ -1325,7 +1350,8 @@ int fta_backward(const void* q, const void* k, const void* v,
                  const unsigned char* mask, const float* lse, const void* g,
                  void* dq, void* dk, void* dv, float* delta, int dtype,
                  int batch, int heads, int lq, int lk, int dh,
-                 const long long* strides, float scale, unsigned int seed,
+                 const long long* strides, float scale,
+                 const unsigned int* seed,
                  unsigned int threshold, float keep_scale, int dropout, int h0,
                  int rows, int warps, int vec, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
@@ -1370,7 +1396,7 @@ int fta_wgmma_forward(const void* q, const void* k, const void* v,
                       const unsigned char* mask, void* out, float* lse,
                       int batch, int heads, int lq, int lk,
                       const long long* strides, float scale,
-                      unsigned int seed, unsigned int threshold,
+                      const unsigned int* seed, unsigned int threshold,
                       float keep_scale, int dropout, int h0, void* stream) {
   Params p = make_params(q, k, v, mask, lse, heads, lq, lk, kWgRows, scale,
                          seed, threshold, keep_scale, dropout, h0, 1);
@@ -1386,7 +1412,8 @@ int fta_wgmma_backward(const void* q, const void* k, const void* v,
                        const unsigned char* mask, const float* lse,
                        const void* g, void* dq, void* dk, void* dv, int batch,
                        int heads, int lq, int lk, const long long* strides,
-                       float scale, unsigned int seed, unsigned int threshold,
+                       float scale, const unsigned int* seed,
+                       unsigned int threshold,
                        float keep_scale, int dropout, int h0, void* stream) {
   Params p = make_params(q, k, v, mask, const_cast<float*>(lse), heads, lq,
                          lk, kWgRows, scale, seed, threshold, keep_scale,

@@ -12,7 +12,7 @@ of the JAX package's `data/images.py`: a seeded sample is pixel-identical.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -130,11 +130,27 @@ def load_eval_image(path: str, image_res: int,
         return np.asarray(out, np.uint8)
 
 
+_CLIP_CONSTANTS: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _clip_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CLIP_MEAN and CLIP_STD on `device`, copied there once, from pinned
+    memory without waiting: a copy from pageable host memory each call
+    would wait for the device (and could not be captured in a CUDA
+    graph)."""
+    if device not in _CLIP_CONSTANTS:
+        host = (torch.from_numpy(CLIP_MEAN), torch.from_numpy(CLIP_STD))
+        if device.type == "cuda":
+            host = tuple(t.pin_memory() for t in host)
+        _CLIP_CONSTANTS[device] = tuple(t.to(device, non_blocking=True)
+                                        for t in host)
+    return _CLIP_CONSTANTS[device]
+
+
 def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
     """uint8 [B,H,W,3] → CLIP-normalized f32 [B,H,W,3] on the same device."""
     x = images_u8.to(torch.float32) / 255.0
-    mean = torch.from_numpy(CLIP_MEAN).to(x.device)
-    std = torch.from_numpy(CLIP_STD).to(x.device)
+    mean, std = _clip_constants(x.device)
     return (x - mean) / std
 
 
@@ -156,8 +172,7 @@ def preprocess_train_images(images_u8: torch.Tensor,
         from leccr_torch.data.randaugment import rand_augment_batch
 
         x = rand_augment_batch(x, gen, randaugment_n, randaugment_m)
-    mean = torch.from_numpy(CLIP_MEAN).to(x.device)
-    std = torch.from_numpy(CLIP_STD).to(x.device)
+    mean, std = _clip_constants(x.device)
     x = (x - mean) / std
     if flip is not None:
         x = torch.where(flip[:, None, None, None], x.flip(2), x)

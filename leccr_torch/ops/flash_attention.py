@@ -75,6 +75,7 @@ from typing import Optional, Tuple
 import torch
 
 from leccr_torch.ops import _build
+from leccr_torch.ops.dropout import FlashSeed, staged
 
 _LIB = "flash_tower_attention"
 _CHUNK_LIB = "flash_chunked_attention"
@@ -600,7 +601,8 @@ def _lib() -> ctypes.CDLL:
     if lib.fta_forward.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
         f32 = ctypes.c_float
-        drop = [f32, u32, u32, f32, i32, i32]  # ..., dropout, h0
+        # score scale, seed slot, threshold, keep scale, dropout, h0
+        drop = [f32, ptr, u32, f32, i32, i32]
         tail = drop + [i32, i32, i32, ptr]
         lib.fta_forward.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] + tail
         lib.fta_backward.argtypes = [ptr] * 10 + [i32] * 6 + [ptr] + tail
@@ -642,13 +644,30 @@ def _dropout_args(seed, rate, h0=0):
             int(rate > 0.0), int(h0))
 
 
+def _streamed_dropout_args(seed, rate, h0=0):
+    """`_dropout_args` of kernels 4-8, which take the seed by value, so a
+    CUDA graph would replay the captured one: a call with dropout on
+    counts in `flash_tower_attention.by_value_seed_launches` (the train
+    step keeps such a step eager), and raises during a capture."""
+    if rate > 0.0:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("kernels 4-8 take their dropout seed by "
+                               "value: not capturable in a CUDA graph")
+        flash_tower_attention.by_value_seed_launches += 1
+    return _dropout_args(seed, rate, h0)
+
+
 def _prepare(q, k, seed, rate, launches, h0=0):
     """The loaded library, the score scale and the dropout arguments of a
     call, after checking the head dim and the shared memory of each of the
     scalar kernels' `launches` (0: forward, 1: backward dq pass, 2:
     backward dk/dv pass; none on the "wgmma" variant, whose shared memory
     fits a block at every key count it takes: csrc/flash_single_layout.h
-    asserts it)."""
+    asserts it).  Kernels 2/3 read the seed from its device slot: `seed`
+    is `ops.dropout.staged` where dropout is on, and the caller holds it
+    until the launch is enqueued (a slot freed before would be handed to
+    the call's own outputs); the first dropout argument is the slot's
+    address, null where dropout is off."""
     lib = _lib()
     _, _, lq, dh = q.shape
     lk = k.shape[2]
@@ -663,7 +682,9 @@ def _prepare(q, k, seed, rate, launches, h0=0):
                 f"head in shared memory: launch {which} at Lq={lq}, "
                 f"Lk={lk}, Dh={dh} needs {smem} bytes, more than the "
                 f"{SMEM_PER_BLOCK} a block may use")
-    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate, h0)
+    _, threshold, keep, on, h0 = _dropout_args(seed, rate, h0)
+    slot = seed.slot.data_ptr() if on else None
+    return lib, 1.0 / (dh ** 0.5), (slot, threshold, keep, on, h0)
 
 
 def _mask_bytes(padding_mask):
@@ -686,6 +707,8 @@ def _views(**tensors) -> str:
 def _launch_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
     b, h, lq, dh = q.shape
     lk = k.shape[2]
+    if rate > 0.0:
+        seed = staged(seed, q.device)  # held past the launch
     variant = single_block_variant(q, k, v)
     lib, scale, drop = _prepare(q, k, seed, rate,
                                 () if variant == "wgmma" else (0,), heads[0])
@@ -721,6 +744,8 @@ def _launch_bwd(q, k, v, mask, lse, g, seed, rate, heads=(0, None)):
     lk = k.shape[2]
     if g.stride(-1) != 1:
         g = g.contiguous()
+    if rate > 0.0:
+        seed = staged(seed, q.device)  # held past the launch
     variant = single_block_variant(q, k, v, g)
     wgmma = variant == "wgmma"
     lib, scale, drop = _prepare(q, k, seed, rate, () if wgmma else (1, 2),
@@ -869,7 +894,7 @@ def _chunk_prepare(q, seed, rate, launches, wgmma, h0=0):
             raise ValueError(f"flash_chunked_attention launch {which} at "
                              f"Dh={dh} needs {smem} bytes of shared memory, "
                              f"more than the {SMEM_PER_BLOCK} a block may use")
-    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate, h0)
+    return lib, 1.0 / (dh ** 0.5), _streamed_dropout_args(seed, rate, h0)
 
 
 def _launch_chunk_fwd(q, k, v, mask, seed, rate, heads=(0, None)):
@@ -1001,7 +1026,7 @@ def _tiled_prepare(q, seed, rate, which, wgmma, h0=0):
         raise ValueError(f"flash_tiled_attention launch {which} at Dh={dh} "
                          f"needs {smem} bytes of shared memory, more than "
                          f"the {SMEM_PER_BLOCK} a block may use")
-    return lib, 1.0 / (dh ** 0.5), _dropout_args(seed, rate, h0)
+    return lib, 1.0 / (dh ** 0.5), _streamed_dropout_args(seed, rate, h0)
 
 
 # the streamed libraries' own (negative) return codes
@@ -1217,6 +1242,8 @@ _RUNNERS = {"single": (_single_fwd, _single_bwd),
 class _FlashTowerAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask, seed, rate, kind, heads):
+        if kind == "single" and rate > 0.0 and q.device.type == "cuda":
+            seed = staged(seed, q.device)  # the backward reads this slot
         ctx.seed, ctx.rate, ctx.kind, ctx.heads = seed, rate, kind, heads
         out, lse = _RUNNERS[kind][0](q, k, v, mask, seed, rate, heads)
         if kind == "single":
@@ -1249,10 +1276,10 @@ def flash_tower_attention(
     q: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh] (bf16 or f32, feature dim
     contiguous, any outer strides); padding_mask: [B, Lk] (nonzero/True =
     padding) or None; seed: a Python int (the int32 layer seed; ignored at
-    rate 0).  Returns [B, H, Lq, Dh] in q's dtype, in [B, Lq, H, Dh]
-    storage.  Shapes within `fits_vmem` take kernels 2/3, longer ones
-    within `fits_chunked` kernels 4/5, longer ones still kernels 6–8 (see
-    `regime`).  head_offset / num_heads: q holds heads [head_offset,
+    rate 0), or a `FlashSeed` whose device slot kernels 2/3 read.  Returns
+    [B, H, Lq, Dh] in q's dtype, in [B, Lq, H, Dh] storage.  Shapes within
+    `fits_vmem` take kernels 2/3, longer ones within `fits_chunked` kernels
+    4/5, longer ones still kernels 6–8 (see `regime`).  head_offset / num_heads: q holds heads [head_offset,
     head_offset + h) of a layer's num_heads (a tensor-parallel rank's
     heads; the default is all of them): the regime, the head group and the
     mask are the layer's, so the result is those heads of the whole
@@ -1269,7 +1296,8 @@ def flash_tower_attention(
     `.tiled_dkv_wgmma_launches` those of them on the wgmma variant)."""
     _check(q, k, v, padding_mask, dropout_rate)
     mask = _mask_bytes(padding_mask)
-    seed, rate = int(seed), float(dropout_rate)
+    seed = seed if isinstance(seed, FlashSeed) else int(seed)
+    rate = float(dropout_rate)
     heads = _layer_heads(q, head_offset, num_heads)
     kind = regime(q, k, heads[1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -1292,3 +1320,4 @@ flash_tower_attention.chunk_bwd_wgmma_launches = 0
 flash_tower_attention.tiled_fwd_wgmma_launches = 0
 flash_tower_attention.tiled_dq_wgmma_launches = 0
 flash_tower_attention.tiled_dkv_wgmma_launches = 0
+flash_tower_attention.by_value_seed_launches = 0

@@ -120,11 +120,14 @@ def build_optimizer(
     schedule: Callable[[int], float],
     lr_mult_paths: Sequence[str] = (),
     frozen_paths: Sequence[str] = (),
+    capturable: bool = False,
 ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """(optimizer, scheduler) over the four groups of `classify_params`.
     Group g's learning rate is lr_mult(g) · schedule(step), the step
     counting optimizer steps from 0; call scheduler.step() after each
-    optimizer.step()."""
+    optimizer.step().  `capturable`: torch's AdamW keeps its step counts
+    on the device and takes its bias corrections there, so that a CUDA
+    graph can replay its step (this module's AdamW has no such mode)."""
     labels = classify_params(model, lr_mult_paths, frozen_paths)
     params = dict(model.named_parameters())
     groups = []
@@ -143,7 +146,8 @@ def build_optimizer(
                           moment_dtype=moment_dtype)
     else:
         optimizer = torch.optim.AdamW(groups, lr=1.0, betas=tuple(cfg.betas),
-                                      eps=cfg.eps, weight_decay=0.0)
+                                      eps=cfg.eps, weight_decay=0.0,
+                                      capturable=capturable)
     # base lr of each group is its multiplier: lr = mult · schedule(step)
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, schedule)
     return optimizer, scheduler

@@ -85,11 +85,49 @@ as in the JAX package.
 magnitude `data.randaugment_m` after /255 (`data.images.
 preprocess_train_images`), drawn from the step's (or each microbatch's)
 `Generators.aug`; video frames skip it.
+
+CUDA graphs: on a CUDA device, where `graph_declines` finds nothing in the
+step's layout that a graph cannot hold, each input signature (the batch's
+keys, shapes and dtypes) runs eagerly the first time it is seen and is
+captured the second: forward (with the preprocessing), loss, backward
+and optimizer, one CUDA graph each, replayed at once and on every later
+step of that signature, so the host launches four graphs a step instead
+of thousands of kernels.  Every signature's graphs share one memory pool:
+a replay runs its four phases back to back, and no two replay at once,
+so the pool grows to the largest signature's working set (and each
+signature's gradients and losses), not their sum.  A replay copies the
+batch into the graphs' input buffers, reseeds the step's device
+generator (registered with the forward's graph) with the eager step's
+seed, draws the flash-attention seeds on the host in the order the
+forward drew them and stages them into the slots the kernels read
+(`ops.dropout.SeedSlots`), and stages the learning rates the optimizer
+reads; so a replayed step computes the eager step's bits.  AdamW runs
+capturable here, eagerly too, with its learning rate read from a device
+tensor while it steps (its `param_groups` keep the schedule's floats).
+Gradients live in the pool between replays.
+
+What the first, eager step of a signature shows decides whether it is
+captured: a step that launched kernels 4-8 with dropout on (they take
+their seed by value, which a graph would freeze) stays eager, and so
+does one for which the device, after its cached blocks are handed back,
+lacks room for the pool to grow to twice that step's own peak (less what
+the pool holds free) and then for an eager step of the largest peak
+seen; so a signature that stays eager still has the room it had.  Every
+capture runs on the step's one capture stream (the allocator hands a
+capture the pool's free blocks only on the stream that freed them), with
+the garbage collector off (a dropped step's graphs destroyed mid-capture
+would end it).  A failed capture raises.  Loading the optimizer's state
+or setting `ema` drops the graphs.  Counters: `graph_captures`,
+`graph_replays`, `eager_steps` and `graph_pool_bytes`; `graph_skips`
+says why a seen signature stays eager; span `train.graph` around each
+replay, inside its phase's span.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -98,7 +136,9 @@ from leccr_torch.config import LECCRConfig, ModelConfig
 from leccr_torch.data.images import preprocess_train_images
 from leccr_torch.models.leccr import LECCRModel, TrainEmbeddings
 from leccr_torch.models.losses import LOSS_KEYS, compute_losses
-from leccr_torch.ops.dropout import Generators
+from leccr_torch.ops import add_launch_counts, launch_counts
+from leccr_torch.ops.dropout import Generators, SeedSlots
+from leccr_torch.ops.flash_attention import flash_tower_attention
 from leccr_torch.ops.infonce import infonce_loss
 from leccr_torch.parallel.mesh import (
     DataMesh,
@@ -121,6 +161,7 @@ from leccr_torch.parallel.tensor import (
 )
 from leccr_torch.train.optim import build_optimizer, clip_by_global_norm
 from leccr_torch.train.schedule import linear_warmup_decay
+from leccr_torch.utils import tracing
 from leccr_torch.utils.debug import assert_all_finite, nan_checks
 from leccr_torch.utils.tracing import span
 
@@ -256,6 +297,53 @@ def ema_update_(ema: List[torch.Tensor], params: List[torch.Tensor],
     torch._foreach_add_(ema, [p.float() for p in params], alpha=1 - decay)
 
 
+def graph_declines(cfg: LECCRConfig, device, mesh: Optional[DataMesh] = None,
+                   num_blocks: int = 1) -> List[str]:
+    """Why a train step of `cfg` on `device` runs every step eagerly and
+    never as CUDA graphs; [] where graphs may engage.  A graph replays
+    fixed launches on fixed buffers: it cannot hold work that the host
+    decides anew each step, waits for, or shares with other processes."""
+    tc, mc = cfg.train, cfg.model
+    why = []
+    if torch.device(device).type != "cuda":
+        why.append("not a CUDA device")
+    if mesh is not None:
+        why.append("a mesh: collectives with other processes")
+    if num_blocks > 1:
+        why.append("blocks replayed in one process")
+    if tc.grad_cache_microbatches > 1:
+        why.append("GradCache: microbatches replay their generators' states")
+    if cfg.data.randaugment:
+        why.append("RandAugment: control flow drawn on the host")
+    if tc.debug_nans:
+        why.append("debug_nans: anomaly mode and checks on the host")
+    if mc.vision.kind == "temporal":
+        why.append("video frames")
+    if mc.remat:
+        why.append("remat: the recompute sets its generators' states back")
+    return why
+
+
+def _loss_vector(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The losses as a [len(LOSS_KEYS)] f32 tensor, detached."""
+    return torch.stack([losses[k].detach().float() for k in LOSS_KEYS])
+
+
+@dataclasses.dataclass
+class StepGraphs:
+    """The CUDA graphs of one input signature: its input buffers, the
+    slots of its flash-attention seeds, (span name, graph, launches of
+    each kernel counter that its capture made) for each phase in order,
+    the [len(LOSS_KEYS)] losses it writes and the gradients it leaves."""
+
+    inputs: Dict[str, torch.Tensor]
+    idx: torch.Tensor
+    seeds: SeedSlots
+    phases: List[Tuple[str, "torch.cuda.CUDAGraph", Dict]]
+    out: torch.Tensor
+    grads: List[torch.Tensor]
+
+
 def check_parallel(cfg: LECCRConfig, world: int = 1) -> None:
     """Raise for a `parallel` layout that `world` processes (or
     one-process blocks) cannot hold (`parallel.mesh.check_layout`)."""
@@ -264,8 +352,18 @@ def check_parallel(cfg: LECCRConfig, world: int = 1) -> None:
 
 class TrainStep:
     """A train step over `model`; see `make_train_step`.  Attributes:
-    `optimizer`, `scheduler`, `params` (the model's parameter list) and
-    `ema` (None, or f32 tensors aligned with `params`)."""
+    `optimizer`, `scheduler`, `params` (the model's parameter list),
+    `ema` (None, or f32 tensors aligned with `params`), `graph_declines`
+    (why no step runs as CUDA graphs; empty where they may), `graph_skips`
+    ({signature: why its steps stay eager}), the counters
+    `graph_captures`, `graph_replays` and `eager_steps`, and
+    `graph_pool_bytes` (what the graphs' pool took from the device at its
+    captures)."""
+
+    graph_captures = 0
+    graph_replays = 0
+    eager_steps = 0
+    graph_pool_bytes = 0
 
     def __init__(self, cfg: LECCRConfig, model: LECCRModel, total_steps: int,
                  num_blocks: int = 1, mesh: Optional[DataMesh] = None):
@@ -318,10 +416,44 @@ class TrainStep:
         self.ema_decay = tc.ema_decay
         schedule = linear_warmup_decay(tc.optimizer.lr, total_steps,
                                        tc.schedular.num_warmup_steps)
+        self.graph_declines = graph_declines(cfg, model.device, mesh,
+                                             num_blocks)
         self.optimizer, self.scheduler = build_optimizer(
             tc.optimizer, model, schedule,
             lr_mult_paths=tuple(tc.optimizer.lr_mult_paths),
-            frozen_paths=("clip_text_tower",))
+            frozen_paths=("clip_text_tower",),
+            capturable=not self.graph_declines)
+        capturable = self.optimizer.defaults.get("capturable", False)
+        if not self.graph_declines and not capturable:
+            self.graph_declines.append("legacy_eps or bf16 moments: the "
+                                       "port's AdamW is not capturable")
+        # held weakly: a cycle would keep a dropped step, its graphs and
+        # their pool until the garbage collector runs
+        after_load = weakref.WeakMethod(self._after_optimizer_load)
+
+        def load_hook(optimizer):
+            method = after_load()
+            if method is not None:
+                method(optimizer)
+
+        self.optimizer.register_load_state_dict_post_hook(load_hook)
+        self._graphs: Dict[tuple, StepGraphs] = {}
+        self.graph_skips: Dict[tuple, str] = {}
+        # {signature: its first eager step's peak above what stays live}
+        self._peaks: Dict[tuple, int] = {}
+        self._pool = None  # the graphs' memory pool, shared
+        self._grads_of: Optional[StepGraphs] = None
+        # where a capturable AdamW reads each group's learning rate
+        self._lr: Optional[torch.Tensor] = None
+        if capturable:
+            self._lr = torch.zeros(len(self.optimizer.param_groups),
+                                   dtype=torch.float32, device=model.device)
+            self._graph_gen = torch.Generator(device=model.device)
+            # one stream for every capture: the allocator hands a capture
+            # the pool's free blocks only on the stream that freed them
+            self._capture_stream = torch.cuda.Stream(model.device)
+            # it runs eagerly too, on purpose: the same bits either way
+            self.optimizer._warned_capturable_if_run_uncaptured = True
         self.params = list(model.parameters())
         # FSDP's shards over processes: their gradients arrive summed
         fsdp = getattr(model, "fsdp", None)
@@ -330,13 +462,49 @@ class TrainStep:
         self.data_group = fsdp.group if self.data_sharded else None
         ids = {id(p) for p in self.data_sharded}
         self.reduced = [p for p in self.params if id(p) not in ids]
-        self.ema: Optional[List[torch.Tensor]] = (
-            self.ema_of_params() if self.ema_decay > 0 else None)
+        self.ema = self.ema_of_params() if self.ema_decay > 0 else None
         self.randaugment_n = (cfg.data.randaugment_n if cfg.data.randaugment
                               else 0)
         self.randaugment_m = cfg.data.randaugment_m
         self.seed = tc.seed + 17
         model.train()
+
+    @property
+    def ema(self) -> Optional[List[torch.Tensor]]:
+        return self._ema
+
+    @ema.setter
+    def ema(self, value: Optional[List[torch.Tensor]]) -> None:
+        self._ema = value
+        if getattr(self, "_graphs", None):
+            self._drop_graphs()  # their optimizer phase steps the old EMA
+
+    def _drop_graphs(self) -> None:
+        if self._graphs:
+            torch.cuda.synchronize(self.model.device)
+            self.optimizer.zero_grad(set_to_none=True)  # the pool's grads
+        self._graphs.clear()
+        self.graph_skips.clear()
+        self._peaks.clear()
+        self._pool, self._grads_of = None, None
+        self.graph_pool_bytes = 0
+
+    def _after_optimizer_load(self, optimizer) -> None:
+        """After `optimizer.load_state_dict`: the groups take this step's
+        capturable mode (a file written in the other mode holds that one),
+        the step counts move where the mode keeps them (the device, or the
+        host), and the graphs, which read the old state, are dropped."""
+        if "capturable" in optimizer.defaults:
+            capturable = optimizer.defaults["capturable"]
+            for group in optimizer.param_groups:
+                group["capturable"] = capturable
+                for p in group["params"]:
+                    state = optimizer.state.get(p, {})
+                    if "step" in state:
+                        state["step"] = (
+                            state["step"].to(p.device, torch.float32)
+                            if capturable else state["step"].to("cpu"))
+        self._drop_graphs()
 
     @torch.no_grad()
     def ema_of_params(self) -> List[torch.Tensor]:
@@ -408,39 +576,238 @@ class TrainStep:
                 self.randaugment_n, self.randaugment_m)
         gens = step_generators(self.seed, step_no, model.device, self.rank)
         with span("train.forward"):
-            if not self.is_video:
-                batch["vision"] = preprocess_train_images(
-                    batch["vision"], batch.pop("flip", None), gens.aug,
-                    self.randaugment_n, self.randaugment_m)
-            emb = model(batch, gens)
+            emb = self._forward(batch, gens)
         with span("train.loss"):
             value, losses = self.objective(emb, idx)
         with span("train.backward"):
             value.backward()
         return losses
 
+    def _forward(self, batch: Dict[str, torch.Tensor],
+                 gens: Generators) -> TrainEmbeddings:
+        """The forward phase of a step without GradCache: the images'
+        preprocessing (which takes `flip` out of `batch`), the model."""
+        if not self.is_video:
+            batch["vision"] = preprocess_train_images(
+                batch["vision"], batch.pop("flip", None), gens.aug,
+                self.randaugment_n, self.randaugment_m)
+        return self.model(batch, gens)
+
     def run(self, batch: Dict[str, torch.Tensor], step_no: int
             ) -> torch.Tensor:
-        """One step; the losses as a [len(LOSS_KEYS)] f32 tensor on the
-        device, not read back (unless train.debug_nans).  Spans:
+        """One step; the losses as a fresh [len(LOSS_KEYS)] f32 tensor on
+        the device, not read back (unless train.debug_nans).  Spans:
         `train.step` around the call, `train.forward`, `train.loss`,
-        `train.backward` and `train.optimizer` inside it
+        `train.backward` and `train.optimizer` inside it, and
+        `train.graph` inside each of those where it replays a graph
         (`utils.tracing`)."""
         with span("train.step"):
             batch = dict(batch)
             idx = batch.pop("idx")
-            self.optimizer.zero_grad(set_to_none=True)
-            with nan_checks(self.debug_nans):
-                losses = self._backward(batch, idx, step_no)
-            with span("train.optimizer"):
-                self._update(losses)
-            return torch.stack([losses[k].detach().float()
-                                for k in LOSS_KEYS])
+            key = (None if self.graph_declines
+                   else self._signature(batch, idx))
+            graphs = self._graphs_for(key, batch, idx)
+            if graphs is not None:
+                return self._replay(graphs, batch, idx, step_no)
+            return self._eager(batch, idx, step_no, key)
+
+    def _eager(self, batch: Dict[str, torch.Tensor], idx: torch.Tensor,
+               step_no: int, key: Optional[tuple]) -> torch.Tensor:
+        """`run`'s step without graphs.  The first step of a signature
+        that graphs may take notes its peak memory above what stays live,
+        and whether it launched a kernel that takes its dropout seed by
+        value."""
+        self.eager_steps += 1
+        self.optimizer.zero_grad(set_to_none=True)
+        self._grads_of = None
+        first = key is not None and key not in self._peaks
+        if first:
+            device = self.model.device
+            live = torch.cuda.memory_allocated(device)
+            by_value = flash_tower_attention.by_value_seed_launches
+        with nan_checks(self.debug_nans):
+            losses = self._backward(batch, idx, step_no)
+        with span("train.optimizer"):
+            self._update(losses)
+        if first:
+            # an all-time peak bounds this step's from above
+            self._peaks[key] = torch.cuda.max_memory_allocated(device) - live
+            if flash_tower_attention.by_value_seed_launches != by_value:
+                self.graph_skips[key] = ("kernels 4-8 with dropout on: they "
+                                         "take their seed by value")
+        return _loss_vector(losses)
+
+    def _signature(self, batch: Dict[str, torch.Tensor],
+                   idx: torch.Tensor) -> tuple:
+        return (self.model.training, tuple(idx.shape), idx.dtype,
+                tuple((k, tuple(v.shape), v.dtype)
+                      for k, v in sorted(batch.items())))
+
+    def _graphs_for(self, key: Optional[tuple],
+                    batch: Dict[str, torch.Tensor],
+                    idx: torch.Tensor) -> Optional[StepGraphs]:
+        """The graphs that run this step, captured now if its signature's
+        first step ran eagerly and the device has room (the module's
+        docstring); None where it runs eagerly."""
+        if key in self._graphs:
+            return self._graphs[key]
+        if key is None or key in self.graph_skips or key not in self._peaks:
+            return None
+        device = self.model.device
+        # dropped graphs freed, and the eager steps' cached blocks back to
+        # the device, for the pool to take (as torch.cuda.graph does)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # what is reserved and not allocated now lies in the pool, free for
+        # the capture; it needs twice the eager step's peak at most (a
+        # first capture's pool came to 1.16 times it: the flagship, bs128)
+        slack = (torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
+        growth = max(0, 2 * self._peaks[key] - slack)
+        need = growth + max(self._peaks.values())
+        free = torch.cuda.mem_get_info(device)[0]
+        if free < need:
+            self.graph_skips[key] = (f"{free} bytes free, {need} wanted: the "
+                                     f"pool's growth and an eager step")
+            return None
+        graphs = self._graphs[key] = self._capture(batch, idx)
+        return graphs
+
+    def _capture(self, batch: Dict[str, torch.Tensor],
+                 idx: torch.Tensor) -> StepGraphs:
+        """The four phases of a step on copies of `batch` and `idx`,
+        captured (not run) on a side stream into the shared pool."""
+        device = self.model.device
+        inputs = {k: v.clone() for k, v in batch.items()}
+        static_idx = idx.clone()
+        seeds = SeedSlots(device)
+        # a replay reseeds the device stream and stages the seeds: what
+        # this pass draws on the host is never used
+        gens = Generators(self._graph_gen, torch.Generator(),
+                          torch.Generator(), seeds)
+        held = {}
+
+        def forward():
+            held["emb"] = self._forward(dict(inputs), gens)
+
+        def loss():
+            held["value"], held["losses"] = self.objective(held.pop("emb"),
+                                                           static_idx)
+            held["out"] = _loss_vector(held["losses"])
+
+        def backward():
+            held.pop("value").backward()
+
+        def optimizer():
+            self._apply_update(held.pop("losses"))
+
+        self.optimizer.zero_grad(set_to_none=True)
+        self._grads_of = None
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        reserved = torch.cuda.memory_reserved(device)
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(device))
+        phases = []
+        # a graph the collector destroyed mid-capture would end it
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with tracing.suspended(), torch.cuda.stream(stream):
+                for name, fn in (("train.forward", forward),
+                                 ("train.loss", loss),
+                                 ("train.backward", backward),
+                                 ("train.optimizer", optimizer)):
+                    graph = torch.cuda.CUDAGraph()
+                    if name == "train.forward":
+                        graph.register_generator_state(self._graph_gen)
+                    before = launch_counts()
+                    graph.capture_begin(pool=self._pool,
+                                        capture_error_mode="thread_local")
+                    try:
+                        fn()
+                    finally:
+                        graph.capture_end()
+                    launched = {k: v - before.get(k, 0)
+                                for k, v in launch_counts().items()
+                                if v != before.get(k, 0)}
+                    # a capture launches nothing: replays bring its counts
+                    add_launch_counts({k: -v for k, v in launched.items()})
+                    phases.append((name, graph, launched))
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph_captures += 1
+        self.graph_pool_bytes += torch.cuda.memory_reserved(device) - reserved
+        return StepGraphs(inputs, static_idx, seeds, phases, held["out"],
+                          [p.grad for p in self.params])
+
+    def _replay(self, g: StepGraphs, batch: Dict[str, torch.Tensor],
+                idx: torch.Tensor, step_no: int) -> torch.Tensor:
+        """Step `step_no` through `g`: the inputs, the seeds and the
+        learning rates staged, each phase replayed inside its span, the
+        launch counters advanced by what each capture launched."""
+        gens = step_generators(self.seed, step_no, self.model.device,
+                               self.rank)
+        self._graph_gen.manual_seed(gens.device.initial_seed())
+        for name, graph, launched in g.phases:
+            with span(name):
+                if name == "train.forward":
+                    for k, v in batch.items():
+                        g.inputs[k].copy_(v)
+                    g.idx.copy_(idx)
+                    g.seeds.stage([gens.flash_seed()
+                                   for _ in range(g.seeds.taken)])
+                elif name == "train.optimizer":
+                    self._stage_lr()
+                with span("train.graph"):
+                    graph.replay()
+                add_launch_counts(launched)
+                if name == "train.optimizer":
+                    self.scheduler.step()
+        if self._grads_of is not g:
+            for p, grad in zip(self.params, g.grads):
+                p.grad = grad
+            self._grads_of = g
+        self.graph_replays += 1
+        return g.out.clone()  # the caller may keep it past the next step
+
+    def _stage_lr(self) -> None:
+        """Each group's learning rate into the device tensor a capturable
+        AdamW reads (a non-blocking copy from pinned memory)."""
+        if self._lr is not None:
+            lrs = [float(g["lr"]) for g in self.optimizer.param_groups]
+            self._lr.copy_(torch.tensor(lrs, dtype=torch.float32)
+                           .pin_memory(), non_blocking=True)
+
+    def _optimizer_step(self) -> None:
+        """optimizer.step(); a capturable AdamW reads its learning rates
+        from the device tensor while it steps, so that a graph of the
+        step reads each step's, and `param_groups` keep the floats."""
+        if self._lr is None:
+            self.optimizer.step()
+            return
+        groups = self.optimizer.param_groups
+        lrs = [g["lr"] for g in groups]
+        for i, g in enumerate(groups):
+            g["lr"] = self._lr[i]
+        try:
+            self.optimizer.step()
+        finally:
+            for g, lr in zip(groups, lrs):
+                g["lr"] = lr
 
     def _update(self, losses: Dict[str, torch.Tensor]) -> None:
+        """After an eager backward: `_apply_update`, then the scheduler's
+        step."""
+        self._stage_lr()
+        self._apply_update(losses)
+        self.scheduler.step()
+
+    def _apply_update(self, losses: Dict[str, torch.Tensor]) -> None:
         """After the backward: the gradient sums over a mesh, the checks of
-        `train.debug_nans`, the clip, the optimizer and scheduler steps and
-        the EMA."""
+        `train.debug_nans`, the clip, the optimizer step and the EMA."""
         for p in self.params:  # optax decays a param whose gradient is zero
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -455,8 +822,7 @@ class TrainStep:
                                 sharded_params(self.model),
                                 getattr(self.model, "tp_group", None),
                                 self.data_sharded, self.data_group)
-        self.optimizer.step()
-        self.scheduler.step()
+        self._optimizer_step()
         if self.ema is not None:
             ema_update_(self.ema, self.params, self.ema_decay)
 

@@ -4,10 +4,11 @@
         ...
 
 `span(name)` marks one phase of the work.  It records only while a
-`torch.profiler` session is recording or inside a `record()` block; at any
-other time it returns one shared no-op context after reading two flags,
-and costs well under a microsecond (no allocation, no torch call, no clock
-read).
+`torch.profiler` session is recording or inside a `record()` block, and
+never inside a `suspended()` block (a CUDA graph's capture, where a marker
+on the stream would be captured rather than timed); at any other time it
+returns one shared no-op context after reading three flags, and costs
+well under a microsecond (no allocation, no torch call, no clock read).
 
 A recorded span keeps its name, its own id, its parent's id (the span open
 around it on the same thread) and its root's id (the outermost span: one
@@ -18,6 +19,10 @@ current stream, from a reused pool, resolved to milliseconds only when
 read.  It also enters `torch.profiler.record_function(name)`, so the span
 lies in the profiler's timeline beside the device's kernels and inside
 its own host stamps.
+
+A root span also keeps `reserved_bytes`, the device memory that CUDA's
+caching allocator holds (`torch.cuda.memory_reserved`, a CUDA graph's
+pool included) when it closes; None for an inner span and without CUDA.
 
 Counter `host_syncs`: device-to-host synchronisations made while a root
 span is open (implicit ones included: `.item()`, `.cpu()`, `nonzero`, a
@@ -51,6 +56,7 @@ SYNC_MESSAGE = "called a synchronizing CUDA operation"
 
 _OFF = contextlib.nullcontext()
 _explicit = 0  # depth of open record() blocks
+_suspended = 0  # depth of open suspended() blocks
 _ids = itertools.count(1)
 _local = threading.local()
 _lock = threading.Lock()
@@ -72,7 +78,7 @@ _store = _Store()
 def span(name: str):
     """A context manager that records the phase `name` while recording is
     on (see the module's docstring), and a shared no-op context else."""
-    if _explicit or _profiler._is_profiler_enabled:
+    if (_explicit or _profiler._is_profiler_enabled) and not _suspended:
         return Span(name)
     return _OFF
 
@@ -90,17 +96,31 @@ def record() -> Iterator[None]:
             _explicit -= 1
 
 
+@contextlib.contextmanager
+def suspended() -> Iterator[None]:
+    """Record no span inside the block, on any thread."""
+    global _suspended
+    with _lock:
+        _suspended += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _suspended -= 1
+
+
 class Span:
     """One recorded span; see the module's docstring."""
 
     __slots__ = ("name", "id", "parent", "root", "t0_ns", "t1_ns", "syncs",
-                 "_events", "_device_ms", "_fn", "_syncs0")
+                 "reserved_bytes", "_events", "_device_ms", "_fn", "_syncs0")
 
     def __init__(self, name: str):
         self.name = name
         self.id = next(_ids)
         self.t0_ns = self.t1_ns = 0
         self.syncs = 0
+        self.reserved_bytes: Optional[int] = None
         self._events = None
         self._device_ms: Optional[float] = None
 
@@ -131,6 +151,8 @@ class Span:
         self.syncs = _store.syncs - self._syncs0
         if not stack:
             _close_root()
+            if self._events is not None:
+                self.reserved_bytes = _reserved_bytes()
         with _lock:
             if len(_store.spans) < MAX_SPANS:
                 _store.spans.append(self)
@@ -203,6 +225,10 @@ def _stack() -> List[Span]:
 
 def _cuda_timing() -> bool:
     return torch.cuda.is_initialized()
+
+
+def _reserved_bytes() -> int:
+    return torch.cuda.memory_reserved()
 
 
 def _take_events():
