@@ -264,7 +264,7 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    exactly M launches of each of the regime's kernels a replay; rank 0's
    block alone (collectives as local stand-ins) beside the dense block:
    device ms (profiler) and event ms.
-21. FSDP (`fsdp_phase`, last): `parallel.fsdp` on one card through
+21. FSDP (`fsdp_phase`): `parallel.fsdp` on one card through
    `parallel.fsdp.LocalDataGroup` (D = FSDP_BLOCKS data ranks' shards
    stacked on the device, gathered at use, gradients sliced).  (a)
    configs/multi30k_all.yaml uncut (ViT-B/32 @384 + mBERT-base, bf16 on
@@ -287,6 +287,16 @@ Phases, each printing one JSON line (any failure raises: exit code 1):
    peak memory.  Both parts run under torch's deterministic algorithms
    (the CUDA embedding backward's sum over a repeated index varies run to
    run otherwise: the token-type table's, 1 index x 16 384 rows).
+22. MoE train step (`moe_step_phase`, last): the dsv2lite_text cell's
+   model (DeepSeek-V2-Lite's text tower, 8 layers, 8 of 64 experts held,
+   on the flagship's vision tower; benchmark/configs/dsv2lite_text.yaml)
+   at bs128 on the cell's traffic through `TrainStep.run`: kernel 12's
+   launches (MOE_GEMM_LAUNCHES a step) and kernels 2-11's
+   (MOE_STEP_LAUNCHES) from the counters, then one profiled step (kernel
+   12's launches and device ms in the trace); every kernel-12 launch of
+   that step run alone at its own routed rows: checked against the plain
+   version (relative error < 2e-2), timed beside its bound, the plain
+   version and `torch._grouped_mm`.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after.  Then one {"kernels": [...]} line and, last,
@@ -297,6 +307,7 @@ Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -392,7 +403,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 KERNEL_LIBS = ("fused_cross_attention", "flash_tower_attention",
                "flash_chunked_attention", "flash_tiled_attention",
-               "fused_infonce")
+               "fused_infonce", "grouped_gemm")
 COUNTERS = ("fwd_launches", "bwd_launches", "chunk_fwd_launches",
             "chunk_bwd_launches", "tiled_fwd_launches", "tiled_dq_launches",
             "tiled_dkv_launches")  # kernels 2, 3, 4, 5, 6, 7, 8
@@ -5149,6 +5160,212 @@ def _fsdp_phase(card_line: str):
     return total
 
 
+# kernels 2-11's launches in one dsv2lite_text train step: the ViT-B/32
+# @384 tower's 12 blocks (single-block, forward and backward); the MoE text
+# tower's latent attention takes neither kernel (causal, q and v widths
+# 192 / 128)
+MOE_STEP_LAUNCHES = (12, 12, 0, 0, 0, 0, 0, 0, 0, 0)
+# kernel 12's launches in one such step: 7 MoE layers, each 12 of the text
+# call (3 forward; the backward's 3 recomputed forward products, dx and dw
+# of down, dw and dx of gate and up) and 3 of the caption call (forward)
+MOE_GEMM_LAUNCHES = {"fwd": 63, "dx": 21, "dw": 21}
+
+
+def moe_step_phase(card_line: str = "", seed: int = 3100000001,
+                   steps: int = 3, iters: int = 20) -> dict:
+    """Kernel 12, the MoE tower's grouped GEMM (`ops.grouped_gemm`), on
+    its path: the dsv2lite_text cell's train step (benchmark/configs/
+    dsv2lite_text.yaml: DeepSeek-V2-Lite's text tower, 8 layers, 8 of each
+    layer's 64 experts held, on the flagship's ViT-B/32 @384) at bs128 on
+    the cell's traffic (benchmark/traffic/train_bucketed_moe.json), through
+    `TrainStep.run`.  One warm-up step, then `steps` steps whose launches
+    of kernel 12 (forward, dx, dw) and of kernels 2-11 the counters count,
+    each held to MOE_GEMM_LAUNCHES and MOE_STEP_LAUNCHES a step; then one
+    step under torch.profiler, whose kernel-12 launches and device ms the
+    trace gives.  Every launch of that step is then run alone at its own
+    shapes (the rows its layer and call routed to each held expert, from
+    the layers' routing records), checked against the plain version and
+    timed (CUDA events after the L2 flush) beside its bound, the plain
+    version and `torch._grouped_mm` where the card's torch has it.
+    Returns the `kernels` line's entry of kernel 12, with kernels 2-11's
+    launches a step under "launches_step_2_11"."""
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import roofline_moe
+    from benchmark.drivers import load_kind
+    from benchmark.reference.deepseek_v2 import Tower
+    from leccr_torch.config import LECCRConfig
+    from leccr_torch.models.leccr import LECCRModel
+    from leccr_torch.ops import grouped_gemm as gg
+    from leccr_torch.ops import launch_counts
+    from leccr_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    meta = yaml.safe_load((ROOT / "benchmark" / "configs"
+                           / "dsv2lite_text.yaml").read_text())
+    mix = json.loads((ROOT / "benchmark" / "traffic"
+                      / "train_bucketed_moe.json").read_text())
+    cfg = LECCRConfig.from_dict(meta["config"])
+    model = LECCRModel(cfg.model, device=dev, seed=seed)
+    step = make_train_step(cfg, model, meta["schedule_steps"])
+    pool = load_kind("train").inputs(dict(mix, pool=steps + 2), cfg, seed,
+                                     dev)
+    ops = ("fwd", "dx", "dw")
+
+    def gemm_counts():
+        held = launch_counts()
+        return {op: held[("grouped_gemm", f"{op}_launches")] for op in ops}
+
+    step.run(pool[0], 0)
+    torch.cuda.synchronize()
+    reset_counts()
+    before = gemm_counts()
+    t1 = time.perf_counter()
+    for k in range(1, steps + 1):
+        step.run(pool[k], k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counted = {op: n - before[op] for op, n in gemm_counts().items()}
+    flash = step_counts()
+    if counted != {op: steps * n for op, n in MOE_GEMM_LAUNCHES.items()}:
+        raise AssertionError(f"{steps} MoE steps launched kernel 12 "
+                             f"{counted}, want {MOE_GEMM_LAUNCHES} a step")
+    if flash != tuple(steps * n for n in MOE_STEP_LAUNCHES):
+        raise AssertionError(f"{steps} MoE steps launched kernels 2-11 "
+                             f"{flash}, want {MOE_STEP_LAUNCHES} a step")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step.run(pool[steps + 1], steps + 1)
+        torch.cuda.synchronize()
+    traced = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and "grouped_gemm_kernel" in e.name()]
+    path_ms = sum(e.duration_ns() for e in traced) / 1e6
+    if len(traced) != sum(MOE_GEMM_LAUNCHES.values()):
+        raise AssertionError(f"the profiled step's trace holds "
+                             f"{len(traced)} kernel-12 launches")
+    # the profiled step's routing: each MoE layer's slots of each call
+    tower = Tower.of(meta["config"]["model"]["text"])
+    held = tower.held
+    counts = {c: [m.routing_record[c].counts[:held].tolist()
+                  for m in step.moe_layers] for c in ("text", "caption")}
+    slots = {c: 16384 * tower.top_k for c in counts}  # T·k rows a call
+    del step, model, pool
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h, inner, m_rows = tower.hidden, tower.moe_inter, max(slots.values())
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * shape[-1] ** -0.5).bfloat16()
+
+    x, a = rand(m_rows, h), rand(m_rows, inner)
+    dy, da = rand(m_rows, h), rand(m_rows, inner)
+    w_in, w_down = rand(held, inner, h), rand(held, h, inner)
+    # (op, n, k) -> (kernel, plain, first operand, second operand)
+    operands = {("fwd", inner, h): (gg.grouped_gemm,
+                                    gg.grouped_gemm_reference, x, w_in),
+                ("fwd", h, inner): (gg.grouped_gemm,
+                                    gg.grouped_gemm_reference, a, w_down),
+                ("dx", h, inner): (gg.grouped_gemm_dx,
+                                   gg.grouped_gemm_dx_reference, dy, w_down),
+                ("dw", h, inner): (gg.grouped_gemm_dw,
+                                   gg.grouped_gemm_dw_reference, dy, a),
+                ("dw", inner, h): (gg.grouped_gemm_dw,
+                                   gg.grouped_gemm_dw_reference, da, x),
+                ("dx", inner, h): (gg.grouped_gemm_dx,
+                                   gg.grouped_gemm_dx_reference, da, w_in)}
+
+    def library(op, p, q, off):
+        ends, rows = off[1:], int(off[-1])
+        if op == "fwd":
+            return lambda: torch._grouped_mm(p[:rows], q.transpose(1, 2),
+                                             offs=ends)
+        if op == "dx":
+            return lambda: torch._grouped_mm(p[:rows], q, offs=ends)
+        # its output dtype must be its inputs': dw in bf16, half the bytes
+        # of the kernel's f32
+        return lambda: torch._grouped_mm(p[:rows].t(), q[:rows], offs=ends,
+                                         out_dtype=torch.bfloat16)
+
+    flush_buf = torch.empty(2 ** 30, dtype=torch.uint8, device=dev)
+    flush = flush_buf.zero_
+    library_ok = hasattr(torch, "_grouped_mm")
+    sums = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    worst, rows_timed, by_op = 0.0, 0, {op: 0 for op in ops}
+    for call in ("text", "caption"):
+        for layer, groups in enumerate(counts[call]):
+            off = torch.tensor([0] + list(itertools.accumulate(groups)),
+                               dtype=torch.int32, device=dev)
+            routed = int(off[-1])
+            for op, _, n, k, _ in roofline_moe.step_launches(
+                    tower, *(([routed], []) if call == "text"
+                             else ([], [routed]))):
+                fn, plain, p, q = operands[(op, n, k)]
+                got, want = fn(p, q, off), plain(p, q, off)
+                if op != "dw":
+                    got, want = got[:routed], want[:routed]
+                err = float((got.float() - want.float()).abs().max()
+                            / want.float().abs().max())
+                if not err < 2e-2:
+                    raise AssertionError(f"kernel 12 {op} [{n},{k}] at "
+                                         f"{call} layer {layer}: {err}")
+                worst = max(worst, err)
+                ms = cuda_ms(lambda: fn(p, q, off), flush, iters)
+                plain_ms = cuda_ms(lambda: plain(p, q, off), flush, 2)
+                lib_ms = None
+                if library_ok:
+                    try:
+                        lib_ms = cuda_ms(library(op, p, q, off), flush, iters)
+                    except (RuntimeError, TypeError) as exc:
+                        library_ok = f"refused: {str(exc)[:120]}"
+                bound, _ = roofline_moe.gemm_launch(op, routed, n, k, held)
+                emit("moe_gemm", call=call, layer=layer, op=op, n=n, k=k,
+                     rows=routed, groups=groups, ms=ms, bound_ms=bound,
+                     share=100.0 * bound / ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, rel_err=err)
+                sums["ms"] += ms
+                sums["bound_ms"] += bound
+                sums["plain_ms"] += plain_ms
+                if lib_ms is None or sums["library_ms"] is None:
+                    sums["library_ms"] = None  # any launch without one
+                else:
+                    sums["library_ms"] += lib_ms
+                rows_timed += 1
+                by_op[op] += 1
+    if by_op != MOE_GEMM_LAUNCHES:
+        raise AssertionError(f"timed {by_op}, the step launched "
+                             f"{MOE_GEMM_LAUNCHES}")
+    entry = {
+        "name": "grouped_gemm", "route": "cuda",
+        "source": "leccr_torch/csrc/grouped_gemm.cu",
+        "replaces": "none: added for the MoE text tower",
+        "launches": counted, "launches_per_step": MOE_GEMM_LAUNCHES,
+        "launches_traced_step": len(traced),
+        "launches_step_2_11": dict(zip(STEP_COUNTERS,
+                                       (n // steps for n in flash))),
+        "max_rel_err": worst, "check": "ok",
+        "timed_as": (f"bf16, each of the {rows_timed} launches of one "
+                     f"dsv2lite_text train step (bs128, the cell's traffic) "
+                     f"at its own routed rows, alone, L2 flushed"),
+        **sums,
+        "path_ms": path_ms,
+        "library": ("torch._grouped_mm (dw written in bf16)"
+                    if library_ok is True else library_ok or "none"),
+        "routed_rows": {c: [sum(x) for x in v] for c, v in counts.items()},
+    }
+    emit("moe_step", card=card_line, steps=steps,
+         ms_per_step=wall / steps * 1e3, pairs_per_s=128 * steps / wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         wall_s=time.perf_counter() - t0, **entry)
+    del x, a, dy, da, w_in, w_down, flush_buf
+    torch.cuda.empty_cache()
+    return entry
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -5280,6 +5497,7 @@ def main() -> int:
     index_scale_phase(card_line)
     tp_launches = tensor_parallel_phase(card_line)
     fsdp_launches = fsdp_phase(card_line)
+    moe = moe_step_phase(card_line)
 
     def path_sum(key, rows=None, launches=PATH_LAUNCHES):
         # bf16 at B=64: one embed_images batch, 7 launches
@@ -5497,6 +5715,11 @@ def main() -> int:
     # kernels 2/3 and 9-11: their launches in phase 21's FSDP steps
     for at in (0, 1, 7, 8, 9):
         entries[1 + at]["launches_fsdp"] = fsdp_launches[at]
+    # kernels 2/3 in phase 22's dsv2lite_text steps, and kernel 12 there
+    for at in (0, 1):
+        entries[1 + at]["launches_moe_step"] = moe["launches_step_2_11"][
+            STEP_COUNTERS[at]]
+    entries.append(moe)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,10 +33,13 @@ def _build(cls, data: Dict[str, Any]):
     kwargs = {}
     for key, value in data.items():
         f = names[key]
-        if dataclasses.is_dataclass(f.type) or (
-            isinstance(f.type, str) and f.type in _DATACLASS_REGISTRY
+        kind = f.type
+        if isinstance(kind, str) and kind.startswith("Optional["):
+            kind = kind[len("Optional["):-1]
+        if dataclasses.is_dataclass(kind) or (
+            isinstance(kind, str) and kind in _DATACLASS_REGISTRY
         ):
-            sub = _DATACLASS_REGISTRY[f.type] if isinstance(f.type, str) else f.type
+            sub = _DATACLASS_REGISTRY[kind] if isinstance(kind, str) else kind
             kwargs[key] = _build(sub, value) if isinstance(value, dict) else value
         else:
             kwargs[key] = value
@@ -75,15 +78,52 @@ class VisionConfig:
 
 
 @dataclass
+class DeepseekConfig:
+    """`text.deepseek`: the DeepSeek-V2 decoder tower's multi-head latent
+    attention, YaRN RoPE, RMSNorm and mixture of experts, under the names
+    of DeepSeek-V2's `config.json` (defaults: DeepSeek-V2-Lite's).  The
+    MoE layers route over all `n_routed_experts` and compute the part of
+    `experts_held` of them from `expert_offset` on (0 = all): one card's
+    share of an expert-parallel deployment.  `aux_loss_alpha` weighs the
+    sequence-wise balance loss of the text call."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    # YaRN: factor, original_max_position_embeddings, beta_fast, beta_slow,
+    # mscale, mscale_all_dim; empty = plain RoPE
+    rope_scaling: Dict[str, float] = field(default_factory=dict)
+    experts_held: int = 0
+    expert_offset: int = 0
+    aux_loss_alpha: float = 0.001
+
+
+@dataclass
 class TextConfig:
-    """Multilingual text tower (BERT-family encoder).
+    """Multilingual text tower: a BERT-family encoder, or DeepSeek-V2's
+    decoder block as a causal embedder.
 
     The reference hard-codes `bert-base-multilingual-cased`
     (models/xvlm.py:91-103). We keep the same architecture family but the
     size is configurable (for tests and for XLM-R-large scale-up).
+
+    `kind: deepseek_v2` (`models.deepseek`, the port alone): `hidden_size`,
+    `num_layers`, `num_heads` and `intermediate_size` (the dense layers'
+    SwiGLU width) keep their meaning, and `deepseek` (`DeepseekConfig`)
+    holds the rest of the tower; it is None for the other kinds.  The
+    dropout fields and `max_position_embeddings` / `type_vocab_size` are
+    not read.
     """
 
-    kind: str = "bert"  # bert | xlmr (same arch; different vocab/tokenizer)
+    kind: str = "bert"  # bert | xlmr (same arch) | deepseek_v2
     vocab_size: int = 119547  # bert-base-multilingual-cased
     hidden_size: int = 768
     num_layers: int = 12
@@ -100,6 +140,12 @@ class TextConfig:
     # XLA attention elsewhere.  Keeps [B,H,L,L] probabilities and dropout
     # masks out of HBM entirely (the bwd regenerates the mask from the seed)
     fused_attention: bool = False
+    # kind deepseek_v2's multi-head latent attention, RoPE and experts
+    deepseek: Optional[DeepseekConfig] = None
+
+    def __post_init__(self):
+        if self.kind == "deepseek_v2" and self.deepseek is None:
+            self.deepseek = DeepseekConfig()
 
 
 @dataclass
@@ -353,7 +399,13 @@ class LECCRConfig:
     remote_output_dir: str = ""
 
     def to_dict(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        """The config as plain data; without `text.deepseek` where it is
+        None, so that a file of the other towers reads as the JAX
+        package's config reads it."""
+        data = dataclasses.asdict(self)
+        if data["model"]["text"]["deepseek"] is None:
+            del data["model"]["text"]["deepseek"]
+        return data
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2)
@@ -372,6 +424,7 @@ _DATACLASS_REGISTRY = {
     for c in (
         VisionConfig,
         TextConfig,
+        DeepseekConfig,
         ModelConfig,
         DataConfig,
         OptimConfig,

@@ -12,7 +12,10 @@ cross-attend to the projected caption tokens, then the visual tokens attend
 to the slots and the slots attend back to the visual tokens (for video,
 past the padded frames' mask).  Features are 256-d L2-normalized
 projections of the CLS token (images), of the mean over the valid frames
-(video) and of the first token (texts).
+(video) and of the first token (texts; the last valid token for the causal
+`text.kind: deepseek_v2` tower, `models.deepseek`, whose token 0 sees only
+itself).  A training forward with that tower returns `MoETrainEmbeddings`:
+the loss inputs and the MoE layers' balance loss of the text call.
 
 Parameters are made on the chosen device from a seeded torch.Generator and
 stay f32 (master weights); every Dense and Embed computes in `cfg.dtype`,
@@ -33,6 +36,7 @@ from torch import nn
 from leccr_torch.config import ModelConfig
 from leccr_torch.device import resolve_device
 from leccr_torch.models.bert import BertEncoder
+from leccr_torch.models.deepseek import DeepseekV2Encoder
 from leccr_torch.models.clip import (
     CLIP_VARIANTS,
     CLIPTextTower,
@@ -45,9 +49,11 @@ from leccr_torch.ops.attention import (
     Dense,
     Embed,
     LayerNorm,
+    RMSNorm,
     set_compute_dtype,
 )
 from leccr_torch.ops.dropout import Generators
+from leccr_torch.ops.moe import ExpertStack
 from leccr_torch.utils.tracing import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -70,8 +76,17 @@ class TrainEmbeddings:
     temp: torch.Tensor  # scalar temperature
 
 
+@dataclasses.dataclass
+class MoETrainEmbeddings(TrainEmbeddings):
+    """TrainEmbeddings of a model whose text tower has MoE layers."""
+
+    # scalar f32: their balance loss over the text call, weighted
+    balance_loss: Optional[torch.Tensor] = None
+
+
 class LECCRModel(nn.Module):
-    """LECCR retrieval model, image or video by `cfg.vision.kind`.
+    """LECCR retrieval model, image or video by `cfg.vision.kind`, with
+    the text tower of `cfg.text.kind` (bert | xlmr | deepseek_v2).
 
     device: None = the GPU (raises when there is none); pass "cpu" to run
     on the CPU ("meta" builds the module tree without weights).  seed: the
@@ -85,6 +100,12 @@ class LECCRModel(nn.Module):
         super().__init__()
         if cfg.vision.kind not in ("clip_vit", "temporal"):
             raise ValueError(f"unknown vision tower: {cfg.vision.kind}")
+        if cfg.text.kind not in ("bert", "xlmr", "deepseek_v2"):
+            raise ValueError(f"unknown text tower: {cfg.text.kind} (bert, "
+                             "xlmr or deepseek_v2)")
+        self.moe_text = cfg.text.kind == "deepseek_v2"
+        if self.moe_text and cfg.remat:
+            raise ValueError("remat: the deepseek_v2 text tower has none")
         if cfg.caption_encoder_name not in ("mbert", "clip"):
             raise ValueError(
                 f"unknown caption encoder: {cfg.caption_encoder_name}")
@@ -103,7 +124,8 @@ class LECCRModel(nn.Module):
             else:
                 self.vision_tower, d = build_vision_tower(cfg.vision,
                                                           remat=cfg.remat)
-            self.text_encoder = BertEncoder(cfg.text, remat=cfg.remat)
+            self.text_encoder = (DeepseekV2Encoder(cfg.text) if self.moe_text
+                                 else BertEncoder(cfg.text, remat=cfg.remat))
             if cfg.caption_encoder_name == "clip":
                 # the vendored CLIP's own text branch encodes the captions;
                 # its dims are the variant's text fields, not the vision
@@ -164,13 +186,19 @@ class LECCRModel(nn.Module):
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
-        """flax's default initializers: lecun-normal kernels, zero biases,
-        unit LayerNorms, embeddings of std 1/√dim, CLIP's width^-½ raw
-        params, zero query slots, temp = cfg.temp."""
+        """flax's default initializers: lecun-normal kernels (expert
+        stacks per expert), zero biases, unit LayerNorms and RMSNorms,
+        embeddings of std 1/√dim, CLIP's width^-½ raw params, zero query
+        slots, temp = cfg.temp."""
         for m in self.modules():
             if isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+            elif isinstance(m, ExpertStack):
+                for p in m.parameters():
+                    p.normal_(0.0, p.shape[2] ** -0.5, generator=gen)
             elif isinstance(m, Dense):
                 m.weight.normal_(0.0, m.in_features ** -0.5, generator=gen)
                 if m.bias is not None:
@@ -205,9 +233,20 @@ class LECCRModel(nn.Module):
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor, deterministic: bool = True,
                     gen: Optional[Generators] = None) -> torch.Tensor:
+        return self._encode_text(input_ids, attention_mask, deterministic,
+                                 gen)[0]
+
+    def _encode_text(self, input_ids, attention_mask, deterministic=True,
+                     gen=None, balance: bool = False):
+        """(hidden [B, L, H], the MoE balance loss where `balance` and the
+        tower has MoE layers, else None)."""
         with span("model.text"):
+            if self.moe_text:
+                return self.text_encoder(input_ids, attention_mask,
+                                         call="text", balance=balance)
             return self.text_encoder(input_ids, attention_mask,
-                                     deterministic=deterministic, gen=gen)
+                                     deterministic=deterministic,
+                                     gen=gen), None
 
     def encode_caption(
         self,
@@ -232,9 +271,13 @@ class LECCRModel(nn.Module):
                 if self.clip_text_tower is not None:
                     _, hidden = self.clip_text_tower(caption_ids)
                     return hidden, caption_ids == 0
-                hidden = self.text_encoder(caption_ids, caption_mask,
-                                           deterministic=deterministic,
-                                           gen=gen)
+                if self.moe_text:
+                    hidden, _ = self.text_encoder(caption_ids, caption_mask,
+                                                  call="caption")
+                else:
+                    hidden = self.text_encoder(caption_ids, caption_mask,
+                                               deterministic=deterministic,
+                                               gen=gen)
             return hidden, ~caption_mask.bool()
 
     # ------------------------------------------------- caption interaction
@@ -281,8 +324,20 @@ class LECCRModel(nn.Module):
             pooled = vision_embeds[:, 0]
         return _l2_normalize(proj(pooled))
 
-    def text_features(self, text_embeds: torch.Tensor) -> torch.Tensor:
-        return _l2_normalize(self.text_proj(text_embeds[:, 0]))
+    def text_features(self, text_embeds: torch.Tensor,
+                      attention_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+        """L2-normalized projection of the first token, or for the causal
+        deepseek_v2 tower of the last valid one (texts right-padded)."""
+        if not self.moe_text:
+            return _l2_normalize(self.text_proj(text_embeds[:, 0]))
+        if attention_mask is None:
+            raise ValueError("the deepseek_v2 tower pools the last valid "
+                             "token: pass the attention mask")
+        last = (attention_mask.long().sum(1) - 1).clamp_min(0)
+        pooled = text_embeds.gather(1, last.view(-1, 1, 1).expand(
+            -1, 1, text_embeds.shape[2])).squeeze(1)
+        return _l2_normalize(self.text_proj(pooled))
 
     # --------------------------------------------------------- full passes
 
@@ -313,11 +368,11 @@ class LECCRModel(nn.Module):
         image_feat = self.vision_features(fused_vision, vision_mask)
         # source and target texts in one tower call (doubled batch)
         b = batch["text_ids_s"].shape[0]
-        text_embeds_st = self.encode_text(
+        text_mask_st = torch.cat([batch["text_mask_s"], batch["text_mask_t"]])
+        text_embeds_st, balance = self._encode_text(
             torch.cat([batch["text_ids_s"], batch["text_ids_t"]]),
-            torch.cat([batch["text_mask_s"], batch["text_mask_t"]]),
-            deterministic, gen)
-        text_feat_st = self.text_features(text_embeds_st)
+            text_mask_st, deterministic, gen, balance=True)
+        text_feat_st = self.text_features(text_embeds_st, text_mask_st)
         slots = self.caption_proj1(fused_slots)
         # caption_vision_loss inputs: L2-normalize cproj/vproj outputs over
         # cv_normalize_dim (1 = the TOKEN axis, the reference's F.normalize
@@ -332,7 +387,9 @@ class LECCRModel(nn.Module):
             cv_vision_mean = masked_mean_pool(vis_norm, vision_mask)
         else:
             cv_vision_mean = vis_norm.mean(dim=1)
-        return TrainEmbeddings(
+        extra = {} if balance is None else {"balance_loss": balance}
+        return (MoETrainEmbeddings if extra else TrainEmbeddings)(
+            **extra,
             image_feat=image_feat.float(),
             text_feat_s=text_feat_st[:b].float(),
             text_feat_t=text_feat_st[b:].float(),
@@ -378,7 +435,7 @@ class LECCRModel(nn.Module):
                     attention_mask: torch.Tensor) -> torch.Tensor:
         """Eval-side text embedding -> [B, E] L2-normalized, f32."""
         hidden = self.encode_text(input_ids, attention_mask)
-        return self.text_features(hidden).float()
+        return self.text_features(hidden, attention_mask).float()
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12,

@@ -4,7 +4,9 @@ The port of the dense part of `leccr_tpu/models/losses.py`: soft-label
 InfoNCE, the max-over-slot caption contrastive loss, the KL soft-label
 distillation (dstl), the token-mean caption↔vision loss, the slot-diversity
 regularizer, and `compute_losses`, which composes them exactly as the
-reference does and returns the same 10 keys.
+reference does and returns the same 10 keys.  Embeddings of a model with
+an MoE text tower (`MoETrainEmbeddings`) add their balance loss to
+"total" and return it as an eleventh key, "loss_balance".
 
 `num_blocks` reproduces the reference's per-rank-local losses: the global
 batch is split into that many contiguous blocks and the loss is the mean of
@@ -284,6 +286,12 @@ def compute_losses(
     term_st = loss_itc_st
     term_c = loss_itc_c * weight_caption_loss
     term_reg = loss_reg * weight_reg_loss
+    total = term_vs + term_vt + term_st + term_c + term_reg
+    balance = getattr(emb, "balance_loss", None)
+    extra = {}
+    if balance is not None:
+        total = total + balance
+        extra["loss_balance"] = balance
     return {
         "loss_itc_vs": term_vs,
         "loss_itc_vt": term_vt,
@@ -294,5 +302,6 @@ def compute_losses(
         "raw_itc_vt": loss_itc_vt,
         "raw_dstl": loss_dstl,
         "raw_cv": loss_cv,
-        "total": term_vs + term_vt + term_st + term_c + term_reg,
+        "total": total,
+        **extra,
     }

@@ -61,7 +61,8 @@ import torch
 from torch import nn
 
 from leccr_torch.config import ModelConfig
-from leccr_torch.ops.attention import Dense, Embed
+from leccr_torch.ops.attention import Dense, Embed, RMSNorm
+from leccr_torch.ops.moe import ExpertStack
 
 # scan-stacked containers: (outer name, inner name) -> per-layer list name
 _STACKED = {("layers", "layer"): "layers", ("resblocks", "block"): "resblocks"}
@@ -150,12 +151,17 @@ def _flax_module_path(name: str) -> Tuple[str, ...]:
 
 def flax_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
     """Each parameter name of a port module -> its flax path (unscanned),
-    by the type of the module that holds it."""
+    by the type of the module that holds it: a LayerNorm's or RMSNorm's
+    weight is a `scale`, a Dense's weight and each expert stack
+    [E, out, in] a `kernel`."""
     paths = {}
     for mod_name, module in model.named_modules():
         prefix = _flax_module_path(mod_name)
         for leaf, _ in module.named_parameters(recurse=False):
-            if isinstance(module, nn.LayerNorm):
+            if isinstance(module, ExpertStack):
+                paths[f"{mod_name}.{leaf}"] = prefix + (leaf, "kernel")
+                continue
+            if isinstance(module, (nn.LayerNorm, RMSNorm)):
                 flax_leaf = {"weight": "scale"}.get(leaf, leaf)
             elif isinstance(module, Embed):
                 flax_leaf = "embedding"

@@ -3,10 +3,11 @@
 The kernels' launch counters live beside their wrappers: the attributes
 of `flash_attention.flash_tower_attention` and
 `fused_cross_attention.fused_cross_attention` whose names end in
-"launches", the latter's `launches_by_body`, and `infonce`'s module-level
-`*_launches`.  `launch_counts` reads them all and `add_launch_counts` adds
-to them, for a caller that launches kernels without their wrappers (a CUDA
-graph's replay) or counted launches that never ran (its capture)."""
+"launches", the latter's `launches_by_body`, and the module-level
+`*_launches` of `infonce` and `grouped_gemm`.  `launch_counts` reads them
+all and `add_launch_counts` adds to them, for a caller that launches
+kernels without their wrappers (a CUDA graph's replay) or counted launches
+that never ran (its capture)."""
 
 from __future__ import annotations
 
@@ -15,14 +16,15 @@ from typing import Dict, Tuple
 
 def _holders() -> Dict[str, dict]:
     """{holder: the dict that holds its counters}."""
-    from leccr_torch.ops import infonce
+    from leccr_torch.ops import grouped_gemm, infonce
     from leccr_torch.ops.flash_attention import flash_tower_attention
     from leccr_torch.ops.fused_cross_attention import fused_cross_attention
 
     return {"flash_tower_attention": vars(flash_tower_attention),
             "fused_cross_attention": vars(fused_cross_attention),
             "launches_by_body": fused_cross_attention.launches_by_body,
-            "infonce": vars(infonce)}
+            "infonce": vars(infonce),
+            "grouped_gemm": vars(grouped_gemm)}
 
 
 def launch_counts() -> Dict[Tuple[str, str], int]:

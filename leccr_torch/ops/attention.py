@@ -68,6 +68,21 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """x · rsqrt(mean(x²) + eps) · weight, computed in f32 whatever the
+    input dtype (the weight stays f32), the result cast back."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        return (xf * self.weight.float()).to(x.dtype)
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -76,16 +91,28 @@ def dot_product_attention(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     gen: Optional[Generators] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain multi-head attention core in the inputs' dtype (softmax in f32).
 
-    q: [B, H, Lq, Dh]; k, v: [B, H, Lk, Dh]; key_padding_mask: [B, Lk] bool,
-    True = padding.  In training the probabilities keep with probability
-    1 − rate and are scaled by 1/(1 − rate), in q's dtype."""
-    scores = torch.matmul(q, k.transpose(-1, -2)) / (q.shape[-1] ** 0.5)
+    q: [B, H, Lq, Dh]; k: [B, H, Lk, Dh]; v: [B, H, Lk, Dv];
+    key_padding_mask: [B, Lk] bool, True = padding.  `causal`: query i sees
+    keys j ≤ i alone.  The scores are q·kᵀ / √Dh, or q·kᵀ · `scale` where
+    given.  In training the probabilities keep with probability 1 − rate
+    and are scaled by 1/(1 − rate), in q's dtype."""
+    if scale is None:
+        scores = torch.matmul(q, k.transpose(-1, -2)) / (q.shape[-1] ** 0.5)
+    else:
+        scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     if key_padding_mask is not None:
         scores = torch.where(key_padding_mask[:, None, None, :],
                              torch.finfo(scores.dtype).min, scores)
+    if causal:
+        lq, lk = scores.shape[-2:]
+        future = torch.ones(lq, lk, dtype=torch.bool,
+                            device=scores.device).triu(1)
+        scores = torch.where(future, torch.finfo(scores.dtype).min, scores)
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     if dropout_rate > 0.0 and not deterministic:
         keep = torch.rand(probs.shape, generator=gen.device,

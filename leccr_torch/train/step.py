@@ -134,6 +134,7 @@ import torch
 
 from leccr_torch.config import LECCRConfig, ModelConfig
 from leccr_torch.data.images import preprocess_train_images
+from leccr_torch.models.deepseek import MoE
 from leccr_torch.models.leccr import LECCRModel, TrainEmbeddings
 from leccr_torch.models.losses import LOSS_KEYS, compute_losses
 from leccr_torch.ops import add_launch_counts, launch_counts
@@ -166,6 +167,8 @@ from leccr_torch.utils.debug import assert_all_finite, nan_checks
 from leccr_torch.utils.tracing import span
 
 _U64 = 2 ** 64 - 1
+# TrainEmbeddings fields that are one scalar a batch, a mean over its rows
+_SCALARS = ("balance_loss",)
 
 
 def _of_rank(seed: int, rank: int) -> int:
@@ -198,13 +201,16 @@ def grad_total(losses: Dict[str, torch.Tensor], mc: ModelConfig,
                ) -> torch.Tensor:
     """The objective the JAX trainer differentiates: the gathered
     (global-negative) terms scaled by 1/num_blocks plus the per-block local
-    terms (caption contrastive and regularization, and for video, where
-    `cv_loss_local`, the caption-vision loss), so that a DDP mean of
+    terms (caption contrastive and regularization, an MoE text tower's
+    balance loss, and for video, where `cv_loss_local`, the
+    caption-vision loss), so that a DDP mean of
     per-rank gradients equals the reference's (trainer.py:421-431)."""
     gathered = (losses["raw_itc_vs"]
                 + losses["raw_itc_vt"] * (1 - mc.weight_dstl_loss)
                 + losses["loss_itc_st"] + losses["raw_dstl"])
     local = losses["loss_itc_c"] + losses["loss_reg_c"]
+    if "loss_balance" in losses:  # an MoE text tower's, per block
+        local = local + losses["loss_balance"]
     if cv_loss_local:
         local = local + losses["raw_cv"]
     else:
@@ -232,13 +238,15 @@ def grad_cache_backward(
 
       1. forward each microbatch without a graph (training mode, dropout
          on) and concatenate the 8 TrainEmbeddings fields; temp is the
-         same in every microbatch;
+         same in every microbatch, and an MoE tower's balance loss (a mean
+         over sequences) is the microbatches' mean;
       2. differentiate the objective on the concatenated fields alone
          (no tower is involved): their cotangents;
       3. forward each microbatch again with a graph and back-propagate its
-         slice of the cotangents (temp's divided by m: every microbatch's
-         forward reads the same temp), accumulating into the parameters'
-         `.grad`.
+         slice of the cotangents (temp's and the balance loss's divided by
+         m: every microbatch's forward reads the same temp, and each
+         balance loss is 1/m of the mean), accumulating into the
+         parameters' `.grad`.
 
     Pass 3 must draw exactly the dropout bits, flash seeds and RandAugment
     draws pass 1 drew, or the gradient is of other masks and images and
@@ -266,13 +274,17 @@ def grad_cache_backward(
     states = [g.get_state() for g in gens]
     with torch.no_grad():
         embs = [forward(k) for k in range(m)]
-    names = [f.name for f in dataclasses.fields(TrainEmbeddings)]
-    fields = {n: (embs[0].temp if n == "temp"
-                  else torch.cat([getattr(e, n) for e in embs]))
-              .detach().requires_grad_(True) for n in names}
+    kind = type(embs[0])
+    fields = {}
+    for f in dataclasses.fields(kind):
+        parts = [getattr(e, f.name) for e in embs]
+        value = (parts[0] if f.name == "temp"
+                 else torch.stack(parts).mean() if f.name in _SCALARS
+                 else torch.cat(parts))
+        fields[f.name] = value.detach().requires_grad_(True)
     del embs
     with span("train.loss"):
-        value, losses = objective(TrainEmbeddings(**fields))
+        value, losses = objective(kind(**fields))
     with span("train.backward"):
         value.backward()
     cots = {n: f.grad for n, f in fields.items() if f.grad is not None}
@@ -280,7 +292,8 @@ def grad_cache_backward(
     for k in range(m):
         gens[k].set_state(states[k])
         emb = forward(k)
-        pairs = [(getattr(emb, n), g / m if n == "temp" else g[rows[k]])
+        pairs = [(getattr(emb, n),
+                  g / m if n == "temp" or n in _SCALARS else g[rows[k]])
                  for n, g in cots.items() if getattr(emb, n).requires_grad]
         with span("train.backward"):
             torch.autograd.backward([t for t, _ in pairs],
@@ -295,6 +308,23 @@ def ema_update_(ema: List[torch.Tensor], params: List[torch.Tensor],
     update, trainer.py:446-451)."""
     torch._foreach_mul_(ema, decay)
     torch._foreach_add_(ema, [p.float() for p in params], alpha=1 - decay)
+
+
+def expert_load(layers: List[MoE]) -> Dict[str, torch.Tensor]:
+    """The MoE layers' last calls as device readings, taken with no sync:
+    "routed_tokens" (the slots the held experts computed), "expert_load_max"
+    (the largest held expert's slots over the held experts' mean, in the
+    worst layer, the calls summed) and, for each call c, "routed_slots.c"
+    (the held experts' slots in each layer, [layers])."""
+    calls = sorted({c for m in layers for c in m.routing_record})
+    slots = {c: torch.stack([m.routing_record[c].counts[:-1]
+                             for m in layers]) for c in calls}
+    per_layer = sum(slots.values()).float()
+    mean = per_layer.mean(1).clamp_min(1e-30)
+    out = {"routed_tokens": per_layer.sum(),
+           "expert_load_max": (per_layer.amax(1) / mean).amax()}
+    out.update({f"routed_slots.{c}": s.sum(1) for c, s in slots.items()})
+    return out
 
 
 def graph_declines(cfg: LECCRConfig, device, mesh: Optional[DataMesh] = None,
@@ -334,7 +364,8 @@ class StepGraphs:
     """The CUDA graphs of one input signature: its input buffers, the
     slots of its flash-attention seeds, (span name, graph, launches of
     each kernel counter that its capture made) for each phase in order,
-    the [len(LOSS_KEYS)] losses it writes and the gradients it leaves."""
+    the [len(LOSS_KEYS)] losses it writes, the gradients it leaves and the
+    routing records its MoE layers write (`MoE.routing_record`)."""
 
     inputs: Dict[str, torch.Tensor]
     idx: torch.Tensor
@@ -342,12 +373,20 @@ class StepGraphs:
     phases: List[Tuple[str, "torch.cuda.CUDAGraph", Dict]]
     out: torch.Tensor
     grads: List[torch.Tensor]
+    records: List[Tuple[MoE, dict]]
 
 
 def check_parallel(cfg: LECCRConfig, world: int = 1) -> None:
     """Raise for a `parallel` layout that `world` processes (or
-    one-process blocks) cannot hold (`parallel.mesh.check_layout`)."""
+    one-process blocks) cannot hold (`parallel.mesh.check_layout`), and
+    for tensor parallelism or FSDP of the deepseek_v2 text tower, which
+    neither has."""
     check_layout(cfg.parallel, world)
+    if cfg.model.text.kind == "deepseek_v2" and (cfg.parallel.model > 1
+                                                 or cfg.parallel.fsdp):
+        raise ValueError("text.kind deepseek_v2 runs data parallel alone: "
+                         "parallel.model > 1 and parallel.fsdp are out of "
+                         "its scope")
 
 
 class TrainStep:
@@ -455,6 +494,7 @@ class TrainStep:
             # it runs eagerly too, on purpose: the same bits either way
             self.optimizer._warned_capturable_if_run_uncaptured = True
         self.params = list(model.parameters())
+        self.moe_layers = [m for m in model.modules() if isinstance(m, MoE)]
         # FSDP's shards over processes: their gradients arrive summed
         fsdp = getattr(model, "fsdp", None)
         self.data_sharded = ([] if fsdp is None or fsdp.group.local
@@ -532,15 +572,15 @@ class TrainStep:
         world."""
         mesh = self.mesh
         fields = {}
-        for f in dataclasses.fields(TrainEmbeddings):
+        for f in dataclasses.fields(emb):
             value = getattr(emb, f.name)
             fields[f.name] = (scale_grad(value, 1.0 / mesh.data_world)
-                              if f.name == "temp"
+                              if f.name == "temp" else value
+                              if f.name in _SCALARS  # a local term
                               else all_gather_rows(value, mesh))
         local = {id(fields[n]): getattr(emb, n)
                  for n in ("image_feat", "text_feat_s", "text_feat_t")}
-        return (TrainEmbeddings(**fields), all_gather_rows(idx, mesh),
-                local)
+        return (type(emb)(**fields), all_gather_rows(idx, mesh), local)
 
     def objective(self, emb: TrainEmbeddings, idx: torch.Tensor):
         """(grad_total, the losses) of this rank's embeddings and ids."""
@@ -600,16 +640,21 @@ class TrainStep:
         `train.step` around the call, `train.forward`, `train.loss`,
         `train.backward` and `train.optimizer` inside it, and
         `train.graph` inside each of those where it replays a graph
-        (`utils.tracing`)."""
-        with span("train.step"):
+        (`utils.tracing`).  With an MoE text tower, a recorded
+        `train.step` keeps the step's `expert_load` readings."""
+        with span("train.step") as root:
             batch = dict(batch)
             idx = batch.pop("idx")
             key = (None if self.graph_declines
                    else self._signature(batch, idx))
             graphs = self._graphs_for(key, batch, idx)
             if graphs is not None:
-                return self._replay(graphs, batch, idx, step_no)
-            return self._eager(batch, idx, step_no, key)
+                out = self._replay(graphs, batch, idx, step_no)
+            else:
+                out = self._eager(batch, idx, step_no, key)
+            if root is not None and self.moe_layers:
+                root.note(**expert_load(self.moe_layers))
+            return out
 
     def _eager(self, batch: Dict[str, torch.Tensor], idx: torch.Tensor,
                step_no: int, key: Optional[tuple]) -> torch.Tensor:
@@ -741,7 +786,9 @@ class TrainStep:
         self.graph_captures += 1
         self.graph_pool_bytes += torch.cuda.memory_reserved(device) - reserved
         return StepGraphs(inputs, static_idx, seeds, phases, held["out"],
-                          [p.grad for p in self.params])
+                          [p.grad for p in self.params],
+                          [(m, dict(m.routing_record))
+                           for m in self.moe_layers])
 
     def _replay(self, g: StepGraphs, batch: Dict[str, torch.Tensor],
                 idx: torch.Tensor, step_no: int) -> torch.Tensor:
@@ -769,6 +816,8 @@ class TrainStep:
         if self._grads_of is not g:
             for p, grad in zip(self.params, g.grads):
                 p.grad = grad
+            for m, record in g.records:
+                m.routing_record = dict(record)
             self._grads_of = g
         self.graph_replays += 1
         return g.out.clone()  # the caller may keep it past the next step

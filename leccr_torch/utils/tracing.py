@@ -23,6 +23,9 @@ its own host stamps.
 A root span also keeps `reserved_bytes`, the device memory that CUDA's
 caching allocator holds (`torch.cuda.memory_reserved`, a CUDA graph's
 pool included) when it closes; None for an inner span and without CUDA.
+The code inside a span may `note(name=tensor)` readings it takes on the
+device (an MoE train step's `routed_tokens` and `expert_load_max`):
+`reading(name)` brings one to the host when it is read, never before.
 
 Counter `host_syncs`: device-to-host synchronisations made while a root
 span is open (implicit ones included: `.item()`, `.cpu()`, `nonzero`, a
@@ -113,7 +116,8 @@ class Span:
     """One recorded span; see the module's docstring."""
 
     __slots__ = ("name", "id", "parent", "root", "t0_ns", "t1_ns", "syncs",
-                 "reserved_bytes", "_events", "_device_ms", "_fn", "_syncs0")
+                 "reserved_bytes", "_events", "_device_ms", "_fn", "_syncs0",
+                 "_notes")
 
     def __init__(self, name: str):
         self.name = name
@@ -123,6 +127,20 @@ class Span:
         self.reserved_bytes: Optional[int] = None
         self._events = None
         self._device_ms: Optional[float] = None
+        self._notes: Dict[str, torch.Tensor] = {}
+
+    def note(self, **readings: torch.Tensor) -> None:
+        """Keep tensors as this span's readings, unread."""
+        self._notes.update({k: v.detach() for k, v in readings.items()})
+
+    def reading(self, name: str):
+        """A noted reading, read from the device now: a float, or a list
+        of them for a reading of more than one value; None where the span
+        has none of that name."""
+        value = self._notes.get(name)
+        if value is None:
+            return None
+        return float(value) if value.dim() == 0 else value.tolist()
 
     def __enter__(self) -> "Span":
         stack = _stack()
